@@ -1,0 +1,42 @@
+"""Carry state across from the JAX package: numpy arrays -> port objects.
+
+The reference's arrays are passed in as numpy (``np.asarray(jax_array)``),
+so nothing here imports JAX.  The parity tests use these to feed both
+packages the same graph, index and PRNG key.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import Graph
+from repro_torch.core.index import PPRIndex
+from repro_torch.device import resolve_device
+
+
+def graph_from_arrays(row_ptr, col_idx, src, out_deg, n: int, m: int,
+                      device="cuda") -> Graph:
+    """A :class:`Graph` holding exactly the given CSR/COO arrays."""
+    dev = resolve_device(device)
+    as_t = lambda a: torch.from_numpy(  # noqa: E731
+        np.array(a, dtype=np.int32, copy=True)).to(dev)
+    return Graph(row_ptr=as_t(row_ptr), col_idx=as_t(col_idx), src=as_t(src),
+                 out_deg=as_t(out_deg), n=int(n), m=int(m))
+
+
+def index_from_arrays(values, indices, device="cuda") -> PPRIndex:
+    """A :class:`PPRIndex` from ``values f32[n, L]`` / ``indices int32[n, L]``."""
+    dev = resolve_device(device)
+    v = torch.from_numpy(np.array(values, dtype=np.float32, copy=True)).to(dev)
+    i = torch.from_numpy(np.array(indices, dtype=np.int32, copy=True)).to(dev)
+    n, l = v.shape
+    return PPRIndex(values=v, indices=i, l=int(l), n=int(n))
+
+
+def key_from_array(key) -> torch.Tensor:
+    """A port PRNG key from the reference's raw ``uint32[2]`` key data."""
+    k = np.asarray(key).astype(np.uint32).astype(np.int64)
+    if k.shape != (2,):
+        raise ValueError(f"expected a raw uint32[2] key, got shape {k.shape}")
+    return torch.from_numpy(k)

@@ -1,0 +1,261 @@
+"""Compacted sparse-sketch random-walk engine (schedule mode).
+
+The offline phase of PowerWalk: ``r`` walks per source, each terminating
+with probability ``c`` per position (dangling vertices jump home), visits
+folded into per-row top-``L`` count sketches.  Live-walk compaction
+follows the static ``(1-c)^t`` bucket schedule of
+:func:`compaction_schedule`, and every draw comes from the same threefry
+stream as the reference (``repro.core.walks.simulate_walks_sparse``), so
+the same key gives the same sketches bit for bit.
+
+The reference's ``lax.scan`` over steps is a Python loop here; the cursor
+advance goes through the ``walk_step`` kernel on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch import rng
+from repro_torch.core import frontier as frontier_mod
+from repro_torch.core.graph import Graph
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.walk_step import sample_edge_offsets  # noqa: F401
+
+DEFAULT_C = 0.15
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseWalkCounts:
+    """Sketched walk statistics grouped into ``rows`` source rows.
+
+    fp/ep: top-L visit / endpoint count sketches; moves/walks: MCFP/MCEP
+    denominators; truncated: walks cut short by the schedule;
+    fp_dropped/ep_dropped: mass truncated out of each sketch.
+    Conservation: ``fp.mass() + fp_dropped == moves`` and ``ep.mass() +
+    ep_dropped == walks == r`` per row.
+    """
+
+    fp: frontier_mod.SparseFrontier
+    ep: frontier_mod.SparseFrontier
+    moves: torch.Tensor
+    walks: torch.Tensor
+    truncated: torch.Tensor
+    fp_dropped: torch.Tensor
+    ep_dropped: torch.Tensor
+
+
+def compaction_schedule(
+    r: int,
+    *,
+    c: float = DEFAULT_C,
+    max_steps: int = 64,
+    compact_every: int = 8,
+    margin: float = 1.35,
+    floor: int = 8,
+    lane: int = 8,
+) -> Tuple[int, ...]:
+    """Static per-round slot widths: round ``j`` covers steps ``[j *
+    compact_every, (j+1) * compact_every)`` at width ``min(r, max(floor,
+    margin * r * (1-c)^t))`` rounded up to a ``lane`` multiple; round 0 is
+    exactly ``r``."""
+    if r <= 0:
+        raise ValueError(f"r must be positive, got {r}")
+    widths = []
+    t = 0
+    while t < max_steps:
+        live = r * (1.0 - c) ** t
+        w = int(math.ceil(margin * live))
+        w = ((w + lane - 1) // lane) * lane
+        w = min(r, max(floor, w)) if t else r
+        widths.append(w)
+        t += compact_every
+    return tuple(widths)
+
+
+def advance_cursors(
+    graph: Graph, cursors: torch.Tensor, sources: torch.Tensor,
+    u: torch.Tensor,
+) -> torch.Tensor:
+    """Advance every cursor one edge (dangling vertices jump to
+    ``sources``, which broadcasts against ``cursors``) through the
+    ``walk_step`` kernel wrapper."""
+    return kernel_ops.walk_step(
+        cursors, sources, u, graph.row_ptr, graph.out_deg, graph.col_idx)
+
+
+def _compact_slots(
+    cursors: torch.Tensor, alive: torch.Tensor, w_new: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Compact surviving cursors into the low slots of a width-``w_new``
+    row; survivors ranked past ``w_new`` overflow and come back as
+    ``(weight, cursor)`` events.  Returns ``(cursors, alive, overflow_w,
+    overflow_i)``."""
+    rows, _ = cursors.shape
+    rank = torch.cumsum(alive.to(torch.int32), dim=1, dtype=torch.int32)
+    keep = alive & (rank <= w_new)
+    tgt = torch.where(keep, rank - 1, w_new).long()
+    packed = torch.zeros((rows, w_new + 1), dtype=cursors.dtype,
+                         device=cursors.device)
+    packed.scatter_(1, tgt, torch.where(keep, cursors, 0))
+    n_kept = torch.clamp(rank[:, -1], max=w_new)
+    new_alive = (torch.arange(w_new, device=cursors.device)[None, :]
+                 < n_kept[:, None])
+    over = alive & (rank > w_new)
+    return (
+        packed[:, :w_new].contiguous(),
+        new_alive,
+        over.to(torch.float32),
+        torch.where(over, cursors, 0),
+    )
+
+
+class _EventSketch:
+    """Running top-``k`` sketch fed by buffered event segments: segments
+    queue until their width reaches ``fold_width``, then one
+    :func:`frontier.fold_topk` folds them in.  Disabled, every event lands
+    in ``dropped``."""
+
+    def __init__(self, rows: int, k: int, fold_width: int, device,
+                 enabled: bool = True):
+        self.k = k
+        self.enabled = enabled
+        self.fold_width = fold_width
+        self.values = torch.zeros((rows, k), dtype=torch.float32, device=device)
+        self.indices = torch.zeros((rows, k), dtype=torch.int32, device=device)
+        self.dropped = torch.zeros((rows,), dtype=torch.float32, device=device)
+        self._pend_v: list = []
+        self._pend_i: list = []
+        self._pend_w = 0
+
+    def add(self, ev_w: torch.Tensor, ev_i: torch.Tensor) -> None:
+        if not self.enabled:
+            self.dropped = self.dropped + ev_w.sum(dim=1)
+            return
+        self._pend_v.append(ev_w)
+        self._pend_i.append(ev_i)
+        self._pend_w += ev_w.shape[1]
+        if self._pend_w >= self.fold_width:
+            self.flush()
+
+    def flush(self) -> None:
+        if not self._pend_w:
+            return
+        self.values, self.indices, d = frontier_mod.fold_topk(
+            self.values, self.indices,
+            torch.cat(self._pend_v, dim=1), torch.cat(self._pend_i, dim=1),
+            self.k,
+        )
+        self.dropped = self.dropped + d
+        self._pend_v, self._pend_i, self._pend_w = [], [], 0
+
+
+def round_uniforms(key, t0: int, steps: int, rows: int, w: int, device):
+    """The round's step uniforms ``(u_move, u_term)``, each ``[steps, rows,
+    w]``: per step ``t`` the two halves of ``split(fold_in(key, t))`` each
+    drawn at shape ``(rows, w)`` — the reference's ``round_uniforms``."""
+    step_keys = rng.split(rng.fold_in(key, torch.arange(t0, t0 + steps)))
+    u = rng.uniform(step_keys, (rows, w), device)    # [steps, 2, rows, w]
+    return u[:, 0], u[:, 1]
+
+
+def simulate_walks_sparse(
+    graph: Graph,
+    sources: torch.Tensor,
+    r: int,
+    key,
+    *,
+    l: int,
+    ep_l: Optional[int] = None,
+    c: float = DEFAULT_C,
+    max_steps: int = 64,
+    compact_every: int = 8,
+    margin: float = 1.35,
+    fold_width: int = 0,
+) -> SparseWalkCounts:
+    """Run ``r`` walks per source through the compacted sketch engine.
+
+    ``sources int32[rows]`` on the graph's device; ``l``/``ep_l`` are the
+    fp/ep sketch widths (0 disables that sketch: its mass lands in the
+    ``*_dropped`` ledger); ``fold_width`` batches events before each fold
+    (0 = ``max(4 * l, 512)``).  Walks surviving ``max_steps`` positions are
+    truncated to their endpoint.
+    """
+    dev = graph.device
+    rows = sources.shape[0]
+    n = graph.n
+    l = min(l, n)
+    ep_l = min(ep_l if ep_l is not None else l, n)
+    if fold_width <= 0:
+        fold_width = max(4 * l, 512)
+    schedule = compaction_schedule(
+        r, c=c, max_steps=max_steps, compact_every=compact_every,
+        margin=margin,
+    )
+    src2d = sources.to(torch.int32).reshape(rows, 1)
+    c32 = torch.tensor(c, dtype=torch.float32, device=dev)
+
+    w0 = schedule[0]
+    cursors = src2d.expand(rows, w0).contiguous()
+    alive = (torch.arange(w0, device=dev)[None, :] < min(r, w0)).expand(
+        rows, w0)
+    fp = _EventSketch(rows, max(l, 1), fold_width, dev, enabled=l > 0)
+    ep = _EventSketch(rows, max(ep_l, 1), fold_width, dev, enabled=ep_l > 0)
+    moves = torch.zeros((rows,), dtype=torch.float32, device=dev)
+    walks_done = torch.zeros_like(moves)
+    truncated = torch.zeros_like(moves)
+
+    def per_row(ev):
+        # [steps, rows, w] -> per-row event columns [rows, steps * w]
+        return ev.transpose(0, 1).reshape(rows, -1)
+
+    t0 = 0
+    for w in schedule:
+        if w < cursors.shape[1]:
+            cursors, alive, ov_w, ov_i = _compact_slots(cursors, alive, w)
+            n_over = ov_w.sum(dim=1)
+            walks_done = walks_done + n_over
+            truncated = truncated + n_over
+            ep.add(ov_w, ov_i)
+        steps = min(compact_every, max_steps - t0)
+        u_move, u_term = round_uniforms(key, t0, steps, rows, w, dev)
+        vis_w, vis_i, term_w = [], [], []
+        for s in range(steps):
+            af = alive.to(torch.float32)
+            vis_w.append(af)
+            vis_i.append(cursors)
+            moves = moves + af.sum(dim=1)
+            terminate = alive & (u_term[s] < c32)
+            tf = terminate.to(torch.float32)
+            term_w.append(tf)
+            walks_done = walks_done + tf.sum(dim=1)
+            alive = alive & ~terminate
+            nxt = advance_cursors(graph, cursors, src2d, u_move[s])
+            cursors = torch.where(alive, nxt, cursors)
+        vis_i = per_row(torch.stack(vis_i))
+        fp.add(per_row(torch.stack(vis_w)), vis_i)
+        ep.add(per_row(torch.stack(term_w)), vis_i)
+        t0 += steps
+
+    af = alive.to(torch.float32)
+    n_trunc = af.sum(dim=1)
+    walks_done = walks_done + n_trunc
+    truncated = truncated + n_trunc
+    ep.add(af, torch.where(alive, cursors, 0))
+    fp.flush()
+    ep.flush()
+    return SparseWalkCounts(
+        fp=frontier_mod.SparseFrontier(
+            values=fp.values, indices=fp.indices, k=max(l, 1), n=n),
+        ep=frontier_mod.SparseFrontier(
+            values=ep.values, indices=ep.indices, k=max(ep_l, 1), n=n),
+        moves=moves,
+        walks=walks_done,
+        truncated=truncated,
+        fp_dropped=fp.dropped,
+        ep_dropped=ep.dropped,
+    )

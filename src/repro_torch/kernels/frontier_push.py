@@ -1,0 +1,118 @@
+"""``frontier_push``: the sparse VERD gather-push, folded chunk by chunk.
+
+Semantics (both versions): the running state starts as ``(run_v, run_i)``;
+for each chunk of ``slots`` frontier slots, the chunk's push candidates
+(``verd.gather_push_edges``: weight ``(1-c) * fv / deg`` on the first
+``min(deg, degree_cap)`` out-edges of each slot) are concatenated with the
+running state -- running first when ``run_first``, else after -- and
+``compact_arrays``-ed to ``k_out``.  One chunk of all ``K`` slots with the
+raw dangling candidates after it is the one-shot push; the streamed fold
+of ``verd.sparse_push_compact`` is the same loop with its chunk plan.
+
+:func:`frontier_push_plain` is the plain PyTorch version;
+:func:`frontier_push_cuda` launches ``csrc/frontier_push.cu`` (one block
+per query row, looping over the chunks).  ``hub_split_degree`` changes
+only the TPU's gather geometry, not the candidate multiset, so the kernel
+ignores it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import frontier as F
+from repro_torch.kernels import build
+
+_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+)
+
+
+def frontier_push_plain(
+    fv, fi, run_v, run_i, row_ptr, out_deg, col_idx, *,
+    c: float, degree_cap: int, hub_split_degree: int, slots: int,
+    k_out: int, run_first: bool,
+):
+    from repro_torch.core import verd as verd_mod
+
+    k = fv.shape[1]
+    rv, ri = run_v, run_i
+    for j in range(0, k, slots):
+        cfv = fv[:, j:j + slots]
+        cfi = fi[:, j:j + slots].long()
+        pv, nb = verd_mod.gather_push_edges(
+            cfv, cfi, row_ptr[cfi], out_deg[cfi], col_idx, c=c,
+            degree_cap=degree_cap, hub_split_degree=hub_split_degree,
+        )
+        if run_first:
+            cv, ci = torch.cat([rv, pv], dim=1), torch.cat([ri, nb], dim=1)
+        else:
+            cv, ci = torch.cat([pv, rv], dim=1), torch.cat([nb, ri], dim=1)
+        rv, ri = F.compact_arrays(cv, ci, k_out)
+    return rv, ri
+
+
+def frontier_push_cuda(
+    fv, fi, run_v, run_i, row_ptr, out_deg, col_idx, *,
+    c: float, degree_cap: int, hub_split_degree: int, slots: int,
+    k_out: int, run_first: bool,
+):
+    """Launch the CUDA kernel on the current stream (no sync)."""
+    del hub_split_degree  # geometry only; the kernel gathers real edges
+    dev = fv.device
+    for name, t, dt in (
+        ("fv", fv, torch.float32), ("fi", fi, torch.int32),
+        ("run_v", run_v, torch.float32), ("run_i", run_i, torch.int32),
+        ("row_ptr", row_ptr, torch.int32), ("out_deg", out_deg, torch.int32),
+        ("col_idx", col_idx, torch.int32),
+    ):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(
+                f"frontier_push: {name} must be a contiguous {dt} tensor on "
+                f"{dev}, got {t.dtype} on {t.device}"
+            )
+    q, k = fv.shape
+    r0 = run_v.shape[1]
+    if fi.shape != (q, k) or run_i.shape != (q, r0) or run_v.shape[0] != q:
+        raise ValueError("frontier_push: mismatched frontier/running shapes")
+    if k < 1 or slots < 1 or k % slots or k_out < 1:
+        raise ValueError(
+            f"frontier_push: needs k >= 1 divisible by slots >= 1 and "
+            f"k_out >= 1, got k={k} slots={slots} k_out={k_out}"
+        )
+    m = col_idx.shape[0]
+    if m == 0:
+        raise ValueError("frontier_push: the kernel needs a graph with edges")
+    cap = min(degree_cap, m)
+    lib = build.load("frontier_push")
+    bound = max(r0, k_out) + slots * cap
+    g_p = build.next_pow2(bound) if bound > lib.pw_smem_candidates() else 1
+    if q * g_p >= 2 ** 31 or bound >= 2 ** 31:
+        raise ValueError(f"frontier_push: scratch of {q} x {g_p} too large")
+    run_bv = torch.empty((q, k_out), dtype=torch.float32, device=dev)
+    run_bi = torch.empty((q, k_out), dtype=torch.int32, device=dev)
+    g_cv = torch.empty((q, g_p), dtype=torch.float32, device=dev)
+    g_ci = torch.empty((q, g_p), dtype=torch.int32, device=dev)
+    g_keys = torch.empty((q, g_p), dtype=torch.int64, device=dev)
+    out_v = torch.empty((q, k_out), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, k_out), dtype=torch.int32, device=dev)
+    fn = lib.frontier_push_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    status = fn(
+        fv.data_ptr(), fi.data_ptr(), q, k, run_v.data_ptr(),
+        run_i.data_ptr(), r0, row_ptr.data_ptr(), out_deg.data_ptr(),
+        col_idx.data_ptr(), float(1.0 - c), cap, slots, k_out,
+        int(bool(run_first)), run_bv.data_ptr(), run_bi.data_ptr(),
+        g_cv.data_ptr(), g_ci.data_ptr(), g_keys.data_ptr(), g_p,
+        out_v.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check_launch(status, "frontier_push")
+    return out_v, out_i

@@ -1,0 +1,140 @@
+"""The port's PPRService against the reference's, on the CPU.
+
+Answers must be byte-identical across pipeline depths (each query row is
+computed independently of its batch mates) and within 1e-5 L1 of the
+reference service on densified rows.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from conftest import densify_rows
+from repro.core import index as jindex
+from repro.core import query as jquery
+from repro.graphs import synthetic as jsyn
+from repro.serving import PPRService as JService
+from repro.serving import ServiceConfig as JServiceConfig
+from repro.serving.batching import BatchingConfig as JBatching
+from repro.serving.pipeline import PipelineConfig as JPipeline
+from repro_torch import convert
+from repro_torch.core import query as tquery
+from repro_torch.graphs import synthetic as tsyn
+from repro_torch.serving import CacheConfig, PPRService, ServiceConfig
+from repro_torch.serving.batching import BatchingConfig
+from repro_torch.serving.pipeline import (CompletionQueue, PendingBatch,
+                                          PipelineConfig)
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jg = jsyn.rmat(11, avg_deg=8.0, seed=2)
+    tg = tsyn.rmat(11, avg_deg=8.0, seed=2, device="cpu")
+    jidx, _ = jindex.build_index(jg, r=16, l=32, key=jax.random.PRNGKey(4),
+                                 source_batch=1024)
+    tidx = convert.index_from_arrays(jidx.values, jidx.indices, device="cpu")
+    r = np.random.default_rng(0)
+    work = []
+    for j in range(24):
+        if j % 3 == 2:
+            s = r.integers(0, jg.n, 3).tolist()
+            work.append(dict(seeds=s, weights=(r.random(3) + 0.1).tolist()))
+        else:
+            work.append(int(r.integers(0, jg.n)))
+    return jg, tg, jidx, tidx, work
+
+
+QKW = dict(t_iterations=2, top_k=16, hub_split_degree=16, max_seeds=3,
+           frontier_path="sparse")
+
+
+def _serve(svc, work):
+    answers, stats = svc.run_closed_loop(work)
+    assert len(answers) == len(work) and stats["served"] >= len(work)
+    by_id = sorted(answers, key=lambda a: a.request_id)
+    return (np.stack([a.top_scores for a in by_id]),
+            np.stack([a.top_vertices for a in by_id]), stats)
+
+
+def _port_service(setup, depth, **cfg):
+    _, tg, _, tidx, _ = setup
+    return PPRService(tg, tidx, ServiceConfig(
+        query=tquery.QueryConfig(**QKW),
+        batching=BatchingConfig(max_batch=8),
+        pipeline=PipelineConfig(depth=depth), **cfg), device="cpu")
+
+
+def test_service_depths_identical_and_match_reference(setup):
+    jg, _, jidx, _, work = setup
+    runs = [_serve(_port_service(setup, d), work) for d in (1, 4)]
+    for a, b in zip(runs[0][:2], runs[1][:2]):
+        assert a.tobytes() == b.tobytes()
+    js = JService(jg, jidx, JServiceConfig(
+        query=jquery.QueryConfig(**QKW), batching=JBatching(max_batch=8),
+        pipeline=JPipeline(depth=4)))
+    want = _serve(js, work)
+    got = runs[1]
+    dg = densify_rows(got[0], got[1], jg.n)
+    dw = densify_rows(want[0], want[1], jg.n)
+    assert float(np.abs(dg - dw).sum(axis=1).max()) <= 1e-5
+    stats = got[2]
+    assert stats["frontier_path"] == "sparse"
+    assert stats["combine_path"] == want[2]["combine_path"]
+    assert stats["pipeline_depth"] == 4 and stats["device"] == "cpu"
+
+
+def test_service_cache_and_invalidate(setup):
+    _, _, _, _, work = setup
+    svc = _port_service(setup, 2, cache=CacheConfig(capacity=64))
+    first = _serve(svc, work)
+    again = _serve(svc, work)
+    assert again[2]["cache_served"] > 0
+    assert first[0].tobytes() == again[0].tobytes()
+    assert first[1].tobytes() == again[1].tobytes()
+    v = work[0]
+    assert svc.invalidate([v]) >= 1
+    rid = svc.submit(v)
+    out = svc.poll(force=True)
+    assert [a.request_id for a in out] == [rid] and not out[0].cached
+    assert svc.snapshot_stats()["cache_epoch"] >= 1
+
+
+def test_service_sheds_under_admission_control(setup):
+    _, tg, _, tidx, _ = setup
+    svc = PPRService(tg, tidx, ServiceConfig(
+        query=tquery.QueryConfig(**QKW),
+        batching=BatchingConfig(max_batch=8, max_queue_depth=2,
+                                max_wait_s=60.0)), device="cpu")
+    ids = [svc.submit(v) for v in range(4)]
+    out = {a.request_id: a for a in svc.poll(force=True)}
+    assert sorted(out) == ids
+    assert sum(a.rejected for a in out.values()) == 2
+    assert svc.snapshot_stats()["shed"] == 2
+
+
+def test_legacy_dispatch_and_rejected_options(setup):
+    _, _, _, _, work = setup
+    svc = _port_service(setup, 2)
+    svc.cfg.pipeline.dispatch = "legacy"
+    base = _serve(_port_service(setup, 2), work[:8])
+    legacy = _serve(svc, work[:8])
+    assert base[0].tobytes() == legacy[0].tobytes()
+    with pytest.raises(NotImplementedError, match="reuse_buffers"):
+        PipelineConfig(reuse_buffers=True)
+    with pytest.raises(ValueError):
+        PipelineConfig(depth=0)
+
+
+def test_completion_queue_order_and_backpressure():
+    q = CompletionQueue(2)
+    t = [PendingBatch(i, [], 1, torch.zeros(1, 1), torch.zeros(1, 1), 0.0)
+         for i in range(3)]
+    q.push(t[0])
+    q.push(t[1])
+    assert q.full() and t[0].is_ready()
+    with pytest.raises(RuntimeError):
+        q.push(t[2])
+    assert q.pop().seq == 0 and q.pop(block=True).seq == 1 and q.pop() is None
