@@ -13,8 +13,9 @@ Phases, each timed and printed:
    the outputs must be bit-equal, indices included;
 3. the main path: ``rmat(20, avg_deg=10)`` (n = 1,048,576), ``build_index``
    over every source, then ``PPRService`` on the sparse route answering
-   1024 requests closed loop.  The kernels' launch counters are zeroed just
-   before and read just after; every kernel must have launched;
+   16,384 requests closed loop (64 batches of 256).  The kernels' launch
+   counters are zeroed just before and read just after; every kernel must
+   have launched;
 2b. replay the inputs of each kernel's first main-path launch through the
    kernel and its plain version: sorted values within 1e-5 relative and at
    least 99% of indices equal (summation order may differ, which can swap
@@ -23,6 +24,9 @@ Phases, each timed and printed:
 4. a small reference check: ``rmat(14)`` built and served on the card and
    through the plain CPU path from the same key: the index bit-equal, the
    answers within 1e-5 L1 on densified rows.
+
+The checks of phases 2a and 4 are also the ``cuda``-marked tests of
+``tests/test_torch_cuda.py``, which call the functions here.
 
 Prints one JSON line with each kernel's numbers, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
@@ -46,7 +50,7 @@ MAIN_N_LOG2 = 20
 MAIN_R = 100
 MAIN_L = 256
 MAIN_SOURCE_BATCH = 4096
-MAIN_REQUESTS = 1024
+MAIN_REQUESTS = 16384
 KERNEL_SOURCES = {
     "walk_step": ("src/repro_torch/kernels/csrc/walk_step.cu",
                   "src/repro/kernels/walk_step.py:63"),
@@ -99,32 +103,39 @@ def dyadic(np_rng, shape, top=1024, zero_frac=0.0):
     return v
 
 
-def check_synthetic(torch, np, dev):
-    from repro_torch.core import frontier as F
-    from repro_torch.core import verd as verd_mod
-    from repro_torch.core.graph import Graph
+def synthetic_walk_step(torch, np, dev):
+    """Random walks on an ER graph with a few dangling vertices, with one
+    source per walk and with one per row of walks."""
     from repro_torch.graphs import synthetic
-    from repro_torch.kernels import frontier_push as push_k
-    from repro_torch.kernels import index_combine as comb_k
     from repro_torch.kernels import walk_step as walk_k
 
     r = np.random.default_rng(7)
-    out = {}
-
-    # walk_step: random walks on an ER graph with a few dangling vertices
     g = synthetic.erdos_renyi(1 << 16, 6.0, seed=1, device=dev)
-    w = 1 << 20
-    cur = torch.from_numpy(r.integers(0, g.n, w).astype(np.int32)).to(dev)
-    src = torch.from_numpy(r.integers(0, g.n, w).astype(np.int32)).to(dev)
-    u = r.random(w).astype(np.float32)
-    u[:16] = np.float32(1.0) - np.float32(2.0 ** -24)   # the clip at deg - 1
-    u = torch.from_numpy(u).to(dev)
-    a = walk_k.walk_step_cuda(cur, src, u, g.row_ptr, g.out_deg, g.col_idx)
-    b = walk_k.walk_step_plain(cur, src, u, g.row_ptr, g.out_deg, g.col_idx)
-    out["walk_step"] = bits_equal(torch, a, b)
+    rows, w = 1024, 1024
+    cur = torch.from_numpy(r.integers(0, g.n, (rows, w)).astype(np.int32))
+    u = r.random((rows, w)).astype(np.float32)
+    u[0, :16] = np.float32(1.0) - np.float32(2.0 ** -24)  # clip at deg - 1
+    cur, u = cur.to(dev), torch.from_numpy(u).to(dev)
+    ok = True
+    for shape in ((rows, w), (rows,)):
+        src = torch.from_numpy(
+            r.integers(0, g.n, shape).astype(np.int32)).to(dev)
+        args = (cur, src, u, g.row_ptr, g.out_deg, g.col_idx)
+        ok &= bits_equal(torch, walk_k.walk_step_cuda(*args),
+                         walk_k.walk_step_plain(*args))
+    return ok
 
-    # frontier_push: power-of-two degrees (hubs of 4096 edges, beyond the
-    # kernel's shared-memory width), multi-edges and dangling vertices
+
+def synthetic_frontier_push(torch, np, dev):
+    """Power-of-two degrees (hubs of 4096 edges, beyond the kernel's
+    shared-memory width), multi-edges and dangling vertices; one-shot and
+    streamed folds, ranked by radix select and by full sorts."""
+    from repro_torch.core import frontier as F
+    from repro_torch.core import verd as verd_mod
+    from repro_torch.core.graph import Graph
+    from repro_torch.kernels import frontier_push as push_k
+
+    r = np.random.default_rng(8)
     n = 8192
     degs = r.choice([0, 1, 2, 4, 8, 16, 32], n).astype(np.int64)
     degs[r.choice(n, 6, replace=False)] = 4096
@@ -144,7 +155,7 @@ def check_synthetic(torch, np, dev):
     dm = torch.where(deg == 0, fv, 0.0).sum(dim=1)
     dang_v, dang_i = verd_mod.dangling_seed_candidates(dm, sources, None, c=c)
     cases = []
-    for k_out in (64, 2048, 4096):   # radix-selected top-k, then full sorts
+    for k_out in (64, 2048, 4096):
         cases.append((k, dang_v, dang_i, k_out, False))        # one-shot
         run_v, run_i = F.topk_compact(dang_v, dang_i, k_out)
         cases.append((4, run_v, run_i, k_out, True))           # streamed
@@ -157,10 +168,16 @@ def check_synthetic(torch, np, dev):
         a = push_k.frontier_push_cuda(*args, **kw)
         b = push_k.frontier_push_plain(*args, **kw)
         ok &= bits_equal(torch, a[0], b[0]) and bits_equal(torch, a[1], b[1])
-    out["frontier_push"] = ok
+    return ok
 
-    # index_combine_sparse: zero-padded index rows, zero-mass slots, rows
-    # wide enough for the kernel's global scratch and its radix select
+
+def synthetic_index_combine(torch, np, dev):
+    """Zero-padded index rows, zero-mass slots, rows narrow enough for
+    shared memory and wide enough for the global scratch and its radix
+    select."""
+    from repro_torch.kernels import index_combine as comb_k
+
+    r = np.random.default_rng(9)
     n, l, q, k, s_w = 16384, 128, 32, 96, 16
     vals = dyadic(r, (n, l), top=256)
     vals[np.arange(l)[None, :] >= r.integers(0, l + 1, n)[:, None]] = 0.0
@@ -177,9 +194,14 @@ def check_synthetic(torch, np, dev):
         a = comb_k.index_combine_sparse_cuda(*args, k_out=k_out)
         b = comb_k.index_combine_sparse_plain(*args, k_out=k_out)
         ok &= bits_equal(torch, a[0], b[0]) and bits_equal(torch, a[1], b[1])
-    out["index_combine_sparse"] = ok
-    torch.cuda.synchronize()
-    return out
+    return ok
+
+
+SYNTHETIC_CHECKS = {
+    "walk_step": synthetic_walk_step,
+    "frontier_push": synthetic_frontier_push,
+    "index_combine_sparse": synthetic_index_combine,
+}
 
 
 # -- phase 2b: the main path's own inputs -------------------------------------
@@ -189,11 +211,11 @@ def bytes_and_ops(torch, name, args, kwargs):
     written once, gathers counted per element this run's data touches) and
     the f32 operations it must do."""
     if name == "walk_step":
-        cur, _, _, row_ptr, out_deg, _ = args
+        cur, src, _, row_ptr, out_deg, _ = args
         w = cur.numel()
         live = int((out_deg[cur.long()] > 0).sum())
-        # cursors, sources, u, out_deg[cur], output + row_ptr, col_idx
-        return 20 * w + 8 * live, w
+        # cursors, u, out_deg[cur], output + sources + row_ptr, col_idx
+        return 16 * w + 4 * src.numel() + 8 * live, w
     if name == "frontier_push":
         fv, fi, run_v, _, row_ptr, out_deg, _ = args
         q, k = fv.shape
@@ -240,16 +262,13 @@ def replay(torch, name, variant, args, kwargs):
         agree = float((a[1] == b[1]).float().mean())
         ok = rel_ok and agree >= 0.99
     if name == "frontier_push":
-        # folds wider than the merge fold's 512 edges sort in full; the
-        # row with the most of them sets the kernel's time
+        # one block folds a row's chunks in order, so the row with the
+        # most gathered edges sets the kernel's time
         fv, fi = args[0], args[1]
         budget = torch.clamp(args[5][fi.long()], max=kwargs["degree_cap"])
-        wide = (fv > 0) & (budget > 512)
-        per_row = wide.sum(dim=1)
-        print(f"  {name}/{variant}: folds over 512 edges per row: max "
-              f"{int(per_row.max())}, mean {float(per_row.float().mean()):.2f}"
-              f"; edges in them per row: max "
-              f"{int(torch.where(wide, budget, 0).sum(dim=1).max())}")
+        edges = torch.where(fv > 0, budget, 0).sum(dim=1)
+        print(f"  {name}/{variant}: gathered edges per row: max "
+              f"{int(edges.max())}, mean {float(edges.float().mean()):.1f}")
     ms = cuda_ms(torch, lambda: kernel(*args, **kwargs))
     plain_ms = cuda_ms(torch, lambda: plain(*args, **kwargs), max_reps=5)
     nbytes, ops = bytes_and_ops(torch, name, args, kwargs)
@@ -299,17 +318,9 @@ def check_small_reference(torch, np, dev):
     return index_equal, worst
 
 
-def main(argv=None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n-log2", type=int, default=MAIN_N_LOG2,
-                    help="main-path graph size (default: the full 2**20)")
-    ap.add_argument("--r", type=int, default=MAIN_R)
-    ap.add_argument("--requests", type=int, default=MAIN_REQUESTS)
-    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA GPU", file=sys.stderr)
@@ -340,15 +351,17 @@ def main(argv=None) -> int:
     phase("1 build kernels", t0)
 
     t0 = time.perf_counter()
-    synth = check_synthetic(torch, np, dev)
+    synth = {name: check(torch, np, dev)
+             for name, check in SYNTHETIC_CHECKS.items()}
+    torch.cuda.synchronize()
     print("synthetic bit-equal:", json.dumps(synth))
     failures += [f"synthetic {k}" for k, v in synth.items() if not v]
     phase("2a kernel vs plain, synthetic", t0)
 
     t0 = time.perf_counter()
-    g = synthetic.rmat(args.n_log2, avg_deg=10.0, seed=0, device=dev)
+    g = synthetic.rmat(MAIN_N_LOG2, avg_deg=10.0, seed=0, device=dev)
     max_deg = int(g.out_deg.max())
-    print(f"graph rmat({args.n_log2}): n={g.n} m={g.m} max_out_degree="
+    print(f"graph rmat({MAIN_N_LOG2}): n={g.n} m={g.m} max_out_degree="
           f"{max_deg}")
     phase("3a graph", t0)
 
@@ -356,7 +369,7 @@ def main(argv=None) -> int:
     ops.capture_first_launches(True)
     t0 = time.perf_counter()
     index, stats = build_index(
-        g, r=args.r, l=MAIN_L, key=rng.prng_key(0),
+        g, r=MAIN_R, l=MAIN_L, key=rng.prng_key(0),
         source_batch=MAIN_SOURCE_BATCH, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -379,7 +392,7 @@ def main(argv=None) -> int:
     print("route:", json.dumps(route))
     if route["frontier_path"] != "sparse" or route["scatter_combine_at_256"]:
         failures.append(f"route {route}")
-    work = np.random.default_rng(1).integers(0, g.n, args.requests).tolist()
+    work = np.random.default_rng(1).integers(0, g.n, MAIN_REQUESTS).tolist()
     answers, sstats = svc.run_closed_loop(work)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
@@ -387,8 +400,8 @@ def main(argv=None) -> int:
     ops.capture_first_launches(False)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print("serve:", json.dumps({k: sstats[k] for k in (
-        "served", "batches", "qps", "qps_excl_first_batch", "latency_p50",
-        "latency_p99", "first_batch_service_s", "combine_path",
+        "served", "batches", "wall_s", "qps", "latency_p50", "latency_p99",
+        "first_batch_service_s", "pad_fraction", "combine_path",
         "pipeline_in_flight_peak", "batch_hist")}))
     print("main-path launches:", json.dumps(counts))
     failures += [f"kernel {k} never launched on the main path"
@@ -399,7 +412,7 @@ def main(argv=None) -> int:
            or np.any(a.top_scores < 0)
            or float(a.top_scores.sum()) > 1.0 + 1e-4
            or np.any((a.top_vertices < 0) | (a.top_vertices >= g.n))]
-    if len(answers) != args.requests or bad:
+    if len(answers) != MAIN_REQUESTS or bad:
         failures.append(f"answers: {len(answers)} served, {len(bad)} bad")
     mass = np.array([a.top_scores.sum() for a in answers])
     print(f"answer mass: min {mass.min():.6f} mean {mass.mean():.6f} "

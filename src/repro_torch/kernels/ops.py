@@ -71,10 +71,12 @@ def _route(name: str, tensor: torch.Tensor) -> bool:
 
 def walk_step(cursors, sources, u, row_ptr, out_deg, col_idx):
     """One bulk walk advance (``walks.advance_cursors``); any cursor shape,
-    ``sources`` broadcast against it."""
-    sources = sources.to(torch.int32).expand(cursors.shape)
+    ``sources`` of that shape or one per row (a trailing 1 allowed)."""
+    sources = sources.to(torch.int32)
+    if sources.shape != cursors.shape:
+        sources = sources.reshape(cursors.shape[:-1])
     if col_idx.shape[0] == 0:  # edgeless graph: every walk jumps home
-        return sources.clone()
+        return _walk.walk_sources(cursors, sources).clone()
     if not _route("walk_step", cursors):
         return _walk.walk_step_plain(
             cursors, sources, u, row_ptr, out_deg, col_idx)

@@ -14,8 +14,8 @@ import torch
 
 from repro_torch.kernels import build
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.c_void_p]
 
 
 def sample_edge_offsets(u: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
@@ -26,15 +26,27 @@ def sample_edge_offsets(u: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
     return torch.minimum(torch.clamp(off, min=0), torch.clamp(deg - 1, min=0))
 
 
+def walk_sources(cursors: torch.Tensor,
+                 sources: torch.Tensor) -> torch.Tensor:
+    """``sources`` broadcast to ``cursors``' shape: it holds one source per
+    walk (the cursors' shape) or one per row (``cursors.shape[:-1]``, a
+    trailing 1 allowed)."""
+    if sources.shape == cursors.shape:
+        return sources
+    return sources.reshape(cursors.shape[:-1] + (1,)).expand(cursors.shape)
+
+
 def walk_step_plain(cursors, sources, u, row_ptr, out_deg, col_idx):
     """next = deg == 0 ? source : col_idx[clip(start + clip(floor(u * deg),
-    0, deg - 1), 0, m - 1)] for every walk (any shape)."""
+    0, deg - 1), 0, m - 1)] for every walk (any shape; ``sources`` as
+    :func:`walk_sources` takes them)."""
     cur = cursors.long()
     deg = out_deg[cur]
     start = row_ptr[cur]
     m = col_idx.shape[0]
     addr = torch.clamp(start + sample_edge_offsets(u, deg), 0, m - 1)
-    return torch.where(deg == 0, sources.to(torch.int32), col_idx[addr.long()])
+    home = walk_sources(cursors, sources).to(torch.int32)
+    return torch.where(deg == 0, home, col_idx[addr.long()])
 
 
 def walk_step_cuda(cursors, sources, u, row_ptr, out_deg, col_idx):
@@ -50,8 +62,10 @@ def walk_step_cuda(cursors, sources, u, row_ptr, out_deg, col_idx):
                 f"walk_step: {name} must be a contiguous {dt} tensor on {dev}, "
                 f"got {t.dtype} on {t.device}"
             )
-    if sources.shape != cursors.shape or u.shape != cursors.shape:
-        raise ValueError("walk_step: cursors, sources and u must share a shape")
+    if u.shape != cursors.shape or sources.shape not in (
+            cursors.shape, cursors.shape[:-1]):
+        raise ValueError("walk_step: u must have the cursors' shape, sources "
+                         "that shape or one entry per row")
     m = col_idx.shape[0]
     if m == 0 or m >= 2 ** 31:
         raise ValueError(f"walk_step: needs 0 < m < 2**31 edges, got {m}")
@@ -63,7 +77,8 @@ def walk_step_cuda(cursors, sources, u, row_ptr, out_deg, col_idx):
     status = fn(
         cursors.data_ptr(), sources.data_ptr(), u.data_ptr(),
         row_ptr.data_ptr(), out_deg.data_ptr(), col_idx.data_ptr(),
-        out.data_ptr(), cursors.numel(), m,
+        out.data_ptr(), cursors.numel(),
+        cursors.numel() // max(sources.numel(), 1), m,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(status, "walk_step")

@@ -268,10 +268,7 @@ class PPRService:
         s = self.snapshot_stats()
         lat = np.asarray([a.latency_s for a in answers], np.float64)
         s["wall_s"] = wall
-        s["wall_s_excl_first_batch"] = max(
-            wall - s["first_batch_service_s"], 1e-9)
         s["qps"] = len(answers) / max(wall, 1e-9)
-        s["qps_excl_first_batch"] = len(answers) / s["wall_s_excl_first_batch"]
         s["latency_p50"] = float(np.percentile(lat, 50)) if lat.size else 0.0
         s["latency_p99"] = float(np.percentile(lat, 99)) if lat.size else 0.0
         return answers, s

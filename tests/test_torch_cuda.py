@@ -2,31 +2,34 @@
 versions, on the card.
 
 Every test here is marked ``cuda`` and skips where there is no GPU.  The
-file imports neither JAX nor ``conftest`` helpers, so on a machine with a
-card and no JAX it runs on its own:
+checks themselves live in ``chip_smoke.py`` (phases 2a and 4), so the smoke
+run and these tests hold the kernels to the same inputs.  The file imports
+neither JAX nor ``conftest`` helpers, so on a machine with a card and no
+JAX it runs on its own:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Inputs are dyadic (masses ``j / 1024``, power-of-two degrees at
+Synthetic inputs are dyadic (masses ``j / 1024``, power-of-two degrees at
 ``c = 0.5``), so every f32 sum is exact in any order and the kernels must
 agree with the plain versions bit for bit, indices included.
 """
+
+import importlib.util
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import rng
-from repro_torch.core import frontier as TF
-from repro_torch.core import verd as tverd
-from repro_torch.core.graph import Graph
-from repro_torch.core.index import build_index
-from repro_torch.core.query import BatchQueryEngine, QueryConfig
 from repro_torch.graphs import synthetic as tsyn
-from repro_torch.kernels import frontier_push as push_k
-from repro_torch.kernels import index_combine as comb_k
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import walk_step as walk_k
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke",
+    os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py"))
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture()
@@ -36,25 +39,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _dyadic(r, shape, top=1024, zero_frac=0.0):
-    v = r.integers(1, top, shape).astype(np.float32) / 1024.0
-    v[r.random(shape) < zero_frac] = 0.0
-    return v
-
-
-def _bits_equal(a, b):
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
-
-
 @pytest.mark.cuda
 def test_walk_step_kernel_bitwise_on_card(cuda):
+    """The wrapper launches the kernel once, with one source per row."""
     r = np.random.default_rng(0)
     tg = tsyn.erdos_renyi(4096, 5.0, seed=3, device=cuda)
-    w = 100_000
+    rows, w = 1000, 100
     args = [torch.from_numpy(x).to(cuda) for x in (
-        r.integers(0, tg.n, w).astype(np.int32),
-        r.integers(0, tg.n, w).astype(np.int32),
-        r.random(w).astype(np.float32))]
+        r.integers(0, tg.n, (rows, w)).astype(np.int32),
+        r.integers(0, tg.n, (rows, 1)).astype(np.int32),
+        r.random((rows, w)).astype(np.float32))]
     args += [tg.row_ptr, tg.out_deg, tg.col_idx]
     tops.reset_launch_counts()
     got = tops.walk_step(*args)
@@ -63,75 +57,15 @@ def test_walk_step_kernel_bitwise_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("run_first,slots,k_out", [
-    (False, 16, 48), (True, 4, 48), (False, 16, 4096), (True, 2, 2048)])
-def test_frontier_push_kernel_bit_equal_on_card(cuda, run_first, slots,
-                                               k_out):
-    r = np.random.default_rng(1)
-    n = 2048
-    degs = r.choice([0, 1, 2, 4, 8, 2048, 4096], n,
-                    p=[.2, .2, .2, .2, .18, .01, .01])
-    srcs = np.repeat(np.arange(n), degs)
-    g = Graph.from_edges(srcs, r.integers(0, n, srcs.shape[0]), n=n,
-                         device=cuda)
-    q, k = 16, 16
-    fv = torch.from_numpy(_dyadic(r, (q, k), zero_frac=0.2)).to(cuda)
-    fi = torch.from_numpy(r.integers(0, n, (q, k)).astype(np.int32)).to(cuda)
-    src = torch.from_numpy(r.integers(0, n, q).astype(np.int32)).to(cuda)
-    deg = g.out_deg[fi.long()]
-    dm = torch.where(deg == 0, fv, 0.0).sum(dim=1)
-    rv, ri = tverd.dangling_seed_candidates(dm, src, None, c=0.5)
-    if run_first:
-        rv, ri = TF.topk_compact(rv, ri, k_out)
-    kw = dict(c=0.5, degree_cap=int(degs.max()), hub_split_degree=0,
-              slots=slots, k_out=k_out, run_first=run_first)
-    args = (fv, fi, rv.contiguous(), ri.contiguous(), g.row_ptr, g.out_deg,
-            g.col_idx)
-    a = push_k.frontier_push_cuda(*args, **kw)
-    b = push_k.frontier_push_plain(*args, **kw)
-    assert _bits_equal(a[0], b[0]) and torch.equal(a[1], b[1])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("k_out", [50, 2048, 3000])
-def test_index_combine_sparse_kernel_bit_equal_on_card(cuda, k_out):
-    """Narrow rows merge in shared memory; wide ones in global scratch,
-    ranked by a radix select (k_out <= 2048) or a full sort."""
-    r = np.random.default_rng(2)
-    n, l, q, k, s_w = 16384, 64, 16, 160, 8
-    vals = _dyadic(r, (n, l), top=256)
-    vals[:, 40:] = 0.0
-    idx = r.integers(0, n, (n, l)).astype(np.int32)
-    fv = _dyadic(r, (q, k), top=256, zero_frac=0.3)
-    fv[:4, 4:] = 0.0
-    args = [torch.from_numpy(x).to(cuda) for x in (
-        _dyadic(r, (q, s_w), top=256),
-        r.integers(0, n, (q, s_w)).astype(np.int32), fv,
-        r.integers(0, n, (q, k)).astype(np.int32), vals, idx)]
-    a = comb_k.index_combine_sparse_cuda(*args, k_out=k_out)
-    b = comb_k.index_combine_sparse_plain(*args, k_out=k_out)
-    assert _bits_equal(a[0], b[0]) and torch.equal(a[1], b[1])
+@pytest.mark.parametrize("kernel", sorted(chip_smoke.SYNTHETIC_CHECKS))
+def test_kernel_bit_equal_on_card(cuda, kernel):
+    assert chip_smoke.SYNTHETIC_CHECKS[kernel](torch, np, cuda)
 
 
 @pytest.mark.cuda
 def test_build_and_query_on_card_match_the_cpu(cuda):
     """The whole slice on the card against its plain CPU path: the index
     bit for bit, the answers within 1e-5 L1."""
-    built = {}
-    for dev in (cuda, "cpu"):
-        g = tsyn.rmat(14, avg_deg=8.0, seed=4, device=dev)
-        idx, _ = build_index(g, r=16, l=32, key=rng.prng_key(2),
-                             source_batch=2048, device=dev)
-        eng = BatchQueryEngine(g, idx, QueryConfig(
-            top_k=20, hub_split_degree=64, combine_path="sparse"), device=dev)
-        v, i = eng.query_topk(np.arange(0, 4096, 64))
-        built[str(dev)] = (idx, v.cpu().numpy(), i.cpu().numpy())
-    (ic, vc, ic_), (ih, vh, ih_) = built["cuda"], built["cpu"]
-    assert _bits_equal(ic.values.cpu(), ih.values)
-    assert torch.equal(ic.indices.cpu(), ih.indices)
-    n = ih.n
-    dc = np.zeros((len(vc), n))
-    dh = np.zeros((len(vh), n))
-    np.add.at(dc, (np.arange(len(vc))[:, None], ic_), vc)
-    np.add.at(dh, (np.arange(len(vh))[:, None], ih_), vh)
-    assert float(np.abs(dc - dh).sum(axis=1).max()) <= 1e-5
+    index_equal, l1 = chip_smoke.check_small_reference(torch, np, cuda)
+    assert index_equal
+    assert l1 <= 1e-5

@@ -65,14 +65,21 @@ def test_walk_step_matches_reference_bitwise(w):
     assert tops.launch_counts()["walk_step"] == 0   # plain version: no launch
 
 
-def test_walk_step_2d_shape_and_dangling_home():
+@pytest.mark.parametrize("src_shape", [(2, 1), (2,), (2, 3)])
+def test_walk_step_2d_shape_and_dangling_home(src_shape):
+    """Sources per row (with or without a trailing 1) or per walk, through
+    the wrapper and the plain version alike."""
     g = JGraph.from_edges(np.array([0, 1]), np.array([1, 0]), n=4)
     tg = _port_graph(g)
     cur = _t(np.array([[0, 2, 3], [1, 3, 2]], np.int32))
-    src = _t(np.array([[5], [6]], np.int32))      # broadcast per row
+    src = np.array([[5], [6]], np.int32)
+    src = _t(np.broadcast_to(src, (2, 3)).copy() if src_shape == (2, 3)
+             else src.reshape(src_shape))
     u = torch.full((2, 3), 0.5)
-    got = tops.walk_step(cur, src, u, tg.row_ptr, tg.out_deg, tg.col_idx)
-    assert got.numpy().tolist() == [[1, 5, 5], [0, 6, 6]]
+    args = (cur, src, u, tg.row_ptr, tg.out_deg, tg.col_idx)
+    assert tops.walk_step(*args).numpy().tolist() == [[1, 5, 5], [0, 6, 6]]
+    assert tref.walk_step_ref(*args).numpy().tolist() == [
+        [1, 5, 5], [0, 6, 6]]
 
 
 def test_walk_step_edgeless_graph_jumps_home():
