@@ -5,25 +5,43 @@
 
 Phases, each timed and printed:
 
-1. build the three CUDA kernels (``walk_step``, ``frontier_push``,
-   ``index_combine_sparse``) from ``src/repro_torch/kernels/csrc`` with nvcc;
+1. build the five CUDA kernels (``walk_step``, ``frontier_push``,
+   ``index_combine_sparse``, ``ell_spmm``, ``index_combine``) from
+   ``src/repro_torch/kernels/csrc`` with nvcc, one process per source;
 2a. hold each kernel against its plain PyTorch version on the card, on
-   synthetic inputs whose masses are multiples of 2**-10 (and, for the
-   push, power-of-two degrees at c = 0.5), so every f32 sum is exact and
-   the outputs must be bit-equal, indices included;
-3. the main path: ``rmat(20, avg_deg=10)`` (n = 1,048,576), ``build_index``
-   over every source, then ``PPRService`` on the sparse route answering
-   16,384 requests closed loop (64 batches of 256).  The kernels' launch
-   counters are zeroed just before and read just after; every kernel must
-   have launched;
-2b. replay the inputs of each kernel's first main-path launch through the
-   kernel and its plain version: sorted values within 1e-5 relative and at
-   least 99% of indices equal (summation order may differ, which can swap
-   ties at the top-k edge); ``walk_step`` bit-equal.  Times each kernel and
-   its plain version there with CUDA events;
+   synthetic inputs whose masses are multiples of 2**-10 (and power-of-two
+   degrees or weights), so every f32 sum is exact in any order and the
+   outputs must be bit-equal, indices included;
+3. the sparse main path: ``rmat(20, avg_deg=10)`` (n = 1,048,576),
+   ``build_index`` over every source (3b), then ``PPRService`` on the
+   sparse route (``hub_split_degree=64``) answering 16,384 requests closed
+   loop, 64 batches of 256 (3c).  The launch counters are zeroed just
+   before the build and read just after the serve; the path's three
+   kernels must have launched;
+3d. the dense main path on the same graph and index: ``PPRService`` at the
+   default ``hub_split_degree=0``, which routes dense on this hub-heavy
+   graph, serving the same 16,384 requests with the counters zeroed just
+   before and read just after: ``ell_spmm`` must launch twice per batch
+   and ``index_combine`` once; times one batch and its top-k;
+3e. the first 64 requests through ``pi`` (100 iterations, the ground
+   truth), ``fppr``, dense ``verd``, dense and sparse ``powerwalk``:
+   prints mean RAG and precision at k = 50 against ``pi``; the ``pi`` rows
+   must be stochastic, each summing to 1 within 1e-4, and every answer
+   finite and non-negative;
+2b. replay the inputs of each kernel's first launch on its path (and of
+   ``ell_spmm``'s second, a batch's push of a spread-out frontier) through
+   the kernel and its plain version: top-k outputs' sorted values within
+   1e-5 relative and at least 99% of indices equal (summation order may
+   differ, which can swap ties at the top-k edge), dense outputs within
+   1e-5 L1 per row and 1e-5 relative per entry, or, for an entry of many
+   terms, within the f32 bound on two summation orders of its own count of
+   terms (:func:`dense_agree`), ``walk_step`` bit-equal.  Times each
+   kernel, its plain version and, where one exists, one PyTorch sparse
+   product of the same function, with CUDA events;
 4. a small reference check: ``rmat(14)`` built and served on the card and
-   through the plain CPU path from the same key: the index bit-equal, the
-   answers within 1e-5 L1 on densified rows.
+   through the plain CPU path from the same key, on the sparse and on the
+   dense route: the index bit-equal, the answers within 1e-5 L1 on
+   densified rows.
 
 The checks of phases 2a and 4 are also the ``cuda``-marked tests of
 ``tests/test_torch_cuda.py``, which call the functions here.
@@ -51,6 +69,7 @@ MAIN_R = 100
 MAIN_L = 256
 MAIN_SOURCE_BATCH = 4096
 MAIN_REQUESTS = 16384
+E_ROWS = 64                    # requests scored against pi in phase 3e
 KERNEL_SOURCES = {
     "walk_step": ("src/repro_torch/kernels/csrc/walk_step.cu",
                   "src/repro/kernels/walk_step.py:63"),
@@ -58,7 +77,13 @@ KERNEL_SOURCES = {
                       "src/repro/kernels/frontier_push.py:168"),
     "index_combine_sparse": ("src/repro_torch/kernels/csrc/index_combine.cu",
                              "src/repro/kernels/index_combine.py:136"),
+    "ell_spmm": ("src/repro_torch/kernels/csrc/ell_spmm.cu",
+                 "src/repro/kernels/ell_spmm.py:56"),
+    "index_combine": ("src/repro_torch/kernels/csrc/index_combine_dense.cu",
+                      "src/repro/kernels/index_combine.py:52"),
 }
+SPARSE_PATH = ("walk_step", "frontier_push", "index_combine_sparse")
+DENSE_PATH = ("ell_spmm", "index_combine")
 
 
 def phase(name, t0):
@@ -197,10 +222,67 @@ def synthetic_index_combine(torch, np, dev):
     return ok
 
 
+def synthetic_ell_spmm(torch, np, dev):
+    """The push over a graph's ELL view (a star's hub of 3,000 in-edges
+    spanning several row blocks, a second hub, vertices without in-edges,
+    padding rows) with weights ``2**-p`` in place of ``1/out_deg``, at a Q
+    that is not a multiple of the kernel's 128 columns; and raw partials
+    of random rows (one row per vertex, the TPU kernel's output)."""
+    from repro_torch.graphs import formats
+    from repro_torch.core.graph import Graph
+    from repro_torch.kernels import ell_spmm as ell_k
+
+    r = np.random.default_rng(10)
+    n = 16384
+    src = [np.arange(1, 3001), r.integers(0, n, 2500),
+           r.integers(0, n, 4 * n)]
+    dst = [np.zeros(3000, np.int64), np.full(2500, 9000),
+           r.integers(0, n, 4 * n)]
+    g = Graph.from_edges(np.concatenate(src), np.concatenate(dst), n=n,
+                         device=dev)
+    ell = formats.to_ell_chunks(g, k=16, pad_rows_to=256)
+    w = (0.5 ** torch.randint(1, 5, ell.weight.shape, device=dev)).where(
+        ell.weight > 0, 0.0).to(torch.float32)
+    f = torch.from_numpy(dyadic(r, (200, n), top=256, zero_frac=0.3)).to(dev)
+    args = (f, ell.nbr, w.contiguous(), ell.row2vertex, ell.vertex_rows)
+    ok = bits_equal(torch, ell_k.ell_spmm_cuda(*args, rows_used=ell.rows_used),
+                    ell_k.ell_spmm_plain(*args, rows_used=ell.rows_used))
+    rows, k, nf = 768, 32, 200
+    nbr = torch.from_numpy(r.integers(0, nf, (rows, k)).astype(np.int32))
+    w = torch.from_numpy(0.5 ** r.integers(1, 5, (rows, k))).float()
+    f = torch.from_numpy(dyadic(r, (24, nf), top=256))
+    args = [t.to(dev) for t in (f, nbr, w)]
+    ident = torch.arange(rows + 1, dtype=torch.int32, device=dev)
+    a = ell_k.ell_spmm_cuda(*args, ident[:-1], ident, rows_used=rows)
+    return ok and bits_equal(torch, a, ell_k.ell_spmm_partial_plain(*args))
+
+
+def synthetic_index_combine_dense(torch, np, dev):
+    """Unaligned shapes, all-zero rows of ``f``, zero-padded index rows,
+    and duplicate columns within and across index rows."""
+    from repro_torch.kernels import index_combine as comb_k
+
+    r = np.random.default_rng(11)
+    q, n, l = 37, 4099, 61
+    vals = r.integers(0, 16, (n, l)).astype(np.float32) / 64.0
+    idx = r.integers(0, n, (n, l)).astype(np.int32)
+    idx[vals == 0] = 0
+    idx[:10] = 7                                  # ten rows onto one column
+    idx[10:20, : l // 2] = idx[10:20, l // 2: 2 * (l // 2)]  # in-row repeats
+    f = dyadic(r, (q, n), top=256, zero_frac=0.5)
+    f[:5] = 0.0
+    args = [torch.from_numpy(x).to(dev) for x in (
+        dyadic(r, (q, n)), f, vals, idx)]
+    return bits_equal(torch, comb_k.index_combine_cuda(*args),
+                      comb_k.index_combine_plain(*args))
+
+
 SYNTHETIC_CHECKS = {
     "walk_step": synthetic_walk_step,
     "frontier_push": synthetic_frontier_push,
     "index_combine_sparse": synthetic_index_combine,
+    "ell_spmm": synthetic_ell_spmm,
+    "index_combine": synthetic_index_combine_dense,
 }
 
 
@@ -226,6 +308,23 @@ def bytes_and_ops(torch, name, args, kwargs):
         nbytes = (8 * q * k + 8 * run_v.numel() + 8 * n_live + 4 * edges
                   + 8 * q * kwargs["k_out"])
         return nbytes, 2 * n_live + edges
+    if name == "ell_spmm":
+        f, nbr, w, r2v, vertex_rows = args
+        q, n_in = f.shape
+        used = kwargs["rows_used"]
+        nnz = int((w[:used] != 0).sum())
+        nbytes = (4 * q * n_in + 8 * used * nbr.shape[1] + 4 * used
+                  + 4 * vertex_rows.numel() + 4 * q * (vertex_rows.numel() - 1))
+        return nbytes, 2 * q * nnz
+    if name == "index_combine":
+        s_, f, vals, _ = args
+        live = f != 0
+        touched = live.any(dim=0)
+        row_nnz = (vals != 0).sum(dim=1)
+        nbytes = (8 * s_.numel() + 4 * f.numel()
+                  + 8 * vals.shape[1] * int(touched.sum()))
+        ops = 2 * int((live.sum(dim=0) * row_nnz).sum())
+        return nbytes, ops
     sv, _, fv, _, vals, _ = args
     q, k = fv.shape
     l = vals.shape[1]
@@ -235,7 +334,99 @@ def bytes_and_ops(torch, name, args, kwargs):
     return nbytes, 2 * l * n_live
 
 
+def library_call(torch, name, args, kwargs):
+    """One PyTorch call computing the same function as the kernel on the
+    same inputs (a sparse product), or None where there is none; used only
+    as a yardstick.  Its operands are built here, outside the timing."""
+    if name == "ell_spmm":
+        f, nbr, w, r2v, vertex_rows = args
+        used = kwargs["rows_used"]
+        # A0^T in CSR: row v holds v's in-edges (the ELL rows, unpadded)
+        keep = w[:used] != 0
+        counts = torch.zeros(vertex_rows.numel() - 1, dtype=torch.int64,
+                             device=f.device).index_add_(
+            0, r2v[:used].long(), keep.sum(dim=1))
+        crow = torch.zeros(counts.numel() + 1, dtype=torch.int64,
+                           device=f.device)
+        torch.cumsum(counts, 0, out=crow[1:])
+        at = torch.sparse_csr_tensor(
+            crow, nbr[:used][keep].long(), w[:used][keep],
+            size=(counts.numel(), f.shape[1]))
+        return lambda: torch.sparse.mm(at, f.t())
+    if name == "index_combine":
+        s_, f, vals, idx = args
+        nv, n = f.shape[1], s_.shape[1]
+        # P [nv, n] in CSR, columns sorted within each row
+        col = torch.where(vals > 0, idx.long(), n)
+        col, order = torch.sort(col, dim=1)
+        val = torch.gather(vals, 1, order)
+        keep = col < n
+        crow = torch.zeros(nv + 1, dtype=torch.int64, device=f.device)
+        torch.cumsum(keep.sum(dim=1), 0, out=crow[1:])
+        p_csr = torch.sparse_csr_tensor(crow, col[keep], val[keep],
+                                        size=(nv, n))
+        return lambda: torch.addmm(s_, f, p_csr)
+    return None
+
+
+F32_UNIT = 2.0 ** -24           # f32 unit roundoff
+F32_TINY = 2.0 ** -126          # smallest normal f32
+
+
+def dense_terms(torch, name, args, kwargs, q, cols):
+    """Number of nonzero f32 terms each entry ``(q, cols[j])`` of a dense
+    kernel's output sums: ``s`` plus the touched index entries for the
+    combine, the nonzero products of a vertex's ELL rows for the push."""
+    if name == "index_combine":
+        s_, f, vals, idx = args
+        live = f[q].nonzero().squeeze(1)
+        sub = idx[live][vals[live] != 0].long()
+        sub = sub[(sub >= 0) & (sub < s_.shape[1])]
+        counts = torch.bincount(sub, minlength=s_.shape[1])
+        return counts[cols] + (s_[q, cols] != 0).long()
+    f, nbr, w, r2v, vertex_rows = args
+    used = kwargs["rows_used"]
+    per_row = ((w[:used] != 0) & (f[q][nbr[:used].long()] != 0)).sum(dim=1)
+    counts = torch.zeros(vertex_rows.numel() - 1, dtype=torch.int64,
+                         device=f.device).index_add_(
+        0, r2v[:used].long(), per_row)
+    return counts[cols]
+
+
+def dense_agree(torch, name, a, b, args, kwargs):
+    """Gate a dense ``[Q, n]`` kernel output ``a`` against its plain version
+    ``b`` when both sum the same non-negative terms in different orders:
+    each row's L1 difference within 1e-5, and each entry within
+    ``max(1e-5, 2 g / (1 - g)) |b| + m * 2**-126``, ``g = m u / (1 - m u)``
+    for its ``m`` terms.  Two f32 sums of ``m`` non-negative terms in any
+    order each lie within ``g`` of the exact sum (plus one flushed
+    subnormal per term), so only an entry of many terms is allowed more
+    than 1e-5 of itself, and only by what its own count of terms allows.
+    Returns ``(ok, max_abs_err)``."""
+    diff = (a - b).abs()
+    err = float(diff.max())
+    row_l1 = diff.sum(dim=1)
+    over = (diff > 1e-5 * b.abs()).nonzero()
+    worst_m, beyond = 0, 0
+    for q in over[:, 0].unique().tolist():
+        cols = over[over[:, 0] == q, 1]
+        m = dense_terms(torch, name, args, kwargs, q, cols).double()
+        g = m * F32_UNIT / (1.0 - m * F32_UNIT)
+        allowed = (torch.clamp(2.0 * g / (1.0 - g), min=1e-5)
+                   * b[q, cols].double().abs() + m * F32_TINY)
+        beyond += int((diff[q, cols].double() > allowed).sum())
+        worst_m = max(worst_m, int(m.max()))
+    ok = bool(torch.all(row_l1 <= 1e-5)) and beyond == 0
+    print(f"  {name}: max abs error {err:.3e}, max row L1 "
+          f"{float(row_l1.max()):.3e}; {over.shape[0]} of {b.numel()} entries "
+          f"differ by more than 1e-5 of themselves (most terms summed by one "
+          f"of them: {worst_m}), {beyond} beyond their f32 order bound")
+    del diff, row_l1, over
+    return ok, err
+
+
 def replay(torch, name, variant, args, kwargs):
+    from repro_torch.kernels import ell_spmm as ell_k
     from repro_torch.kernels import frontier_push as push_k
     from repro_torch.kernels import index_combine as comb_k
     from repro_torch.kernels import walk_step as walk_k
@@ -246,6 +437,9 @@ def replay(torch, name, variant, args, kwargs):
                           push_k.frontier_push_plain),
         "index_combine_sparse": (comb_k.index_combine_sparse_cuda,
                                  comb_k.index_combine_sparse_plain),
+        "ell_spmm": (ell_k.ell_spmm_cuda, ell_k.ell_spmm_plain),
+        "index_combine": (comb_k.index_combine_cuda,
+                          comb_k.index_combine_plain),
     }[name]
     a = kernel(*args, **kwargs)
     b = plain(*args, **kwargs)
@@ -254,6 +448,9 @@ def replay(torch, name, variant, args, kwargs):
         ok = bits_equal(torch, a, b)
         err = float((a - b).abs().max()) if a.numel() else 0.0
         agree = 1.0 if ok else float((a == b).float().mean())
+    elif name in DENSE_PATH:
+        ok, err = dense_agree(torch, name, a, b, args, kwargs)
+        agree = 1.0
     else:
         sa = torch.sort(a[0], dim=1).values
         sb = torch.sort(b[0], dim=1).values
@@ -269,8 +466,18 @@ def replay(torch, name, variant, args, kwargs):
         edges = torch.where(fv > 0, budget, 0).sum(dim=1)
         print(f"  {name}/{variant}: gathered edges per row: max "
               f"{int(edges.max())}, mean {float(edges.float().mean()):.1f}")
+    del a, b
     ms = cuda_ms(torch, lambda: kernel(*args, **kwargs))
     plain_ms = cuda_ms(torch, lambda: plain(*args, **kwargs), max_reps=5)
+    library_ms = None
+    try:
+        lib_fn = library_call(torch, name, args, kwargs)
+        if lib_fn is not None:
+            library_ms = cuda_ms(torch, lib_fn, max_reps=5)
+        del lib_fn
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"  {name}: no library time ({type(exc).__name__}: "
+              f"{str(exc).splitlines()[0][:160]})")
     nbytes, ops = bytes_and_ops(torch, name, args, kwargs)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / F32_OPS_PER_S * 1e3
@@ -278,10 +485,30 @@ def replay(torch, name, variant, args, kwargs):
         ("a0", "a1", "a2", "a3"), args[:4])}
     return dict(
         ok=ok, variant=variant, max_abs_err=err, index_agreement=agree,
-        ms=ms, plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=max(by_bytes, by_ops),
         bound_by="bytes" if by_bytes >= by_ops else "operations",
         bytes=nbytes, shapes=shape,
     )
+
+
+# -- phases 3c-3e: answer checks ---------------------------------------------
+
+def bad_answers(np, answers, n, k=50):
+    """Request ids of answers that are shed, of the wrong width, not finite,
+    negative, of mass above 1 (+1e-4), or pointing outside the graph."""
+    return [a.request_id for a in answers if a.rejected
+            or a.top_scores.shape != (k,)
+            or not np.all(np.isfinite(a.top_scores))
+            or np.any(a.top_scores < 0)
+            or float(a.top_scores.sum()) > 1.0 + 1e-4
+            or np.any((a.top_vertices < 0) | (a.top_vertices >= n))]
+
+
+def densify(torch, vals, idx, n):
+    out = torch.zeros((vals.shape[0], n), dtype=torch.float32,
+                      device=vals.device)
+    return out.scatter_add_(1, idx.long(), vals)
 
 
 # -- phase 4: small reference check -------------------------------------------
@@ -300,22 +527,30 @@ def check_small_reference(torch, np, dev):
     index_equal = (
         bits_equal(torch, built[dev].values.cpu(), built["cpu"].values)
         and bits_equal(torch, built[dev].indices.cpu(), built["cpu"].indices))
-    cfg = QueryConfig(t_iterations=2, top_k=50, hub_split_degree=64)
-    engines = {d: BatchQueryEngine(graphs[d], built[d], cfg, device=d)
-               for d in (dev, "cpu")}
     n = graphs["cpu"].n
     sources = np.random.default_rng(11).integers(0, n, 64).astype(np.int32)
-    worst = 0.0
-    for fn in ("query_topk", "query_topk_async"):
-        dense = []
-        for d in (dev, "cpu"):
-            v, i = getattr(engines[d], fn)(sources)
-            v, i = v.cpu().numpy(), i.cpu().numpy()
-            row = np.zeros((len(sources), n), np.float64)
-            np.add.at(row, (np.arange(len(sources))[:, None], i), v)
-            dense.append(row)
-        worst = max(worst, float(np.abs(dense[0] - dense[1]).sum(1).max()))
-    return index_equal, worst
+    worst = {}
+    # hub splitting at 64 routes sparse; without it the hubs route dense
+    for route, cfg in (
+        ("sparse", QueryConfig(t_iterations=2, top_k=50, hub_split_degree=64)),
+        ("dense", QueryConfig(t_iterations=2, top_k=50)),
+        ("dense", QueryConfig(mode="verd", t_iterations=2, top_k=50)),
+    ):
+        engines = {d: BatchQueryEngine(graphs[d], built[d], cfg, device=d)
+                   for d in (dev, "cpu")}
+        if engines[dev].uses_sparse_path() != (route == "sparse"):
+            raise AssertionError(f"{cfg} does not route {route}")
+        for fn in ("query_topk", "query_topk_async"):
+            dense = []
+            for d in (dev, "cpu"):
+                v, i = getattr(engines[d], fn)(sources)
+                v, i = v.cpu().numpy(), i.cpu().numpy()
+                row = np.zeros((len(sources), n), np.float64)
+                np.add.at(row, (np.arange(len(sources))[:, None], i), v)
+                dense.append(row)
+            worst[route] = max(worst.get(route, 0.0), float(
+                np.abs(dense[0] - dense[1]).sum(1).max()))
+    return index_equal, worst["sparse"], worst["dense"]
 
 
 def main() -> int:
@@ -328,8 +563,11 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import rng
+    from repro_torch.core.frontier import topk_dense
     from repro_torch.core.index import build_index
-    from repro_torch.core.query import QueryConfig
+    from repro_torch.core.metrics import (is_stochastic, mean_rag,
+                                          precision_at_k)
+    from repro_torch.core.query import BatchQueryEngine, QueryConfig
     from repro_torch.graphs import synthetic
     from repro_torch.kernels import build, ops
     from repro_torch.serving import PPRService, ServiceConfig
@@ -396,7 +634,7 @@ def main() -> int:
     answers, sstats = svc.run_closed_loop(work)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    captured = ops.captured_launches()
+    captured_s = ops.captured_launches()
     ops.capture_first_launches(False)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print("serve:", json.dumps({k: sstats[k] for k in (
@@ -404,14 +642,9 @@ def main() -> int:
         "first_batch_service_s", "pad_fraction", "combine_path",
         "pipeline_in_flight_peak", "batch_hist")}))
     print("main-path launches:", json.dumps(counts))
-    failures += [f"kernel {k} never launched on the main path"
-                 for k, v in counts.items() if v <= 0]
-    bad = [a.request_id for a in answers if a.rejected
-           or a.top_scores.shape != (50,)
-           or not np.all(np.isfinite(a.top_scores))
-           or np.any(a.top_scores < 0)
-           or float(a.top_scores.sum()) > 1.0 + 1e-4
-           or np.any((a.top_vertices < 0) | (a.top_vertices >= g.n))]
+    failures += [f"kernel {k} never launched on the sparse main path"
+                 for k in SPARSE_PATH if counts[k] <= 0]
+    bad = bad_answers(np, answers, g.n)
     if len(answers) != MAIN_REQUESTS or bad:
         failures.append(f"answers: {len(answers)} served, {len(bad)} bad")
     mass = np.array([a.top_scores.sum() for a in answers])
@@ -419,24 +652,121 @@ def main() -> int:
           f"max {mass.max():.6f}")
     phase("3c serve", t0)
 
+    # -- 3d: the dense route on the same graph and index ---------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    dcfg = ServiceConfig(
+        query=QueryConfig(t_iterations=2, top_k=50),
+        batching=BatchingConfig(max_batch=256, max_wait_s=0.05),
+        pipeline=PipelineConfig(depth=4),
+    )
+    svc_d = PPRService(g, index, dcfg, device=dev)
+    eng_d = svc_d.engine
+    t1 = time.perf_counter()
+    ell = eng_d.graph.ell()
+    torch.cuda.synchronize()
+    print(f"ELL view: rows {ell.rows_used} x {ell.k}, built in "
+          f"{time.perf_counter() - t1:.3f} s")
+    route_d = dict(frontier_path=svc_d.frontier_path,
+                   hub_split_degree=dcfg.query.hub_split_degree,
+                   gather_width=eng_d.effective_gather_width(),
+                   frontier_k=eng_d.frontier_k)
+    print("dense route:", json.dumps(route_d))
+    if route_d["frontier_path"] != "dense":
+        failures.append(f"dense route {route_d}")
+    ops.reset_launch_counts()
+    ops.capture_first_launches(True)
+    answers_d, dstats = svc_d.run_closed_loop(work)
+    torch.cuda.synchronize()
+    counts_d = ops.launch_counts()
+    captured = ops.captured_launches()
+    ops.capture_first_launches(False)
+    print(f"peak device memory (dense route): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print("serve dense:", json.dumps({k: dstats[k] for k in (
+        "served", "batches", "wall_s", "qps", "latency_p50", "latency_p99",
+        "first_batch_service_s", "pad_fraction", "combine_path",
+        "pipeline_in_flight_peak", "batch_hist")}))
+    print("dense-path launches:", json.dumps(counts_d))
+    batches = int(dstats["batches"])
+    want = {"ell_spmm": 2 * batches, "index_combine": batches}
+    failures += [f"dense path: {k} launched {counts_d[k]} times, want {v}"
+                 for k, v in want.items() if counts_d[k] != v]
+    bad = bad_answers(np, answers_d, g.n)
+    if len(answers_d) != MAIN_REQUESTS or bad:
+        failures.append(f"dense answers: {len(answers_d)} served, "
+                        f"{len(bad)} bad")
+    mass = np.array([a.top_scores.sum() for a in answers_d])
+    print(f"dense answer mass: min {mass.min():.6f} mean {mass.mean():.6f} "
+          f"max {mass.max():.6f}")
+    src256 = torch.tensor(work[:256], dtype=torch.int32, device=dev)
+    batch_ms = cuda_ms(torch, lambda: eng_d.query_topk(src256), max_reps=5)
+    out256 = eng_d.query_dense(src256)
+    topk_ms = cuda_ms(torch, lambda: topk_dense(out256, 50), max_reps=10)
+    sort_ms = cuda_ms(torch, lambda: torch.sort(
+        out256, dim=1, descending=True, stable=True), max_reps=3)
+    print(f"dense batch of 256: query_topk {batch_ms:.3f} ms, of which "
+          f"top-50 of [256, {g.n}] {topk_ms:.3f} ms "
+          f"({100 * topk_ms / batch_ms:.1f}%); a stable sort of the same "
+          f"rows {sort_ms:.3f} ms")
+    del out256
+    phase("3d serve, dense route", t0)
+
+    # -- 3e: the baselines against power iteration ---------------------------
+    t0 = time.perf_counter()
+    src64 = src256[:E_ROWS]
+    eng_pi = BatchQueryEngine(g, None, QueryConfig(
+        mode="pi", top_k=50, pi_iterations=100), device=dev)
+    truth = eng_pi.query_dense(src64)
+    stochastic = is_stochastic(truth, atol=1e-4)
+    print(f"pi: {int(stochastic.sum())} of {E_ROWS} rows stochastic; row "
+          f"mass {float(truth.sum(1).min()):.7f}.."
+          f"{float(truth.sum(1).max()):.7f}")
+    mass_off = float((truth.sum(1) - 1.0).abs().max())
+    if not stochastic.all() or not mass_off <= 1e-4:
+        failures.append(f"pi rows not stochastic (|mass - 1| {mass_off:.3e})")
+    candidates = {
+        "pi": eng_pi,
+        "fppr": BatchQueryEngine(g, index, QueryConfig(mode="fppr", top_k=50),
+                                 device=dev),
+        "verd (dense)": BatchQueryEngine(g, None, QueryConfig(
+            mode="verd", t_iterations=2, top_k=50), device=dev),
+        "powerwalk (dense)": eng_d,
+        "powerwalk (sparse)": eng,
+    }
+    quality = {}
+    for label, e in candidates.items():
+        v, i = e.query_topk(src64)
+        if not bool(torch.isfinite(v).all()) or bool((v < 0).any()):
+            failures.append(f"{label}: answers not finite and non-negative")
+        approx = densify(torch, v, i, g.n)
+        quality[label] = dict(
+            mean_rag=mean_rag(truth, approx, 50),
+            precision=float(precision_at_k(truth, approx, 50).mean()))
+        del approx
+    print("accuracy at k=50 against pi (first 64 requests):",
+          json.dumps(quality))
+    del truth, candidates
+    phase("3e baselines", t0)
+
     t0 = time.perf_counter()
     results = {}
-    for tag in sorted(captured):
+    for tag in sorted(captured_s) + sorted(captured):
         name, variant = tag.split("/")
-        args, kwargs = captured[tag]
+        args, kwargs = (captured_s.get(tag) or captured[tag])
         res = replay(torch, name, variant, args, kwargs)
         print(f"replay {tag}:", json.dumps(res))
         if not res["ok"]:
             failures.append(f"replay {tag}")
         results.setdefault(name, []).append(res)
-    del captured
+    del captured, captured_s
     phase("2b kernel vs plain, main-path inputs", t0)
 
     t0 = time.perf_counter()
-    index_equal, l1 = check_small_reference(torch, np, dev)
+    index_equal, l1, l1_dense = check_small_reference(torch, np, dev)
     print(f"small reference: index bit-equal {index_equal}, answers max L1 "
-          f"{l1:.3e}")
-    if not index_equal or not l1 <= 1e-5:
+          f"{l1:.3e} (sparse route), {l1_dense:.3e} (dense route)")
+    if not index_equal or not l1 <= 1e-5 or not l1_dense <= 1e-5:
         failures.append("small reference check")
     phase("4 small reference", t0)
 
@@ -446,16 +776,18 @@ def main() -> int:
         if not runs:
             failures.append(f"no main-path inputs captured for {name}")
             continue
-        # the streamed fold is the steady-state push (every iteration
-        # after the first); report it, with the other variants beside it
-        main = next((x for x in runs if x["variant"] == "streamed"), runs[0])
+        # the streamed fold and the later dense push are the steady-state
+        # push (every iteration after the first); report it, with the
+        # other variants beside it
+        main = next((x for x in runs if x["variant"] in ("streamed", "later")),
+                    runs[0])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts[name], max_abs_err=max(x["max_abs_err"]
-                                                   for x in runs),
+            launches=(counts if name in SPARSE_PATH else counts_d)[name],
+            max_abs_err=max(x["max_abs_err"] for x in runs),
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=None, variant=main["variant"],
+            library_ms=main["library_ms"], variant=main["variant"],
             variants={x["variant"]: dict(ms=x["ms"], plain_ms=x["plain_ms"],
                                          bound_ms=x["bound_ms"])
                       for x in runs},

@@ -100,6 +100,25 @@ def topk_compact(
     return vals, idxs
 
 
+def topk_dense(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` of dense rows: the ``k`` largest values per row,
+    ties by column ascending, indices int32 (``k <= x.shape[-1]``).
+
+    One ``torch.topk`` over unique int64 keys: the f32 value's bits mapped
+    to an order-preserving int32 in the high word, the complemented column
+    in the low word, so equal values rank by lower column first, exactly
+    on ties (cheaper than a stable descending sort of the whole row).
+    """
+    keys = x.contiguous().view(torch.int32).to(torch.int64)
+    keys ^= (keys >> 31) & 0x7FFFFFFF          # negative floats: flip order
+    keys <<= 32
+    keys |= 0xFFFFFFFF - torch.arange(x.shape[-1], dtype=torch.int64,
+                                      device=x.device)
+    top = torch.topk(keys, k, dim=-1, sorted=True).values
+    idx = 0xFFFFFFFF - (top & 0xFFFFFFFF)
+    return torch.gather(x, -1, idx), idx.to(torch.int32)
+
+
 def threshold_values(values: torch.Tensor, threshold: float) -> torch.Tensor:
     """Epsilon sparsification (paper Section 3.3): zero entries below eps."""
     if threshold <= 0.0:

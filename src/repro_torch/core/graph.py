@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
+from typing import Dict
 
 import numpy as np
 import torch
@@ -35,6 +36,9 @@ class Graph:
     out_deg: torch.Tensor
     n: int
     m: int
+    # derived views built once per graph (``ell``); not part of equality
+    _views: Dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
 
     @staticmethod
     def from_edges(src, dst, n: int | None = None, device="cuda") -> "Graph":
@@ -63,9 +67,61 @@ class Graph:
             m=int(src.shape[0]),
         )
 
+    @staticmethod
+    def from_dense(adj, device="cuda") -> "Graph":
+        src, dst = np.nonzero(np.asarray(adj))
+        return Graph.from_edges(src, dst, n=adj.shape[0], device=device)
+
     @property
     def device(self) -> torch.device:
         return self.row_ptr.device
+
+    @property
+    def dangling_mask(self) -> torch.Tensor:
+        """bool[n], True where the vertex has no out-edge."""
+        return self.out_deg == 0
+
+    @property
+    def inv_out_deg(self) -> torch.Tensor:
+        """f32[n] = 1/out_deg with 0 for dangling vertices."""
+        deg = self.out_deg.to(torch.float32)
+        return torch.where(deg > 0, 1.0 / torch.clamp(deg, min=1.0), 0.0)
+
+    @property
+    def edge_weight(self) -> torch.Tensor:
+        """f32[m] = 1/out_deg[src e], the CSR value array of ``A``."""
+        return self.inv_out_deg[self.src.long()]
+
+    def out_neighbors(self, v: int) -> np.ndarray:
+        lo, hi = int(self.row_ptr[v]), int(self.row_ptr[v + 1])
+        return self.col_idx[lo:hi].cpu().numpy()
+
+    def ell(self, k: int = 16):
+        """The row-chunked ELL pull view (``graphs.formats.to_ell_chunks``),
+        built on first use and kept for the graph's lifetime: every dense
+        push reads it, and at rmat(20) its build is a device sort of m
+        edges."""
+        from repro_torch.graphs.formats import to_ell_chunks
+
+        view = self._views.get(("ell", k))
+        if view is None:
+            view = self._views[("ell", k)] = to_ell_chunks(self, k=k)
+        return view
+
+    def dense_transition(self, source: int | None = None) -> np.ndarray:
+        """Dense float64 row-stochastic ``A`` with dangling rows sent to
+        ``source`` (left all-zero when ``source`` is None).  Tiny graphs
+        and oracles only."""
+        a = np.zeros((self.n, self.n), dtype=np.float64)
+        src = self.src.cpu().numpy()
+        dst = self.col_idx.cpu().numpy()
+        deg = self.out_deg.cpu().numpy().astype(np.float64)
+        np.add.at(a, (src, dst), 1.0 / deg[src])
+        if source is not None:
+            dang = self.dangling_mask.cpu().numpy()
+            a[dang, :] = 0.0
+            a[dang, source] = 1.0
+        return a
 
     def to(self, device) -> "Graph":
         dev = resolve_device(device)
@@ -89,3 +145,49 @@ def graph_fingerprint(graph: Graph) -> int:
     crc = zlib.crc32(np.ascontiguousarray(
         graph.col_idx.cpu().numpy().astype(np.int64)).tobytes(), crc)
     return crc & 0xFFFFFFFF
+
+
+def push_forward(graph: Graph, frontier: torch.Tensor) -> torch.Tensor:
+    """One substochastic push ``frontier @ A0`` (``f32[q, n]``): dangling
+    mass is dropped here (see :func:`dangling_mass`).  Runs through the
+    ``ell_spmm`` kernel wrapper over the graph's cached ELL view."""
+    from repro_torch.kernels import ops
+
+    return ops.ell_push(frontier, graph.ell())
+
+
+def dangling_mass(graph: Graph, frontier: torch.Tensor) -> torch.Tensor:
+    """Total frontier mass sitting on dangling vertices, shape ``[...]``."""
+    return torch.where(graph.dangling_mask, frontier, 0.0).sum(dim=-1)
+
+
+def transition_with_dangling(graph: Graph, frontier: torch.Tensor,
+                             sources: torch.Tensor) -> torch.Tensor:
+    """``frontier @ A`` where dangling rows of ``A`` point at ``sources``
+    (``int32[q]``, one personalization vertex per row)."""
+    pushed = push_forward(graph, frontier)
+    dm = dangling_mass(graph, frontier)
+    rows = torch.arange(frontier.shape[0], device=frontier.device)
+    return pushed.index_put_((rows, sources.long()), dm, accumulate=True)
+
+
+def transition_with_dangling_seeds(graph: Graph, frontier: torch.Tensor,
+                                   seeds: torch.Tensor,
+                                   weights: torch.Tensor) -> torch.Tensor:
+    """``frontier @ A`` where dangling rows of ``A`` point at each query's
+    seed distribution (``seeds int32[q, S]``, ``weights f32[q, S]``, pad
+    slots weight 0); duplicate seeds receive the sum of their shares."""
+    pushed = push_forward(graph, frontier)
+    dm = dangling_mass(graph, frontier)
+    wsum = torch.clamp(weights.sum(dim=-1, keepdim=True), min=1e-30)
+    share = dm[:, None] * (weights / wsum)
+    rows = torch.arange(frontier.shape[0], device=frontier.device)[:, None]
+    rows = rows.expand(seeds.shape)
+    return pushed.index_put_((rows, seeds.long()), share, accumulate=True)
+
+
+def reverse(graph: Graph) -> Graph:
+    """Graph with every edge reversed, on the same device."""
+    return Graph.from_edges(graph.col_idx.cpu().numpy(),
+                            graph.src.cpu().numpy(), n=graph.n,
+                            device=graph.device)

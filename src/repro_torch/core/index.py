@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch import rng
+from repro_torch.core import frontier
 from repro_torch.core.graph import Graph
 from repro_torch.core.walks import DEFAULT_C, simulate_walks_sparse
 from repro_torch.device import resolve_device
@@ -35,6 +36,14 @@ class PPRIndex:
     def nbytes(self) -> int:
         return self.n * self.l * 8
 
+    def lookup_dense(self, vertices: torch.Tensor) -> torch.Tensor:
+        """Densify rows: ``f32[len(vertices), n]`` (the FPPR answer)."""
+        rows = vertices.long()
+        vals, idxs = self.values[rows], self.indices[rows]
+        out = torch.zeros((rows.shape[0], self.n), dtype=vals.dtype,
+                          device=vals.device)
+        return out.scatter_add_(1, idxs.long(), vals)
+
     def to(self, device) -> "PPRIndex":
         dev = resolve_device(device)
         if self.values.device.type == dev.type and dev.index in (
@@ -43,6 +52,22 @@ class PPRIndex:
             return self
         return PPRIndex(values=self.values.to(dev),
                         indices=self.indices.to(dev), l=self.l, n=self.n)
+
+
+def truncate_topl(estimates: torch.Tensor, l: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keep the top-``l`` entries of each dense row (``lax.top_k``'s
+    order); negative values clamp to 0 and zero slots point at vertex 0."""
+    vals, idxs = frontier.topk_dense(estimates, l)
+    vals = torch.clamp(vals, min=0.0)
+    return vals, torch.where(vals > 0, idxs, 0).to(torch.int32)
+
+
+def index_from_dense(estimates: torch.Tensor, l: int) -> "PPRIndex":
+    """An index from precomputed dense vectors (tests and baselines)."""
+    vals, idxs = truncate_topl(estimates, l)
+    return PPRIndex(values=vals, indices=idxs, l=l,
+                    n=int(estimates.shape[1]))
 
 
 def normalize_sketch_to_index_rows(fp_v, fp_i, moves, dropped_counts, l: int):
@@ -114,8 +139,10 @@ def build_index(
     """
     if engine != "sparse":
         raise NotImplementedError(
-            f"engine={engine!r}: only the sparse engine is ported (the "
-            "legacy dense engine waits for the dense-route slice)"
+            f"engine={engine!r}: only the sparse engine is ported; the "
+            "legacy engine draws with jax.random.randint, which waits for "
+            "a bit-exact counterpart in repro_torch/rng.py (ROADMAP.md "
+            "queue 1)"
         )
     graph = graph.to(device)
     dev = graph.device

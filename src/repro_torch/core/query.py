@@ -1,11 +1,21 @@
-"""Online batch-query engine (paper Section 3.3), sparse route.
+"""Online batch-query engine (paper Section 3.3).
 
-Buffers a batch of PPR queries, runs them as one shared decomposition on
-``Q x K`` sparse state, and returns top-k answers.  Routing constants and
-the frontier-width estimate are the reference's (``repro.core.query``)
-verbatim, so the same config resolves to the same route and widths.
-Routes that resolve dense (small graphs, or the ``fppr``/``mcfp``/``pi``
-baselines) are not ported yet and raise ``NotImplementedError``.
+Buffers a batch of PPR queries, runs them as one shared decomposition, and
+returns top-k answers.  The strategies of the paper's Table 3:
+
+* ``powerwalk`` -- VERD iterations + index combine (the contribution),
+* ``verd``      -- VERD with no index (the paper's R = 0 column),
+* ``fppr``      -- direct index lookup,
+* ``pi``        -- power iteration (the accuracy reference),
+* ``mcfp``      -- online Monte-Carlo: not ported (it draws with
+  ``jax.random.randint``, which ``repro_torch.rng`` has no bit-exact
+  counterpart of yet) and raises ``NotImplementedError``.
+
+The VERD modes run on ``Q x K`` sparse state or on dense ``[Q, n]`` state
+(small graphs, hub-heavy graphs without hub splitting); the baselines run
+dense.  Routing constants and the frontier-width estimate are the
+reference's (``repro.core.query``) verbatim, so the same config resolves
+to the same route and widths.
 """
 
 from __future__ import annotations
@@ -18,7 +28,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import power_iteration as pi_mod
 from repro_torch.core import verd as verd_mod
+from repro_torch.core.frontier import topk_dense
 from repro_torch.core.graph import Graph
 from repro_torch.core.index import PPRIndex
 from repro_torch.core.walks import DEFAULT_C
@@ -28,10 +40,10 @@ AUTO_SPARSE_MIN_N = 1 << 14
 
 SCATTER_COMBINE_BUDGET_BYTES = 256 * 1024 * 1024
 
-_DENSE_ROUTE = (
-    "the dense [Q, n] route (small graphs, frontier_path='dense', and the "
-    "fppr/mcfp/pi baselines) is not ported yet: it is the dense-route slice "
-    "in ROADMAP.md queue 1"
+_MCFP = (
+    "mode 'mcfp' (online Monte-Carlo) is not ported: it draws with "
+    "jax.random.randint, and repro_torch/rng.py has no bit-exact "
+    "counterpart of it yet (the next slice, ROADMAP.md queue 1)"
 )
 
 
@@ -47,9 +59,19 @@ def normalize_seed_weights(weights: torch.Tensor) -> torch.Tensor:
     return w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-30)
 
 
+def _fppr_lookup(index: PPRIndex, sources, seed_w) -> torch.Tensor:
+    """fppr dense answers: a plain row lookup, or for seed sets the
+    weighted sum of each seed's index row (exact by PPR linearity)."""
+    if seed_w is None:
+        return index.lookup_dense(sources)
+    q, s = sources.shape
+    rows = index.lookup_dense(sources.reshape(-1)).reshape(q, s, -1)
+    return (seed_w[:, :, None] * rows).sum(dim=1)
+
+
 @dataclasses.dataclass
 class QueryConfig:
-    mode: str = "powerwalk"       # powerwalk | verd (fppr | mcfp | pi: dense)
+    mode: str = "powerwalk"       # powerwalk | verd | fppr | pi (| mcfp)
     t_iterations: int = 2
     c: float = DEFAULT_C
     top_k: int = 200
@@ -75,6 +97,8 @@ class BatchQueryEngine:
         self.index = None if index is None else index.to(self.device)
         self.config = config or QueryConfig()
         cfg = self.config
+        if cfg.mode == "mcfp":
+            raise NotImplementedError(_MCFP)
         if cfg.mode in ("powerwalk", "fppr") and index is None:
             raise ValueError(f"mode {cfg.mode} requires a PPR index")
         if index is not None and index.n < graph.n:
@@ -152,16 +176,12 @@ class BatchQueryEngine:
     def effective_top_k(self) -> int:
         return max(1, min(self.config.top_k, self.graph.n))
 
-    def _require_sparse(self) -> None:
-        if not self.uses_sparse_path():
-            raise NotImplementedError(_DENSE_ROUTE)
-
     def _to_device(self, x, dtype) -> torch.Tensor:
         """Host arrays go up through pinned memory with a non-blocking
         copy: a pageable copy would first wait for the whole stream, which
         serializes the serving pipeline's dispatches."""
-        if isinstance(x, torch.Tensor) and x.device == self.device:
-            return x.to(dtype)
+        if isinstance(x, torch.Tensor) and x.device.type == self.device.type:
+            return x.to(self.device, dtype)
         t = torch.as_tensor(np.asarray(x)).to(dtype)
         if self.device.type == "cuda":
             t = t.pin_memory()
@@ -192,36 +212,66 @@ class BatchQueryEngine:
             hub_split_degree=cfg.hub_split_degree, seed_weights=seed_w,
         )
 
+    def query_dense(self, sources, *, key=None, weights=None
+                    ) -> torch.Tensor:
+        """Dense ``f32[Q, n]`` answers of the configured mode (``key`` is
+        accepted for the reference's signature: no ported mode draws
+        randomness).  ``weights`` switches to seed-set rows (linear modes
+        only: ``pi`` raises)."""
+        del key
+        cfg = self.config
+        if weights is not None and cfg.mode == "pi":
+            raise ValueError("mode 'pi' does not support seed-set queries")
+        sources, seed_w = self._inputs(sources, weights)
+        g = self.graph
+        if cfg.mode in ("powerwalk", "verd"):
+            return verd_mod.verd_query(
+                g, sources, self.index if cfg.mode == "powerwalk" else None,
+                t=cfg.t_iterations, c=cfg.c, threshold=cfg.threshold,
+                seed_weights=seed_w)
+        if cfg.mode == "fppr":
+            return _fppr_lookup(self.index, sources, seed_w)
+        if cfg.mode == "pi":
+            return pi_mod.power_iteration(g, sources,
+                                          n_iter=cfg.pi_iterations, c=cfg.c)
+        raise ValueError(f"unknown mode {cfg.mode!r}")
+
     def query_topk(self, sources, *, key=None, weights=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Top-k answers ``(values f32[Q, k], indices int32[Q, k])`` on the
-        sparse route with the sparse combine (``key`` is accepted for the
-        reference's signature; the sparse route draws no randomness)."""
-        del key
-        self._require_sparse()
-        sf = self.query_sparse(sources, out_k=self.effective_top_k,
-                               weights=weights)
-        return sf.values, sf.indices
+        """Top-k answers ``(values f32[Q, k], indices int32[Q, k])``: the
+        sparse route with the sparse combine, or the dense answers' top-k
+        in ``lax.top_k``'s order (ties by vertex ascending)."""
+        k = self.effective_top_k
+        if self.uses_sparse_path():
+            sf = self.query_sparse(sources, out_k=k, weights=weights)
+            vals, idx = sf.values, sf.indices
+        else:
+            vals, idx = topk_dense(
+                self.query_dense(sources, key=key, weights=weights), k)
+        if vals.shape[-1] != k or idx.shape[-1] != k:
+            raise AssertionError((tuple(vals.shape), tuple(idx.shape), k))
+        return vals, idx
 
     def dispatch_key(self, seq: int) -> int:
         """Per-dispatch sequence number (the reference folds it into the
-        Monte-Carlo key; the sparse route is deterministic)."""
+        Monte-Carlo key; every ported mode is deterministic)."""
         return seq
 
     def query_topk_async(self, sources, *, key=None, weights=None, out=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-k answers as tensors whose work is enqueued on the current
         CUDA stream, with no host sync on the way (the degree cap is
-        resolved once per engine).  Routes the final combine like the
-        reference: scatter while the ``[Q, n]`` scratch fits the budget,
-        else the ``index_combine_sparse`` kernel.  ``out`` (donated result
-        buffers) is not ported."""
-        del key
+        resolved once per engine, the ELL view once per graph).  The dense route
+        is :meth:`query_topk`'s; the sparse route routes the final combine
+        like the reference: scatter while the ``[Q, n]`` scratch fits the
+        budget, else the ``index_combine_sparse`` kernel.  ``out`` (donated
+        result buffers) is not ported."""
         if out is not None:
             raise NotImplementedError(
                 "donated result buffers (reuse_buffers) are not ported yet")
-        self._require_sparse()
         cfg = self.config
+        if not self.uses_sparse_path():
+            return self.query_topk(sources, key=key, weights=weights)
         sources, seed_w = self._inputs(sources, weights)
         k = self.effective_top_k
         if cfg.mode == "powerwalk" and self.uses_scatter_combine(

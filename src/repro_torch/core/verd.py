@@ -1,22 +1,32 @@
-"""Vertex-Centric Decomposition on sparse state (paper Algorithm 4).
+"""Vertex-Centric Decomposition (paper Algorithm 4 + Section 3.3 batching).
 
-One VERD iteration on ``Q x K`` sparse frontiers: ``S <- S + c F``, ``F <-
-(1-c) F A`` with dangling rows of ``A`` pointing back at each query's
-seeds; after ``t`` iterations ``p = S + F P_hat`` against the top-L index.
-The sparse half of ``repro.core.verd`` (``verd.py:189-700``): the push
-runs through the ``frontier_push`` kernel wrapper and the final sparse
-combine through ``index_combine_sparse``; the scatter combine stays plain
-PyTorch, as the reference computes it outside any kernel.
+One VERD iteration: ``S <- S + c F``, ``F <- (1-c) F A`` with dangling rows
+of ``A`` pointing back at each query's seeds; after ``t`` iterations ``p =
+S + F P_hat`` against the top-L index.  Two routes, as in
+``repro.core.verd``:
+
+* dense ``[Q, n]`` state (:func:`verd_iterate`, :func:`combine_with_index`,
+  :func:`verd_query`): every push runs through the ``ell_spmm`` kernel
+  wrapper and the combine through the dense ``index_combine``;
+* sparse ``Q x K`` state (``verd_iterate_sparse`` and below): the push runs
+  through ``frontier_push`` and the final sparse combine through
+  ``index_combine_sparse``; the scatter combine stays plain PyTorch, as the
+  reference computes it outside any kernel.
+
+:func:`recursive_decomp` (Algorithm 3, float64 on the host) is the oracle
+of the Theorem 2.3 equivalence.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import frontier
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import (Graph, transition_with_dangling,
+                                    transition_with_dangling_seeds)
 from repro_torch.core.index import PPRIndex
 from repro_torch.core.walks import DEFAULT_C
 from repro_torch.kernels import ops as kernel_ops
@@ -32,6 +42,76 @@ def dangling_seed_candidates(dm, sources, seed_weights, *, c: float):
     wsum = torch.clamp(seed_weights.sum(dim=1, keepdim=True), min=1e-30)
     share = dm[:, None] * (seed_weights / wsum)
     return (1.0 - c) * share, sources.to(torch.int32)
+
+
+def verd_iterate(graph: Graph, sources, seed_weights=None, *, t: int,
+                 c: float = DEFAULT_C, threshold: float = 0.0):
+    """``t`` VERD iterations on dense state; returns ``(s, f)``, both
+    ``f32[Q, n]``.  ``threshold`` drops frontier entries below epsilon
+    after each push.  With ``seed_weights f32[Q, S]``, ``sources int32[Q,
+    S]`` seeds each row with its weighted one-hot combination (duplicate
+    seeds add) and dangling mass restarts at the seed distribution."""
+    q = sources.shape[0]
+    dev = sources.device
+    f = torch.zeros((q, graph.n), dtype=torch.float32, device=dev)
+    rows = torch.arange(q, device=dev)
+    if seed_weights is None:
+        f[rows, sources.long()] = 1.0
+    else:
+        f.index_put_((rows[:, None].expand(sources.shape), sources.long()),
+                     seed_weights.to(torch.float32), accumulate=True)
+    s = torch.zeros_like(f)
+    for _ in range(t):
+        s.add_(f, alpha=c)
+        if seed_weights is None:
+            f = transition_with_dangling(graph, f, sources)
+        else:
+            f = transition_with_dangling_seeds(graph, f, sources,
+                                               seed_weights)
+        f.mul_(1.0 - c)
+        if threshold > 0.0:
+            f = torch.where(f >= threshold, f, 0.0)
+    return s, f
+
+
+def combine_with_index(s, f, index: PPRIndex):
+    """Algorithm 4 line 10, ``p~ = s + sum_v f(v) * p_hat_v``, through the
+    dense ``index_combine`` kernel wrapper (an index may hold more rows
+    than the frontier has columns; the extra rows are never touched)."""
+    return kernel_ops.index_combine(s, f, index.values, index.indices)
+
+
+def verd_query(graph: Graph, sources, index: Optional[PPRIndex], *, t: int,
+               c: float = DEFAULT_C, threshold: float = 0.0,
+               seed_weights=None):
+    """Full online query on dense state: iterate, then combine (``index
+    None`` returns ``s``, the paper's R = 0 mode)."""
+    s, f = verd_iterate(graph, sources, seed_weights, t=t, c=c,
+                        threshold=threshold)
+    if index is None:
+        return s
+    return combine_with_index(s, f, index)
+
+
+def recursive_decomp(graph: Graph, u: int, t: int, base_vectors,
+                     c: float = DEFAULT_C) -> np.ndarray:
+    """Literal Algorithm 3 in float64 on the host (oracle only).
+
+    ``base_vectors[v]`` plays ``p_hat_v``: exact PPR vectors check Theorem
+    2.2, index rows Theorem 2.3.  A dangling vertex has an artificial edge
+    to the recursion root, itself, so ``p_v = e_v``.
+    """
+    if t == 0:
+        return np.asarray(base_vectors[u], dtype=np.float64)
+    out_nbrs = graph.out_neighbors(u)
+    e_u = np.zeros(graph.n, dtype=np.float64)
+    e_u[u] = 1.0
+    if len(out_nbrs) == 0:
+        return e_u
+    acc = np.zeros(graph.n, dtype=np.float64)
+    for v in out_nbrs:
+        acc += recursive_decomp(graph, int(v), t - 1, base_vectors, c)
+    return c * e_u + (1.0 - c) / len(out_nbrs) * acc
 
 
 def resolve_degree_cap(graph: Graph) -> int:

@@ -24,7 +24,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "walk_step": "walk_step.cu",
     "frontier_push": "frontier_push.cu",
-    "index_combine": "index_combine.cu",
+    "index_combine_sparse": "index_combine.cu",
+    "index_combine": "index_combine_dense.cu",
+    "ell_spmm": "ell_spmm.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

@@ -1,4 +1,12 @@
-"""``index_combine_sparse``: ``s + f @ P_hat`` on sparse state, top-k.
+"""The index combine ``s + f @ P_hat`` (paper Algorithm 4 line 10).
+
+Dense (``index_combine``): ``out[q, :] = s[q, :] + sum_v f[q, v] *
+scatter(vals[v, :] at idx[v, :])`` on ``[Q, n]`` state.
+:func:`index_combine_plain` is the plain PyTorch version, chunked over
+vertices as ``verd.combine_with_index`` is; :func:`index_combine_cuda`
+launches ``csrc/index_combine_dense.cu``, which skips the zeros of ``f``.
+
+Sparse (``index_combine_sparse``): on sparse state, then top-k.
 
 Gathers the ``K`` touched ``[L]`` index rows of each query, scales them by
 the frontier mass, appends them after the ``s`` entries and
@@ -18,6 +26,12 @@ import torch
 from repro_torch.core import frontier as F
 from repro_torch.kernels import build
 
+# elements of one [Q, chunk, L] contribution block of the plain version
+PLAIN_BLOCK_ELEMS = 1 << 25
+
+_DENSE_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 2)
+
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -25,6 +39,56 @@ _ARGTYPES = (
      ctypes.c_int]
     + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
 )
+
+
+def index_combine_plain(s, f, vals, idx):
+    """Dense combine ``f32[Q, n]`` from ``s f32[Q, n]``, ``f f32[Q, nv]``
+    and index rows ``vals f32[nv, L]`` / ``idx int32[nv, L]``; columns
+    outside ``[0, n)`` are dropped.  Scatter-adds in vertex chunks so the
+    ``[Q, chunk, L]`` contributions stay bounded."""
+    q, n = s.shape
+    nv, l = vals.shape
+    out = s.clone()
+    step = max(1, PLAIN_BLOCK_ELEMS // max(q * l, 1))
+    for v0 in range(0, nv, step):
+        contrib = f[:, v0:v0 + step, None] * vals[None, v0:v0 + step]
+        cols = idx[v0:v0 + step].reshape(1, -1).long().expand(q, -1)
+        keep = (cols >= 0) & (cols < n)
+        out.scatter_add_(1, torch.where(keep, cols, 0),
+                         torch.where(keep, contrib.reshape(q, -1), 0.0))
+    return out
+
+
+def index_combine_cuda(s, f, vals, idx):
+    """Launch the dense combine on the current stream (no sync)."""
+    dev = f.device
+    for name, t, dt in (
+        ("s", s, torch.float32), ("f", f, torch.float32),
+        ("vals", vals, torch.float32), ("idx", idx, torch.int32),
+    ):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(
+                f"index_combine: {name} must be a contiguous {dt} tensor on "
+                f"{dev}, got {t.dtype} on {t.device}")
+    q, n = s.shape
+    nv, l = vals.shape
+    if f.shape != (q, nv) or idx.shape != (nv, l):
+        raise ValueError("index_combine: mismatched shapes")
+    if q >= 65536 or max(q * n, q * nv, nv * l) >= 2 ** 31:
+        raise ValueError(f"index_combine: shape {q} x {n} too large")
+    if s.data_ptr() % 16:   # the copy reads s in 16 B words
+        s = s.clone()
+    out = torch.empty((q, n), dtype=torch.float32, device=dev)
+    lib = build.load("index_combine")
+    fn = lib.index_combine_dense_launch
+    fn.argtypes = _DENSE_ARGTYPES
+    fn.restype = ctypes.c_int
+    status = fn(
+        s.data_ptr(), f.data_ptr(), vals.data_ptr(), idx.data_ptr(), q, n,
+        nv, l, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check_launch(status, "index_combine")
+    return out
 
 
 def index_combine_sparse_plain(sv, si, fv, fi, vals, idx, *, k_out: int):
@@ -55,7 +119,7 @@ def index_combine_sparse_cuda(sv, si, fv, fi, vals, idx, *, k_out: int):
         raise ValueError("index_combine_sparse: mismatched shapes")
     if k_out < 1 or n < 1:
         raise ValueError("index_combine_sparse: needs k_out >= 1 and n >= 1")
-    lib = build.load("index_combine")
+    lib = build.load("index_combine_sparse")
     bound = s_w + k * l
     g_p = build.next_pow2(bound) if bound > lib.pw_smem_candidates() else 1
     if q * g_p >= 2 ** 31 or bound >= 2 ** 31:

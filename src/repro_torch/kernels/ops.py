@@ -9,8 +9,11 @@ show that its main path went through the kernels.
 
 ``capture_first_launches`` keeps a reference to the arguments of each
 kernel's first launch (per variant: ``frontier_push`` records its one-shot
-and its streamed fold apart), so a check can replay exactly the inputs the
-main path gave it.
+and its streamed fold apart; ``ell_spmm`` records its first launch since
+the last reset and the one after it, which in a dense batch are the push
+of the one-hot sources and the push of a frontier spread over thousands
+of vertices), so a check can replay exactly the inputs the main path gave
+it.
 """
 
 from __future__ import annotations
@@ -20,11 +23,13 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import ell_spmm as _ell
 from repro_torch.kernels import frontier_push as _push
 from repro_torch.kernels import index_combine as _comb
 from repro_torch.kernels import walk_step as _walk
 
-KERNELS = ("walk_step", "frontier_push", "index_combine_sparse")
+KERNELS = ("walk_step", "frontier_push", "index_combine_sparse", "ell_spmm",
+           "index_combine")
 
 _launches: collections.Counter = collections.Counter()
 _captured: Optional[Dict[str, tuple]] = None
@@ -118,3 +123,31 @@ def index_combine_sparse(sv, si, fv, fi, vals, idx, *, k_out: int):
     _launched("index_combine_sparse", args, dict(k_out=k_out))
     return out
 
+
+def ell_push(frontier, ell):
+    """``frontier @ A0`` through the chunked ELL view (``f32[Q, n] ->
+    f32[Q, n]``), each vertex's rows folded; any ``Q``."""
+    args = (frontier.to(torch.float32).contiguous(), ell.nbr, ell.weight,
+            ell.row2vertex, ell.vertex_rows)
+    kwargs = dict(rows_used=ell.rows_used)
+    if not _route("ell_spmm", frontier):
+        return _ell.ell_spmm_plain(*args, **kwargs)
+    variant = "first" if _launches["ell_spmm"] == 0 else "later"
+    out = _ell.ell_spmm_cuda(*args, **kwargs)
+    _launched("ell_spmm", args, kwargs, variant)
+    return out
+
+
+def index_combine(s, f, vals, idx):
+    """Dense ``s + f @ P_hat``: ``s f32[Q, n]``, ``f f32[Q, nv]`` and an
+    index of at least ``nv`` rows (rows past ``nv`` are never touched)."""
+    nv = f.shape[1]
+    if vals.shape[0] < nv:
+        raise ValueError(f"index_combine: index has {vals.shape[0]} rows "
+                         f"< {nv} frontier columns")
+    args = (s.contiguous(), f.contiguous(), vals[:nv], idx[:nv])
+    if not _route("index_combine", f):
+        return _comb.index_combine_plain(*args)
+    out = _comb.index_combine_cuda(*args)
+    _launched("index_combine", args, {})
+    return out

@@ -1,12 +1,15 @@
 """PPR serving launcher (the paper's online phase as a process).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        [--n-log2 11] [--r 100] [--t 2] [--queries 2000] [--device cuda]
+        [--n-log2 11] [--r 100] [--t 2] [--queries 2000] \
+        [--mode powerwalk|verd|fppr|pi] [--device cuda|cpu]
 
-Builds the index on the device, starts the batched service, runs a
-closed-loop workload and prints Table-3-style latency/throughput.  Only
-the powerwalk mode on the sparse route is ported; graphs below
-``AUTO_SPARSE_MIN_N`` vertices route dense and raise.
+Builds the index on the device (for the modes that read one: powerwalk
+and fppr), starts the batched service, runs a closed-loop workload and
+prints Table-3-style latency/throughput.  Graphs below 2**14 vertices, and
+hub-heavy graphs at ``--hub-split-degree 0``, serve on the dense route.
+``--mode mcfp`` is accepted, as in the reference, and raises
+``NotImplementedError``: online Monte-Carlo is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,10 +28,11 @@ from repro_torch.serving.batching import BatchingConfig
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--n-log2", type=int, default=14)
+    ap.add_argument("--n-log2", type=int, default=11)
     ap.add_argument("--r", type=int, default=100)
     ap.add_argument("--t", type=int, default=2)
-    ap.add_argument("--mode", default="powerwalk", choices=["powerwalk"])
+    ap.add_argument("--mode", default="powerwalk",
+                    choices=["powerwalk", "verd", "fppr", "mcfp", "pi"])
     ap.add_argument("--queries", type=int, default=2000)
     ap.add_argument("--max-batch", type=int, default=256)
     ap.add_argument("--top-k", type=int, default=50)
@@ -38,11 +42,13 @@ def main(argv=None):
 
     g = synthetic.rmat(args.n_log2, avg_deg=10.0, seed=0, device=args.device)
     print(f"graph n={g.n} m={g.m}; building index R={args.r}")
-    index, stats = build_index(
-        g, r=args.r, l=max(32, int(args.r / 0.15)), key=rng.prng_key(0),
-        source_batch=512, device=args.device)
-    print(f"index: {stats['nbytes'] >> 20} MiB "
-          f"(dropped {stats['drop_fraction']:.3f})")
+    index = None
+    if args.mode in ("powerwalk", "fppr"):
+        index, stats = build_index(
+            g, r=args.r, l=max(32, int(args.r / 0.15)), key=rng.prng_key(0),
+            source_batch=512, device=args.device)
+        print(f"index: {stats['nbytes'] >> 20} MiB "
+              f"(dropped {stats['drop_fraction']:.3f})")
     svc = PPRService(
         g, index,
         ServiceConfig(
@@ -55,7 +61,8 @@ def main(argv=None):
     )
     workload = np.random.default_rng(0).integers(0, g.n, size=args.queries)
     _, stats = svc.run_closed_loop(workload)
-    print(f"mode={args.mode}: {stats['served']:.0f} queries "
+    print(f"mode={args.mode} route={stats['frontier_path']}: "
+          f"{stats['served']:.0f} queries "
           f"{stats['wall_s']:.2f}s  {stats['qps']:.0f} q/s  "
           f"mean_latency {stats['mean_latency'] * 1e3:.1f}ms")
 

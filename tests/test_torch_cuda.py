@@ -65,7 +65,32 @@ def test_kernel_bit_equal_on_card(cuda, kernel):
 @pytest.mark.cuda
 def test_build_and_query_on_card_match_the_cpu(cuda):
     """The whole slice on the card against its plain CPU path: the index
-    bit for bit, the answers within 1e-5 L1."""
-    index_equal, l1 = chip_smoke.check_small_reference(torch, np, cuda)
+    bit for bit, the answers of the sparse and the dense route within 1e-5
+    L1."""
+    index_equal, l1, l1_dense = chip_smoke.check_small_reference(
+        torch, np, cuda)
     assert index_equal
     assert l1 <= 1e-5
+    assert l1_dense <= 1e-5
+
+
+@pytest.mark.cuda
+def test_dense_push_and_combine_launch_their_kernels(cuda):
+    """On CUDA tensors the dense wrappers launch their kernels, once per
+    call, and agree with the plain versions on the CPU."""
+    r = np.random.default_rng(1)
+    g = tsyn.rmat(10, avg_deg=6.0, seed=2, device=cuda)
+    f = r.random((5, g.n)).astype(np.float32)
+    vals = r.random((g.n + 3, 8)).astype(np.float32)
+    idx = r.integers(0, g.n, (g.n + 3, 8)).astype(np.int32)
+    tops.reset_launch_counts()
+    push = tops.ell_push(torch.from_numpy(f).to(cuda), g.ell())
+    comb = tops.index_combine(*(torch.from_numpy(x).to(cuda)
+                                for x in (f, f, vals, idx)))
+    counts = tops.launch_counts()
+    assert counts["ell_spmm"] == 1 and counts["index_combine"] == 1
+    want = tops.ell_push(torch.from_numpy(f), g.to("cpu").ell())
+    assert torch.allclose(push.cpu(), want, rtol=1e-5, atol=1e-6)
+    want = tops.index_combine(*(torch.from_numpy(x)
+                                for x in (f, f, vals, idx)))
+    assert torch.allclose(comb.cpu(), want, rtol=1e-5, atol=1e-6)

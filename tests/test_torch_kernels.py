@@ -21,6 +21,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import convert
 from repro_torch.core import verd as tverd
+from repro_torch.graphs import synthetic as tsyn
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -256,10 +257,16 @@ def test_index_combine_sparse_empty_frontier():
 def test_launch_counters_start_at_zero_and_reset():
     tops.reset_launch_counts()
     assert tops.launch_counts() == {
-        "walk_step": 0, "frontier_push": 0, "index_combine_sparse": 0}
+        "walk_step": 0, "frontier_push": 0, "index_combine_sparse": 0,
+        "ell_spmm": 0, "index_combine": 0}
 
 
 def test_wrappers_refuse_unsupported_devices():
     t = torch.zeros(2, device="meta")
     with pytest.raises(ValueError):
         tops.walk_step(t.int(), t.int(), t, t.int(), t.int(), t.int())
+    with pytest.raises(ValueError):
+        tops.index_combine(t[None], t[None], t[:, None], t[:, None].int())
+    ell = tsyn.cycle(3, device="cpu").ell()
+    with pytest.raises(ValueError):
+        tops.ell_push(torch.zeros((1, 3), device="meta"), ell)

@@ -83,6 +83,18 @@ def test_serve_cli_runs_on_cpu(capsys):
     assert "48 queries" in out and "q/s" in out
 
 
+def test_serve_cli_runs_the_dense_route_on_cpu(capsys):
+    """At the reference's default n = 2,048 every mode serves dense; verd
+    needs no index.  mcfp is accepted and raises, naming its slice."""
+    serve.main(["--mode", "verd", "--queries", "40", "--max-batch", "16",
+                "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "n=2048" in out and "route=dense: 40 queries" in out
+    with pytest.raises(NotImplementedError, match="randint"):
+        serve.main(["--mode", "mcfp", "--n-log2", "6", "--queries", "4",
+                    "--device", "cpu"])
+
+
 def test_convert_round_trips_reference_state():
     jg = jsyn.rmat(7, avg_deg=4.0, seed=9)
     tg = convert.graph_from_arrays(jg.row_ptr, jg.col_idx, jg.src,

@@ -209,17 +209,6 @@ def test_engine_route_and_widths_match(n_log2, kw):
     assert te.effective_top_k == je.effective_top_k
 
 
-def test_dense_route_is_not_ported(setup):
-    _, tg, _, tidx = setup
-    for cfg in (tquery.QueryConfig(top_k=10),                 # n < 16k: dense
-                tquery.QueryConfig(mode="fppr", frontier_path="sparse")):
-        e = tquery.BatchQueryEngine(tg, tidx, cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="dense"):
-            e.query_topk(np.arange(3))
-        with pytest.raises(NotImplementedError, match="dense"):
-            e.query_topk_async(np.arange(3))
-
-
 def test_sparse_frontier_helpers(setup):
     _, tg, _, _ = setup
     f = TF.from_sources(torch.tensor([1, 2]), tg.n)
