@@ -5,9 +5,10 @@
 
 Phases, each timed and printed:
 
-1. build the five CUDA kernels (``walk_step``, ``frontier_push``,
-   ``index_combine_sparse``, ``ell_spmm``, ``index_combine``) from
-   ``src/repro_torch/kernels/csrc`` with nvcc, one process per source;
+1. build the six CUDA kernels (``walk_step``, ``frontier_push``,
+   ``index_combine_sparse``, ``ell_spmm``, ``index_combine``,
+   ``sharded_frontier_push``) from ``src/repro_torch/kernels/csrc`` with
+   nvcc, one process per source, all started together;
 2a. hold each kernel against its plain PyTorch version on the card, on
    synthetic inputs whose masses are multiples of 2**-10 (and power-of-two
    degrees or weights), so every f32 sum is exact in any order and the
@@ -28,20 +29,36 @@ Phases, each timed and printed:
    prints mean RAG and precision at k = 50 against ``pi``; the ``pi`` rows
    must be stochastic, each summing to 1 within 1e-4, and every answer
    finite and non-negative;
+3f. the distributed engine on the same graph, with the counters zeroed
+   just before and read just after: ``build_index_sharded`` (r = 100,
+   respawn mode) on a 2 x 4 ``ShardMesh``, whose first chunk of every
+   shard must equal the single-device ``r_splits=2`` build of that chunk
+   bit for bit; then the sparse-exchange VERD tile step on four stacked
+   shards with 3b's index, answering the same 16,384 requests in 64 tiles
+   of 256: ``sharded_frontier_push`` must launch ``t * ep`` = 8 times per
+   tile and every answer be finite, non-negative, of mass at most 1 +
+   1e-4; prints ms per tile, requests per second, peak memory, the
+   device time by kernel over four more tiles (``torch.profiler``), the
+   computed wire bytes per iteration, and RAG and precision at k = 50
+   against 3e's ``pi``;
 2b. replay the inputs of each kernel's first launch on its path (and of
-   ``ell_spmm``'s second, a batch's push of a spread-out frontier) through
-   the kernel and its plain version: top-k outputs' sorted values within
-   1e-5 relative and at least 99% of indices equal (summation order may
-   differ, which can swap ties at the top-k edge), dense outputs within
-   1e-5 L1 per row and 1e-5 relative per entry, or, for an entry of many
-   terms, within the f32 bound on two summation orders of its own count of
-   terms (:func:`dense_agree`), ``walk_step`` bit-equal.  Times each
-   kernel, its plain version and, where one exists, one PyTorch sparse
-   product of the same function, with CUDA events;
+   ``ell_spmm``'s second, a batch's push of a spread-out frontier, and of
+   ``sharded_frontier_push``'s first second-iteration launch) through the
+   kernel and its plain version: top-k outputs' sorted values within 1e-5
+   relative and at least 99% of indices equal (summation order may differ,
+   which can swap ties at the top-k edge), dense outputs within 1e-5 L1
+   per row and 1e-5 relative per entry, or, for an entry of many terms,
+   within the f32 bound on two summation orders of its own count of terms
+   (:func:`dense_agree`), ``walk_step`` bit-equal.  Times each kernel, its
+   plain version and, where one exists, one PyTorch sparse product of the
+   same function, with CUDA events;
 4. a small reference check: ``rmat(14)`` built and served on the card and
    through the plain CPU path from the same key, on the sparse and on the
    dense route: the index bit-equal, the answers within 1e-5 L1 on
-   densified rows.
+   densified rows; and on the distributed engine: the sharded build
+   bit-equal, the sparse tile step within 1e-5 L1, and on the card the
+   dense exchange within 1e-4 L1 of the sparse exchange at covering
+   widths.
 
 The checks of phases 2a and 4 are also the ``cuda``-marked tests of
 ``tests/test_torch_cuda.py``, which call the functions here.
@@ -81,9 +98,15 @@ KERNEL_SOURCES = {
                  "src/repro/kernels/ell_spmm.py:56"),
     "index_combine": ("src/repro_torch/kernels/csrc/index_combine_dense.cu",
                       "src/repro/kernels/index_combine.py:52"),
+    "sharded_frontier_push": (
+        "src/repro_torch/kernels/csrc/sharded_frontier_push.cu",
+        "src/repro/kernels/frontier_push.py:265"),
 }
 SPARSE_PATH = ("walk_step", "frontier_push", "index_combine_sparse")
 DENSE_PATH = ("ell_spmm", "index_combine")
+DIST_PATH = ("walk_step", "sharded_frontier_push")
+DIST_EP = 4                    # model shards of phase 3f's tile step
+DIST_DATA = 2                  # data replicas of phase 3f's build
 
 
 def phase(name, t0):
@@ -109,6 +132,29 @@ def cuda_ms(torch, fn, budget_ms=300.0, max_reps=50):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_time_split(torch, fn, top=8):
+    """Device time of one call of ``fn`` by kernel name (``torch.profiler``
+    over CPU and CUDA activity): ``(wall_ms, device_ms, [(name, ms), ...])``
+    with the ``top`` kernels by time, or ``device_ms`` 0.0 where the trace
+    shows no device time.  The wall time includes the profiler's own
+    overhead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total / 1e3)
+               for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and e.self_device_time_total > 0]
+    kernels.sort(key=lambda x: -x[1])
+    return wall_ms, sum(ms for _, ms in kernels), kernels[:top]
 
 
 def bits_equal(torch, a, b):
@@ -277,12 +323,54 @@ def synthetic_index_combine_dense(torch, np, dev):
                       comb_k.index_combine_plain(*args))
 
 
+def synthetic_sharded_frontier_push(torch, np, dev):
+    """Four shards of a graph with power-of-two degrees: hubs of 4096 edges
+    in every shard (a slot spanning many sub-slots, rows beyond the
+    kernel's shared memory), dangling vertices and pad rows, slabs padded
+    past their last edge, zero slots and empty rows; ``wire_k`` 8 (ties at
+    the cut), 64 and 2048 = ``n_shard`` (owners with fewer entries)."""
+    from repro_torch.core.distributed_engine import (DistConfig,
+                                                     build_sharded_graph)
+    from repro_torch.core.graph import Graph
+    from repro_torch.kernels import frontier_push as push_k
+
+    r = np.random.default_rng(12)
+    n, ep = 8000, 4
+    ns = 2048                                   # n pads to 8192
+    degs = r.choice([0, 1, 2, 4, 8, 16, 32], n).astype(np.int64)
+    hubs = np.array([s * ns + j for s in range(ep) for j in (5, 9)])
+    degs[hubs] = 4096
+    srcs = np.repeat(np.arange(n), degs)
+    g = Graph.from_edges(srcs, r.integers(0, n, srcs.shape[0]), n=n,
+                         device=dev)
+    cap = int(degs.max())
+    slabs = build_sharded_graph(g, DistConfig(n=ep * ns, ep=ep), device=dev)
+    q, k = 64, 32
+    ok = True
+    for s in range(ep):
+        fi_np = r.integers(0, ns, (q, k)).astype(np.int32)
+        fi_np[q // 2:, :2] = [5, 9]                 # hub slots, half the rows
+        fi_np[:, 2] = ns - 1                        # a pad row in shard 3
+        fv_np = dyadic(r, (q, k), zero_frac=0.2)
+        fv_np[:4] = 0.0                             # empty rows
+        fv, fi = (torch.from_numpy(x).to(dev) for x in (fv_np, fi_np))
+        for wire_k in (8, 64, ns):
+            kw = dict(c=0.5, degree_cap=cap, ep=ep, n_shard=ns,
+                      wire_k=wire_k, hub_split_degree=64)
+            args = (fv, fi, slabs.row_ptr[s], slabs.col_idx[s])
+            a = push_k.sharded_frontier_push_cuda(*args, **kw)
+            b = push_k.sharded_frontier_push_plain(*args, **kw)
+            ok &= bits_equal(torch, a[0], b[0]) and bits_equal(torch, a[1], b[1])
+    return ok
+
+
 SYNTHETIC_CHECKS = {
     "walk_step": synthetic_walk_step,
     "frontier_push": synthetic_frontier_push,
     "index_combine_sparse": synthetic_index_combine,
     "ell_spmm": synthetic_ell_spmm,
     "index_combine": synthetic_index_combine_dense,
+    "sharded_frontier_push": synthetic_sharded_frontier_push,
 }
 
 
@@ -325,6 +413,17 @@ def bytes_and_ops(torch, name, args, kwargs):
                   + 8 * vals.shape[1] * int(touched.sum()))
         ops = 2 * int((live.sum(dim=0) * row_nnz).sum())
         return nbytes, ops
+    if name == "sharded_frontier_push":
+        fv, fi, row_ptr, _ = args
+        q, k = fv.shape
+        deg = row_ptr[1:] - row_ptr[:-1]
+        live = fv > 0
+        budget = torch.clamp(deg[fi.long()], max=kwargs["degree_cap"])
+        edges = int(budget[live].sum())
+        # 4 B per real edge gathered, 8 B per slot, 8 B per output entry
+        nbytes = 4 * edges + 8 * q * k + 8 * q * kwargs["ep"] * kwargs[
+            "wire_k"]
+        return nbytes, 2 * int(live.sum()) + edges
     sv, _, fv, _, vals, _ = args
     q, k = fv.shape
     l = vals.shape[1]
@@ -440,6 +539,8 @@ def replay(torch, name, variant, args, kwargs):
         "ell_spmm": (ell_k.ell_spmm_cuda, ell_k.ell_spmm_plain),
         "index_combine": (comb_k.index_combine_cuda,
                           comb_k.index_combine_plain),
+        "sharded_frontier_push": (push_k.sharded_frontier_push_cuda,
+                                  push_k.sharded_frontier_push_plain),
     }[name]
     a = kernel(*args, **kwargs)
     b = plain(*args, **kwargs)
@@ -452,23 +553,27 @@ def replay(torch, name, variant, args, kwargs):
         ok, err = dense_agree(torch, name, a, b, args, kwargs)
         agree = 1.0
     else:
-        sa = torch.sort(a[0], dim=1).values
-        sb = torch.sort(b[0], dim=1).values
+        # per query row (and per owner bucket of the sharded push)
+        sa = torch.sort(a[0].reshape(-1, a[0].shape[-1]), dim=1).values
+        sb = torch.sort(b[0].reshape(-1, b[0].shape[-1]), dim=1).values
         err = float((sa - sb).abs().max())
         rel_ok = bool(torch.all((sa - sb).abs() <= 1e-5 * sb.abs() + 1e-30))
         agree = float((a[1] == b[1]).float().mean())
         ok = rel_ok and agree >= 0.99
-    if name == "frontier_push":
-        # one block folds a row's chunks in order, so the row with the
-        # most gathered edges sets the kernel's time
+    if name in ("frontier_push", "sharded_frontier_push"):
+        # one block per row, so the row with the most gathered edges sets
+        # the kernel's time
         fv, fi = args[0], args[1]
-        budget = torch.clamp(args[5][fi.long()], max=kwargs["degree_cap"])
+        deg = (args[5] if name == "frontier_push"
+               else args[2][1:] - args[2][:-1])
+        budget = torch.clamp(deg[fi.long()], max=kwargs["degree_cap"])
         edges = torch.where(fv > 0, budget, 0).sum(dim=1)
         print(f"  {name}/{variant}: gathered edges per row: max "
               f"{int(edges.max())}, mean {float(edges.float().mean()):.1f}")
     del a, b
     ms = cuda_ms(torch, lambda: kernel(*args, **kwargs))
-    plain_ms = cuda_ms(torch, lambda: plain(*args, **kwargs), max_reps=5)
+    plain_ms = cuda_ms(torch, lambda: plain(*args, **kwargs),
+                       max_reps=1 if name == "sharded_frontier_push" else 5)
     library_ms = None
     try:
         lib_fn = library_call(torch, name, args, kwargs)
@@ -513,6 +618,17 @@ def densify(torch, vals, idx, n):
 
 # -- phase 4: small reference check -------------------------------------------
 
+def densified_l1(np, a, b, n):
+    """Max over rows of the L1 distance of two top-k answers, densified."""
+    rows = []
+    for v, i in (a, b):
+        v, i = v.cpu().numpy(), i.cpu().numpy()
+        row = np.zeros((v.shape[0], n), np.float64)
+        np.add.at(row, (np.arange(v.shape[0])[:, None], i), v)
+        rows.append(row)
+    return float(np.abs(rows[0] - rows[1]).sum(axis=1).max())
+
+
 def check_small_reference(torch, np, dev):
     from repro_torch import rng
     from repro_torch.core.index import build_index
@@ -541,16 +657,55 @@ def check_small_reference(torch, np, dev):
         if engines[dev].uses_sparse_path() != (route == "sparse"):
             raise AssertionError(f"{cfg} does not route {route}")
         for fn in ("query_topk", "query_topk_async"):
-            dense = []
-            for d in (dev, "cpu"):
-                v, i = getattr(engines[d], fn)(sources)
-                v, i = v.cpu().numpy(), i.cpu().numpy()
-                row = np.zeros((len(sources), n), np.float64)
-                np.add.at(row, (np.arange(len(sources))[:, None], i), v)
-                dense.append(row)
-            worst[route] = max(worst.get(route, 0.0), float(
-                np.abs(dense[0] - dense[1]).sum(1).max()))
+            got = [getattr(engines[d], fn)(sources) for d in (dev, "cpu")]
+            worst[route] = max(worst.get(route, 0.0),
+                               densified_l1(np, *got, n))
     return index_equal, worst["sparse"], worst["dense"]
+
+
+def check_small_distributed(torch, np, dev):
+    """The distributed engine at ``rmat(14)`` from one key: the sharded
+    build on the card against the plain CPU path (bit-equal?), the sparse
+    tile step likewise (max L1), and on the card the dense exchange
+    against the sparse one at covering widths (max L1)."""
+    from repro_torch import rng
+    from repro_torch.core.distributed_engine import (
+        DistConfig, build_sharded_graph, make_verd_tile_step)
+    from repro_torch.core.index import build_index_sharded
+    from repro_torch.core.verd import resolve_degree_cap
+    from repro_torch.distributed import ShardMesh
+    from repro_torch.graphs import synthetic
+
+    graphs = {d: synthetic.rmat(14, avg_deg=10.0, seed=3, device=d)
+              for d in (dev, "cpu")}
+    built = {d: build_index_sharded(
+        g, r=32, l=64, key=rng.prng_key(5),
+        mesh=ShardMesh(data=2, model=2, device=d), source_batch=1024)[0]
+        for d, g in graphs.items()}
+    build_equal = (
+        bits_equal(torch, built[dev].values.cpu(), built["cpu"].values)
+        and bits_equal(torch, built[dev].indices.cpu(), built["cpu"].indices))
+    n = graphs["cpu"].n
+    sources = np.random.default_rng(12).integers(0, n, 32).astype(np.int32)
+    cap = resolve_degree_cap(graphs["cpu"])
+
+    def answers(d, **kw):
+        cfg = DistConfig(n=n, ep=DIST_EP, q_tile=len(sources),
+                         t_iterations=2, index_l=64, degree_cap=cap, **kw)
+        slabs = build_sharded_graph(graphs[d], cfg, device=d)
+        index = built[d]
+        shape = (DIST_EP, n // DIST_EP, index.l)
+        step = make_verd_tile_step(cfg, ShardMesh(1, DIST_EP, device=d))
+        return step(slabs, torch.from_numpy(sources).to(d),
+                    index.values.reshape(shape), index.indices.reshape(shape))
+
+    main = dict(top_k=50, hub_split_degree=64)
+    l1_sparse = densified_l1(np, answers(dev, **main),
+                             answers("cpu", **main), n)
+    cover = dict(top_k=n, frontier_k=n)
+    l1_dense = densified_l1(np, answers(dev, exchange="dense", **cover),
+                            answers(dev, **cover), n)
+    return build_equal, l1_sparse, l1_dense
 
 
 def main() -> int:
@@ -563,11 +718,16 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import rng
+    from repro_torch.core.distributed_engine import (
+        DistConfig, build_sharded_graph, exchange_bytes_per_iteration,
+        make_verd_tile_step)
     from repro_torch.core.frontier import topk_dense
-    from repro_torch.core.index import build_index
+    from repro_torch.core.index import (build_index, build_index_sharded,
+                                        sparse_chunk_estimates)
     from repro_torch.core.metrics import (is_stochastic, mean_rag,
                                           precision_at_k)
     from repro_torch.core.query import BatchQueryEngine, QueryConfig
+    from repro_torch.distributed import ShardMesh
     from repro_torch.graphs import synthetic
     from repro_torch.kernels import build, ops
     from repro_torch.serving import PPRService, ServiceConfig
@@ -746,20 +906,123 @@ def main() -> int:
         del approx
     print("accuracy at k=50 against pi (first 64 requests):",
           json.dumps(quality))
-    del truth, candidates
+    del candidates
     phase("3e baselines", t0)
+
+    # -- 3f: the distributed engine on the same graph --------------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    key = rng.prng_key(0)
+    dcfg_f = DistConfig(n=g.n, ep=DIST_EP, q_tile=256, t_iterations=2,
+                        index_l=MAIN_L, top_k=50, degree_cap=max_deg,
+                        hub_split_degree=64)
+    slabs = build_sharded_graph(g, dcfg_f, device=dev)
+    step = make_verd_tile_step(dcfg_f, ShardMesh(1, DIST_EP, device=dev))
+    shape = (DIST_EP, g.n // DIST_EP, MAIN_L)
+    iv, ii = index.values.reshape(shape), index.indices.reshape(shape)
+    work_t = torch.tensor(work, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    print(f"sharded slabs: col_idx {list(slabs.col_idx.shape)}, built in "
+          f"{time.perf_counter() - t0:.3f} s")
+    ops.reset_launch_counts()
+    ops.capture_first_launches(True)
+    t1 = time.perf_counter()
+    sh_index, sh_stats = build_index_sharded(
+        g, r=MAIN_R, l=MAIN_L, key=key,
+        mesh=ShardMesh(data=DIST_DATA, model=DIST_EP, device=dev),
+        source_batch=MAIN_SOURCE_BATCH, respawn=True)
+    torch.cuda.synchronize()
+    sharded_build_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    tiles = [step(slabs, work_t[j:j + 256], iv, ii)
+             for j in range(0, MAIN_REQUESTS, 256)]
+    torch.cuda.synchronize()
+    tiles_s = time.perf_counter() - t1
+    counts_f = ops.launch_counts()
+    captured_f = ops.captured_launches()
+    ops.capture_first_launches(False)
+    peak_f = torch.cuda.max_memory_allocated() / 2**30
+    print("sharded index:", json.dumps({k: sh_stats[k] for k in (
+        "r", "l", "sketch_l", "r_splits", "respawn", "shards", "n_pad",
+        "source_batch", "kept_mass", "dropped_mass", "drop_fraction")}))
+    print(f"sharded build seconds: {sharded_build_s:.3f}")
+    n_tiles = len(tiles)
+    print(f"tile step: {MAIN_REQUESTS} requests in {n_tiles} tiles of 256, "
+          f"{tiles_s:.3f} s: {1e3 * tiles_s / n_tiles:.3f} ms per tile, "
+          f"{MAIN_REQUESTS / tiles_s:.1f} requests/s; peak device memory "
+          f"{peak_f:.2f} GiB")
+    print("computed wire bytes per shard and iteration (not a measured "
+          "transfer; the stacked exchange is a device-local permute):",
+          json.dumps(exchange_bytes_per_iteration(dcfg_f)))
+    print("distributed-path launches:", json.dumps(counts_f))
+    want_push = dcfg_f.t_iterations * DIST_EP * n_tiles
+    if counts_f["sharded_frontier_push"] != want_push:
+        failures.append(f"distributed path: sharded_frontier_push launched "
+                        f"{counts_f['sharded_frontier_push']} times, want "
+                        f"{want_push}")
+    failures += [f"kernel {k} never launched on the distributed path"
+                 for k in DIST_PATH if counts_f[k] <= 0]
+    split_tiles = min(4, n_tiles)
+    wall_ms, device_ms, top = device_time_split(torch, lambda: [
+        step(slabs, work_t[j:j + 256], iv, ii)
+        for j in range(0, split_tiles * 256, 256)])
+    print(f"tile step, device time by kernel over {split_tiles} tiles "
+          f"(torch.profiler): wall {wall_ms / split_tiles:.3f} ms per tile, "
+          f"device busy {device_ms / split_tiles:.3f} ms per tile "
+          f"({100 * device_ms / wall_ms:.1f}% of the wall)")
+    for name, ms in top:
+        print(f"  {ms / split_tiles:9.3f} ms per tile  "
+              f"{100 * ms / max(device_ms, 1e-9):5.1f}%  {name[:110]}")
+    top_v = torch.cat([v for v, _ in tiles])
+    top_i = torch.cat([i for _, i in tiles])
+    mass = top_v.sum(dim=1)
+    if (top_v.shape != (MAIN_REQUESTS, 50)
+            or not bool(torch.isfinite(top_v).all())
+            or bool((top_v < 0).any()) or float(mass.max()) > 1.0 + 1e-4):
+        failures.append("distributed answers not finite, non-negative and "
+                        "of mass <= 1")
+    print(f"distributed answer mass: min {float(mass.min()):.6f} mean "
+          f"{float(mass.mean()):.6f} max {float(mass.max()):.6f}")
+    approx = densify(torch, top_v[:E_ROWS], top_i[:E_ROWS], g.n)
+    print("accuracy at k=50 against pi (first 64 requests):", json.dumps({
+        "powerwalk (4-shard sparse exchange)": dict(
+            mean_rag=mean_rag(truth, approx, 50),
+            precision=float(precision_at_k(truth, approx, 50).mean()))}))
+    del approx, truth, tiles
+    # the first chunk of every shard against the single-device build
+    ns_f = sh_stats["n_pad"] // DIST_EP
+    chunk_equal = True
+    for shard in range(DIST_EP):
+        off = shard * ns_f
+        rows = slice(off, off + MAIN_SOURCE_BATCH)
+        vals, idxs, _, _ = sparse_chunk_estimates(
+            g, torch.arange(off, off + MAIN_SOURCE_BATCH, dtype=torch.int32,
+                            device=dev),
+            rng.fold_in(key, off), r=MAIN_R, l=MAIN_L,
+            sketch_l=sh_stats["sketch_l"], r_splits=DIST_DATA, respawn=True)
+        chunk_equal &= (bits_equal(torch, vals, sh_index.values[rows])
+                        and bits_equal(torch, idxs, sh_index.indices[rows]))
+    print(f"sharded build, first chunk of every shard bit-equal to the "
+          f"single-device r_splits={DIST_DATA} build: {chunk_equal}")
+    if not chunk_equal:
+        failures.append("sharded build differs from the single-device build")
+    del sh_index, slabs, iv, ii
+    phase("3f distributed engine", t0)
 
     t0 = time.perf_counter()
     results = {}
-    for tag in sorted(captured_s) + sorted(captured):
+    captured_f = {tag: v for tag, v in captured_f.items()
+                  if tag.startswith("sharded_frontier_push/")}
+    for tag in sorted(captured_s) + sorted(captured) + sorted(captured_f):
         name, variant = tag.split("/")
-        args, kwargs = (captured_s.get(tag) or captured[tag])
+        args, kwargs = (captured_s.get(tag) or captured.get(tag)
+                        or captured_f[tag])
         res = replay(torch, name, variant, args, kwargs)
         print(f"replay {tag}:", json.dumps(res))
         if not res["ok"]:
             failures.append(f"replay {tag}")
         results.setdefault(name, []).append(res)
-    del captured, captured_s
+    del captured, captured_s, captured_f
     phase("2b kernel vs plain, main-path inputs", t0)
 
     t0 = time.perf_counter()
@@ -768,6 +1031,13 @@ def main() -> int:
           f"{l1:.3e} (sparse route), {l1_dense:.3e} (dense route)")
     if not index_equal or not l1 <= 1e-5 or not l1_dense <= 1e-5:
         failures.append("small reference check")
+    build_equal, l1_dist, l1_exchange = check_small_distributed(
+        torch, np, dev)
+    print(f"small reference, distributed: sharded build bit-equal "
+          f"{build_equal}, tile step max L1 {l1_dist:.3e} (card vs CPU), "
+          f"dense exchange vs sparse at covering widths {l1_exchange:.3e}")
+    if not build_equal or not l1_dist <= 1e-5 or not l1_exchange <= 1e-4:
+        failures.append("small distributed reference check")
     phase("4 small reference", t0)
 
     kernels = []
@@ -779,11 +1049,14 @@ def main() -> int:
         # the streamed fold and the later dense push are the steady-state
         # push (every iteration after the first); report it, with the
         # other variants beside it
-        main = next((x for x in runs if x["variant"] in ("streamed", "later")),
+        main = next((x for x in runs
+                     if x["variant"] in ("streamed", "later", "second")),
                     runs[0])
+        path_counts = (counts if name in SPARSE_PATH else counts_f
+                       if name in DIST_PATH else counts_d)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=(counts if name in SPARSE_PATH else counts_d)[name],
+            launches=path_counts[name],
             max_abs_err=max(x["max_abs_err"] for x in runs),
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],

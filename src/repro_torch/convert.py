@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.distributed_engine import ShardedGraph
 from repro_torch.core.graph import Graph
 from repro_torch.core.index import PPRIndex
 from repro_torch.device import resolve_device
@@ -40,3 +41,27 @@ def key_from_array(key) -> torch.Tensor:
     if k.shape != (2,):
         raise ValueError(f"expected a raw uint32[2] key, got shape {k.shape}")
     return torch.from_numpy(k)
+
+
+def sharded_graph_from_arrays(row_ptr, col_idx, edge_w, dangling,
+                              device="cuda") -> ShardedGraph:
+    """A :class:`ShardedGraph` holding exactly the reference's stacked
+    slabs (``row_ptr int32[ep, ns + 1]``, ``col_idx int32[ep, m_shard]``,
+    ``edge_w f32[ep, *]``, ``dangling f32[ep, ns]``)."""
+    dev = resolve_device(device)
+    as_t = lambda a, dt: torch.from_numpy(  # noqa: E731
+        np.array(a, dtype=dt, copy=True)).to(dev)
+    return ShardedGraph(
+        row_ptr=as_t(row_ptr, np.int32), col_idx=as_t(col_idx, np.int32),
+        edge_w=as_t(edge_w, np.float32), dangling=as_t(dangling, np.float32))
+
+
+def sharded_index_from_arrays(values, indices, ep: int, device="cuda"):
+    """An ``[n_pad, L]`` index as the engine's vertex-sharded ``(values
+    f32[ep, n_pad / ep, L], indices int32[ep, n_pad / ep, L])``."""
+    index = index_from_arrays(values, indices, device=device)
+    n, l = index.values.shape
+    if n % ep:
+        raise ValueError(f"{n} index rows do not split over {ep} shards")
+    return (index.values.reshape(ep, n // ep, l),
+            index.indices.reshape(ep, n // ep, l))

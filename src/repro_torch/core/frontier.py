@@ -163,3 +163,33 @@ def merge_sketch_parts(values, indices, dropped, k: int):
         values.sum(dim=1) - out_v.sum(dim=1), min=0.0
     )
     return out_v, out_i, dropped
+
+
+def bucket_by_owner(
+    values: torch.Tensor, indices: torch.Tensor, ep: int, n_shard: int,
+    k: int, *, to_local: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(row, owner) top-``k`` buckets: the distributed wire format.
+
+    ``indices`` are global columns in ``[0, ep * n_shard)``, owner ``o``
+    holding ``[o * n_shard, (o + 1) * n_shard)``.  One global
+    :func:`merge_duplicates`, then per owner the masked :func:`topk_compact`
+    (masked-out slots parked at the owner's first column with value 0).
+    Returns ``(vals f32[Q, ep, k], idx int32[Q, ep, k])``, indices
+    owner-local with ``to_local``; empty slots ``(0.0, 0)``.  Exact when
+    ``k >= n_shard``.
+    """
+    values, indices = merge_duplicates(values, indices)
+    owner_of = torch.div(indices, n_shard, rounding_mode="floor")
+    out_v, out_i = [], []
+    for owner in range(ep):
+        mask = owner_of == owner
+        v = torch.where(mask, values, 0.0)
+        i = torch.where(mask, indices, owner * n_shard)
+        cv, ci = topk_compact(v, i, k)
+        if to_local:
+            ci = torch.where(cv > 0, ci - owner * n_shard, 0)
+        out_v.append(cv)
+        out_i.append(ci)
+    return (torch.stack(out_v, dim=1),
+            torch.stack(out_i, dim=1).to(torch.int32))

@@ -5,12 +5,14 @@ int32[n, L]`` on the device, built by streaming source chunks through the
 sparse walk engine (``repro.core.index.build_index(engine="sparse")``):
 same chunk padding, ``sketch_l = min(n, max(2l, l+32))``, per-chunk key
 ``fold_in(key, chunk_offset)`` and stats, so a build from the same key
-equals the reference's bit for bit.
+equals the reference's bit for bit.  :func:`build_index_sharded` builds
+the same rows on a :class:`~repro_torch.distributed.mesh.ShardMesh`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -83,6 +85,16 @@ def normalize_sketch_to_index_rows(fp_v, fp_i, moves, dropped_counts, l: int):
     return vals, idxs, kept, dropped
 
 
+def _sketch_width(n: int, l: int) -> int:
+    """Walk sketch width of a build truncating to ``l``."""
+    return min(n, max(2 * l, l + 32))
+
+
+def _mass_stats(kept: float, dropped: float) -> dict:
+    return dict(kept_mass=kept, dropped_mass=dropped,
+                drop_fraction=dropped / max(kept + dropped, 1e-12))
+
+
 def sparse_chunk_estimates(
     graph: Graph,
     chunk_sources: torch.Tensor,
@@ -95,23 +107,42 @@ def sparse_chunk_estimates(
     max_steps: int = 64,
     compact_every: int = 8,
     r_splits: int = 1,
+    respawn: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """One source chunk of the build: walk at sketch width ``sketch_l``,
     normalize, truncate to ``l``.  Returns ``(vals, idxs, kept, dropped)``
-    left on the device.  Only ``r_splits=1`` is ported."""
-    if r_splits != 1:
-        raise NotImplementedError(
-            "r_splits > 1 (the sharded builder's walk split) is not ported "
-            "yet; see ROADMAP.md"
+    left on the device.
+
+    ``r_splits > 1`` runs ``r / r_splits`` walks per sub-pass under keys
+    ``fold_in(key, split)`` and dedup-merges the sketches in split order
+    (``frontier.merge_sketch_parts``): the sharded builder's fold order, so
+    this build at ``r_splits`` equal to the data-axis size reproduces
+    :func:`build_index_sharded` row for row.  ``respawn`` selects
+    respawn-mode scheduling (``walks.respawn_schedule``)."""
+    if r % r_splits != 0:
+        raise ValueError(f"r={r} must divide over r_splits={r_splits}")
+    walk = dict(l=sketch_l, ep_l=0, c=c, max_steps=max_steps,
+                compact_every=compact_every, respawn=respawn)
+    if r_splits == 1:
+        counts = simulate_walks_sparse(graph, chunk_sources, r, key, **walk)
+        fp_v, fp_i = counts.fp.values, counts.fp.indices
+        moves, dropped = counts.moves, counts.fp_dropped
+    else:
+        parts = [simulate_walks_sparse(graph, chunk_sources, r // r_splits,
+                                       rng.fold_in(key, s), **walk)
+                 for s in range(r_splits)]
+        moves = torch.zeros((chunk_sources.shape[0],), dtype=torch.float32,
+                            device=graph.device)
+        dropped = torch.zeros_like(moves)
+        for p in parts:
+            moves = moves + p.moves
+            dropped = dropped + p.fp_dropped
+        fp_v, fp_i, dropped = frontier.merge_sketch_parts(
+            torch.cat([p.fp.values for p in parts], dim=1),
+            torch.cat([p.fp.indices for p in parts], dim=1),
+            dropped, sketch_l,
         )
-    counts = simulate_walks_sparse(
-        graph, chunk_sources, r, key, l=sketch_l, ep_l=0, c=c,
-        max_steps=max_steps, compact_every=compact_every,
-    )
-    return normalize_sketch_to_index_rows(
-        counts.fp.values, counts.fp.indices, counts.moves,
-        counts.fp_dropped, l,
-    )
+    return normalize_sketch_to_index_rows(fp_v, fp_i, moves, dropped, l)
 
 
 def build_index(
@@ -127,10 +158,13 @@ def build_index(
     engine: str = "sparse",
     compact_every: int = 8,
     r_splits: int = 1,
+    respawn: bool = False,
     device="cuda",
 ) -> Tuple[PPRIndex, dict]:
     """Offline preprocessing: MCFP for every vertex, truncated to top-L.
 
+    ``r_splits``/``respawn`` select the sharded builder's per-chunk walk
+    split and respawn-mode scheduling (:func:`sparse_chunk_estimates`).
     ``key`` is a port PRNG key (:func:`repro_torch.rng.prng_key`).  The
     graph moves to ``device`` (default ``"cuda"``; pass ``"cpu"`` for the
     plain path).  Duplicate ``sources`` are deduplicated up front
@@ -156,7 +190,7 @@ def build_index(
         unique_sources = np.unique(sources)
         duplicate_sources = len(sources) - len(unique_sources)
         sources = unique_sources
-    sketch_l = min(n, max(2 * l, l + 32))
+    sketch_l = _sketch_width(n, l)
     n_src = len(sources)
     pad_rows = (-n_src) % source_batch
     padded = np.concatenate(
@@ -173,7 +207,7 @@ def build_index(
         vals, idxs, kept, dropped = sparse_chunk_estimates(
             graph, chunk, rng.fold_in(key, i), r=r, l=l, sketch_l=sketch_l,
             c=c, max_steps=max_steps, compact_every=compact_every,
-            r_splits=r_splits,
+            r_splits=r_splits, respawn=respawn,
         )
         vals_chunks.append(vals[:real])
         idxs_chunks.append(idxs[:real])
@@ -203,14 +237,109 @@ def build_index(
         engine="sparse",
         sketch_l=sketch_l,
         r_splits=r_splits,
-        respawn=False,
+        respawn=bool(respawn),
         source_batch=source_batch,
         pad_rows=pad_rows,
         pad_fraction=pad_rows / max(n_src + pad_rows, 1),
-        kept_mass=kept,
-        dropped_mass=dropped,
-        drop_fraction=dropped / max(kept + dropped, 1e-12),
+        **_mass_stats(kept, dropped),
         nbytes=n * l * 8,
         duplicate_sources=duplicate_sources,
     )
     return PPRIndex(values=values, indices=indices, l=l, n=n), stats
+
+
+def build_index_sharded(
+    graph: Graph,
+    r: int,
+    l: int,
+    key,
+    *,
+    mesh,
+    c: float = DEFAULT_C,
+    max_steps: int = 64,
+    source_batch: int = 256,
+    compact_every: int = 8,
+    respawn: bool = True,
+    touch_bits: int = 0,
+    checkpoint_dir: Optional[str] = None,
+) -> Tuple[PPRIndex, dict]:
+    """The full-index build on a :class:`~repro_torch.distributed.mesh
+    .ShardMesh` (``distributed_engine.make_sparse_index_build_step``).
+
+    Sources shard over the model axis (each shard sweeps the chunks of its
+    own vertex interval), walks split over the batch axes (``r / n_data``
+    per replica, sketches merged by one gather).  Chunk at global offset
+    ``o`` uses ``fold_in(key, o)`` and replica ``s`` folds ``s`` on top:
+    :func:`build_index` with ``r_splits = n_data`` over the same chunk
+    grid gives the same rows.  The vertex count pads up to ``ep`` shards
+    of a multiple of ``source_batch`` (clamped, with a warning, to the
+    shard interval); pad vertices are dangling, their rows zeroed, and the
+    index has ``n = n_pad``.  Runs on the mesh's device.
+
+    Not ported: checkpointed builds (``checkpoint_dir``) and ``touch_bits``
+    (the Bloom filters of incremental repair), ROADMAP.md queue 1.
+    """
+    from repro_torch.core.distributed_engine import (
+        DistConfig, make_sparse_index_build_step)
+
+    if checkpoint_dir is not None:
+        raise NotImplementedError(
+            "checkpointed sharded builds are not ported yet; see ROADMAP.md "
+            "queue 1, checkpointed builds")
+    if touch_bits:
+        raise NotImplementedError(
+            "touch_bits (the Bloom filters of incremental repair) is not "
+            "ported yet; see ROADMAP.md queue 1, touch filters and repair")
+    ep, n_split = mesh.model, mesh.data
+    if r % n_split != 0:
+        raise ValueError(
+            f"r={r} must divide evenly over the {n_split} walk shards")
+    graph = graph.to(mesh.device)
+    n = graph.n
+    l = min(l, n)
+    sketch_l = _sketch_width(n, l)
+    ns = -(-n // ep)
+    if source_batch > ns:
+        warnings.warn(
+            f"source_batch={source_batch} exceeds the per-shard interval; "
+            f"clamped to {ns} — single-device parity comparisons must use "
+            "the effective batch from stats['source_batch']",
+            stacklevel=2,
+        )
+    source_batch = max(1, min(source_batch, ns))
+    ns = -(-ns // source_batch) * source_batch
+    n_pad = ns * ep
+    cfg = DistConfig(n=n_pad, ep=ep, c=c)
+    pad = n_pad - n
+    row_ptr, out_deg = graph.row_ptr, graph.out_deg
+    if pad:  # pad vertices are dangling: they walk in place
+        row_ptr = torch.cat([row_ptr, row_ptr[-1:].expand(pad)])
+        out_deg = torch.cat([out_deg, torch.zeros(
+            pad, dtype=out_deg.dtype, device=out_deg.device)])
+    step = make_sparse_index_build_step(
+        cfg, mesh, r=r, l=l, sketch_l=sketch_l, real_n=n,
+        max_steps=max_steps, compact_every=compact_every,
+        source_batch=source_batch, respawn=respawn,
+    )
+    values, indices, kept_rows, dropped_rows = step(
+        row_ptr, graph.col_idx, out_deg, key)
+    kept = float(kept_rows.sum())
+    dropped = float(dropped_rows.sum())
+    stats = dict(
+        r=r,
+        l=l,
+        engine="sparse-sharded",
+        sketch_l=sketch_l,
+        r_splits=n_split,
+        respawn=bool(respawn),
+        n=n,
+        n_pad=n_pad,
+        shards=ep,
+        source_batch=source_batch,
+        pad_rows=pad,
+        pad_fraction=pad / max(n_pad, 1),
+        duplicate_sources=0,
+        **_mass_stats(kept, dropped),
+        nbytes=n_pad * l * 8,
+    )
+    return PPRIndex(values=values, indices=indices, l=l, n=n_pad), stats

@@ -1,12 +1,13 @@
-"""Compacted sparse-sketch random-walk engine (schedule mode).
+"""Compacted sparse-sketch random-walk engine.
 
 The offline phase of PowerWalk: ``r`` walks per source, each terminating
 with probability ``c`` per position (dangling vertices jump home), visits
 folded into per-row top-``L`` count sketches.  Live-walk compaction
 follows the static ``(1-c)^t`` bucket schedule of
-:func:`compaction_schedule`, and every draw comes from the same threefry
-stream as the reference (``repro.core.walks.simulate_walks_sparse``), so
-the same key gives the same sketches bit for bit.
+:func:`compaction_schedule`, or, in respawn mode, the narrow fixed-width
+rounds of :func:`respawn_schedule`; every draw comes from the same
+threefry stream as the reference (``repro.core.walks.simulate_walks_sparse``),
+so the same key gives the same sketches bit for bit.
 
 The reference's ``lax.scan`` over steps is a Python loop here; the cursor
 advance goes through the ``walk_step`` kernel on CUDA tensors.
@@ -75,6 +76,74 @@ def compaction_schedule(
         widths.append(w)
         t += compact_every
     return tuple(widths)
+
+
+def respawn_schedule(
+    r: int,
+    *,
+    c: float = DEFAULT_C,
+    max_steps: int = 64,
+    compact_every: int = 8,
+    margin: float = 1.35,
+    width: int = 0,
+    slack: float = 1.15,
+    floor: int = 4,
+    lane: int = 4,
+    drain_eps: float = 0.02,
+) -> Tuple[Tuple[int, ...], int]:
+    """Static rounds of respawn-mode scheduling: ``(widths, total_steps)``.
+
+    ``launch`` rounds at a fixed width ``w0`` (``width``, 0 = ``ceil(r /
+    3)``, lane-rounded), enough that ``c * w0`` launches per step cover the
+    quota ``r - w0`` with ``slack`` (at most ``4 * max_steps /
+    compact_every`` rounds), then a :func:`compaction_schedule` drain from
+    ``w0`` cut once ``(1-c)^t`` falls below ``drain_eps``.  Slots freed by
+    termination refill from each row's quota at every step; quota still
+    unspent at the end is flushed as length-1 walks."""
+    if r <= 0:
+        raise ValueError(f"r must be positive, got {r}")
+    w0 = width if width > 0 else int(math.ceil(r / 3))
+    w0 = ((w0 + lane - 1) // lane) * lane
+    w0 = min(r, max(floor, w0))
+    quota = r - w0
+    if quota > 0:
+        per_round = max(c * w0 * compact_every, 1e-9)
+        launch_rounds = int(math.ceil(slack * quota / per_round))
+        launch_rounds = min(
+            launch_rounds,
+            int(math.ceil(4 * max_steps / max(compact_every, 1))),
+        )
+    else:
+        launch_rounds = 0
+    drain_target = int(math.ceil(math.log(drain_eps) / math.log(1.0 - c))) \
+        if 0.0 < c < 1.0 else max_steps
+    drain_steps = min(
+        max_steps,
+        ((max(drain_target, 1) + compact_every - 1) // compact_every)
+        * compact_every,
+    )
+    drain = compaction_schedule(
+        w0, c=c, max_steps=drain_steps, compact_every=compact_every,
+        margin=margin, floor=floor, lane=lane,
+    )
+    widths = (w0,) * launch_rounds + drain
+    return widths, launch_rounds * compact_every + drain_steps
+
+
+def schedule_slot_area(
+    widths: Tuple[int, ...], total_steps: int, compact_every: int = 8
+) -> int:
+    """Slot-steps one source row spends on one pass of a schedule: round
+    ``j`` runs at width ``w_j`` for ``min(compact_every, total_steps -
+    t0_j)`` steps."""
+    area, t0 = 0, 0
+    for w in widths:
+        steps = min(compact_every, total_steps - t0)
+        if steps <= 0:
+            break
+        area += w * steps
+        t0 += steps
+    return area
 
 
 def advance_cursors(
@@ -176,6 +245,9 @@ def simulate_walks_sparse(
     compact_every: int = 8,
     margin: float = 1.35,
     fold_width: int = 0,
+    respawn: bool = False,
+    respawn_width: int = 0,
+    touch_bits: int = 0,
 ) -> SparseWalkCounts:
     """Run ``r`` walks per source through the compacted sketch engine.
 
@@ -184,7 +256,19 @@ def simulate_walks_sparse(
     ``*_dropped`` ledger); ``fold_width`` batches events before each fold
     (0 = ``max(4 * l, 512)``).  Walks surviving ``max_steps`` positions are
     truncated to their endpoint.
+
+    ``respawn=True`` runs :func:`respawn_schedule` (width
+    ``respawn_width``, 0 = auto): before every step, dead slots (ranked by
+    a cumsum) refill at the source from the row's remaining quota; quota
+    left at the end is flushed as length-1 walks (one counted position at
+    the source, ledgered in ``truncated``), so every row finishes ``r``
+    walks.  ``touch_bits`` (the walks-through Bloom filter of incremental
+    repair) is not ported.
     """
+    if touch_bits:
+        raise NotImplementedError(
+            "touch_bits (the Bloom filters of incremental repair) is not "
+            "ported yet; see ROADMAP.md queue 1, touch filters and repair")
     dev = graph.device
     rows = sources.shape[0]
     n = graph.n
@@ -192,10 +276,17 @@ def simulate_walks_sparse(
     ep_l = min(ep_l if ep_l is not None else l, n)
     if fold_width <= 0:
         fold_width = max(4 * l, 512)
-    schedule = compaction_schedule(
-        r, c=c, max_steps=max_steps, compact_every=compact_every,
-        margin=margin,
-    )
+    if respawn:
+        schedule, total_steps = respawn_schedule(
+            r, c=c, max_steps=max_steps, compact_every=compact_every,
+            margin=margin, width=respawn_width,
+        )
+    else:
+        schedule = compaction_schedule(
+            r, c=c, max_steps=max_steps, compact_every=compact_every,
+            margin=margin,
+        )
+        total_steps = max_steps
     src2d = sources.to(torch.int32).reshape(rows, 1)
     c32 = torch.tensor(c, dtype=torch.float32, device=dev)
 
@@ -203,6 +294,8 @@ def simulate_walks_sparse(
     cursors = src2d.expand(rows, w0).contiguous()
     alive = (torch.arange(w0, device=dev)[None, :] < min(r, w0)).expand(
         rows, w0)
+    quota = torch.full((rows,), r - min(r, w0), dtype=torch.int32,
+                       device=dev)
     fp = _EventSketch(rows, max(l, 1), fold_width, dev, enabled=l > 0)
     ep = _EventSketch(rows, max(ep_l, 1), fold_width, dev, enabled=ep_l > 0)
     moves = torch.zeros((rows,), dtype=torch.float32, device=dev)
@@ -221,10 +314,18 @@ def simulate_walks_sparse(
             walks_done = walks_done + n_over
             truncated = truncated + n_over
             ep.add(ov_w, ov_i)
-        steps = min(compact_every, max_steps - t0)
+        steps = min(compact_every, total_steps - t0)
         u_move, u_term = round_uniforms(key, t0, steps, rows, w, dev)
         vis_w, vis_i, term_w = [], [], []
         for s in range(steps):
+            if respawn:  # refill dead slots at the source from the quota
+                dead = ~alive
+                rank = torch.cumsum(dead.to(torch.int32), dim=1,
+                                    dtype=torch.int32)
+                spawn = dead & (rank <= quota[:, None])
+                quota = quota - spawn.sum(dim=1, dtype=torch.int32)
+                cursors = torch.where(spawn, src2d, cursors)
+                alive = alive | spawn
             af = alive.to(torch.float32)
             vis_w.append(af)
             vis_i.append(cursors)
@@ -246,6 +347,13 @@ def simulate_walks_sparse(
     walks_done = walks_done + n_trunc
     truncated = truncated + n_trunc
     ep.add(af, torch.where(alive, cursors, 0))
+    if respawn:  # quota never launched: length-1 walks at the source
+        q_rem = quota.to(torch.float32)
+        moves = moves + q_rem
+        walks_done = walks_done + q_rem
+        truncated = truncated + q_rem
+        fp.add(q_rem[:, None], src2d)
+        ep.add(q_rem[:, None], src2d)
     fp.flush()
     ep.flush()
     return SparseWalkCounts(

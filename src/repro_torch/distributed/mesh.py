@@ -1,0 +1,58 @@
+"""A ``(data, model)`` mesh whose shards are stacked on one device.
+
+The port's counterpart of ``repro.launch.mesh.make_debug_mesh`` together
+with ``repro.compat.shard_map``: a per-shard array is one tensor with a
+leading stacked shard axis, the engine runs each shard's body in a loop
+over that axis, and each collective it uses is one tensor op on the axis.
+The collectives are methods, so that a mesh over ``torch.distributed``
+process groups (one shard per rank) can take this one's place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardMesh:
+    """``data x model`` shards on ``device`` (default ``"cuda"``)."""
+
+    data: int = 1
+    model: int = 1
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        if self.data < 1 or self.model < 1:
+            raise ValueError(
+                f"mesh axes must be >= 1, got data={self.data} "
+                f"model={self.model}")
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``all_to_all(split_axis=1, concat_axis=1, tiled=False)`` of
+        per-shard ``[Q, S, ...]`` blocks stacked as ``[S, Q, S, ...]``:
+        shard ``r`` receives from shard ``s`` the block ``s`` addressed to
+        ``r``, i.e. ``out[r, :, s] = x[s, :, r]``."""
+        return x.transpose(0, 2).contiguous()
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of the stacked per-shard values ``[S, ...]``."""
+        return x.sum(dim=0)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``all_gather(axis=1, tiled=True)`` of per-shard ``[Q, k]``
+        stacked as ``[S, Q, k]``: ``[Q, S * k]`` in shard order."""
+        return x.transpose(0, 1).reshape(x.shape[1], -1)

@@ -1,7 +1,7 @@
 // Block-level compact_arrays: dedup-merge by column, then rank by
 // (value descending, column ascending) -- the re-compaction law of
-// repro_torch.core.frontier.compact_arrays, shared by frontier_push.cu and
-// index_combine.cu.
+// repro_torch.core.frontier.compact_arrays, shared by frontier_push.cu,
+// index_combine.cu and (the merge half) sharded_frontier_push.cu.
 //
 // One thread block owns one query row.  Candidates sit in (cv, ci) in
 // candidate order and are ranked by two sorts of 64-bit keys:
@@ -229,17 +229,15 @@ __device__ void select_smallest(unsigned long long* keys, int d, int k,
   __syncthreads();
 }
 
-// Merges and ranks the w candidates in (cv, ci).  Returns d, the number of
-// positive merged entries; on return keys[0, min(d, k_need)) holds the
-// first of them in rank order.  ci is clobbered (reused for the group
-// sums); cv is read-only.  keys needs next_pow2(w) words; global says that
-// the buffers are global scratch (the shared words are then free for
-// tiles).  Every thread of the block must call it.
-__device__ int compact_block(const float* cv, int* ci,
-                             unsigned long long* keys, int w, int k_need,
-                             bool global, Smem& sm) {
-  unsigned long long* tile = global ? sm.words : nullptr;
-  int* red = sm.red;
+// Merges the w candidates in (cv, ci) by column.  Returns d, the number of
+// positive group sums; on return keys[0, d) holds rank_key(sum, column) of
+// each of them in column order.  ci is clobbered (reused for the group
+// sums); cv is read-only.  keys needs next_pow2(w) words; tile is nullptr
+// for buffers in shared memory, else the shared words used to sort the
+// global keys.  Every thread of the block must call it.
+__device__ int merge_groups(const float* cv, int* ci,
+                            unsigned long long* keys, int w,
+                            unsigned long long* tile, int* red) {
   int p = next_pow2(w > 0 ? w : 1);
   for (int t = threadIdx.x; t < p; t += blockDim.x) {
     keys[t] = t < w ? ((unsigned long long)(unsigned)ci[t] << 32) | (unsigned)t
@@ -278,6 +276,19 @@ __device__ int compact_block(const float* cv, int* ci,
     d += total;
   }
   __syncthreads();
+  return d;
+}
+
+// Merges and ranks the w candidates in (cv, ci).  Returns d, the number of
+// positive merged entries; on return keys[0, min(d, k_need)) holds the
+// first of them in rank order.  Buffers as merge_groups; global says that
+// they are global scratch (the shared words are then free for tiles).
+// Every thread of the block must call it.
+__device__ int compact_block(const float* cv, int* ci,
+                             unsigned long long* keys, int w, int k_need,
+                             bool global, Smem& sm) {
+  unsigned long long* tile = global ? sm.words : nullptr;
+  int d = merge_groups(cv, ci, keys, w, tile, sm.red);
   int p2 = next_pow2(d > 0 ? d : 1);
   if (global && p2 > kTile && k_need <= kSmemP) {
     select_smallest(keys, d, min(k_need, d), sm);

@@ -14,6 +14,16 @@ of ``verd.sparse_push_compact`` is the same loop with its chunk plan.
 per query row, looping over the chunks).  ``hub_split_degree`` changes
 only the TPU's gather geometry, not the candidate multiset, so the kernel
 ignores it.
+
+``sharded_frontier_push`` is one shard's half-iteration of the
+distributed sparse exchange: the same gather-push through the shard's CSR
+slab (``deg`` from the slab's ``row_ptr``), one exact merge, then per-owner
+top-``wire_k`` buckets (``frontier.bucket_by_owner``).  It has no chunk
+plan: the merge is exact and each owner's top-k follows it, so the answer
+does not depend on how the edges are split.
+:func:`sharded_frontier_push_plain` is the plain version;
+:func:`sharded_frontier_push_cuda` launches
+``csrc/sharded_frontier_push.cu``.
 """
 
 from __future__ import annotations
@@ -32,6 +42,18 @@ _ARGTYPES = (
      ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3
 )
+_SHARDED_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
+)
+_SHARDED_SIZE_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+)
+# candidates per block of the plain sharded push (its window form gathers
+# K * s * h lanes per row: 7.2M at the main path's second iteration)
+PLAIN_BLOCK_ELEMS = 1 << 25
 
 
 def frontier_push_plain(
@@ -115,4 +137,111 @@ def frontier_push_cuda(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(status, "frontier_push")
+    return out_v, out_i
+
+
+def _check_sharded_args(fv, fi, row_ptr, n_shard):
+    q, k = fv.shape
+    if fi.shape != (q, k):
+        raise ValueError("sharded_frontier_push: fv and fi shapes differ")
+    if row_ptr.shape != (n_shard + 1,):
+        raise ValueError(
+            f"sharded_frontier_push: row_ptr must hold n_shard + 1 = "
+            f"{n_shard + 1} offsets, got {tuple(row_ptr.shape)}")
+
+
+def sharded_frontier_push_plain(
+    fv, fi, row_ptr, col_idx, *, c: float, degree_cap: int, ep: int,
+    n_shard: int, wire_k: int, hub_split_degree: int = 0,
+):
+    """``verd.gather_push_edges`` then ``frontier.bucket_by_owner``, in
+    blocks of rows; returns ``(f32[Q, ep, wire_k], int32[Q, ep, wire_k])``
+    with owner-local indices."""
+    from repro_torch.core import verd as verd_mod
+
+    _check_sharded_args(fv, fi, row_ptr, n_shard)
+    q, k = fv.shape
+    m = col_idx.shape[0]
+    h, s = verd_mod.resolve_hub_splits(min(degree_cap, max(m, 1)),
+                                       hub_split_degree)
+    deg = row_ptr[1:] - row_ptr[:-1]
+    rows = max(1, PLAIN_BLOCK_ELEMS // max(k * s * h, 1))
+    out_v = [torch.zeros((0, ep, wire_k), dtype=torch.float32,
+                         device=fv.device)]
+    out_i = [torch.zeros((0, ep, wire_k), dtype=torch.int32,
+                         device=fv.device)]
+    for r0 in range(0, q, rows):
+        bfv = fv[r0:r0 + rows]
+        bfi = fi[r0:r0 + rows].long()
+        pv, nb = verd_mod.gather_push_edges(
+            bfv, bfi, row_ptr[bfi], deg[bfi], col_idx, c=c,
+            degree_cap=degree_cap, hub_split_degree=hub_split_degree)
+        bv, bi = F.bucket_by_owner(pv, nb, ep, n_shard, wire_k)
+        out_v.append(bv)
+        out_i.append(bi)
+    return torch.cat(out_v, dim=0), torch.cat(out_i, dim=0)
+
+
+def sharded_frontier_push_cuda(
+    fv, fi, row_ptr, col_idx, *, c: float, degree_cap: int, ep: int,
+    n_shard: int, wire_k: int, hub_split_degree: int = 0,
+):
+    """Launch the CUDA kernels on the current stream: one counts each
+    row's real edges and claims its scratch, the other pushes.  Sizing the
+    scratch reads one number back to the host: the total of the rows'
+    scratch widths (``next_pow2`` of each row's real edge count, for rows
+    wider than the kernel's shared memory)."""
+    del hub_split_degree  # geometry only; the kernel gathers real edges
+    dev = fv.device
+    for name, t, dt in (
+        ("fv", fv, torch.float32), ("fi", fi, torch.int32),
+        ("row_ptr", row_ptr, torch.int32), ("col_idx", col_idx, torch.int32),
+    ):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(
+                f"sharded_frontier_push: {name} must be a contiguous {dt} "
+                f"tensor on {dev}, got {t.dtype} on {t.device}")
+    _check_sharded_args(fv, fi, row_ptr, n_shard)
+    q, k = fv.shape
+    m = col_idx.shape[0]
+    if m == 0 or ep < 1 or n_shard < 1 or wire_k < 1:
+        raise ValueError(
+            f"sharded_frontier_push: needs a non-empty slab, ep, n_shard and "
+            f"wire_k >= 1, got m={m} ep={ep} n_shard={n_shard} "
+            f"wire_k={wire_k}")
+    local_bits = max(1, (n_shard - 1).bit_length())
+    if ep.bit_length() + 31 + local_bits > 64:
+        raise ValueError(
+            f"sharded_frontier_push: ep={ep} x n_shard={n_shard} does not "
+            "fit the kernel's 64-bit (owner, value, column) key")
+    cap = min(degree_cap, m)
+    lib = build.load("sharded_frontier_push")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    count = torch.empty(q, dtype=torch.int32, device=dev)
+    offsets = torch.empty(q, dtype=torch.int64, device=dev)
+    g_total = torch.zeros(1, dtype=torch.int64, device=dev)
+    size_fn = lib.sharded_frontier_push_size_launch
+    size_fn.argtypes = _SHARDED_SIZE_ARGTYPES
+    size_fn.restype = ctypes.c_int
+    status = size_fn(fv.data_ptr(), fi.data_ptr(), q, k, row_ptr.data_ptr(),
+                     cap, count.data_ptr(), offsets.data_ptr(),
+                     g_total.data_ptr(), stream)
+    build.check_launch(status, "sharded_frontier_push")
+    total = max(int(g_total), 1)              # the one host read
+    g_cv = torch.empty(total, dtype=torch.float32, device=dev)
+    g_ci = torch.empty(total, dtype=torch.int32, device=dev)
+    g_keys = torch.empty(total, dtype=torch.int64, device=dev)
+    out_v = torch.empty((q, ep, wire_k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, ep, wire_k), dtype=torch.int32, device=dev)
+    fn = lib.sharded_frontier_push_launch
+    fn.argtypes = _SHARDED_ARGTYPES
+    fn.restype = ctypes.c_int
+    status = fn(
+        fv.data_ptr(), fi.data_ptr(), q, k, row_ptr.data_ptr(),
+        col_idx.data_ptr(), float(1.0 - c), cap, ep, n_shard, local_bits,
+        wire_k, count.data_ptr(), offsets.data_ptr(), g_cv.data_ptr(),
+        g_ci.data_ptr(), g_keys.data_ptr(), out_v.data_ptr(),
+        out_i.data_ptr(), stream,
+    )
+    build.check_launch(status, "sharded_frontier_push")
     return out_v, out_i

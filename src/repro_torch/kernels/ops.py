@@ -12,8 +12,10 @@ kernel's first launch (per variant: ``frontier_push`` records its one-shot
 and its streamed fold apart; ``ell_spmm`` records its first launch since
 the last reset and the one after it, which in a dense batch are the push
 of the one-hot sources and the push of a frontier spread over thousands
-of vertices), so a check can replay exactly the inputs the main path gave
-it.
+of vertices; ``sharded_frontier_push`` records its first launch and its
+launch number ``ep``, which in a tile step are shard 0's pushes of the
+one-hot sources and of the second iteration's frontier), so a check can
+replay exactly the inputs the main path gave it.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from repro_torch.kernels import index_combine as _comb
 from repro_torch.kernels import walk_step as _walk
 
 KERNELS = ("walk_step", "frontier_push", "index_combine_sparse", "ell_spmm",
-           "index_combine")
+           "index_combine", "sharded_frontier_push")
 
 _launches: collections.Counter = collections.Counter()
 _captured: Optional[Dict[str, tuple]] = None
@@ -57,10 +59,10 @@ def captured_launches() -> Dict[str, tuple]:
 
 
 def _launched(name: str, args: tuple, kwargs: dict,
-              variant: str = "main") -> None:
+              variant: Optional[str] = "main") -> None:
     _launches[name] += 1
     tag = f"{name}/{variant}"
-    if _captured is not None and tag not in _captured:
+    if _captured is not None and variant and tag not in _captured:
         _captured[tag] = (args, kwargs)
 
 
@@ -150,4 +152,25 @@ def index_combine(s, f, vals, idx):
         return _comb.index_combine_plain(*args)
     out = _comb.index_combine_cuda(*args)
     _launched("index_combine", args, {})
+    return out
+
+
+def sharded_frontier_push(
+    fv, fi, row_ptr, col_idx, *, c: float, degree_cap: int, ep: int,
+    n_shard: int, wire_k: int, hub_split_degree: int = 0,
+):
+    """One shard's local push + per-owner exchange buckets (see
+    ``kernels/frontier_push.py``): ``(f32[Q, ep, wire_k], int32[Q, ep,
+    wire_k])`` with owner-local indices."""
+    kwargs = dict(c=c, degree_cap=degree_cap, ep=ep, n_shard=n_shard,
+                  wire_k=wire_k, hub_split_degree=hub_split_degree)
+    if not _route("sharded_frontier_push", fv):
+        return _push.sharded_frontier_push_plain(
+            fv, fi, row_ptr, col_idx, **kwargs)
+    args = (fv.contiguous(), fi.contiguous(), row_ptr.contiguous(),
+            col_idx.contiguous())
+    n = _launches["sharded_frontier_push"]
+    out = _push.sharded_frontier_push_cuda(*args, **kwargs)
+    _launched("sharded_frontier_push", args, kwargs,
+              {0: "first", ep: "second"}.get(n))
     return out

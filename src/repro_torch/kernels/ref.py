@@ -1,6 +1,6 @@
-"""Oracles for the three kernels, the counterparts of ``repro.kernels.ref``.
+"""Oracles of the kernels, the counterparts of ``repro.kernels.ref``.
 
-The push and the combine are dense oracles, independent of the code under
+The pushes and the combine are dense oracles, independent of the code under
 test: densify, compute exactly, re-sparsify.  ``walk_step_ref`` is the
 kernel's plain version itself: the step is one gather chain with nothing
 to spell differently, and it is held bit for bit against the reference's
@@ -58,3 +58,34 @@ def index_combine_sparse_ref(sv, si, fv, fi, vals, idx, *, k_out: int):
     out.scatter_add_(1, idx[fi.long()].reshape(fv.shape[0], -1).long(),
                      contrib.reshape(fv.shape[0], -1))
     return _topk_dense(out, k_out)
+
+
+def sharded_push_ref(fv, fi, row_ptr, col_idx, *, c: float, ep: int,
+                     n_shard: int, wire_k: int):
+    """Dense-scatter oracle of ``sharded_frontier_push``: densify the local
+    frontier slice, push every real edge of the shard's slab into a dense
+    ``[Q, ep * n_shard]`` row, take each owner's top-``wire_k`` with
+    owner-local indices.  Exact only where ``wire_k`` covers each owner's
+    support."""
+    q = fv.shape[0]
+    m = col_idx.shape[0]
+    f_dense = _densify(fv, fi, n_shard)
+    e_ids = torch.arange(m, dtype=row_ptr.dtype, device=fv.device)
+    src_row = torch.clamp(
+        torch.searchsorted(row_ptr, e_ids, right=True) - 1, 0, n_shard - 1)
+    deg = (row_ptr[1:] - row_ptr[:-1]).to(torch.float32)
+    w = 1.0 / torch.clamp(deg[src_row], min=1.0)
+    real = (e_ids < row_ptr[-1]).to(torch.float32)   # slab padding
+    vals = f_dense[:, src_row] * (w * real)[None, :]
+    dense = torch.zeros((q, ep * n_shard), dtype=torch.float32,
+                        device=fv.device).index_add_(1, col_idx.long(), vals)
+    dense = (1.0 - c) * dense
+    kk = min(wire_k, n_shard)
+    bv, bi = F.topk_dense(dense.reshape(q * ep, n_shard), kk)
+    bv = bv.reshape(q, ep, kk)
+    bi = torch.where(bv > 0, bi.reshape(q, ep, kk), 0).to(torch.int32)
+    if wire_k > n_shard:
+        pad = (0, wire_k - n_shard)
+        bv = torch.nn.functional.pad(bv, pad)
+        bi = torch.nn.functional.pad(bi, pad)
+    return bv, bi

@@ -258,7 +258,7 @@ def test_launch_counters_start_at_zero_and_reset():
     tops.reset_launch_counts()
     assert tops.launch_counts() == {
         "walk_step": 0, "frontier_push": 0, "index_combine_sparse": 0,
-        "ell_spmm": 0, "index_combine": 0}
+        "ell_spmm": 0, "index_combine": 0, "sharded_frontier_push": 0}
 
 
 def test_wrappers_refuse_unsupported_devices():
@@ -270,3 +270,7 @@ def test_wrappers_refuse_unsupported_devices():
     ell = tsyn.cycle(3, device="cpu").ell()
     with pytest.raises(ValueError):
         tops.ell_push(torch.zeros((1, 3), device="meta"), ell)
+    with pytest.raises(ValueError):
+        tops.sharded_frontier_push(
+            t[None], t[None].int(), t.int(), t.int(), c=0.15, degree_cap=1,
+            ep=1, n_shard=1, wire_k=1)

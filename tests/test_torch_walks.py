@@ -144,6 +144,7 @@ def test_build_index_rejects_what_is_not_ported(graphs):
     with pytest.raises(NotImplementedError):
         tindex.build_index(tg, r=4, l=8, key=rng.prng_key(0),
                            engine="legacy", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tindex.build_index(tg, r=4, l=8, key=rng.prng_key(0), r_splits=2,
-                           device="cpu")
+    with pytest.raises(NotImplementedError, match="repair"):
+        twalks.simulate_walks_sparse(
+            tg, torch.arange(4, dtype=torch.int32), 4, rng.prng_key(0), l=8,
+            touch_bits=16)
