@@ -5,14 +5,16 @@
 
 Phases, each timed and printed:
 
-1. build the six CUDA kernels (``walk_step``, ``frontier_push``,
+1. build the seven CUDA kernels (``walk_step``, ``frontier_push``,
    ``index_combine_sparse``, ``ell_spmm``, ``index_combine``,
-   ``sharded_frontier_push``) from ``src/repro_torch/kernels/csrc`` with
-   nvcc, one process per source, all started together;
+   ``sharded_frontier_push``, ``embedding_bag``) from
+   ``src/repro_torch/kernels/csrc`` with nvcc, one process per source, all
+   started together;
 2a. hold each kernel against its plain PyTorch version on the card, on
    synthetic inputs whose masses are multiples of 2**-10 (and power-of-two
-   degrees or weights), so every f32 sum is exact in any order and the
-   outputs must be bit-equal, indices included;
+   degrees or weights, and embedding masks in {0, 0.5, 1}), so every f32
+   sum is exact in any order and the outputs must be bit-equal, indices
+   included;
 3. the sparse main path: ``rmat(20, avg_deg=10)`` (n = 1,048,576),
    ``build_index`` over every source (3b), then ``PPRService`` on the
    sparse route (``hub_split_degree=64``) answering 16,384 requests closed
@@ -41,24 +43,41 @@ Phases, each timed and printed:
    device time by kernel over four more tiles (``torch.profiler``), the
    computed wire bytes per iteration, and RAG and precision at k = 50
    against 3e's ``pi``;
+3g. DLRM RM2 (arXiv:1906.00091) at full width: ``steps.build("dlrm-rm2",
+   ...)`` with parameters from the port's ``init`` (seed 0) on the card,
+   the 26 x 10^6-row f32 table (6.66 GB) included, bf16 compute; with the
+   counters zeroed just before and read just after: 520 closed-loop
+   ``serve_p99`` forwards of 512 (latency p50/p99 from CUDA events over the
+   last 512), 17 ``serve_bulk`` forwards of 262,144, 5 ``retrieval_cand``
+   forwards of 10^6 candidates, each with examples/s and model TFLOP/s,
+   peak memory, the device time of one ``serve_p99`` and one
+   ``serve_bulk`` forward by kernel (``torch.profiler``), and one
+   ``serve_p99`` batch in f32 on the card and through the plain CPU path
+   from the same parameters (max abs logit difference within 1e-4 of
+   max(1, max |logit|)); ``embedding_bag`` must launch once per forward
+   and every output be finite;
 2b. replay the inputs of each kernel's first launch on its path (and of
-   ``ell_spmm``'s second, a batch's push of a spread-out frontier, and of
-   ``sharded_frontier_push``'s first second-iteration launch) through the
-   kernel and its plain version: top-k outputs' sorted values within 1e-5
-   relative and at least 99% of indices equal (summation order may differ,
-   which can swap ties at the top-k edge), dense outputs within 1e-5 L1
-   per row and 1e-5 relative per entry, or, for an entry of many terms,
+   ``ell_spmm``'s second, a batch's push of a spread-out frontier, of
+   ``sharded_frontier_push``'s first second-iteration launch, and of
+   ``embedding_bag``'s first at ``serve_p99`` and at ``serve_bulk``)
+   through the kernel and its plain version: top-k outputs' sorted values
+   within 1e-5 relative and at least 99% of indices equal (summation order
+   may differ, which can swap ties at the top-k edge), dense outputs
+   within 1e-5 L1 per row and 1e-5 relative per entry, or, for an entry of many terms,
    within the f32 bound on two summation orders of its own count of terms
-   (:func:`dense_agree`), ``walk_step`` bit-equal.  Times each kernel, its
-   plain version and, where one exists, one PyTorch sparse product of the
-   same function, with CUDA events;
+   (:func:`dense_agree`), ``walk_step`` and ``embedding_bag`` bit-equal.
+   Times each kernel, its plain version and, where one exists, one PyTorch
+   call of the same function (a sparse product,
+   ``torch.nn.functional.embedding_bag``), with CUDA events;
 4. a small reference check: ``rmat(14)`` built and served on the card and
    through the plain CPU path from the same key, on the sparse and on the
    dense route: the index bit-equal, the answers within 1e-5 L1 on
    densified rows; and on the distributed engine: the sharded build
    bit-equal, the sparse tile step within 1e-5 L1, and on the card the
    dense exchange within 1e-4 L1 of the sparse exchange at covering
-   widths.
+   widths; and DLRM RM2's reduced config in f32 (``serve_p99`` and
+   ``retrieval_cand``), card against CPU, logits within 1e-5 of their
+   largest.
 
 The checks of phases 2a and 4 are also the ``cuda``-marked tests of
 ``tests/test_torch_cuda.py``, which call the functions here.
@@ -101,10 +120,17 @@ KERNEL_SOURCES = {
     "sharded_frontier_push": (
         "src/repro_torch/kernels/csrc/sharded_frontier_push.cu",
         "src/repro/kernels/frontier_push.py:265"),
+    "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
+                      "src/repro/kernels/embedding_bag.py:40"),
 }
 SPARSE_PATH = ("walk_step", "frontier_push", "index_combine_sparse")
 DENSE_PATH = ("ell_spmm", "index_combine")
 DIST_PATH = ("walk_step", "sharded_frontier_push")
+DLRM_PATH = ("embedding_bag",)
+DLRM_SEED = 0
+DLRM_P99_BATCHES = 512         # closed-loop serve_p99 forwards of 512, timed
+DLRM_BULK_FORWARDS = 16        # serve_bulk forwards of 262,144
+DLRM_RETRIEVAL_FORWARDS = 4    # retrieval_cand forwards of 10^6 candidates
 DIST_EP = 4                    # model shards of phase 3f's tile step
 DIST_DATA = 2                  # data replicas of phase 3f's build
 
@@ -364,6 +390,47 @@ def synthetic_sharded_frontier_push(torch, np, dev):
     return ok
 
 
+def same_bits_or_nan(torch, a, b):
+    """Bit-equal where ``b`` is not NaN, NaN where it is (the card's NaN
+    payloads differ from one operation to another)."""
+    nan = torch.isnan(b)
+    if not torch.equal(torch.isnan(a), nan):
+        return False
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return bool(torch.equal(a.view(view[a.dtype])[~nan],
+                            b.view(view[b.dtype])[~nan]))
+
+
+def synthetic_embedding_bag(torch, np, dev):
+    """1,000 bags (not a multiple of the kernel's 8 rows a block) of 1 and
+    32 slots over tables of D = 64 and 48, values ``j / 1024`` with |x| <= 1
+    and masks in {0, 0.5, 1}, so every f32 sum is exact; ids from the whole
+    table, negative ones counting from its end, and a few outside it (NaN
+    rows); all three dtype contracts: f32 rows to f32, bf16-rounded rows to
+    f32 (``bag_lookup`` at bf16) and to bf16 (``lookup`` at bf16)."""
+    from repro_torch.kernels import embedding_bag as bag_k
+
+    r = np.random.default_rng(13)
+    rows, vocab = 1000, 5000
+    ok = True
+    for bag in (1, 32):
+        for d in (64, 48):
+            table = r.integers(-1024, 1025, (vocab, d)).astype(
+                np.float32) / 1024.0
+            ids = r.integers(-vocab, vocab, (rows, bag)).astype(np.int32)
+            ids[:3, 0] = [vocab, vocab + 7, -vocab - 1]        # NaN rows
+            mask = r.choice(np.float32([0.0, 0.5, 1.0]), (rows, bag))
+            args = [torch.from_numpy(x).to(dev) for x in (ids, mask, table)]
+            for row_dt, out_dt in ((torch.float32, torch.float32),
+                                   (torch.bfloat16, torch.float32),
+                                   (torch.bfloat16, torch.bfloat16)):
+                kw = dict(row_dtype=row_dt, out_dtype=out_dt)
+                ok &= same_bits_or_nan(
+                    torch, bag_k.embedding_bag_cuda(*args, **kw),
+                    bag_k.embedding_bag_plain(*args, **kw))
+    return ok
+
+
 SYNTHETIC_CHECKS = {
     "walk_step": synthetic_walk_step,
     "frontier_push": synthetic_frontier_push,
@@ -371,6 +438,7 @@ SYNTHETIC_CHECKS = {
     "ell_spmm": synthetic_ell_spmm,
     "index_combine": synthetic_index_combine_dense,
     "sharded_frontier_push": synthetic_sharded_frontier_push,
+    "embedding_bag": synthetic_embedding_bag,
 }
 
 
@@ -413,6 +481,15 @@ def bytes_and_ops(torch, name, args, kwargs):
                   + 8 * vals.shape[1] * int(touched.sum()))
         ops = 2 * int((live.sum(dim=0) * row_nnz).sum())
         return nbytes, ops
+    if name == "embedding_bag":
+        ids, _, table = args
+        d = table.shape[1]
+        out_bytes = torch.empty((), dtype=kwargs["out_dtype"]).element_size()
+        # ids and mask once (8 B a slot), each distinct row gathered once,
+        # the output written once
+        distinct = int(torch.unique(ids).numel())
+        return (8 * ids.numel() + 4 * d * distinct
+                + out_bytes * ids.shape[0] * d), 2 * ids.numel() * d
     if name == "sharded_frontier_push":
         fv, fi, row_ptr, _ = args
         q, k = fv.shape
@@ -452,6 +529,10 @@ def library_call(torch, name, args, kwargs):
             crow, nbr[:used][keep].long(), w[:used][keep],
             size=(counts.numel(), f.shape[1]))
         return lambda: torch.sparse.mm(at, f.t())
+    if name == "embedding_bag":
+        ids, mask, table = args
+        return lambda: torch.nn.functional.embedding_bag(
+            ids, table, per_sample_weights=mask, mode="sum")
     if name == "index_combine":
         s_, f, vals, idx = args
         nv, n = f.shape[1], s_.shape[1]
@@ -526,6 +607,7 @@ def dense_agree(torch, name, a, b, args, kwargs):
 
 def replay(torch, name, variant, args, kwargs):
     from repro_torch.kernels import ell_spmm as ell_k
+    from repro_torch.kernels import embedding_bag as bag_k
     from repro_torch.kernels import frontier_push as push_k
     from repro_torch.kernels import index_combine as comb_k
     from repro_torch.kernels import walk_step as walk_k
@@ -541,13 +623,16 @@ def replay(torch, name, variant, args, kwargs):
                           comb_k.index_combine_plain),
         "sharded_frontier_push": (push_k.sharded_frontier_push_cuda,
                                   push_k.sharded_frontier_push_plain),
+        "embedding_bag": (bag_k.embedding_bag_cuda,
+                          bag_k.embedding_bag_plain),
     }[name]
     a = kernel(*args, **kwargs)
     b = plain(*args, **kwargs)
     torch.cuda.synchronize()
-    if name == "walk_step":
-        ok = bits_equal(torch, a, b)
-        err = float((a - b).abs().max()) if a.numel() else 0.0
+    if name in ("walk_step", "embedding_bag"):
+        ok = (bits_equal(torch, a, b) if name == "walk_step"
+              else same_bits_or_nan(torch, a, b))
+        err = float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
         agree = 1.0 if ok else float((a == b).float().mean())
     elif name in DENSE_PATH:
         ok, err = dense_agree(torch, name, a, b, args, kwargs)
@@ -706,6 +791,149 @@ def check_small_distributed(torch, np, dev):
     l1_dense = densified_l1(np, answers(dev, exchange="dense", **cover),
                             answers(dev, **cover), n)
     return build_equal, l1_sparse, l1_dense
+
+
+def tree_to(tree, dev):
+    """A parameter tree (nested dicts of tensors) copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def check_small_dlrm(torch, np, dev):
+    """DLRM RM2 at its reduced config in f32: ``serve_p99`` and
+    ``retrieval_cand`` on the card and through the plain CPU path from the
+    same parameters and batch.  Returns the worst ``max |card - cpu| /
+    max |cpu|`` over the two."""
+    from repro_torch.launch import steps
+
+    worst = 0.0
+    for shape in ("serve_p99", "retrieval_cand"):
+        cpu = steps.build("dlrm-rm2", shape, reduced=True, device="cpu")
+        card = steps.build("dlrm-rm2", shape, reduced=True, device=dev)
+        params = cpu.init_fn(3)
+        batch = cpu.make_batch(torch.Generator().manual_seed(4))
+        want = cpu.step_fn(params, batch)
+        got = card.step_fn(tree_to(params, dev), tree_to(batch, dev)).cpu()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            return float("inf")
+        worst = max(worst, float((got - want).abs().max())
+                    / max(float(want.abs().max()), 1e-30))
+    return worst
+
+
+def phase_dlrm(torch, np, dev, failures):
+    """Phase 3g: DLRM RM2 at full width on the card.  Returns the launch
+    counts of the phase and the captured first launches of
+    ``embedding_bag`` at ``serve_p99`` and at ``serve_bulk``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    forwards = 0
+    t1 = time.perf_counter()
+    bundles = {name: steps.build("dlrm-rm2", name, device=dev)
+               for name in ("serve_p99", "serve_bulk", "retrieval_cand")}
+    params = bundles["serve_p99"].init_fn(DLRM_SEED)
+    table = params["embedding"]["table"]
+    torch.cuda.synchronize()
+    print(f"dlrm-rm2: table {list(table.shape)} "
+          f"{table.numel() * table.element_size() / 1e9:.2f} GB, compute "
+          f"bf16, params made in {time.perf_counter() - t1:.3f} s")
+    gen = torch.Generator(device=dev).manual_seed(DLRM_SEED + 1)
+    finite = []
+    captured = {}
+
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    # shape: (distinct batches, warm-up forwards, timed forwards, capture)
+    plan = {"serve_p99": (DLRM_P99_BATCHES, 8, DLRM_P99_BATCHES, True),
+            "serve_bulk": (4, 1, DLRM_BULK_FORWARDS, True),
+            "retrieval_cand": (1, 1, DLRM_RETRIEVAL_FORWARDS, False)}
+    for name, (n_batches, warm, reps, capture) in plan.items():
+        b = bundles[name]
+        spec = b.batch_spec
+        examples = (spec["candidates"] if "candidates" in spec
+                    else spec["dense"])[0][0]
+        batches = [b.make_batch(gen) for _ in range(n_batches)]
+        ops.capture_first_launches(capture)
+        ms = []
+        for j in range(warm + reps):       # closed loop: one in flight
+            ev0.record()
+            out = b.step_fn(params, batches[j % n_batches])
+            ev1.record()
+            ev1.synchronize()
+            forwards += 1
+            if j >= warm:
+                ms.append(ev0.elapsed_time(ev1))
+            finite.append(bool(torch.isfinite(out).all()))
+        if capture:
+            captured[f"embedding_bag/{name}"] = (
+                ops.captured_launches()["embedding_bag/main"])
+        ops.capture_first_launches(False)
+        if out.shape != (examples,):
+            failures.append(f"dlrm {name}: output shape {tuple(out.shape)}, "
+                            f"want ({examples},)")
+        ms = np.array(ms)
+        tflops = b.model_flops_per_step / (np.median(ms) / 1e3) / 1e12
+        print(f"  {name}: {reps} forwards of {examples}: p50 "
+              f"{np.percentile(ms, 50):.4f} ms, p99 "
+              f"{np.percentile(ms, 99):.4f} ms, mean {ms.mean():.4f} ms; "
+              f"{examples / (ms.mean() / 1e3):.1f} examples/s; model "
+              f"{b.model_flops_per_step / examples / 1e6:.4f} MFLOP per "
+              f"example, {tflops:.3f} TFLOP/s at the median")
+        if name != "retrieval_cand":
+            wall_ms, device_ms, top = device_time_split(
+                torch, lambda: b.step_fn(params, batches[0]))
+            forwards += 1
+            print(f"  {name}, one forward by kernel (torch.profiler): wall "
+                  f"{wall_ms:.3f} ms, device busy {device_ms:.3f} ms "
+                  f"({100 * device_ms / wall_ms:.1f}% of the wall)")
+            for kname, kms in top:
+                print(f"  {kms:9.3f} ms  "
+                      f"{100 * kms / max(device_ms, 1e-9):5.1f}%  "
+                      f"{kname[:110]}")
+        if name != "serve_p99":
+            del batches
+        else:
+            p99_batch = batches[0]
+    del out
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak device memory in 3g: {peak / 1e9:.2f} GB "
+          f"({(peak - base) / 1e9:.2f} GB above the {base / 1e9:.2f} GB "
+          f"held before it)")
+
+    # the full width in f32, on the card and through the plain CPU path
+    over = dict(compute_dtype=torch.float32)
+    t1 = time.perf_counter()
+    got = steps.build("dlrm-rm2", "serve_p99", device=dev,
+                      config_overrides=over).step_fn(params, p99_batch)
+    forwards += 1
+    finite.append(bool(torch.isfinite(got).all()))
+    want = steps.build("dlrm-rm2", "serve_p99", device="cpu",
+                       config_overrides=over).step_fn(
+        tree_to(params, "cpu"), tree_to(p99_batch, "cpu"))
+    err = float((got.cpu() - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    print(f"  full width f32, card vs CPU: max abs logit difference "
+          f"{err:.3e} (limit {1e-4 * scale:.3e}), "
+          f"{time.perf_counter() - t1:.3f} s")
+    if not err <= 1e-4 * scale:
+        failures.append(f"dlrm full-width card vs CPU: {err:.3e}")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"  dlrm-path launches: {json.dumps(counts)} over {forwards} "
+          f"forwards")
+    if counts["embedding_bag"] != forwards:
+        failures.append(f"dlrm path: embedding_bag launched "
+                        f"{counts['embedding_bag']} times in {forwards} "
+                        f"forwards")
+    if not all(finite):
+        failures.append(f"dlrm: {finite.count(False)} outputs not finite")
+    del params, table, p99_batch
+    return counts, captured
 
 
 def main() -> int:
@@ -1010,19 +1238,24 @@ def main() -> int:
     phase("3f distributed engine", t0)
 
     t0 = time.perf_counter()
+    counts_g, captured_g = phase_dlrm(torch, np, dev, failures)
+    phase("3g dlrm-rm2 at full width", t0)
+
+    t0 = time.perf_counter()
     results = {}
     captured_f = {tag: v for tag, v in captured_f.items()
                   if tag.startswith("sharded_frontier_push/")}
-    for tag in sorted(captured_s) + sorted(captured) + sorted(captured_f):
+    for tag in (sorted(captured_s) + sorted(captured) + sorted(captured_f)
+                + sorted(captured_g)):
         name, variant = tag.split("/")
         args, kwargs = (captured_s.get(tag) or captured.get(tag)
-                        or captured_f[tag])
+                        or captured_f.get(tag) or captured_g[tag])
         res = replay(torch, name, variant, args, kwargs)
         print(f"replay {tag}:", json.dumps(res))
         if not res["ok"]:
             failures.append(f"replay {tag}")
         results.setdefault(name, []).append(res)
-    del captured, captured_s, captured_f
+    del captured, captured_s, captured_f, captured_g
     phase("2b kernel vs plain, main-path inputs", t0)
 
     t0 = time.perf_counter()
@@ -1038,6 +1271,11 @@ def main() -> int:
           f"dense exchange vs sparse at covering widths {l1_exchange:.3e}")
     if not build_equal or not l1_dist <= 1e-5 or not l1_exchange <= 1e-4:
         failures.append("small distributed reference check")
+    rel_dlrm = check_small_dlrm(torch, np, dev)
+    print(f"small reference, dlrm-rm2 reduced in f32: logits card vs CPU "
+          f"within {rel_dlrm:.3e} of their largest (limit 1e-5)")
+    if not rel_dlrm <= 1e-5:
+        failures.append("small dlrm reference check")
     phase("4 small reference", t0)
 
     kernels = []
@@ -1049,11 +1287,11 @@ def main() -> int:
         # the streamed fold and the later dense push are the steady-state
         # push (every iteration after the first); report it, with the
         # other variants beside it
-        main = next((x for x in runs
-                     if x["variant"] in ("streamed", "later", "second")),
-                    runs[0])
+        main = next((x for x in runs if x["variant"] in (
+            "streamed", "later", "second", "serve_bulk")), runs[0])
         path_counts = (counts if name in SPARSE_PATH else counts_f
-                       if name in DIST_PATH else counts_d)
+                       if name in DIST_PATH else counts_g
+                       if name in DLRM_PATH else counts_d)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=path_counts[name],

@@ -1,0 +1,52 @@
+"""Config schema: architectures x input shapes.
+
+Every ported architecture gets one module exporting ``full()`` (the
+published config), ``reduced()`` (CPU smoke size) and ``SPEC``.
+``launch/steps.py`` turns (arch, shape) into init / step callables and
+batch specs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell; ``kind`` is ``rec_train``, ``rec_serve`` or
+    ``rec_retrieval`` for the recsys family."""
+
+    name: str
+    kind: str
+    global_batch: int = 0
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    """An architecture entry in the registry."""
+
+    id: str
+    family: str                  # recsys
+    model_kind: str              # dlrm
+    config: Any                  # model config, full size
+    reduced: Any                 # reduced smoke config
+    shapes: Tuple[ShapeSpec, ...]
+    notes: str = ""
+    source: str = ""
+
+    def shape(self, name: str) -> ShapeSpec:
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.id} has no shape {name!r}")
+
+
+REC_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("train_batch", "rec_train", global_batch=65536),
+    ShapeSpec("serve_p99", "rec_serve", global_batch=512),
+    ShapeSpec("serve_bulk", "rec_serve", global_batch=262144),
+    ShapeSpec("retrieval_cand", "rec_retrieval", global_batch=1,
+              extra=dict(n_candidates=1_000_000)),
+)

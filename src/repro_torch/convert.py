@@ -2,7 +2,7 @@
 
 The reference's arrays are passed in as numpy (``np.asarray(jax_array)``),
 so nothing here imports JAX.  The parity tests use these to feed both
-packages the same graph, index and PRNG key.
+packages the same graph, index, PRNG key and model parameters.
 """
 
 from __future__ import annotations
@@ -65,3 +65,15 @@ def sharded_index_from_arrays(values, indices, ep: int, device="cuda"):
         raise ValueError(f"{n} index rows do not split over {ep} shards")
     return (index.values.reshape(ep, n // ep, l),
             index.indices.reshape(ep, n // ep, l))
+
+
+def dlrm_params_from_arrays(tree, device="cuda"):
+    """The port's DLRM parameters from the reference's parameter pytree
+    given as nested dicts of numpy arrays (``jax.tree.map(np.asarray,
+    params)``): the same nesting and names, each array copied into a tensor
+    of its dtype.  Dense weights keep the reference's ``[d_in, d_out]``
+    layout, so nothing is transposed."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: dlrm_params_from_arrays(v, dev) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, copy=True)).to(dev)

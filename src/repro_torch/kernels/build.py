@@ -28,6 +28,7 @@ SOURCES = {
     "index_combine": "index_combine_dense.cu",
     "ell_spmm": "ell_spmm.cu",
     "sharded_frontier_push": "sharded_frontier_push.cu",
+    "embedding_bag": "embedding_bag.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

@@ -26,12 +26,13 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ell_spmm as _ell
+from repro_torch.kernels import embedding_bag as _bag
 from repro_torch.kernels import frontier_push as _push
 from repro_torch.kernels import index_combine as _comb
 from repro_torch.kernels import walk_step as _walk
 
 KERNELS = ("walk_step", "frontier_push", "index_combine_sparse", "ell_spmm",
-           "index_combine", "sharded_frontier_push")
+           "index_combine", "sharded_frontier_push", "embedding_bag")
 
 _launches: collections.Counter = collections.Counter()
 _captured: Optional[Dict[str, tuple]] = None
@@ -173,4 +174,24 @@ def sharded_frontier_push(
     out = _push.sharded_frontier_push_cuda(*args, **kwargs)
     _launched("sharded_frontier_push", args, kwargs,
               {0: "first", ep: "second"}.get(n))
+    return out
+
+
+def embedding_bag(ids, mask, table, *, row_dtype=torch.float32,
+                  out_dtype=torch.float32):
+    """Bag sum ``out[r] = sum_i mask[r, i] * table[ids[r, i]]`` of ``ids
+    int[R, bag]``, ``mask f32[R, bag]`` over ``table f32[V, D]``, each
+    gathered row rounded to ``row_dtype`` and the f32 sum cast to
+    ``out_dtype`` (see ``kernels/embedding_bag.py``); needs no tile
+    alignment."""
+    kwargs = dict(row_dtype=row_dtype, out_dtype=out_dtype)
+    if ids.shape[1] == 0:  # empty bags sum to zero
+        return torch.zeros((ids.shape[0], table.shape[1]), dtype=out_dtype,
+                           device=table.device)
+    if not _route("embedding_bag", ids):
+        return _bag.embedding_bag_plain(ids, mask, table, **kwargs)
+    args = (ids.to(torch.int32).contiguous(),
+            mask.to(torch.float32).contiguous(), table.contiguous())
+    out = _bag.embedding_bag_cuda(*args, **kwargs)
+    _launched("embedding_bag", args, kwargs)
     return out

@@ -89,3 +89,9 @@ def sharded_push_ref(fv, fi, row_ptr, col_idx, *, c: float, ep: int,
         bv = torch.nn.functional.pad(bv, pad)
         bi = torch.nn.functional.pad(bi, pad)
     return bv, bi
+
+
+def embedding_bag_ref(ids, mask, table):
+    """``out[b, :] = sum_i mask[b, i] * table[ids[b, i], :]`` in f32."""
+    rows = table[ids.long()].to(torch.float32)
+    return (rows * mask.to(torch.float32)[:, :, None]).sum(dim=1)

@@ -130,3 +130,34 @@ def test_tile_step_launches_the_push_once_per_shard_and_iteration(cuda):
                 index.indices.reshape(shape))
     assert tops.launch_counts()["sharded_frontier_push"] == 3 * 4
     assert bool(torch.isfinite(v).all()) and bool((v >= 0).all())
+
+
+@pytest.mark.cuda
+def test_dlrm_on_card_matches_the_cpu(cuda):
+    """DLRM RM2's reduced config in f32, card against the plain CPU path
+    from the same parameters: logits within 1e-5 of their largest."""
+    assert chip_smoke.check_small_dlrm(torch, np, cuda) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_dlrm_forward_launches_embedding_bag_once(cuda):
+    """One ``embedding_bag`` launch per forward, and at bf16 the card's
+    lookup is bit-equal to the CPU's (each row one rounding of itself)."""
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import embedding as temb
+
+    bundle = steps.build("dlrm-rm2", "serve_p99", reduced=True, device=cuda,
+                         config_overrides=dict(compute_dtype=torch.bfloat16))
+    params = bundle.init_fn(0)
+    batch = bundle.make_batch(torch.Generator().manual_seed(1))
+    tops.reset_launch_counts()
+    out = bundle.step_fn(params, batch)
+    assert tops.launch_counts()["embedding_bag"] == 1
+    assert out.shape == (32,) and bool(torch.isfinite(out).all())
+    emb_cfg = dlrm_rm2.reduced().embedding
+    got = temb.lookup(emb_cfg, params["embedding"], batch["sparse_ids"],
+                      torch.bfloat16)
+    want = temb.lookup(emb_cfg, chip_smoke.tree_to(params["embedding"], "cpu"),
+                       batch["sparse_ids"].cpu(), torch.bfloat16)
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))

@@ -258,7 +258,8 @@ def test_launch_counters_start_at_zero_and_reset():
     tops.reset_launch_counts()
     assert tops.launch_counts() == {
         "walk_step": 0, "frontier_push": 0, "index_combine_sparse": 0,
-        "ell_spmm": 0, "index_combine": 0, "sharded_frontier_push": 0}
+        "ell_spmm": 0, "index_combine": 0, "sharded_frontier_push": 0,
+        "embedding_bag": 0}
 
 
 def test_wrappers_refuse_unsupported_devices():
@@ -274,3 +275,5 @@ def test_wrappers_refuse_unsupported_devices():
         tops.sharded_frontier_push(
             t[None], t[None].int(), t.int(), t.int(), c=0.15, degree_cap=1,
             ep=1, n_shard=1, wire_k=1)
+    with pytest.raises(ValueError):
+        tops.embedding_bag(t[:, None].int(), t[:, None], t[:, None])

@@ -3,7 +3,8 @@
 * It imports neither ``jax`` nor any module of the JAX package ``repro``.
 * Its entry points default to ``device="cuda"`` and raise where there is
   no GPU, instead of quietly running on the CPU.
-* ``convert`` carries the reference's arrays across unchanged.
+* ``convert`` carries the reference's arrays (graphs, indexes, keys, DLRM
+  parameters) across unchanged.
 """
 
 import ast
@@ -14,13 +15,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import dlrm_rm2 as jdlrm_cfg
 from repro.graphs import synthetic as jsyn
+from repro.models.recsys import dlrm as jdlrm
 from repro_torch import convert, rng
+from repro_torch.configs import dlrm_rm2 as tdlrm_cfg
 from repro_torch.core import index as tindex
 from repro_torch.core.graph import Graph
 from repro_torch.core.query import BatchQueryEngine
 from repro_torch.graphs import synthetic as tsyn
-from repro_torch.launch import serve
+from repro_torch.launch import serve, steps
+from repro_torch.models.recsys import dlrm as tdlrm
 from repro_torch.serving import PPRService
 
 torch.set_num_threads(1)
@@ -74,6 +79,12 @@ def test_default_device_entry_points_raise_without_gpu(no_gpu):
         PPRService(g, index)
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--n-log2", "6", "--r", "2", "--queries", "4"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        steps.build("dlrm-rm2", "serve_p99", reduced=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tdlrm.init(tdlrm_cfg.reduced(), 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.dlrm_params_from_arrays({"w": np.zeros(2, np.float32)})
 
 
 def test_serve_cli_runs_on_cpu(capsys):
@@ -113,3 +124,22 @@ def test_convert_round_trips_reference_state():
     assert np.array_equal(
         convert.key_from_array(jax.random.key_data(key)).numpy(),
         np.asarray(jax.random.key_data(key)).astype(np.int64))
+
+
+def test_convert_round_trips_reference_dlrm_params():
+    """Every array of the reference's DLRM pytree arrives under the same
+    path, shape, dtype and bits, dense weights as ``[d_in, d_out]``."""
+    cfg = jdlrm_cfg.reduced()
+    tree = jax.tree.map(np.asarray, jdlrm.init(cfg, jax.random.PRNGKey(3)))
+    got = convert.dlrm_params_from_arrays(tree, device="cpu")
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    assert len(flat) == 1 + 2 * (len(cfg.bot_mlp) - 1 + len(cfg.top_mlp))
+    for path, want in flat:
+        t = got
+        for p in path:
+            t = t[p.key]
+        assert t.dtype == torch.float32 and t.shape == want.shape
+        assert np.array_equal(t.numpy(), want)
+    assert got["top"]["layer_0"]["w"].shape == (cfg.top_in, cfg.top_mlp[0])
+    back = jax.tree.map(np.asarray, got)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
