@@ -14,7 +14,9 @@ Phases, each timed and printed:
    synthetic inputs whose masses are multiples of 2**-10 (and power-of-two
    degrees or weights, and embedding masks in {0, 0.5, 1}), so every f32
    sum is exact in any order and the outputs must be bit-equal, indices
-   included;
+   included; the cases include ``sharded_frontier_push`` rows of more
+   than 300,000 edges (its wide-row path, ``csrc/wide_row.cuh``) and
+   ``ell_spmm`` from one-hot, all-zero and fully dense frontiers;
 3. the sparse main path: ``rmat(20, avg_deg=10)`` (n = 1,048,576),
    ``build_index`` over every source (3b), then ``PPRService`` on the
    sparse route (``hub_split_degree=64``) answering 16,384 requests closed
@@ -25,12 +27,14 @@ Phases, each timed and printed:
    default ``hub_split_degree=0``, which routes dense on this hub-heavy
    graph, serving the same 16,384 requests with the counters zeroed just
    before and read just after: ``ell_spmm`` must launch twice per batch
-   and ``index_combine`` once; times one batch and its top-k;
+   and ``index_combine`` once; times one batch and its top-k, and splits
+   one batch's device time by kernel (``torch.profiler``);
 3e. the first 64 requests through ``pi`` (100 iterations, the ground
    truth), ``fppr``, dense ``verd``, dense and sparse ``powerwalk``:
-   prints mean RAG and precision at k = 50 against ``pi``; the ``pi`` rows
-   must be stochastic, each summing to 1 within 1e-4, and every answer
-   finite and non-negative;
+   prints mean RAG and precision at k = 50 against ``pi`` and the time of
+   the ``pi`` batch, whose last push is kept as ``ell_spmm``'s ``dense``
+   variant; the ``pi`` rows must be stochastic, each summing to 1 within
+   1e-4, and every answer finite and non-negative;
 3f. the distributed engine on the same graph, with the counters zeroed
    just before and read just after: ``build_index_sharded`` (r = 100,
    respawn mode) on a 2 x 4 ``ShardMesh``, whose first chunk of every
@@ -40,7 +44,8 @@ Phases, each timed and printed:
    of 256: ``sharded_frontier_push`` must launch ``t * ep`` = 8 times per
    tile and every answer be finite, non-negative, of mass at most 1 +
    1e-4; prints ms per tile, requests per second, peak memory, the
-   device time by kernel over four more tiles (``torch.profiler``), the
+   device time by kernel over four more tiles (``torch.profiler``) with
+   the push's share of it, the
    computed wire bytes per iteration, and RAG and precision at k = 50
    against 3e's ``pi``;
 3g. DLRM RM2 (arXiv:1906.00091) at full width: ``steps.build("dlrm-rm2",
@@ -57,7 +62,8 @@ Phases, each timed and printed:
    max(1, max |logit|)); ``embedding_bag`` must launch once per forward
    and every output be finite;
 2b. replay the inputs of each kernel's first launch on its path (and of
-   ``ell_spmm``'s second, a batch's push of a spread-out frontier, of
+   ``ell_spmm``'s second, a batch's push of a spread-out frontier, and
+   its ``dense`` variant, the last push of 3e's ``pi``, of
    ``sharded_frontier_push``'s first second-iteration launch, and of
    ``embedding_bag``'s first at ``serve_p99`` and at ``serve_bulk``)
    through the kernel and its plain version: top-k outputs' sorted values
@@ -68,7 +74,10 @@ Phases, each timed and printed:
    (:func:`dense_agree`), ``walk_step`` and ``embedding_bag`` bit-equal.
    Times each kernel, its plain version and, where one exists, one PyTorch
    call of the same function (a sparse product,
-   ``torch.nn.functional.embedding_bag``), with CUDA events;
+   ``torch.nn.functional.embedding_bag``), with CUDA events; prints the
+   share of ``f``'s columns that hold a non-zero for every ``ell_spmm``
+   variant, and the most and the mean gathered edges per row for the
+   pushes;
 4. a small reference check: ``rmat(14)`` built and served on the card and
    through the plain CPU path from the same key, on the sparse and on the
    dense route: the index bit-equal, the answers within 1e-5 L1 on
@@ -163,8 +172,8 @@ def cuda_ms(torch, fn, budget_ms=300.0, max_reps=50):
 def device_time_split(torch, fn, top=8):
     """Device time of one call of ``fn`` by kernel name (``torch.profiler``
     over CPU and CUDA activity): ``(wall_ms, device_ms, [(name, ms), ...])``
-    with the ``top`` kernels by time, or ``device_ms`` 0.0 where the trace
-    shows no device time.  The wall time includes the profiler's own
+    with the ``top`` kernels by time (all with ``top=None``), or
+    ``device_ms`` 0.0 where the trace shows no device time.  The wall time includes the profiler's own
     overhead."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -298,8 +307,10 @@ def synthetic_ell_spmm(torch, np, dev):
     """The push over a graph's ELL view (a star's hub of 3,000 in-edges
     spanning several row blocks, a second hub, vertices without in-edges,
     padding rows) with weights ``2**-p`` in place of ``1/out_deg``, at a Q
-    that is not a multiple of the kernel's 128 columns; and raw partials
-    of random rows (one row per vertex, the TPU kernel's output)."""
+    that is not a multiple of the kernel's 128 columns, from a frontier
+    with 30% zeros, a one-hot one (a batch's first push), an all-zero one
+    and one with every column live; and raw partials of random rows (one
+    row per vertex, the TPU kernel's output)."""
     from repro_torch.graphs import formats
     from repro_torch.core.graph import Graph
     from repro_torch.kernels import ell_spmm as ell_k
@@ -315,10 +326,19 @@ def synthetic_ell_spmm(torch, np, dev):
     ell = formats.to_ell_chunks(g, k=16, pad_rows_to=256)
     w = (0.5 ** torch.randint(1, 5, ell.weight.shape, device=dev)).where(
         ell.weight > 0, 0.0).to(torch.float32)
-    f = torch.from_numpy(dyadic(r, (200, n), top=256, zero_frac=0.3)).to(dev)
-    args = (f, ell.nbr, w.contiguous(), ell.row2vertex, ell.vertex_rows)
-    ok = bits_equal(torch, ell_k.ell_spmm_cuda(*args, rows_used=ell.rows_used),
-                    ell_k.ell_spmm_plain(*args, rows_used=ell.rows_used))
+    q = 200
+    one_hot = np.zeros((q, n), np.float32)              # a batch's first push
+    one_hot[np.arange(q), r.integers(0, n, q)] = dyadic(r, q, top=256)
+    one_hot[:3, 0] = 0.5                                # the star's hub too
+    ok = True
+    for f_np in (dyadic(r, (q, n), top=256, zero_frac=0.3), one_hot,
+                 np.zeros((q, n), np.float32),          # nothing live
+                 dyadic(r, (q, n), top=256)):           # every column live
+        f = torch.from_numpy(f_np).to(dev)
+        args = (f, ell.nbr, w.contiguous(), ell.row2vertex, ell.vertex_rows)
+        ok &= bits_equal(
+            torch, ell_k.ell_spmm_cuda(*args, rows_used=ell.rows_used),
+            ell_k.ell_spmm_plain(*args, rows_used=ell.rows_used))
     rows, k, nf = 768, 32, 200
     nbr = torch.from_numpy(r.integers(0, nf, (rows, k)).astype(np.int32))
     w = torch.from_numpy(0.5 ** r.integers(1, 5, (rows, k))).float()
@@ -387,6 +407,58 @@ def synthetic_sharded_frontier_push(torch, np, dev):
             a = push_k.sharded_frontier_push_cuda(*args, **kw)
             b = push_k.sharded_frontier_push_plain(*args, **kw)
             ok &= bits_equal(torch, a[0], b[0]) and bits_equal(torch, a[1], b[1])
+    return ok and sharded_wide_rows(torch, np, dev)
+
+
+def sharded_wide_rows(torch, np, dev):
+    """Rows too wide for one block, on one shard of a graph with four
+    owners of 32,768 columns: hubs of 16,384 edges (a tile each), twenty
+    of them with the same 16,384 columns, 4,096 in every owner, so a row
+    of those twenty at one mass ties at every cut; a row of 327,680
+    random edges with two hubs in two slots each (duplicates across
+    slots) and ~30,000 survivors per owner (more than one select round at
+    ``wire_k = n_shard``); rows of 2 and 6 tiles; narrow and empty rows
+    beside them; ``wire_k`` 8, 256 and ``n_shard`` (owners with fewer
+    survivors than ``wire_k``)."""
+    from repro_torch.core.distributed_engine import (DistConfig,
+                                                     build_sharded_graph)
+    from repro_torch.core.graph import Graph
+    from repro_torch.kernels import frontier_push as push_k
+
+    r = np.random.default_rng(14)
+    ep, ns = 4, 32768
+    n, hub_deg = ep * ns, 16384
+    degs = r.choice([0, 1, 2, 4, 8], n).astype(np.int64)
+    hubs = ns + 100 + np.arange(40)                 # in shard 1
+    degs[hubs] = hub_deg
+    srcs = np.repeat(np.arange(n), degs)
+    dsts = r.integers(0, n, srcs.shape[0])
+    for h in hubs[:20]:                             # the same columns
+        dsts[srcs == h] = 8 * np.arange(hub_deg)
+    g = Graph.from_edges(srcs, dsts, n=n, device=dev)
+    slabs = build_sharded_graph(g, DistConfig(n=n, ep=ep), device=dev)
+    q, k = 8, 32
+    local = hubs - ns
+    fi_np = r.integers(0, ns, (q, k)).astype(np.int32)
+    fv_np = dyadic(r, (q, k), zero_frac=0.2)
+    fi_np[0, :20] = local[:20]                      # ties at every cut
+    fv_np[0, :20], fv_np[0, 20:] = 0.5, 0.0
+    fi_np[1, :20] = np.concatenate([local[20:38], local[20:22]])
+    fv_np[1, :20] = dyadic(r, 20)
+    fi_np[2, 5] = local[30]                         # two tiles
+    fv_np[2, 5] = 0.25
+    fi_np[3, 3:8] = local[21:26]                    # six tiles
+    fv_np[3, 3:8] = dyadic(r, 5)
+    fv_np[7] = 0.0                                  # an empty row
+    fv, fi = (torch.from_numpy(x).to(dev) for x in (fv_np, fi_np))
+    args = (fv, fi, slabs.row_ptr[1], slabs.col_idx[1])
+    ok = True
+    for wire_k in (8, 256, ns):
+        kw = dict(c=0.5, degree_cap=hub_deg, ep=ep, n_shard=ns,
+                  wire_k=wire_k, hub_split_degree=64)
+        a = push_k.sharded_frontier_push_cuda(*args, **kw)
+        b = push_k.sharded_frontier_push_plain(*args, **kw)
+        ok &= bits_equal(torch, a[0], b[0]) and bits_equal(torch, a[1], b[1])
     return ok
 
 
@@ -645,9 +717,15 @@ def replay(torch, name, variant, args, kwargs):
         rel_ok = bool(torch.all((sa - sb).abs() <= 1e-5 * sb.abs() + 1e-30))
         agree = float((a[1] == b[1]).float().mean())
         ok = rel_ok and agree >= 0.99
+    if name == "ell_spmm":
+        # the kernel gathers only the columns of f that hold a non-zero
+        live = int((args[0] != 0).any(dim=0).sum())
+        print(f"  {name}/{variant}: non-zero columns of f: {live} of "
+              f"{args[0].shape[1]} ({100.0 * live / args[0].shape[1]:.3f}%), "
+              f"Q = {args[0].shape[0]}")
     if name in ("frontier_push", "sharded_frontier_push"):
-        # one block per row, so the row with the most gathered edges sets
-        # the kernel's time
+        # the row with the most gathered edges sets the streamed push's
+        # time (one block per row) and the sharded push's widest tile sort
         fv, fi = args[0], args[1]
         deg = (args[5] if name == "frontier_push"
                else args[2][1:] - args[2][:-1])
@@ -1098,6 +1176,13 @@ def main() -> int:
           f"({100 * topk_ms / batch_ms:.1f}%); a stable sort of the same "
           f"rows {sort_ms:.3f} ms")
     del out256
+    wall_ms, device_ms, split = device_time_split(
+        torch, lambda: eng_d.query_topk(src256))
+    print(f"dense batch of 256, device time by kernel (torch.profiler): "
+          f"wall {wall_ms:.3f} ms, device busy {device_ms:.3f} ms")
+    for name, ms in split:
+        print(f"  {ms:9.3f} ms  {100 * ms / max(device_ms, 1e-9):5.1f}%  "
+              f"{name[:110]}")
     phase("3d serve, dense route", t0)
 
     # -- 3e: the baselines against power iteration ---------------------------
@@ -1105,7 +1190,15 @@ def main() -> int:
     src64 = src256[:E_ROWS]
     eng_pi = BatchQueryEngine(g, None, QueryConfig(
         mode="pi", top_k=50, pi_iterations=100), device=dev)
+    # the last push of pi is ell_spmm's input at its densest: keep it
+    ops.reset_launch_counts()
+    ops.capture_first_launches(True, last=True)
     truth = eng_pi.query_dense(src64)
+    captured_e = {"ell_spmm/dense": ops.captured_launches()["ell_spmm/later"]}
+    ops.capture_first_launches(False)
+    pi_ms = cuda_ms(torch, lambda: eng_pi.query_dense(src64), max_reps=3)
+    print(f"pi batch of {E_ROWS} ({eng_pi.config.pi_iterations} iterations, "
+          f"as many ell_spmm launches): {pi_ms:.3f} ms")
     stochastic = is_stochastic(truth, atol=1e-4)
     print(f"pi: {int(stochastic.sum())} of {E_ROWS} rows stochastic; row "
           f"mass {float(truth.sum(1).min()):.7f}.."
@@ -1191,16 +1284,21 @@ def main() -> int:
     failures += [f"kernel {k} never launched on the distributed path"
                  for k in DIST_PATH if counts_f[k] <= 0]
     split_tiles = min(4, n_tiles)
-    wall_ms, device_ms, top = device_time_split(torch, lambda: [
+    wall_ms, device_ms, split = device_time_split(torch, lambda: [
         step(slabs, work_t[j:j + 256], iv, ii)
-        for j in range(0, split_tiles * 256, 256)])
+        for j in range(0, split_tiles * 256, 256)], top=None)
     print(f"tile step, device time by kernel over {split_tiles} tiles "
           f"(torch.profiler): wall {wall_ms / split_tiles:.3f} ms per tile, "
           f"device busy {device_ms / split_tiles:.3f} ms per tile "
           f"({100 * device_ms / wall_ms:.1f}% of the wall)")
-    for name, ms in top:
+    for name, ms in split[:8]:
         print(f"  {ms / split_tiles:9.3f} ms per tile  "
               f"{100 * ms / max(device_ms, 1e-9):5.1f}%  {name[:110]}")
+    push_ms = sum(ms for name, ms in split if any(
+        tag in name for tag in ("sharded_push", "sharded_wide", "wr::")))
+    print(f"  sharded_frontier_push, all its kernels: "
+          f"{push_ms / split_tiles:.3f} ms per tile "
+          f"({100 * push_ms / max(device_ms, 1e-9):.1f}%)")
     top_v = torch.cat([v for v, _ in tiles])
     top_i = torch.cat([i for _, i in tiles])
     mass = top_v.sum(dim=1)
@@ -1245,6 +1343,7 @@ def main() -> int:
     results = {}
     captured_f = {tag: v for tag, v in captured_f.items()
                   if tag.startswith("sharded_frontier_push/")}
+    captured.update(captured_e)
     for tag in (sorted(captured_s) + sorted(captured) + sorted(captured_f)
                 + sorted(captured_g)):
         name, variant = tag.split("/")
@@ -1255,7 +1354,7 @@ def main() -> int:
         if not res["ok"]:
             failures.append(f"replay {tag}")
         results.setdefault(name, []).append(res)
-    del captured, captured_s, captured_f, captured_g
+    del captured, captured_s, captured_e, captured_f, captured_g
     phase("2b kernel vs plain, main-path inputs", t0)
 
     t0 = time.perf_counter()

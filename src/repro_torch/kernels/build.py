@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` becomes one shared library with a plain C interface
 (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 -Xcompiler -fPIC``), built at first use into ``build/kernels/`` at the
-repository root and named by a hash of its sources and flags, so an
-unchanged source is never rebuilt.  All missing libraries build in
-parallel, one nvcc process per source.  No ``--use_fast_math``:
+repository root and named by a hash of its source, every header under
+``csrc/`` (in sorted order) and the flags, so an unchanged source is never
+rebuilt and an edit to any header rebuilds every library.  All missing
+libraries build in parallel, one nvcc process per source.  No ``--use_fast_math``:
 ``walk_step`` must stay bit-exact.
 """
 
@@ -53,7 +54,9 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / SOURCES[name]).read_bytes())
-    h.update((CSRC / "compact.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

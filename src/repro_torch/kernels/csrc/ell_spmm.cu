@@ -10,118 +10,182 @@
 //
 // Bound: bytes.  f is read once (Q * n * 4 B), the ELL once (rows * K * 8
 // B) and out written once (Q * n * 4 B); the f32 multiply-adds are far
-// below the card's rate.  What costs is the gather: f[q, nbr] along a
-// row-major [Q, n] row touches one 4 B word per 32 B sector.  Design:
-//   1. `transpose_kernel` writes f^T [n, Q] into wrapper scratch, so the
-//      Q values of one in-neighbour are contiguous: a warp reads 32 of them
-//      as one 128 B line;
-//   2. `ell_pull_kernel`: a block owns kRows consecutive ELL rows and 128
-//      columns q (one per thread); each thread walks its rows in order and
-//      sums each vertex's run of rows in registers.  A vertex whose rows
-//      all lie in the block goes to a shared-memory tile, and the block
-//      then writes every vertex it owns (those whose rows start in it, and
-//      the vertices without in-edges in between, as 0) row-major with
-//      neighbouring threads on neighbouring vertices.  A vertex whose rows
-//      cross a block boundary (a hub) leaves one partial sum per block in
-//      `carry`: slot 1 for the block its rows start in, slot 0 for the
-//      blocks it continues into;
+// below the card's rate.  What costs is the gather of f[:, nbr] for each
+// ELL entry, and most of those columns are zero: a batch's first push
+// starts from one-hot rows (at most Q live columns of n), and later pushes
+// of a sparse-route graph stay far from dense.  Design:
+//   1. `compact_columns_kernel`, the only full read of f: a block owns 32
+//      vertices, reads their columns row by row (a warp reads 128 B of a
+//      row), marks each vertex whose column holds a non-zero, gives it a
+//      slot (one atomicAdd per block on a running count, so no host read)
+//      or -1, and writes only the live columns, transposed, into ftc
+//      [slot, Q] (the second read of the block's columns hits L2);
+//   2. `ell_pull_kernel`: a block owns kRows consecutive ELL rows and kQ
+//      columns q (one per thread).  It stages its rows' live entries
+//      (w != 0 and slot[nbr] >= 0) in shared memory, compacted in row
+//      order, and each thread then walks its rows in order, gathering an
+//      ftc row (kQ contiguous floats across the block) only for a live
+//      entry, and sums each vertex's run of rows in registers.
+//      A vertex whose rows all lie in the block goes to a shared-memory
+//      tile, and the block then writes every vertex it owns (those whose
+//      rows start in it, and the vertices without in-edges in between, as
+//      0) row-major with neighbouring threads on neighbouring vertices.  A
+//      vertex whose rows cross a block boundary (a hub) leaves one partial
+//      sum per block in `carry`: slot 1 for the block its rows start in,
+//      slot 0 for the blocks it continues into;
 //   3. `ell_fold_kernel` adds each crossing vertex's partials in block
-//      order.  Every block has the same row count whatever the degree skew,
-//      and every sum runs in a fixed order, so the result is deterministic.
-// Padding slots (w == 0) are skipped: adding 0 * f leaves a finite sum as
-// it is.
-#include <cuda_runtime.h>
+//      order.
+// Every sum runs in a fixed order (rows in order, entries in order, blocks
+// in order), whatever the degree skew and whichever slots the atomics
+// hand out.  A skipped entry is a padding slot (w == 0) or a column that
+// is zero for every q: fma(w, 0, acc) == acc for a finite acc, so
+// skipping it keeps each sum's bits.
+#include "compact.cuh"
 
 namespace {
 
 constexpr int kRows = 32;      // ELL rows per block
 constexpr int kQ = 128;        // query columns per block (one per thread)
+constexpr int kCols = 32;      // vertices per block of the column pass
+constexpr int kColRows = 8;    // thread rows of the column pass
 
-__global__ void transpose_kernel(const float* __restrict__ f,
-                                 float* __restrict__ ft, int q, int n) {
-  __shared__ float tile[32][33];
-  long long c0 = (long long)blockIdx.x * 32;  // vertex
-  long long r0 = (long long)blockIdx.y * 32;  // query row
-  for (int j = threadIdx.y; j < 32; j += blockDim.y) {
-    long long r = r0 + j, c = c0 + threadIdx.x;
-    if (r < q && c < n) tile[j][threadIdx.x] = f[r * n + c];
+__global__ void __launch_bounds__(kCols * kColRows)
+compact_columns_kernel(const float* __restrict__ f, int q, int n,
+                       int* __restrict__ slot, float* __restrict__ ftc,
+                       int* __restrict__ n_live) {
+  __shared__ float tile[kCols][kCols + 1];
+  __shared__ int nz[kColRows][kCols];
+  __shared__ int sslot[kCols];
+  __shared__ int any_live;
+  const int x = threadIdx.x, y = threadIdx.y;
+  const long long v = (long long)blockIdx.x * kCols + x;
+  bool live = false;
+  if (v < n)
+    for (long long r = y; r < q; r += kColRows) live |= f[r * n + v] != 0.0f;
+  nz[y][x] = live;
+  __syncthreads();
+  if (y == 0) {  // warp 0: one lane per vertex
+    bool any = false;
+    for (int j = 0; j < kColRows; ++j) any |= nz[j][x] != 0;
+    unsigned ballot = __ballot_sync(0xffffffffu, any);
+    int base = 0;
+    if (x == 0 && ballot) base = atomicAdd(n_live, __popc(ballot));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    int s = any ? base + __popc(ballot & ((1u << x) - 1u)) : -1;
+    if (v < n) slot[v] = s;
+    sslot[x] = s;
+    if (x == 0) any_live = ballot != 0;
   }
   __syncthreads();
-  for (int j = threadIdx.y; j < 32; j += blockDim.y) {
-    long long c = c0 + j, r = r0 + threadIdx.x;
-    if (r < q && c < n) ft[c * q + r] = tile[threadIdx.x][j];
+  if (!any_live) return;
+  for (long long r0 = 0; r0 < q; r0 += kCols) {
+    for (int j = y; j < kCols; j += kColRows) {
+      long long r = r0 + j;
+      if (r < q && v < n) tile[j][x] = f[r * n + v];
+    }
+    __syncthreads();
+    for (int j = y; j < kCols; j += kColRows) {
+      int s = sslot[j];
+      long long r = r0 + x;
+      if (s >= 0 && r < q) ftc[(long long)s * q + r] = tile[x][j];
+    }
+    __syncthreads();
   }
 }
 
-// smallest v in [0, n] with vertex_rows[v] >= row
-__device__ int lower_bound(const int* __restrict__ vertex_rows, int n,
-                           int row) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (vertex_rows[mid] < row) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
+// Dynamic shared memory: the block's live entries (slot, weight) in row
+// order, kRows * k of each at most, then kRows + 1 row starts.
 __global__ void __launch_bounds__(kQ)
-ell_pull_kernel(const float* __restrict__ ft, const int* __restrict__ nbr,
-                const float* __restrict__ w,
+ell_pull_kernel(const float* __restrict__ ftc, const int* __restrict__ slot,
+                const int* __restrict__ nbr, const float* __restrict__ w,
                 const int* __restrict__ row2vertex,
                 const int* __restrict__ vertex_rows, int q, int n_out,
                 int rows, int k, float* __restrict__ out,
                 float* __restrict__ carry, int n_blocks) {
   __shared__ float res[kRows][kQ + 1];
-  __shared__ int owned[2];
+  __shared__ int red[32];
+  __shared__ int rv[kRows], rs_of[kRows], re_of[kRows];  // row -> vertex
+  extern __shared__ int stage[];
+  const int t = threadIdx.x;
   const int b = blockIdx.x;
   const int r0 = b * kRows;
   const int r1 = min(r0 + kRows, rows);
-  const int t = threadIdx.x;
+  int* cs = stage;                                   // [kRows * k]
+  float* cw = reinterpret_cast<float*>(stage + kRows * k);
+  int* row_at = stage + 2 * kRows * k;               // [kRows + 1]
+
+  // stage each row's vertex and its row range, and the live entries,
+  // compacted in row order
+  if (t < r1 - r0) {
+    const int v = row2vertex[r0 + t];
+    rv[t] = v;
+    rs_of[t] = vertex_rows[v];
+    re_of[t] = vertex_rows[v + 1];
+  }
+  const int ne = (r1 - r0) * k;
+  const long long e_base = (long long)r0 * k;
+  int before = 0;
+  for (int e0 = 0; e0 < ne; e0 += kQ) {
+    const int e = e0 + t;
+    int s = -1;
+    float wt = 0.0f;
+    if (e < ne) {
+      wt = __ldg(w + e_base + e);
+      if (wt != 0.0f) s = __ldg(slot + __ldg(nbr + e_base + e));
+    }
+    int total;
+    const int at = pw::block_rank(s >= 0, red, &total);
+    if (s >= 0) {
+      cs[before + at] = s;
+      cw[before + at] = wt;
+    }
+    if (e < ne && e % k == 0) row_at[e / k] = before + at;
+    before += total;
+  }
+  if (t == 0) row_at[r1 - r0] = before;
+  __syncthreads();
+
+  // the block owns the vertices from the one after the last row before it
+  // to the one of its own last row (the first vertex with vertex_rows >=
+  // r0, and >= r1), the vertices without in-edges between them included
+  const int own0 = b == 0 ? 0 : row2vertex[r0 - 1] + 1;
+  const int own1 = b + 1 == n_blocks ? n_out : rv[r1 - 1 - r0] + 1;
+  const int lane = t & 31, warp = t >> 5;
+
   const int qi = blockIdx.y * kQ + t;
   const bool live = qi < q;
-
   float acc = 0.0f;
   for (int r = r0; r < r1; ++r) {
-    const int* nr = nbr + (long long)r * k;
-    const float* wr = w + (long long)r * k;
-    for (int j = 0; j < k; ++j) {
-      float wt = __ldg(wr + j);
-      if (wt != 0.0f && live)
-        acc = __fmaf_rn(wt, __ldg(ft + (long long)__ldg(nr + j) * q + qi),
-                        acc);
-    }
-    const int v = row2vertex[r];
-    if (r + 1 < r1 && row2vertex[r + 1] == v) continue;  // run goes on
-    const int rs = vertex_rows[v], re = vertex_rows[v + 1];
+    const int i1 = row_at[r - r0 + 1];
+    if (live)
+      for (int i = row_at[r - r0]; i < i1; ++i)
+        acc = __fmaf_rn(cw[i], __ldg(ftc + (long long)cs[i] * q + qi), acc);
+    const int i = r - r0;
+    if (r + 1 < r1 && rv[i + 1] == rv[i]) continue;  // run goes on
+    const int rs = rs_of[i], re = re_of[i];
     if (rs >= r0 && re <= r1) {
       res[rs - r0][t] = acc;
     } else if (live) {
-      int slot = rs < r0 ? 0 : 1;
-      carry[((long long)slot * n_blocks + b) * q + qi] = acc;
+      const int cslot = rs < r0 ? 0 : 1;
+      carry[((long long)cslot * n_blocks + b) * q + qi] = acc;
     }
     acc = 0.0f;
   }
-
-  if (t == 0) {
-    owned[0] = b == 0 ? 0 : lower_bound(vertex_rows, n_out, r0);
-    owned[1] = b + 1 == n_blocks ? n_out
-                                 : lower_bound(vertex_rows, n_out, r1);
-  }
   __syncthreads();
-  const int lane = t & 31, warp = t >> 5;
-  for (int vb = owned[0]; vb < owned[1]; vb += 32) {
+  for (int vb = own0; vb < own1; vb += 32) {
     const int v = vb + lane;
     int kind = 0;  // 0: not written here, 1: zero, 2: from the tile
     int rs = 0;
-    if (v < owned[1]) {
+    if (v < own1) {
       rs = vertex_rows[v];
       const int re = vertex_rows[v + 1];
       kind = rs == re ? 1 : (re <= r1 ? 2 : 0);
     }
     for (int j = warp; j < kQ; j += kQ / 32) {
       const int qo = blockIdx.y * kQ + j;
-      if (kind && qo < q)
-        out[(long long)qo * n_out + v] = kind == 1 ? 0.0f : res[rs - r0][j];
+      if (kind && qo < q)  // streaming: out is not read again here
+        __stcs(out + (long long)qo * n_out + v,
+               kind == 1 ? 0.0f : res[rs - r0][j]);
     }
   }
 }
@@ -149,24 +213,40 @@ ell_fold_kernel(const int* __restrict__ row2vertex,
 
 extern "C" int ell_spmm_rows_per_block() { return kRows; }
 
-// f [q, n_in] -> out [q, n_out]; ft [n_in, q] and carry [2, n_blocks, q]
-// are wrapper scratch.  rows is the count of ELL rows in use (padding rows
-// past it are never read); n_blocks = max(1, ceil(rows / kRows)).
+// Bytes of dynamic shared memory the pull needs at ELL width k.
+extern "C" int ell_spmm_stage_bytes(int k) {
+  return (2 * kRows * k + kRows + 1) * (int)sizeof(int);
+}
+
+// f [q, n_in] -> out [q, n_out]; slot [n_in], ftc [n_in, q], carry [2,
+// n_blocks, q] and n_live [1] (zeroed here) are wrapper scratch.  rows is
+// the count of ELL rows in use (padding rows past it are never read);
+// n_blocks = max(1, ceil(rows / kRows)).
 extern "C" int ell_spmm_launch(const void* f, const void* nbr, const void* w,
                                const void* row2vertex,
                                const void* vertex_rows, int q, int n_in,
-                               int n_out, int rows, int k, void* ft,
-                               void* carry, int n_blocks, void* out,
-                               void* stream) {
+                               int n_out, int rows, int k, void* slot,
+                               void* ftc, void* n_live, void* carry,
+                               int n_blocks, void* out, void* stream) {
   if (q <= 0 || n_out <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(n_live, 0, sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
   if (rows > 0 && n_in > 0) {
-    dim3 tb(32, 8), tg((n_in + 31) / 32, (q + 31) / 32);
-    transpose_kernel<<<tg, tb, 0, s>>>((const float*)f, (float*)ft, q, n_in);
+    dim3 tb(kCols, kColRows), tg((n_in + kCols - 1) / kCols);
+    compact_columns_kernel<<<tg, tb, 0, s>>>((const float*)f, q, n_in,
+                                             (int*)slot, (float*)ftc,
+                                             (int*)n_live);
   }
-  dim3 grid(n_blocks, (q + kQ - 1) / kQ);
-  ell_pull_kernel<<<grid, kQ, 0, s>>>(
-      (const float*)ft, (const int*)nbr, (const float*)w,
+  const int smem = ell_spmm_stage_bytes(rows > 0 ? k : 0);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        ell_pull_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(n_blocks, (q + kQ - 1) / kQ);
+  ell_pull_kernel<<<grid, kQ, smem, s>>>(
+      (const float*)ftc, (const int*)slot, (const int*)nbr, (const float*)w,
       (const int*)row2vertex, (const int*)vertex_rows, q, n_out, rows, k,
       (float*)out, (float*)carry, n_blocks);
   if (n_blocks > 1)

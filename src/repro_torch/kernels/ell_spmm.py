@@ -8,7 +8,8 @@ both return the folded ``f32[Q, n_out]``.  With one row per vertex
 result is the reference's raw partials.
 
 :func:`ell_spmm_plain` is the plain PyTorch version (the CPU path and the
-oracle on the card); :func:`ell_spmm_cuda` launches ``csrc/ell_spmm.cu``.
+oracle on the card); :func:`ell_spmm_cuda` launches ``csrc/ell_spmm.cu``,
+which gathers only the columns of ``f`` that hold a non-zero.
 Callers go through :func:`repro_torch.kernels.ops.ell_push`.
 """
 
@@ -25,7 +26,7 @@ from repro_torch.kernels import build
 PLAIN_BLOCK_ELEMS = 1 << 25
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-             + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+             + [ctypes.c_void_p] * 4 + [ctypes.c_int]
              + [ctypes.c_void_p] * 2)
 
 
@@ -74,20 +75,27 @@ def ell_spmm_cuda(f, nbr, w, row2vertex, vertex_rows, rows_used: int):
         raise ValueError("ell_spmm: mismatched shapes")
     if max(q * n_in, q * n_out, rows * k) >= 2 ** 31:
         raise ValueError("ell_spmm: a tensor exceeds 2**31 elements")
+    if rows_used and k < 1:
+        raise ValueError("ell_spmm: the ELL view needs k >= 1")
     lib = build.load("ell_spmm")
     rows_per_block = lib.ell_spmm_rows_per_block
     rows_per_block.argtypes, rows_per_block.restype = [], ctypes.c_int
     n_blocks = max(1, -(-rows_used // rows_per_block()))
     out = torch.empty((q, n_out), dtype=torch.float32, device=dev)
-    ft = torch.empty((n_in, q), dtype=torch.float32, device=dev)
+    # the live columns, transposed: allocated for all n_in, so the count
+    # of live columns stays on the device
+    slot = torch.empty(n_in, dtype=torch.int32, device=dev)
+    ftc = torch.empty((n_in, q), dtype=torch.float32, device=dev)
+    n_live = torch.empty(1, dtype=torch.int32, device=dev)
     carry = torch.empty((2, n_blocks, q), dtype=torch.float32, device=dev)
     fn = lib.ell_spmm_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     status = fn(
         f.data_ptr(), nbr.data_ptr(), w.data_ptr(), row2vertex.data_ptr(),
-        vertex_rows.data_ptr(), q, n_in, n_out, rows_used, k, ft.data_ptr(),
-        carry.data_ptr(), n_blocks, out.data_ptr(),
+        vertex_rows.data_ptr(), q, n_in, n_out, rows_used, k,
+        slot.data_ptr(), ftc.data_ptr(), n_live.data_ptr(), carry.data_ptr(),
+        n_blocks, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(status, "ell_spmm")

@@ -23,7 +23,9 @@ plan: the merge is exact and each owner's top-k follows it, so the answer
 does not depend on how the edges are split.
 :func:`sharded_frontier_push_plain` is the plain version;
 :func:`sharded_frontier_push_cuda` launches
-``csrc/sharded_frontier_push.cu``.
+``csrc/sharded_frontier_push.cu``: one block per narrow row, and the
+rows too wide for one block's shared memory spread over the whole grid
+(``csrc/wide_row.cuh``).
 """
 
 from __future__ import annotations
@@ -45,11 +47,17 @@ _ARGTYPES = (
 _SHARDED_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
 )
 _SHARDED_SIZE_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+     ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+)
+_SHARDED_WIDE_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int]
+    + [ctypes.c_void_p] * 7
 )
 # candidates per block of the plain sharded push (its window form gathers
 # K * s * h lanes per row: 7.2M at the main path's second iteration)
@@ -187,10 +195,13 @@ def sharded_frontier_push_cuda(
     n_shard: int, wire_k: int, hub_split_degree: int = 0,
 ):
     """Launch the CUDA kernels on the current stream: one counts each
-    row's real edges and claims its scratch, the other pushes.  Sizing the
-    scratch reads one number back to the host: the total of the rows'
-    scratch widths (``next_pow2`` of each row's real edge count, for rows
-    wider than the kernel's shared memory)."""
+    row's real edges, writes its per-slot edge offsets and claims a wide
+    row's scratch; one pushes the narrow rows, one block each; the wide
+    rows' kernels (gather and tile sorts, merge passes, group sums,
+    per-owner selects) spread each wide row over many blocks.  Sizing the
+    scratch and the wide grids reads three numbers back to the host, in
+    one copy: the total of the wide rows' scratch regions, the longest,
+    and the count of wide rows."""
     del hub_split_degree  # geometry only; the kernel gathers real edges
     dev = fv.device
     for name, t, dt in (
@@ -215,33 +226,58 @@ def sharded_frontier_push_cuda(
             f"sharded_frontier_push: ep={ep} x n_shard={n_shard} does not "
             "fit the kernel's 64-bit (owner, value, column) key")
     cap = min(degree_cap, m)
+    if k * cap >= 2 ** 31:
+        raise ValueError(
+            f"sharded_frontier_push: a row of up to {k} x {cap} candidates "
+            "does not fit the kernel's 32-bit positions")
     lib = build.load("sharded_frontier_push")
     stream = torch.cuda.current_stream(dev).cuda_stream
     count = torch.empty(q, dtype=torch.int32, device=dev)
     offsets = torch.empty(q, dtype=torch.int64, device=dev)
-    g_total = torch.zeros(1, dtype=torch.int64, device=dev)
+    slot_off = torch.empty((q, k + 1), dtype=torch.int32, device=dev)
+    totals = torch.empty(3, dtype=torch.int64, device=dev)
+    wide_rows = torch.empty(q, dtype=torch.int32, device=dev)
+    out_v = torch.empty((q, ep, wire_k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, ep, wire_k), dtype=torch.int32, device=dev)
     size_fn = lib.sharded_frontier_push_size_launch
     size_fn.argtypes = _SHARDED_SIZE_ARGTYPES
     size_fn.restype = ctypes.c_int
     status = size_fn(fv.data_ptr(), fi.data_ptr(), q, k, row_ptr.data_ptr(),
                      cap, count.data_ptr(), offsets.data_ptr(),
-                     g_total.data_ptr(), stream)
+                     slot_off.data_ptr(), totals.data_ptr(),
+                     wide_rows.data_ptr(), stream)
     build.check_launch(status, "sharded_frontier_push")
-    total = max(int(g_total), 1)              # the one host read
-    g_cv = torch.empty(total, dtype=torch.float32, device=dev)
-    g_ci = torch.empty(total, dtype=torch.int32, device=dev)
-    g_keys = torch.empty(total, dtype=torch.int64, device=dev)
-    out_v = torch.empty((q, ep, wire_k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((q, ep, wire_k), dtype=torch.int32, device=dev)
+    # the one host read; the narrow rows' push goes after it, so that it
+    # runs while the host goes on
+    total, longest, n_wide = totals.tolist()
     fn = lib.sharded_frontier_push_launch
     fn.argtypes = _SHARDED_ARGTYPES
     fn.restype = ctypes.c_int
     status = fn(
         fv.data_ptr(), fi.data_ptr(), q, k, row_ptr.data_ptr(),
         col_idx.data_ptr(), float(1.0 - c), cap, ep, n_shard, local_bits,
-        wire_k, count.data_ptr(), offsets.data_ptr(), g_cv.data_ptr(),
-        g_ci.data_ptr(), g_keys.data_ptr(), out_v.data_ptr(),
-        out_i.data_ptr(), stream,
+        wire_k, count.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream,
+    )
+    build.check_launch(status, "sharded_frontier_push")
+    if total == 0:
+        return out_v, out_i
+    tile_keys = lib.sharded_frontier_push_tile_keys
+    tile_keys.argtypes, tile_keys.restype = [], ctypes.c_int
+    tile_row = torch.empty(total // tile_keys(), dtype=torch.int32,
+                           device=dev)
+    g_cv = torch.empty(total, dtype=torch.float32, device=dev)
+    keys_a = torch.empty(total, dtype=torch.int64, device=dev)
+    keys_b = torch.empty(total, dtype=torch.int64, device=dev)
+    wide_fn = lib.sharded_frontier_push_wide_launch
+    wide_fn.argtypes = _SHARDED_WIDE_ARGTYPES
+    wide_fn.restype = ctypes.c_int
+    status = wide_fn(
+        fv.data_ptr(), fi.data_ptr(), k, row_ptr.data_ptr(),
+        col_idx.data_ptr(), float(1.0 - c), ep, n_shard, wire_k,
+        count.data_ptr(), offsets.data_ptr(), slot_off.data_ptr(),
+        wide_rows.data_ptr(), total, longest, n_wide, tile_row.data_ptr(),
+        g_cv.data_ptr(), keys_a.data_ptr(), keys_b.data_ptr(),
+        out_v.data_ptr(), out_i.data_ptr(), stream,
     )
     build.check_launch(status, "sharded_frontier_push")
     return out_v, out_i

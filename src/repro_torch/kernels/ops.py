@@ -15,7 +15,9 @@ of the one-hot sources and the push of a frontier spread over thousands
 of vertices; ``sharded_frontier_push`` records its first launch and its
 launch number ``ep``, which in a tile step are shard 0's pushes of the
 one-hot sources and of the second iteration's frontier), so a check can
-replay exactly the inputs the main path gave it.
+replay exactly the inputs the main path gave it.  With ``last=True`` it
+keeps each variant's last launch instead (``ell_spmm``'s "later" is then
+the last push of a run: a late power iteration's dense frontier).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ KERNELS = ("walk_step", "frontier_push", "index_combine_sparse", "ell_spmm",
 
 _launches: collections.Counter = collections.Counter()
 _captured: Optional[Dict[str, tuple]] = None
+_capture_last = False
 
 
 def launch_counts() -> Dict[str, int]:
@@ -47,15 +50,18 @@ def reset_launch_counts() -> None:
     _launches.clear()
 
 
-def capture_first_launches(enabled: bool = True) -> None:
-    """Start (or stop) recording each kernel's first launch arguments."""
-    global _captured
+def capture_first_launches(enabled: bool = True, *,
+                           last: bool = False) -> None:
+    """Start (or stop) recording each kernel variant's first launch
+    arguments (its last with ``last``)."""
+    global _captured, _capture_last
     _captured = {} if enabled else None
+    _capture_last = last
 
 
 def captured_launches() -> Dict[str, tuple]:
     """``"name/variant" -> (args, kwargs)`` of each kernel variant's first
-    recorded launch."""
+    (or last) recorded launch."""
     return dict(_captured or {})
 
 
@@ -63,7 +69,8 @@ def _launched(name: str, args: tuple, kwargs: dict,
               variant: Optional[str] = "main") -> None:
     _launches[name] += 1
     tag = f"{name}/{variant}"
-    if _captured is not None and variant and tag not in _captured:
+    if _captured is not None and variant and (
+            _capture_last or tag not in _captured):
         _captured[tag] = (args, kwargs)
 
 

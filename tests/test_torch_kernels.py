@@ -277,3 +277,69 @@ def test_wrappers_refuse_unsupported_devices():
             ep=1, n_shard=1, wire_k=1)
     with pytest.raises(ValueError):
         tops.embedding_bag(t[:, None].int(), t[:, None], t[:, None])
+
+
+# -- the kernel build ---------------------------------------------------------
+
+def test_library_name_changes_with_any_header(tmp_path, monkeypatch):
+    """A library is named by a hash of its source, every ``csrc/*.cuh`` and
+    the flags: an edit to any header, used by the kernel or not, names a
+    new library, so no stale build is loaded."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build.library_path(name) for name in build.SOURCES}
+    extra = csrc / "extra.cuh"
+    extra.write_text("// a header no kernel includes yet\n")
+    after_new = {name: build.library_path(name) for name in build.SOURCES}
+    assert all(after_new[k] != before[k] for k in build.SOURCES)
+    extra.write_text("// the same header, edited\n")
+    after_edit = {name: build.library_path(name) for name in build.SOURCES}
+    assert all(after_edit[k] != after_new[k] for k in build.SOURCES)
+    extra.unlink()
+    assert {name: build.library_path(name)
+            for name in build.SOURCES} == before
+
+
+def test_capture_last_keeps_each_variants_last_launch():
+    """``capture_first_launches(last=True)`` keeps each variant's last
+    launch (how the smoke run takes a late power iteration's push); the
+    default keeps the first."""
+    try:
+        for last, want in ((False, 1), (True, 3)):
+            tops.reset_launch_counts()
+            tops.capture_first_launches(True, last=last)
+            for i in (1, 2, 3):
+                tops._launched("ell_spmm", (i,), {}, "later")
+            assert tops.captured_launches()["ell_spmm/later"] == ((want,), {})
+            assert tops.launch_counts()["ell_spmm"] == 3
+    finally:
+        tops.capture_first_launches(False)
+        tops.reset_launch_counts()
+
+
+def test_redesigned_wrappers_refuse_what_their_kernels_cannot_index():
+    """The sharded push keys a candidate by a 32-bit position in its row,
+    so a row of ``K * degree_cap >= 2**31`` candidates is refused; an ELL
+    view of width 0 with rows in use is refused; both before any launch."""
+    from repro_torch.kernels import ell_spmm as ell_k
+    from repro_torch.kernels import frontier_push as push_k
+
+    k = 2 ** 20                                 # k * 2048 = 2**31
+    fv = torch.ones((1, k))
+    fi = torch.zeros((1, k), dtype=torch.int32)
+    row_ptr = torch.tensor([0, 2048, 2048], dtype=torch.int32)
+    col_idx = torch.zeros(2048, dtype=torch.int32)
+    with pytest.raises(ValueError, match="32-bit"):
+        push_k.sharded_frontier_push_cuda(
+            fv, fi, row_ptr, col_idx, c=0.15, degree_cap=2048, ep=1,
+            n_shard=2, wire_k=4)
+    nbr = torch.zeros((4, 0), dtype=torch.int32)
+    r2v = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="k >= 1"):
+        ell_k.ell_spmm_cuda(torch.ones((1, 4)), nbr, nbr.float(), r2v,
+                            torch.arange(5, dtype=torch.int32), rows_used=4)
