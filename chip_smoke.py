@@ -15,20 +15,31 @@ Phases, each timed and printed:
    degrees or weights, and embedding masks in {0, 0.5, 1}), so every f32
    sum is exact in any order and the outputs must be bit-equal, indices
    included; the cases include ``sharded_frontier_push`` rows of more
-   than 300,000 edges (its wide-row path, ``csrc/wide_row.cuh``) and
-   ``ell_spmm`` from one-hot, all-zero and fully dense frontiers;
+   than 300,000 edges (its wide-row path, ``csrc/wide_row.cuh``),
+   ``ell_spmm`` from one-hot, all-zero and fully dense frontiers, the
+   streamed ``frontier_push``'s one-slot chunks over the column-sorted
+   view (hub rows of 4,096 edges, rows out of column order, rows that
+   repeat a column, ``degree_cap`` below a row's degree), and the dense
+   ``index_combine`` on split columns and two q tiles, whose non-dyadic
+   case must give the same bytes on two launches and the plain version's
+   CPU bits on every column summed in one run;
 3. the sparse main path: ``rmat(20, avg_deg=10)`` (n = 1,048,576),
    ``build_index`` over every source (3b), then ``PPRService`` on the
    sparse route (``hub_split_degree=64``) answering 16,384 requests closed
    loop, 64 batches of 256 (3c).  The launch counters are zeroed just
    before the build and read just after the serve; the path's three
-   kernels must have launched;
+   kernels must have launched.  Then, outside that count, one build chunk
+   of 4,096 sources is split by kernel (``torch.profiler``), with the
+   device's idle share and ``walk_step``'s time per launch;
 3d. the dense main path on the same graph and index: ``PPRService`` at the
    default ``hub_split_degree=0``, which routes dense on this hub-heavy
    graph, serving the same 16,384 requests with the counters zeroed just
    before and read just after: ``ell_spmm`` must launch twice per batch
-   and ``index_combine`` once; times one batch and its top-k, and splits
-   one batch's device time by kernel (``torch.profiler``);
+   and ``index_combine`` once; the ELL view and the index's transposed
+   view (``PPRIndex.columns``, its build time and bytes printed) are
+   built first, outside the serve and its peak memory; times one batch
+   and its top-k, and splits one batch's device time by kernel
+   (``torch.profiler``);
 3e. the first 64 requests through ``pi`` (100 iterations, the ground
    truth), ``fppr``, dense ``verd``, dense and sparse ``powerwalk``:
    prints mean RAG and precision at k = 50 against ``pi`` and the time of
@@ -71,8 +82,11 @@ Phases, each timed and printed:
    may differ, which can swap ties at the top-k edge), dense outputs
    within 1e-5 L1 per row and 1e-5 relative per entry, or, for an entry of many terms,
    within the f32 bound on two summation orders of its own count of terms
-   (:func:`dense_agree`), ``walk_step`` and ``embedding_bag`` bit-equal.
-   Times each kernel, its plain version and, where one exists, one PyTorch
+   (:func:`dense_agree`), ``walk_step`` and ``embedding_bag`` bit-equal;
+   the dense ``index_combine`` launched a second time must give the same
+   bytes.  Times each kernel (and ``walk_step``'s kernel alone, from
+   ``torch.profiler``, since back-to-back calls of it time its wrapper's
+   host work), its plain version and, where one exists, one PyTorch
    call of the same function (a sparse product,
    ``torch.nn.functional.embedding_bag``), with CUDA events; prints the
    share of ``f``'s columns that hold a non-zero for every ``ell_spmm``
@@ -274,6 +288,58 @@ def synthetic_frontier_push(torch, np, dev):
         a = push_k.frontier_push_cuda(*args, **kw)
         b = push_k.frontier_push_plain(*args, **kw)
         ok &= bits_equal(torch, a[0], b[0]) and bits_equal(torch, a[1], b[1])
+    return ok and one_slot_frontier_push(torch, np, dev)
+
+
+def one_slot_frontier_push(torch, np, dev):
+    """Streamed one-slot chunks (``slots = 1``, as the plain chunk plan
+    gives a hub-heavy graph) over the column-sorted view, where the kernel
+    folds without sorting: hub rows of 4,096 distinct columns (beyond 2,048
+    edges) and small rows, all stored out of column order; hub and small
+    rows that repeat a column (the general path, between sort-free folds);
+    dangling vertices and zero slots; ``k_out`` 64 (rows far wider than
+    ``k_out`` plus the running state), 256, 1,024 and 2,048 (past the
+    sort-free fold's width); and ``degree_cap`` 3,000 below the hubs'
+    degree (their chunk is the first 3,000 edges in CSR order)."""
+    from repro_torch.core import frontier as F
+    from repro_torch.core import verd as verd_mod
+    from repro_torch.core.graph import Graph
+    from repro_torch.kernels import frontier_push as push_k
+
+    r = np.random.default_rng(15)
+    n = 8192
+    degs = r.choice([0, 1, 2, 4, 8, 16, 32], n).astype(np.int64)
+    hubs = r.choice(n, 16, replace=False)
+    degs[hubs] = 4096
+    repeats = np.zeros(n, bool)
+    repeats[r.choice(n, n // 8, replace=False)] = True
+    repeats[hubs[:4]] = True
+    dsts = [r.integers(0, n, d) if rep else r.permutation(n)[:d]
+            for d, rep in zip(degs, repeats)]
+    srcs = np.repeat(np.arange(n), degs)
+    gp = Graph.from_edges(srcs, np.concatenate(dsts), n=n, device=dev)
+    view = gp.col_sorted()
+    q, k = 64, 32
+    fi_np = r.integers(0, n, (q, k)).astype(np.int32)
+    fi_np[:, :6] = r.choice(hubs, (q, 6))
+    fv = torch.from_numpy(dyadic(r, (q, k), zero_frac=0.2)).to(dev)
+    fi = torch.from_numpy(fi_np).to(dev)
+    sources = torch.from_numpy(r.integers(0, n, q).astype(np.int32)).to(dev)
+    c = 0.5
+    deg = gp.out_deg[fi.long()]
+    dm = torch.where(deg == 0, fv, 0.0).sum(dim=1)
+    dang_v, dang_i = verd_mod.dangling_seed_candidates(dm, sources, None, c=c)
+    ok = True
+    for k_out, cap in ((64, 4096), (256, 4096), (1024, 4096), (2048, 4096),
+                       (256, 3000)):
+        run_v, run_i = F.topk_compact(dang_v, dang_i, k_out)
+        kw = dict(c=c, degree_cap=cap, hub_split_degree=0, slots=1,
+                  k_out=k_out, run_first=True)
+        args = (fv, fi, run_v.contiguous(), run_i.contiguous(), gp.row_ptr,
+                gp.out_deg, gp.col_idx)
+        a = push_k.frontier_push_cuda(*args, sorted_view=view, **kw)
+        b = push_k.frontier_push_plain(*args, **kw)
+        ok &= bits_equal(torch, a[0], b[0]) and bits_equal(torch, a[1], b[1])
     return ok
 
 
@@ -351,22 +417,51 @@ def synthetic_ell_spmm(torch, np, dev):
 
 def synthetic_index_combine_dense(torch, np, dev):
     """Unaligned shapes, all-zero rows of ``f``, zero-padded index rows,
-    and duplicate columns within and across index rows."""
+    columns outside ``[0, n)``, duplicate columns within and across index
+    rows, columns of more than ``COLUMN_SEGMENT`` entries (summed in
+    several tasks) and more query rows than one q tile.  Dyadic inputs:
+    bit-equal to the plain version.  Non-dyadic ones, colliding in the
+    same columns: two launches give the same bytes, and every column of at
+    most ``COLUMN_SEGMENT`` entries is bit-equal to the plain version on
+    the CPU (the same order of the same rounded products)."""
     from repro_torch.kernels import index_combine as comb_k
 
     r = np.random.default_rng(11)
-    q, n, l = 37, 4099, 61
-    vals = r.integers(0, 16, (n, l)).astype(np.float32) / 64.0
-    idx = r.integers(0, n, (n, l)).astype(np.int32)
-    idx[vals == 0] = 0
-    idx[:10] = 7                                  # ten rows onto one column
-    idx[10:20, : l // 2] = idx[10:20, l // 2: 2 * (l // 2)]  # in-row repeats
-    f = dyadic(r, (q, n), top=256, zero_frac=0.5)
-    f[:5] = 0.0
-    args = [torch.from_numpy(x).to(dev) for x in (
-        dyadic(r, (q, n)), f, vals, idx)]
-    return bits_equal(torch, comb_k.index_combine_cuda(*args),
-                      comb_k.index_combine_plain(*args))
+    n, l = 4099, 61
+    ok = True
+    for q, exact in ((37, True), (300, True), (300, False)):
+        if exact:
+            vals = r.integers(0, 16, (n, l)).astype(np.float32) / 64.0
+            f = dyadic(r, (q, n), top=256, zero_frac=0.5)
+            s_ = dyadic(r, (q, n))
+        else:
+            vals = r.random((n, l)).astype(np.float32)
+            vals[r.random((n, l)) < 0.2] = 0.0
+            f = r.random((q, n)).astype(np.float32)
+            f[r.random((q, n)) < 0.5] = 0.0
+            s_ = r.random((q, n)).astype(np.float32)
+        idx = r.integers(0, n, (n, l)).astype(np.int32)
+        idx[vals == 0] = 0
+        idx[:10] = 7                              # ten rows onto one column
+        idx[10:20, : l // 2] = idx[10:20, l // 2: 2 * (l // 2)]  # repeats
+        idx[100:200, :45] = 11                    # 4,500 entries: split
+        if exact:                                 # sums stay exact
+            vals[100:200, :45] = 1.0 / 64.0
+        idx[300:310, 50:] = n + 5                 # outside [0, n)
+        idx[310:320, 50:] = -3
+        f[:5] = 0.0
+        args = [torch.from_numpy(x).to(dev) for x in (s_, f, vals, idx)]
+        a = comb_k.index_combine_cuda(*args)
+        if exact:
+            ok &= bits_equal(torch, a, comb_k.index_combine_plain(*args))
+            continue
+        ok &= bits_equal(torch, a, comb_k.index_combine_cuda(*args))
+        cols = comb_k.index_columns(args[2], args[3], n)
+        one_task = (cols.col_ptr[1:] - cols.col_ptr[:-1]) <= cols.seg
+        want = comb_k.index_combine_plain(*(x.cpu() for x in args))
+        ok &= bits_equal(torch, a[:, one_task].cpu(),
+                         want[:, one_task.cpu()])
+    return ok
 
 
 def synthetic_sharded_frontier_push(torch, np, dev):
@@ -709,6 +804,21 @@ def replay(torch, name, variant, args, kwargs):
     elif name in DENSE_PATH:
         ok, err = dense_agree(torch, name, a, b, args, kwargs)
         agree = 1.0
+        if name == "index_combine":  # no atomics: the same bytes again
+            again = bits_equal(torch, a, kernel(*args, **kwargs))
+            print(f"  {name}/{variant}: a second launch gives the same "
+                  f"bytes: {again}")
+            ok &= again
+            # the pull's work: the view's entries, those of a live vertex,
+            # and the terms f[q, v] * vals[v, j] they add
+            cols = kwargs["columns"]
+            per_v = (args[1] != 0).sum(dim=0)
+            hits = per_v[cols.ent_v.long()]
+            print(f"  {name}/{variant}: f holds {int(per_v.sum())} nonzeros "
+                  f"in {int((per_v > 0).sum())} live columns; the view's "
+                  f"{cols.ent_v.numel()} entries, {int((hits > 0).sum())} of "
+                  f"a live vertex, add {int(hits.sum())} terms")
+            del per_v, hits
     else:
         # per query row (and per owner bucket of the sharded push)
         sa = torch.sort(a[0].reshape(-1, a[0].shape[-1]), dim=1).values
@@ -735,6 +845,25 @@ def replay(torch, name, variant, args, kwargs):
               f"{int(edges.max())}, mean {float(edges.float().mean()):.1f}")
     del a, b
     ms = cuda_ms(torch, lambda: kernel(*args, **kwargs))
+    device_ms = None
+    if name == "walk_step":
+        # a launch is shorter than its wrapper's host work, so cuda_ms's
+        # back-to-back calls time the host: read the kernel's own time.  A
+        # trace has been seen to hold none of the launches: try again, and
+        # report none rather than 0
+        reps = 50
+        for _ in range(3):
+            _, _, split = device_time_split(
+                torch, lambda: [kernel(*args, **kwargs) for _ in range(reps)],
+                top=None)
+            traced = sum(t for k_, t in split if "walk_step" in k_)
+            if traced > 0:
+                device_ms = traced / reps
+                break
+        print(f"  {name}/{variant}: {ms:.4f} ms a call back to back "
+              f"(CUDA events), kernel time a launch (torch.profiler, {reps} "
+              f"launches): " + (f"{device_ms:.4f} ms" if device_ms
+                                else "not measured (no launch traced)"))
     plain_ms = cuda_ms(torch, lambda: plain(*args, **kwargs),
                        max_reps=1 if name == "sharded_frontier_push" else 5)
     library_ms = None
@@ -753,7 +882,7 @@ def replay(torch, name, variant, args, kwargs):
         ("a0", "a1", "a2", "a3"), args[:4])}
     return dict(
         ok=ok, variant=variant, max_abs_err=err, index_agreement=agree,
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=max(by_bytes, by_ops),
         bound_by="bytes" if by_bytes >= by_ops else "operations",
         bytes=nbytes, shapes=shape,
@@ -1118,6 +1247,27 @@ def main() -> int:
           f"max {mass.max():.6f}")
     phase("3c serve", t0)
 
+    # -- 3b's breakdown, outside the counted run: one build chunk ---------
+    t0 = time.perf_counter()
+    chunk = torch.arange(MAIN_SOURCE_BATCH, dtype=torch.int32, device=dev)
+    walks0 = ops.launch_counts()["walk_step"]
+    wall_ms, device_ms, split = device_time_split(
+        torch, lambda: sparse_chunk_estimates(
+            g, chunk, rng.fold_in(rng.prng_key(0), 0), r=MAIN_R, l=MAIN_L,
+            sketch_l=stats["sketch_l"]), top=None)
+    walk_launches = ops.launch_counts()["walk_step"] - walks0
+    walk_ms = sum(ms for name, ms in split if "walk_step" in name)
+    print(f"build chunk of {MAIN_SOURCE_BATCH} sources, device time by "
+          f"kernel (torch.profiler): wall {wall_ms:.3f} ms, device busy "
+          f"{device_ms:.3f} ms, idle {100 * (1 - device_ms / wall_ms):.1f}% "
+          f"of the wall; walk_step {walk_ms:.3f} ms in {walk_launches} "
+          f"launches ({walk_ms / max(walk_launches, 1):.4f} ms a launch, "
+          f"{100 * walk_ms / max(device_ms, 1e-9):.1f}% of the busy time)")
+    for name, ms in split[:10]:
+        print(f"  {ms:9.3f} ms  {100 * ms / max(device_ms, 1e-9):5.1f}%  "
+              f"{name[:110]}")
+    phase("3b' build chunk breakdown", t0)
+
     # -- 3d: the dense route on the same graph and index ---------------------
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -1133,6 +1283,19 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"ELL view: rows {ell.rows_used} x {ell.k}, built in "
           f"{time.perf_counter() - t1:.3f} s")
+    t1 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cols = eng_d.index.columns(g.n, g.n)
+    torch.cuda.synchronize()
+    print(f"index column view: {cols.ent_v.numel()} entries, "
+          f"{cols.tasks.shape[0]} split tasks in {cols.heavy.shape[0]} "
+          f"columns, {cols.nbytes / 2**30:.3f} GiB, built in "
+          f"{time.perf_counter() - t1:.3f} s, its build's peak "
+          f"{(torch.cuda.max_memory_allocated() - before) / 2**30:.2f} GiB "
+          f"above the {before / 2**30:.2f} GiB allocated before it")
+    del cols
+    torch.cuda.reset_peak_memory_stats()
     route_d = dict(frontier_path=svc_d.frontier_path,
                    hub_split_degree=dcfg.query.hub_split_degree,
                    gather_width=eng_d.effective_gather_width(),
@@ -1147,8 +1310,8 @@ def main() -> int:
     counts_d = ops.launch_counts()
     captured = ops.captured_launches()
     ops.capture_first_launches(False)
-    print(f"peak device memory (dense route): "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"peak device memory (dense route, serving with its views "
+          f"built): {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print("serve dense:", json.dumps({k: dstats[k] for k in (
         "served", "batches", "wall_s", "qps", "latency_p50", "latency_p99",
         "first_batch_service_s", "pad_fraction", "combine_path",
@@ -1397,7 +1560,8 @@ def main() -> int:
             max_abs_err=max(x["max_abs_err"] for x in runs),
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=main["library_ms"], variant=main["variant"],
+            library_ms=main["library_ms"], device_ms=main["device_ms"],
+            variant=main["variant"],
             variants={x["variant"]: dict(ms=x["ms"], plain_ms=x["plain_ms"],
                                          bound_ms=x["bound_ms"])
                       for x in runs},

@@ -10,12 +10,19 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+
+
+class ColumnSortedRows(NamedTuple):
+    """Each CSR row's columns sorted by (column, offset in the row)."""
+
+    col_idx: torch.Tensor   # int32[m], row v at row_ptr[v]:row_ptr[v+1]
+    repeats: torch.Tensor   # bool[n], True where a row holds a column twice
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +113,26 @@ class Graph:
         view = self._views.get(("ell", k))
         if view is None:
             view = self._views[("ell", k)] = to_ell_chunks(self, k=k)
+        return view
+
+    def col_sorted(self) -> ColumnSortedRows:
+        """The column-sorted CSR view, built on first use and kept for the
+        graph's lifetime: the ``frontier_push`` kernel folds a one-slot
+        chunk (a vertex's whole row) without sorting it.  One device
+        sort of the ``m`` keys ``row * n + column``: ``from_edges`` sorts
+        by source only, so a row's columns are in edge order until then."""
+        view = self._views.get("col_sorted")
+        if view is None:
+            key = self.src.long() * max(self.n, 1) + self.col_idx.long()
+            key = torch.sort(key).values  # equal keys hold equal columns
+            repeats = torch.zeros(self.n, dtype=torch.bool,
+                                  device=self.device)
+            same = key[1:] == key[:-1]
+            repeats[torch.div(key[1:][same], max(self.n, 1),
+                              rounding_mode="floor")] = True
+            view = self._views["col_sorted"] = ColumnSortedRows(
+                col_idx=(key % max(self.n, 1)).to(torch.int32),
+                repeats=repeats)
         return view
 
     def dense_transition(self, source: int | None = None) -> np.ndarray:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,10 +33,28 @@ class PPRIndex:
     indices: torch.Tensor
     l: int
     n: int
+    # derived views built once per index (``columns``); not part of equality
+    _views: Dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
 
     @property
     def nbytes(self) -> int:
         return self.n * self.l * 8
+
+    def columns(self, nv: int, n: int):
+        """The transposed view of rows ``[0, nv)`` over output columns
+        ``[0, n)`` (``kernels.index_combine.index_columns``), built on
+        first use and kept for the index's lifetime: the dense
+        ``index_combine`` kernel pulls every output entry through it in a
+        fixed order.  At rmat(20), L = 256 it holds ~1 GiB and its build
+        is one device sort of the index's nonzero entries."""
+        from repro_torch.kernels.index_combine import index_columns
+
+        view = self._views.get(("columns", nv, n))
+        if view is None:
+            view = self._views[("columns", nv, n)] = index_columns(
+                self.values[:nv], self.indices[:nv], n)
+        return view
 
     def lookup_dense(self, vertices: torch.Tensor) -> torch.Tensor:
         """Densify rows: ``f32[len(vertices), n]`` (the FPPR answer)."""

@@ -77,8 +77,11 @@ def verd_iterate(graph: Graph, sources, seed_weights=None, *, t: int,
 def combine_with_index(s, f, index: PPRIndex):
     """Algorithm 4 line 10, ``p~ = s + sum_v f(v) * p_hat_v``, through the
     dense ``index_combine`` kernel wrapper (an index may hold more rows
-    than the frontier has columns; the extra rows are never touched)."""
-    return kernel_ops.index_combine(s, f, index.values, index.indices)
+    than the frontier has columns; the extra rows are never touched).
+    The kernel pulls through the index's cached transposed view."""
+    columns = index.columns(f.shape[1], s.shape[1]) if f.is_cuda else None
+    return kernel_ops.index_combine(s, f, index.values, index.indices,
+                                    columns=columns)
 
 
 def verd_query(graph: Graph, sources, index: Optional[PPRIndex], *, t: int,
@@ -244,10 +247,14 @@ def sparse_push_compact(
             fi = torch.nn.functional.pad(fi, (0, pad))
         run_v, run_i = frontier.topk_compact(dang_v, dang_i, out_w)
         run_first = True
+    # the kernel folds one-slot chunks over the column-sorted view; the
+    # plain version does not read it
+    sorted_view = (graph.col_sorted()
+                   if fv.is_cuda and run_first and slots == 1 else None)
     run_v, run_i = kernel_ops.frontier_push(
         fv, fi, run_v, run_i, graph.row_ptr, graph.out_deg, graph.col_idx,
         c=c, degree_cap=cap, hub_split_degree=hub_split_degree, slots=slots,
-        k_out=out_w, run_first=run_first,
+        k_out=out_w, run_first=run_first, sorted_view=sorted_view,
     )
     if threshold > 0.0:
         run_v = frontier.threshold_values(run_v, threshold)

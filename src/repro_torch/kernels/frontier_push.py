@@ -11,9 +11,10 @@ of ``verd.sparse_push_compact`` is the same loop with its chunk plan.
 
 :func:`frontier_push_plain` is the plain PyTorch version;
 :func:`frontier_push_cuda` launches ``csrc/frontier_push.cu`` (one block
-per query row, looping over the chunks).  ``hub_split_degree`` changes
-only the TPU's gather geometry, not the candidate multiset, so the kernel
-ignores it.
+per query row, looping over the chunks; one-slot folds go sort-free over
+the graph's column-sorted view when the caller passes it).
+``hub_split_degree`` changes only the TPU's gather geometry, not the
+candidate multiset, so the kernel ignores it.
 
 ``sharded_frontier_push`` is one shard's half-iteration of the
 distributed sparse exchange: the same gather-push through the shard's CSR
@@ -39,9 +40,9 @@ from repro_torch.kernels import build
 
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_void_p] * 5
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3
 )
 _SHARDED_ARGTYPES = (
@@ -67,8 +68,10 @@ PLAIN_BLOCK_ELEMS = 1 << 25
 def frontier_push_plain(
     fv, fi, run_v, run_i, row_ptr, out_deg, col_idx, *,
     c: float, degree_cap: int, hub_split_degree: int, slots: int,
-    k_out: int, run_first: bool,
+    k_out: int, run_first: bool, sorted_view=None,
 ):
+    """The folds in plain PyTorch; ``sorted_view`` (the kernel's shortcut)
+    is not read."""
     from repro_torch.core import verd as verd_mod
 
     k = fv.shape[1]
@@ -91,9 +94,12 @@ def frontier_push_plain(
 def frontier_push_cuda(
     fv, fi, run_v, run_i, row_ptr, out_deg, col_idx, *,
     c: float, degree_cap: int, hub_split_degree: int, slots: int,
-    k_out: int, run_first: bool,
+    k_out: int, run_first: bool, sorted_view=None,
 ):
-    """Launch the CUDA kernel on the current stream (no sync)."""
+    """Launch the CUDA kernel on the current stream (no sync).
+    ``sorted_view`` is the graph's ``Graph.col_sorted()`` view, with which
+    one-slot folds of rows that repeat no column go sort-free; without it
+    every fold takes the general path."""
     del hub_split_degree  # geometry only; the kernel gathers real edges
     dev = fv.device
     for name, t, dt in (
@@ -119,6 +125,15 @@ def frontier_push_cuda(
     m = col_idx.shape[0]
     if m == 0:
         raise ValueError("frontier_push: the kernel needs a graph with edges")
+    sorted_col = row_repeats = 0
+    if sorted_view is not None:
+        if (sorted_view.col_idx.shape != col_idx.shape
+                or sorted_view.repeats.shape != out_deg.shape
+                or sorted_view.col_idx.device != dev
+                or sorted_view.repeats.dtype != torch.bool):
+            raise ValueError("frontier_push: sorted_view is not this graph's")
+        sorted_col = sorted_view.col_idx.data_ptr()
+        row_repeats = sorted_view.repeats.data_ptr()
     cap = min(degree_cap, m)
     lib = build.load("frontier_push")
     bound = max(r0, k_out) + slots * cap
@@ -138,8 +153,8 @@ def frontier_push_cuda(
     status = fn(
         fv.data_ptr(), fi.data_ptr(), q, k, run_v.data_ptr(),
         run_i.data_ptr(), r0, row_ptr.data_ptr(), out_deg.data_ptr(),
-        col_idx.data_ptr(), float(1.0 - c), cap, slots, k_out,
-        int(bool(run_first)), run_bv.data_ptr(), run_bi.data_ptr(),
+        col_idx.data_ptr(), sorted_col, row_repeats, float(1.0 - c), cap,
+        slots, k_out, int(bool(run_first)), run_bv.data_ptr(), run_bi.data_ptr(),
         g_cv.data_ptr(), g_ci.data_ptr(), g_keys.data_ptr(), g_p,
         out_v.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,

@@ -105,12 +105,14 @@ def walk_step(cursors, sources, u, row_ptr, out_deg, col_idx):
 def frontier_push(
     fv, fi, run_v, run_i, row_ptr, out_deg, col_idx, *,
     c: float, degree_cap: int, hub_split_degree: int, slots: int,
-    k_out: int, run_first: bool,
+    k_out: int, run_first: bool, sorted_view=None,
 ):
-    """Chunked gather-push folds (see ``kernels/frontier_push.py``)."""
+    """Chunked gather-push folds (see ``kernels/frontier_push.py``);
+    ``sorted_view`` (``Graph.col_sorted()``) lets the kernel fold one-slot
+    chunks without sorting them."""
     kwargs = dict(c=c, degree_cap=degree_cap,
                   hub_split_degree=hub_split_degree, slots=slots,
-                  k_out=k_out, run_first=run_first)
+                  k_out=k_out, run_first=run_first, sorted_view=sorted_view)
     if not _route("frontier_push", fv):
         return _push.frontier_push_plain(
             fv, fi, run_v, run_i, row_ptr, out_deg, col_idx, **kwargs)
@@ -148,9 +150,11 @@ def ell_push(frontier, ell):
     return out
 
 
-def index_combine(s, f, vals, idx):
+def index_combine(s, f, vals, idx, columns=None):
     """Dense ``s + f @ P_hat``: ``s f32[Q, n]``, ``f f32[Q, nv]`` and an
-    index of at least ``nv`` rows (rows past ``nv`` are never touched)."""
+    index of at least ``nv`` rows (rows past ``nv`` are never touched);
+    ``columns`` is the kernel's transposed view of the first ``nv`` rows
+    (``PPRIndex.columns``), which the plain version does not read."""
     nv = f.shape[1]
     if vals.shape[0] < nv:
         raise ValueError(f"index_combine: index has {vals.shape[0]} rows "
@@ -158,8 +162,9 @@ def index_combine(s, f, vals, idx):
     args = (s.contiguous(), f.contiguous(), vals[:nv], idx[:nv])
     if not _route("index_combine", f):
         return _comb.index_combine_plain(*args)
-    out = _comb.index_combine_cuda(*args)
-    _launched("index_combine", args, {})
+    kwargs = dict(columns=columns)
+    out = _comb.index_combine_cuda(*args, **kwargs)
+    _launched("index_combine", args, kwargs)
     return out
 
 

@@ -7,7 +7,9 @@
 Builds the index on the device (for the modes that read one: powerwalk
 and fppr), starts the batched service, runs a closed-loop workload and
 prints Table-3-style latency/throughput.  Graphs below 2**14 vertices, and
-hub-heavy graphs at ``--hub-split-degree 0``, serve on the dense route.
+hub-heavy graphs at the default ``--hub-split-degree 0`` (the reference's
+``QueryConfig`` default), serve on the dense route; ``--hub-split-degree
+64`` routes rmat's hub-heavy graphs sparse.
 ``--mode mcfp`` is accepted, as in the reference, and raises
 ``NotImplementedError``: online Monte-Carlo is not ported yet.
 """
@@ -26,7 +28,9 @@ from repro_torch.serving import PPRService, ServiceConfig
 from repro_torch.serving.batching import BatchingConfig
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    """The launcher's options; the defaults serve as the reference's
+    launcher does (``QueryConfig``'s own ``hub_split_degree=0``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-log2", type=int, default=11)
     ap.add_argument("--r", type=int, default=100)
@@ -36,9 +40,14 @@ def main(argv=None):
     ap.add_argument("--queries", type=int, default=2000)
     ap.add_argument("--max-batch", type=int, default=256)
     ap.add_argument("--top-k", type=int, default=50)
-    ap.add_argument("--hub-split-degree", type=int, default=64)
+    ap.add_argument("--hub-split-degree", type=int,
+                    default=QueryConfig.hub_split_degree)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     g = synthetic.rmat(args.n_log2, avg_deg=10.0, seed=0, device=args.device)
     print(f"graph n={g.n} m={g.m}; building index R={args.r}")

@@ -161,3 +161,36 @@ def test_dlrm_forward_launches_embedding_bag_once(cuda):
     want = temb.lookup(emb_cfg, chip_smoke.tree_to(params["embedding"], "cpu"),
                        batch["sparse_ids"].cpu(), torch.bfloat16)
     assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_dense_route_answers_identical_across_pipeline_depths(cuda):
+    """The dense route's kernels sum every entry in a fixed order, so
+    rmat(14) served at pipeline depths 1 and 4 gives the same bytes (the
+    reference's contract, ``tests/test_serving.py``)."""
+    from repro_torch import rng
+    from repro_torch.core.index import build_index
+    from repro_torch.core.query import QueryConfig
+    from repro_torch.serving import PPRService, ServiceConfig
+    from repro_torch.serving.batching import BatchingConfig
+    from repro_torch.serving.pipeline import PipelineConfig
+
+    g = tsyn.rmat(14, avg_deg=10.0, seed=3, device=cuda)
+    index, _ = build_index(g, r=32, l=64, key=rng.prng_key(5),
+                           source_batch=1024, device=cuda)
+    work = np.random.default_rng(2).integers(0, g.n, 600).tolist()
+    runs = []
+    for depth in (1, 4):
+        svc = PPRService(g, index, ServiceConfig(
+            query=QueryConfig(t_iterations=2, top_k=50),
+            batching=BatchingConfig(max_batch=64),
+            pipeline=PipelineConfig(depth=depth)), device=cuda)
+        assert svc.frontier_path == "dense"
+        tops.reset_launch_counts()
+        answers, _ = svc.run_closed_loop(work)
+        assert tops.launch_counts()["index_combine"] > 0
+        by_id = sorted(answers, key=lambda a: a.request_id)
+        runs.append([np.stack([getattr(a, k) for a in by_id])
+                     for k in ("top_scores", "top_vertices")])
+    for a, b in zip(*runs):
+        assert a.tobytes() == b.tobytes()

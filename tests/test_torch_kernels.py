@@ -206,6 +206,137 @@ def test_frontier_push_plain_streamed_folds_match_core():
         <= 1e-5
 
 
+def test_column_sorted_view_matches_lexsort():
+    """``Graph.col_sorted``: each CSR row in (column, offset) order, as
+    numpy's lexsort of (row, column, offset) gives it, on rows stored out
+    of column order; the repeat flag set exactly on rows that hold a
+    column twice."""
+    from repro_torch.core.graph import Graph
+
+    r = np.random.default_rng(21)
+    n = 300
+    degs = r.integers(0, 30, n)
+    degs[:3] = [0, 200, 1]
+    src = np.repeat(np.arange(n), degs)
+    dst = np.concatenate([r.integers(0, n, d) if v % 3 else
+                          r.permutation(n)[:d] for v, d in enumerate(degs)])
+    perm = r.permutation(src.shape[0])             # edges in any order
+    g = Graph.from_edges(src[perm], dst[perm], n=n, device="cpu")
+    view = g.col_sorted()
+    assert view is g.col_sorted()                   # cached on the graph
+    row = g.src.numpy()
+    col = g.col_idx.numpy()
+    order = np.lexsort((np.arange(col.shape[0]), col, row))
+    np.testing.assert_array_equal(view.col_idx.numpy(), col[order])
+    dup = np.zeros(n, bool)
+    same = (row[order][1:] == row[order][:-1]) & (col[order][1:]
+                                                  == col[order][:-1])
+    dup[row[order][1:][same]] = True
+    np.testing.assert_array_equal(view.repeats.numpy(), dup)
+    assert dup.any() and not dup.all()
+
+
+def _columns_oracle(vals, idx, n, seg):
+    """The transposed view in numpy: per column, (v, vals[v, j]) of the
+    kept entries in ascending (v, j); the runs of seg entries after a
+    column's first as tasks."""
+    nv, l = vals.shape
+    per_col = [[] for _ in range(n)]
+    for v in range(nv):
+        for j in range(l):
+            c = int(idx[v, j])
+            if vals[v, j] != 0 and 0 <= c < n:
+                per_col[c].append((v, vals[v, j]))
+    col_ptr = np.cumsum([0] + [len(e) for e in per_col])
+    tasks, heavy = [], []
+    for c, ents in enumerate(per_col):
+        runs = [(col_ptr[c] + a, col_ptr[c] + min(a + seg, len(ents)))
+                for a in range(seg, len(ents), seg)]
+        if runs:
+            heavy.append((c, len(tasks), len(runs)))
+            tasks += [(c, a, b) for a, b in runs]
+    flat = [e for ents in per_col for e in ents]
+    return (col_ptr, np.array([v for v, _ in flat], np.int32),
+            np.array([w for _, w in flat], np.float32),
+            np.array(tasks, np.int64).reshape(-1, 3),
+            np.array(heavy, np.int64).reshape(-1, 3))
+
+
+def test_index_columns_match_numpy():
+    """The dense combine's transposed index view against a numpy oracle,
+    on an index with zero entries, zero-padded rows and columns outside
+    ``[0, n)``; ``PPRIndex.columns`` caches it per ``(nv, n)``."""
+    from repro_torch.core.index import PPRIndex
+    from repro_torch.kernels import index_combine as comb_k
+
+    r = np.random.default_rng(22)
+    nv, l, n = 90, 7, 80
+    vals = r.random((nv, l)).astype(np.float32)
+    vals[r.random((nv, l)) < 0.25] = 0.0
+    vals[5:9, 3:] = 0.0
+    idx = r.integers(-4, n + 4, (nv, l)).astype(np.int32)
+    idx[20:70, 1] = 3                                 # a column of 50+
+    got = comb_k.index_columns(_t(vals), _t(idx), n, seg=16)
+    want = _columns_oracle(vals, idx, n, 16)
+    np.testing.assert_array_equal(got.col_ptr.numpy(), want[0])
+    np.testing.assert_array_equal(got.ent_v.numpy(), want[1])
+    np.testing.assert_array_equal(got.ent_w.numpy(), want[2])
+    np.testing.assert_array_equal(got.tasks.numpy(), want[3])
+    np.testing.assert_array_equal(got.heavy.numpy(), want[4])
+    assert (got.nv, got.n, got.seg) == (nv, n, 16) and len(want[4]) >= 1
+    index = PPRIndex(values=_t(vals), indices=_t(idx), l=l, n=n)
+    view = index.columns(60, n)
+    assert view is index.columns(60, n) and view.nv == 60
+    np.testing.assert_array_equal(
+        view.ent_v.numpy(), comb_k.index_columns(
+            _t(vals[:60]), _t(idx[:60]), n).ent_v.numpy())
+
+
+def test_index_columns_order_is_the_plain_scatter_order():
+    """Summing each output entry as the dense kernel does -- ``s`` first,
+    then each column's entries in the view's order, rounded products of
+    the nonzero ``f`` added one by one, a split column's task partials
+    added after its first run -- gives the plain version's CPU bits on
+    every column of at most ``seg`` entries, and agrees within f32
+    rounding on the split ones."""
+    from repro_torch.kernels import index_combine as comb_k
+
+    r = np.random.default_rng(23)
+    q, nv, n, l, seg = 5, 120, 100, 9, 32
+    vals = r.random((nv, l)).astype(np.float32)
+    vals[r.random((nv, l)) < 0.2] = 0.0
+    idx = r.integers(-2, n + 2, (nv, l)).astype(np.int32)
+    idx[:80, :2] = 4                                  # 160 entries: split
+    s = r.random((q, n)).astype(np.float32)
+    f = r.random((q, nv)).astype(np.float32)
+    f[r.random((q, nv)) < 0.5] = 0.0
+    view = comb_k.index_columns(_t(vals), _t(idx), n, seg=seg)
+    cp, ev, ew = (x.numpy() for x in (view.col_ptr, view.ent_v, view.ent_w))
+    got = s.copy()
+    for c in range(n):
+        runs = [(a, min(a + seg, cp[c + 1])) for a in range(cp[c], cp[c + 1],
+                                                             seg)] or [(0, 0)]
+        for qi in range(q):
+            parts = []
+            for k, (a, b) in enumerate(runs):
+                acc = got[qi, c] if k == 0 else np.float32(0.0)
+                for e in range(a, b):
+                    if f[qi, ev[e]] != 0:
+                        acc = np.float32(acc + np.float32(f[qi, ev[e]] * ew[e]))
+                parts.append(acc)
+            total = parts[0]
+            for p in parts[1:]:
+                total = np.float32(total + p)
+            got[qi, c] = total
+    want = comb_k.index_combine_plain(_t(s), _t(f), _t(vals), _t(idx),
+                                      columns=view).numpy()
+    one_run = np.diff(cp) <= seg
+    assert not one_run.all()
+    np.testing.assert_array_equal(got[:, one_run].view(np.int32),
+                                  want[:, one_run].view(np.int32))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
 # -- index_combine_sparse ------------------------------------------------------
 
 @pytest.mark.parametrize("q,k_out", [(3, 40), (1, 5), (6, 7)])

@@ -86,6 +86,20 @@ def test_service_depths_identical_and_match_reference(setup):
     assert stats["pipeline_depth"] == 4 and stats["device"] == "cpu"
 
 
+def test_launcher_default_hub_split_degree_is_the_reference_default():
+    """``python -m repro_torch.launch.serve`` with no options serves with
+    the reference ``QueryConfig``'s ``hub_split_degree``, so one command
+    takes the same route in both packages; the flag still sets it."""
+    from repro_torch.launch import serve as tserve
+
+    parser = tserve.build_parser()
+    assert (parser.parse_args([]).hub_split_degree
+            == jquery.QueryConfig().hub_split_degree
+            == tquery.QueryConfig().hub_split_degree)
+    assert parser.parse_args(["--hub-split-degree", "64"]).hub_split_degree \
+        == 64
+
+
 def test_service_cache_and_invalidate(setup):
     _, _, _, _, work = setup
     svc = _port_service(setup, 2, cache=CacheConfig(capacity=64))

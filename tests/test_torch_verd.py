@@ -79,6 +79,46 @@ def test_sparse_push_compact(setup, hsd, k, k_out, threshold):
                jg.n) <= TOL
 
 
+@pytest.mark.parametrize("hsd", [0, 32])
+def test_sparse_push_compact_one_slot_chunks(setup, hsd, monkeypatch):
+    """A stream target of one slot width streams one frontier vertex per
+    chunk (``slots = 1``, the chunk plan of a hub-heavy graph at full
+    size, whose folds the kernel runs over the column-sorted view): the
+    plain folds match the reference's streamed ``sparse_push_compact`` at
+    the same ``stream_width``."""
+    jg, tg, _, _ = setup
+    r = np.random.default_rng(31 + hsd)
+    q, k, k_out = 16, 24, 48
+    cap = jverd.resolve_degree_cap(jg)
+    h, s_ = tverd.resolve_hub_splits(cap, hsd)
+    width = h * s_
+    plans = []
+    push = tverd.kernel_ops.frontier_push
+
+    def spy(*args, **kwargs):
+        plans.append((kwargs["slots"], kwargs["run_first"]))
+        return push(*args, **kwargs)
+
+    monkeypatch.setattr(tverd.kernel_ops, "frontier_push", spy)
+    fv = r.random((q, k)).astype(np.float32)
+    fv[r.random((q, k)) < 0.2] = 0.0
+    fi = r.integers(0, jg.n, (q, k)).astype(np.int32)
+    fi[:, :3] = np.argsort(np.asarray(jg.out_deg))[-3:]        # the hubs
+    src = r.integers(0, jg.n, q).astype(np.int32)
+    want = jverd.sparse_push_compact(
+        jg, jnp.asarray(fv), jnp.asarray(fi), jnp.asarray(src),
+        degree_cap=cap, k_out=k_out, hub_split_degree=hsd,
+        stream_width=width)
+    got = tverd.sparse_push_compact(
+        tg, torch.from_numpy(fv), torch.from_numpy(fi), torch.from_numpy(src),
+        degree_cap=cap, k_out=k_out, hub_split_degree=hsd,
+        stream_width=width)
+    assert plans == [(1, True)]
+    assert got.k == want.k
+    assert _l1((got.values, got.indices), (want.values, want.indices),
+               jg.n) <= TOL
+
+
 def test_sparse_push_compact_seed_sets(setup):
     jg, tg, _, _ = setup
     r = np.random.default_rng(3)
