@@ -22,15 +22,22 @@ Phases, each timed and printed:
    repeat a column, ``degree_cap`` below a row's degree), and the dense
    ``index_combine`` on split columns and two q tiles, whose non-dyadic
    case must give the same bytes on two launches and the plain version's
-   CPU bits on every column summed in one run;
+   CPU bits on every column summed in one run, and the sparse
+   ``index_combine`` on both of its paths (the hash path up to ``k_out``
+   1,024, the sort path above): at the main path's shape with a column in
+   every live slot, with every column in one hash part (more than one
+   block's table holds), with ties at the ``k_out`` edge and with
+   ``k_out`` above a row's distinct columns, the hash path's output the
+   same bytes on two launches;
 3. the sparse main path: ``rmat(20, avg_deg=10)`` (n = 1,048,576),
    ``build_index`` over every source (3b), then ``PPRService`` on the
    sparse route (``hub_split_degree=64``) answering 16,384 requests closed
    loop, 64 batches of 256 (3c).  The launch counters are zeroed just
    before the build and read just after the serve; the path's three
-   kernels must have launched.  Then, outside that count, one build chunk
-   of 4,096 sources is split by kernel (``torch.profiler``), with the
-   device's idle share and ``walk_step``'s time per launch;
+   kernels must have launched.  Then, outside that count, one sparse batch
+   of 256 and one build chunk of 4,096 sources are split by kernel
+   (``torch.profiler``), each with the device's idle share, the chunk with
+   ``walk_step``'s time per launch;
 3d. the dense main path on the same graph and index: ``PPRService`` at the
    default ``hub_split_degree=0``, which routes dense on this hub-heavy
    graph, serving the same 16,384 requests with the counters zeroed just
@@ -83,8 +90,10 @@ Phases, each timed and printed:
    within 1e-5 L1 per row and 1e-5 relative per entry, or, for an entry of many terms,
    within the f32 bound on two summation orders of its own count of terms
    (:func:`dense_agree`), ``walk_step`` and ``embedding_bag`` bit-equal;
-   the dense ``index_combine`` launched a second time must give the same
-   bytes.  Times each kernel (and ``walk_step``'s kernel alone, from
+   the dense and the sparse ``index_combine`` launched a second time must
+   give the same bytes (the sparse one printing each row's live slots,
+   candidates ``w`` and distinct columns ``d``, :func:`combine_counts`).
+   Times each kernel (and ``walk_step``'s kernel alone, from
    ``torch.profiler``, since back-to-back calls of it time its wrapper's
    host work), its plain version and, where one exists, one PyTorch
    call of the same function (a sparse product,
@@ -95,7 +104,9 @@ Phases, each timed and printed:
 4. a small reference check: ``rmat(14)`` built and served on the card and
    through the plain CPU path from the same key, on the sparse and on the
    dense route: the index bit-equal, the answers within 1e-5 L1 on
-   densified rows; and on the distributed engine: the sharded build
+   densified rows (one sparse row with ``combine_path="sparse"``, whose
+   served path must go through ``index_combine_sparse``); and on the
+   distributed engine: the sharded build
    bit-equal, the sparse tile step within 1e-5 L1, and on the card the
    dense exchange within 1e-4 L1 of the sparse exchange at covering
    widths; and DLRM RM2's reduced config in f32 (``serve_p99`` and
@@ -344,28 +355,119 @@ def one_slot_frontier_push(torch, np, dev):
 
 
 def synthetic_index_combine(torch, np, dev):
-    """Zero-padded index rows, zero-mass slots, rows narrow enough for
-    shared memory and wide enough for the global scratch and its radix
-    select."""
+    """Each case bit-equal to the plain version, indices included, on the
+    path the wrapper picks (the hash path up to ``k_out`` 1,024, the sort
+    path above it) and on the sort path forced at a narrow ``k_out``; the
+    hash path's output must be the same bytes on a second launch.  Cases:
+    zero-padded index rows that repeat columns, zero-mass slots, an
+    all-zero frontier row, rows narrow enough for the sort path's shared
+    memory and wide enough for its global scratch and radix select; the
+    main path's shape (S = 257, K = L = 256) at Q = 37, not a multiple of
+    its 12 parts, with a column in every live slot; every column hashing
+    to one part, more than one table holds (its passes merge); ties at the
+    ``k_out`` edge; ``k_out`` above a row's distinct columns; index rows of
+    two units, by bulk copies (300 wide) and by 4-byte copies (301); and
+    batches of ``s`` units alone beside index rows of 301 (4-byte copies
+    everywhere), every column distinct, so an entry read before its copy
+    lands changes the answer.  Each case lists ``(k_out, path)`` pairs,
+    ``path`` None for the wrapper's pick."""
     from repro_torch.kernels import index_combine as comb_k
 
     r = np.random.default_rng(9)
-    n, l, q, k, s_w = 16384, 128, 32, 96, 16
-    vals = dyadic(r, (n, l), top=256)
-    vals[np.arange(l)[None, :] >= r.integers(0, l + 1, n)[:, None]] = 0.0
-    idx = r.integers(0, n, (n, l)).astype(np.int32)
-    idx[vals == 0] = 0
-    fv = dyadic(r, (q, k), top=256, zero_frac=0.3)
-    fv[: q // 4, 8:] = 0.0                       # narrow rows: shared memory
-    args = [torch.from_numpy(x).to(dev) for x in (
-        dyadic(r, (q, s_w), top=256), r.integers(0, n, (q, s_w)).astype(
-            np.int32), fv, r.integers(0, n, (q, k)).astype(np.int32),
-        vals, idx)]
+
+    def index_rows(n, l, cols=None, padded=True):
+        vals = dyadic(r, (n, l), top=256)
+        if padded:
+            vals[np.arange(l)[None, :]
+                 >= r.integers(0, l + 1, n)[:, None]] = 0.0
+        idx = (r.integers(0, n, (n, l)) if cols is None
+               else r.choice(cols, (n, l))).astype(np.int32)
+        idx[:, 1] = idx[:, 0]                     # a repeat in one round
+        idx[:, 40] = idx[:, 2]                    # and across rounds
+        idx[vals == 0] = 0
+        return vals, idx
+
+    def frontier(q, k, s_w, n, top=256, zero_frac=0.3, cols=None):
+        pick = (lambda shape: r.integers(0, n, shape)) if cols is None else (
+            lambda shape: r.choice(cols, shape))
+        return (dyadic(r, (q, s_w), top=256), pick((q, s_w)).astype(np.int32),
+                dyadic(r, (q, k), top=top, zero_frac=zero_frac),
+                r.integers(0, n, (q, k)).astype(np.int32))
+
+    cases = []
+    # narrow rows (the sort path in shared memory), wide ones, a dead row
+    vals, idx = index_rows(16384, 128)
+    sv, si, fv, fi = frontier(32, 96, 16, 16384)
+    fv[: 32 // 4, 8:] = 0.0
+    fv[-1] = 0.0
+    cases.append(("mixed", (sv, si, fv, fi, vals, idx),
+                  ((50, None), (100, None), (2048, None), (4096, None),
+                   (100, "sort"))))
+    # the main path's shape, a column (7) in every live slot
+    vals, idx = index_rows(1 << 15, 256)
+    idx[:, 0], vals[:, 0] = 7, 1.0 / 64.0
+    sv, si, fv, fi = frontier(37, 256, 257, 1 << 15, top=64, zero_frac=0.6)
+    cases.append(("main shape", (sv, si, fv, fi, vals, idx), ((50, None),)))
+    # every column in part 0: ~11k distinct a row, twice what a table holds
+    parts = comb_k.combine_plan(16, 192, 128, 50).parts
+    cols = np.arange(1 << 16)
+    cols = cols[comb_k.hash_part(torch.from_numpy(cols), parts).numpy() == 0]
+    vals, idx = index_rows(1 << 16, 128, cols, padded=False)
+    sv, si, fv, fi = frontier(8, 192, 16, 1 << 16, zero_frac=0.0, cols=cols)
+    cases.append(("one part", (sv, si, fv, fi, vals, idx),
+                  ((50, None), (1000, None))))
+    # ties: equal masses and values; one live slot (k_out above d)
+    vals, idx = index_rows(4096, 64)
+    vals[vals > 0] = 1.0 / 64.0
+    sv, si, fv, fi = frontier(20, 64, 8, 4096)
+    sv[:], fv[fv > 0] = 1.0 / 512.0, 1.0 / 8.0
+    cases.append(("ties", (sv, si, fv, fi, vals, idx),
+                  ((50, None), (137, None))))
+    fv1 = np.zeros_like(fv)
+    fv1[:, 3] = 0.25
+    cases.append(("one slot", (sv, si, fv1, fi, vals, idx), ((100, None),)))
+    # index rows of two units each: 300 wide (bulk copies) and 301 (rows
+    # not 16-byte aligned: 4-byte copies a thread)
+    for width in (300, 301):
+        vals, idx = index_rows(8192, width)
+        sv, si, fv, fi = frontier(9, 24, 20, 8192)
+        cases.append((f"l = {width}", (sv, si, fv, fi, vals, idx),
+                      ((50, None), (600, None))))
+    # s of 2,100 distinct columns (9 units: two batches of s alone, then s
+    # beside index rows of 301), each index row's columns distinct too and
+    # none in s; k_out 1,024 takes about half of a row's positive sums, so
+    # a candidate dropped or counted twice moves the answer
+    n = 1 << 16
+    q, s_w, k, width = 13, 2100, 24, 301
+    sv = dyadic(r, (q, s_w), top=4096)
+    si = np.stack([r.permutation(n // 2)[:s_w] for _ in range(q)])
+    vals = dyadic(r, (n, width), top=4096)
+    idx = np.stack([n // 2 + r.permutation(n // 2)[:width] for _ in range(n)])
+    fv = dyadic(r, (q, k), top=64, zero_frac=0.2)
+    fi = r.integers(0, n, (q, k))
+    cases.append(("s batches", (sv, si.astype(np.int32), fv,
+                                fi.astype(np.int32), vals,
+                                idx.astype(np.int32)),
+                  ((1024, None), (50, None))))
+
     ok = True
-    for k_out in (100, 2048, 4096):
-        a = comb_k.index_combine_sparse_cuda(*args, k_out=k_out)
-        b = comb_k.index_combine_sparse_plain(*args, k_out=k_out)
-        ok &= bits_equal(torch, a[0], b[0]) and bits_equal(torch, a[1], b[1])
+    for label, arrays, runs in cases:
+        args = [torch.from_numpy(x).to(dev) for x in arrays]
+        for k_out, path in runs:
+            a = comb_k.index_combine_sparse_cuda(*args, k_out=k_out, path=path)
+            b = comb_k.index_combine_sparse_plain(*args, k_out=k_out)
+            same = bits_equal(torch, a[0], b[0]) and bits_equal(torch, a[1],
+                                                                  b[1])
+            if comb_k.combine_plan(args[0].shape[1], args[2].shape[1],
+                                   args[4].shape[1], k_out,
+                                   path=path).path == "hash":
+                again = comb_k.index_combine_sparse_cuda(*args, k_out=k_out)
+                same &= bits_equal(torch, a[0], again[0]) and bits_equal(
+                    torch, a[1], again[1])
+            if not same:
+                print(f"  index_combine_sparse: case {label!r}, k_out "
+                      f"{k_out}, path {path or 'auto'} differs")
+            ok &= same
     return ok
 
 
@@ -677,6 +779,29 @@ def bytes_and_ops(torch, name, args, kwargs):
     return nbytes, 2 * l * n_live
 
 
+def combine_counts(torch, args):
+    """Per query row of a sparse combine's inputs: the live slots, the
+    candidates the kernel merges (w: nonzero ``s`` entries and positive
+    entries of the live slots' index rows) and the distinct columns of
+    positive sum (d); max and mean of each."""
+    from repro_torch.core import frontier as F
+    from repro_torch.core import verd as verd_mod
+
+    sv, si, fv, fi, vals, idx = args
+    live = fv > 0
+    rows = torch.clamp(fi.long(), 0, vals.shape[0] - 1)
+    per_slot = (vals[rows] > 0).sum(dim=2)
+    w = (sv != 0).sum(dim=1) + torch.where(live, per_slot, 0).sum(dim=1)
+    cv, ci = verd_mod.gather_combine_candidates(sv, si, fv, fi, vals, idx)
+    d = (F.merge_duplicates(cv, ci)[0] > 0).sum(dim=1)
+    del cv, ci
+    out = {}
+    for key, x in (("live_slots", live.sum(dim=1)), ("w", w), ("d", d)):
+        out[f"{key}_max"] = int(x.max())
+        out[f"{key}_mean"] = float(x.float().mean())
+    return out
+
+
 def library_call(torch, name, args, kwargs):
     """One PyTorch call computing the same function as the kernel on the
     same inputs (a sparse product), or None where there is none; used only
@@ -827,6 +952,14 @@ def replay(torch, name, variant, args, kwargs):
         rel_ok = bool(torch.all((sa - sb).abs() <= 1e-5 * sb.abs() + 1e-30))
         agree = float((a[1] == b[1]).float().mean())
         ok = rel_ok and agree >= 0.99
+        if name == "index_combine_sparse":  # no atomics: the same bytes
+            again = kernel(*args, **kwargs)
+            same = (bits_equal(torch, a[0], again[0])
+                    and bits_equal(torch, a[1], again[1]))
+            print(f"  {name}/{variant}: a second launch gives the same "
+                  f"bytes: {same}; per row: {json.dumps(combine_counts(torch, args))}")
+            ok &= same
+            del again
     if name == "ell_spmm":
         # the kernel gathers only the columns of f that hold a non-zero
         live = int((args[0] != 0).any(dim=0).sum())
@@ -922,10 +1055,17 @@ def densified_l1(np, a, b, n):
 
 
 def check_small_reference(torch, np, dev):
+    """``rmat(14)`` built and served on the card and through the plain CPU
+    path from one key: (index bit-equal?, max L1 of the sparse route's
+    answers, of the dense route's).  The sparse rows include one with
+    ``combine_path="sparse"``, whose ``query_topk_async`` (the served
+    path) must launch ``index_combine_sparse`` too: by default it combines
+    by the scatter at this size."""
     from repro_torch import rng
     from repro_torch.core.index import build_index
     from repro_torch.core.query import BatchQueryEngine, QueryConfig
     from repro_torch.graphs import synthetic
+    from repro_torch.kernels import ops
 
     graphs = {d: synthetic.rmat(14, avg_deg=10.0, seed=3, device=d)
               for d in (dev, "cpu")}
@@ -938,9 +1078,13 @@ def check_small_reference(torch, np, dev):
     n = graphs["cpu"].n
     sources = np.random.default_rng(11).integers(0, n, 64).astype(np.int32)
     worst = {}
-    # hub splitting at 64 routes sparse; without it the hubs route dense
+    # hub splitting at 64 routes sparse; without it the hubs route dense.
+    # At Q = 64 the served path's final combine is the scatter, unless
+    # combine_path="sparse" sends it through index_combine_sparse
     for route, cfg in (
         ("sparse", QueryConfig(t_iterations=2, top_k=50, hub_split_degree=64)),
+        ("sparse", QueryConfig(t_iterations=2, top_k=50, hub_split_degree=64,
+                               combine_path="sparse")),
         ("dense", QueryConfig(t_iterations=2, top_k=50)),
         ("dense", QueryConfig(mode="verd", t_iterations=2, top_k=50)),
     ):
@@ -948,10 +1092,19 @@ def check_small_reference(torch, np, dev):
                    for d in (dev, "cpu")}
         if engines[dev].uses_sparse_path() != (route == "sparse"):
             raise AssertionError(f"{cfg} does not route {route}")
+        ops.reset_launch_counts()
+        l1 = 0.0
         for fn in ("query_topk", "query_topk_async"):
             got = [getattr(engines[d], fn)(sources) for d in (dev, "cpu")]
-            worst[route] = max(worst.get(route, 0.0),
-                               densified_l1(np, *got, n))
+            l1 = max(l1, densified_l1(np, *got, n))
+        combines = ops.launch_counts()["index_combine_sparse"]
+        if cfg.combine_path == "sparse" and combines < 2:
+            raise AssertionError(f"{cfg}: index_combine_sparse launched "
+                                 f"{combines} times, want one per call")
+        print(f"  small reference, {route} route, combine_path "
+              f"{cfg.combine_path!r}, mode {cfg.mode!r}: max L1 {l1:.3e}, "
+              f"index_combine_sparse launches {combines}")
+        worst[route] = max(worst.get(route, 0.0), l1)
     return index_equal, worst["sparse"], worst["dense"]
 
 
@@ -1245,6 +1398,15 @@ def main() -> int:
     mass = np.array([a.top_scores.sum() for a in answers])
     print(f"answer mass: min {mass.min():.6f} mean {mass.mean():.6f} "
           f"max {mass.max():.6f}")
+    src256 = torch.tensor(work[:256], dtype=torch.int32, device=dev)
+    wall_ms, device_ms, split = device_time_split(
+        torch, lambda: eng.query_topk(src256))
+    print(f"sparse batch of 256, device time by kernel (torch.profiler): "
+          f"wall {wall_ms:.3f} ms, device busy {device_ms:.3f} ms, idle "
+          f"{100 * (1 - device_ms / wall_ms):.1f}% of the wall")
+    for name, ms in split:
+        print(f"  {ms:9.3f} ms  {100 * ms / max(device_ms, 1e-9):5.1f}%  "
+              f"{name[:110]}")
     phase("3c serve", t0)
 
     # -- 3b's breakdown, outside the counted run: one build chunk ---------
@@ -1328,7 +1490,6 @@ def main() -> int:
     mass = np.array([a.top_scores.sum() for a in answers_d])
     print(f"dense answer mass: min {mass.min():.6f} mean {mass.mean():.6f} "
           f"max {mass.max():.6f}")
-    src256 = torch.tensor(work[:256], dtype=torch.int32, device=dev)
     batch_ms = cuda_ms(torch, lambda: eng_d.query_topk(src256), max_reps=5)
     out256 = eng_d.query_dense(src256)
     topk_ms = cuda_ms(torch, lambda: topk_dense(out256, 50), max_reps=10)

@@ -24,6 +24,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Phase timers: a source that defines PW_TICK before including this header
+// (index_combine.cu, built with -DPW_PHASE_TIMERS) marks the end of each
+// phase of merge_groups and compact_block; elsewhere the marks are empty.
+#ifndef PW_TICK
+#define PW_TICK(phase)
+#endif
+
 namespace pw {
 
 constexpr int kSmemP = 2048;   // candidates a block sorts in shared memory
@@ -245,6 +252,7 @@ __device__ int merge_groups(const float* cv, int* ci,
   }
   __syncthreads();
   sort_keys(keys, p, tile);
+  PW_TICK(2);  // key sort
   // group sums in candidate order at each group's first slot, 0 elsewhere
   float* sums = reinterpret_cast<float*>(ci);
   for (int t = threadIdx.x; t < w; t += blockDim.x) {
@@ -262,6 +270,7 @@ __device__ int merge_groups(const float* cv, int* ci,
     sums[t] = s;
   }
   __syncthreads();
+  PW_TICK(3);  // group sums
   // compact the positive groups to keys[0, d): a thread reads its own slot
   // before any write of its round, and writes land at or before it
   int d = 0;
@@ -276,6 +285,7 @@ __device__ int merge_groups(const float* cv, int* ci,
     d += total;
   }
   __syncthreads();
+  PW_TICK(4);  // compaction
   return d;
 }
 
@@ -292,11 +302,13 @@ __device__ int compact_block(const float* cv, int* ci,
   int p2 = next_pow2(d > 0 ? d : 1);
   if (global && p2 > kTile && k_need <= kSmemP) {
     select_smallest(keys, d, min(k_need, d), sm);
+    PW_TICK(5);  // select
     return d;
   }
   for (int t = d + threadIdx.x; t < p2; t += blockDim.x) keys[t] = kEmpty;
   __syncthreads();
   sort_keys(keys, p2, tile);
+  PW_TICK(5);  // select (a full sort of the groups)
   return d;
 }
 

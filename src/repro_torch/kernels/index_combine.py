@@ -18,6 +18,12 @@ the frontier mass, appends them after the ``s`` entries and
 :func:`index_combine_sparse_cuda` launches ``csrc/index_combine.cu``.
 The kernel skips zero-mass slots and zero index entries, which cannot
 change the result for the nonnegative masses PPR works with.
+:func:`combine_plan` picks its path: for a ``k_out`` the kernel's hash
+path takes (up to 1,024) a row spread over ``parts`` blocks, each merging
+the columns of one part of the hash range in a shared-memory table (no
+sort, no scratch but the parts' lists; a column of -1, the tables' empty
+mark, is skipped); wider ``k_out`` (an exact combine) sorts each row's
+candidates in a global scratch.
 """
 
 from __future__ import annotations
@@ -40,13 +46,100 @@ _DENSE_ARGTYPES = (
 # further run of as many is a task of its own (csrc/index_combine_dense.cu)
 COLUMN_SEGMENT = 1024
 
-_ARGTYPES = (
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int]
-    + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-)
+_SPARSE_HEAD = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int]
+_SORT_ARGTYPES = (_SPARSE_HEAD + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                  + [ctypes.c_void_p] * 3)
+_HASH_ARGTYPES = (_SPARSE_HEAD + [ctypes.c_int] * 4 + [ctypes.c_uint]
+                  + [ctypes.c_void_p] * 4)
+
+# The sparse combine's hash path (csrc/index_combine.cu): the claims a
+# block's table may have in flight past its d_max (one a thread; the launch
+# refuses a d_max without this headroom), the bounds of a block's table
+# (column and sum: 8 B a slot), the shared memory an H100 block may use,
+# and the odd multiplier of the partition hash (passed to the kernel).
+HASH_THREADS = 512
+HASH_MIN_SLOTS = 2048
+HASH_MAX_SLOTS = 8192
+SMEM_PER_BLOCK = 232448
+PART_MUL = 0x9E3779B1
+
+
+def kernel_hash_smem(lib=None):
+    """The kernel library's ``index_combine_hash_smem(t_log2, k, k_out)``:
+    a hash block's dynamic shared memory, or -1 for a ``k_out`` the hash
+    path does not take."""
+    fn = (lib or build.load("index_combine_sparse")).index_combine_hash_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return fn
+
+
+class CombinePlan(NamedTuple):
+    """How :func:`index_combine_sparse_cuda` runs: ``path`` "hash" (a
+    row over ``parts`` blocks, each with a ``2 ** t_log2``-slot table that
+    splits its columns into passes beyond ``d_max`` of them, ``smem`` bytes
+    of shared memory) or "sort" (one block per row)."""
+
+    path: str
+    parts: int = 1
+    t_log2: int = 0
+    d_max: int = 0
+    smem: int = 0
+
+
+def combine_plan(s_w: int, k: int, l: int, k_out: int, smem_bytes=None,
+                 path: str | None = None) -> CombinePlan:
+    """The path of a sparse combine of ``s_w`` entries of ``s`` and ``k``
+    slots of ``l``-wide index rows to ``k_out`` (``path`` forces one);
+    ``smem_bytes(t_log2, k, k_out)`` is the hash block's shared memory (-1:
+    the hash path does not take ``k_out``), by default the kernel's own
+    (:func:`kernel_hash_smem`).
+
+    The hash path takes what fits a block.  Its table holds a power of two
+    slots between ``HASH_MIN_SLOTS`` and ``HASH_MAX_SLOTS``, up to
+    ``d_max`` = 3/4 of them less one round of claims in flight.  The launch
+    spreads each row over ``parts`` = ``ceil((s_w + k * l) / d_max)``
+    blocks; a row uses the first ``ceil((s_w + live * l) / d_max)`` of
+    them, ``live`` its slots of positive mass, so a row whose columns hash
+    evenly never overflows a table, whatever its candidates."""
+    if path not in (None, "hash", "sort"):
+        raise ValueError(f"index_combine_sparse: unknown path {path!r}")
+    if path == "sort":
+        return CombinePlan("sort")
+    bound = max(s_w + k * l, 1)
+    slots = build.next_pow2(-(-(bound + HASH_THREADS) * 4 // 3))
+    slots = min(max(slots, HASH_MIN_SLOTS), HASH_MAX_SLOTS)
+    t_log2 = slots.bit_length() - 1
+    d_max = 3 * slots // 4 - HASH_THREADS
+    smem = (smem_bytes or kernel_hash_smem())(t_log2, k, k_out)
+    if 0 <= smem <= SMEM_PER_BLOCK:
+        return CombinePlan("hash", parts=-(-bound // d_max), t_log2=t_log2,
+                           d_max=d_max, smem=smem)
+    if path == "hash":
+        raise ValueError(f"index_combine_sparse: the hash path does not take "
+                         f"k_out {k_out} over {k} slots")
+    return CombinePlan("sort")
+
+
+def row_parts(plan: CombinePlan, s_w: int, live: torch.Tensor,
+              l: int) -> torch.Tensor:
+    """The parts each row takes on the hash path: ``ceil((s_w + live *
+    l) / d_max)``, at most ``plan.parts``, for ``live`` slots of positive
+    mass a row."""
+    need = torch.div(s_w + live.to(torch.int64) * l + plan.d_max - 1,
+                     plan.d_max, rounding_mode="floor")
+    return torch.clamp(need, 1, plan.parts)
+
+
+def hash_part(cols: torch.Tensor, parts) -> torch.Tensor:
+    """The part (block of a row) that owns each column on the hash path
+    of a row over ``parts`` parts: ``(col * PART_MUL mod 2**32) * parts
+    >> 32``."""
+    h = (cols.to(torch.int64) & 0xFFFFFFFF) * PART_MUL & 0xFFFFFFFF
+    return (h * parts) >> 32
 
 
 def index_combine_plain(s, f, vals, idx, columns=None):
@@ -196,8 +289,10 @@ def index_combine_sparse_plain(sv, si, fv, fi, vals, idx, *, k_out: int):
     return F.compact_arrays(cv, ci, k_out)
 
 
-def index_combine_sparse_cuda(sv, si, fv, fi, vals, idx, *, k_out: int):
-    """Launch the CUDA kernel on the current stream (no sync)."""
+def index_combine_sparse_cuda(sv, si, fv, fi, vals, idx, *, k_out: int,
+                              path: str | None = None):
+    """Launch the CUDA kernel on the current stream (no sync), on the path
+    :func:`combine_plan` picks (``path`` forces one)."""
     dev = fv.device
     for name, t, dt in (
         ("sv", sv, torch.float32), ("si", si, torch.int32),
@@ -218,6 +313,41 @@ def index_combine_sparse_cuda(sv, si, fv, fi, vals, idx, *, k_out: int):
     if k_out < 1 or n < 1:
         raise ValueError("index_combine_sparse: needs k_out >= 1 and n >= 1")
     lib = build.load("index_combine_sparse")
+    plan = combine_plan(s_w, k, l, k_out, kernel_hash_smem(lib), path)
+    return launch_sparse(lib, plan, sv, si, fv, fi, vals, idx, k_out)
+
+
+def launch_sparse(lib, plan: CombinePlan, sv, si, fv, fi, vals, idx,
+                  k_out: int):
+    """Launch ``plan`` from the kernel library ``lib`` on checked inputs
+    (:func:`index_combine_sparse_cuda`; a build of the same source with
+    other flags, such as ``tools/combine_phases.py``'s phase timers)."""
+    dev = fv.device
+    q, k = fv.shape
+    s_w = sv.shape[1]
+    n, l = vals.shape
+    out_v = torch.empty((q, k_out), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, k_out), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = (sv.data_ptr(), si.data_ptr(), q, s_w, fv.data_ptr(),
+            fi.data_ptr(), k, vals.data_ptr(), idx.data_ptr(), n, l, k_out)
+    if plan.path == "hash":
+        if q * plan.parts * k_out >= 2 ** 31 or s_w + k * l >= 2 ** 31:
+            raise ValueError(f"index_combine_sparse: {q} rows x "
+                             f"{plan.parts} parts too many")
+        part_keys = torch.empty((q, plan.parts, k_out), dtype=torch.int64,
+                                device=dev)
+        fn = lib.index_combine_hash_launch
+        fn.argtypes = _HASH_ARGTYPES
+        fn.restype = ctypes.c_int
+        # index rows by bulk copies: 16-byte rows, 16-byte aligned
+        bulk = int(l % 4 == 0 and vals.data_ptr() % 16 == 0
+                   and idx.data_ptr() % 16 == 0)
+        status = fn(*head, plan.parts, plan.t_log2, plan.d_max, bulk,
+                    PART_MUL, part_keys.data_ptr(), out_v.data_ptr(),
+                    out_i.data_ptr(), stream)
+        build.check_launch(status, "index_combine_sparse")
+        return out_v, out_i
     bound = s_w + k * l
     g_p = build.next_pow2(bound) if bound > lib.pw_smem_candidates() else 1
     if q * g_p >= 2 ** 31 or bound >= 2 ** 31:
@@ -225,16 +355,10 @@ def index_combine_sparse_cuda(sv, si, fv, fi, vals, idx, *, k_out: int):
     g_cv = torch.empty((q, g_p), dtype=torch.float32, device=dev)
     g_ci = torch.empty((q, g_p), dtype=torch.int32, device=dev)
     g_keys = torch.empty((q, g_p), dtype=torch.int64, device=dev)
-    out_v = torch.empty((q, k_out), dtype=torch.float32, device=dev)
-    out_i = torch.empty((q, k_out), dtype=torch.int32, device=dev)
-    fn = lib.index_combine_sparse_launch
-    fn.argtypes = _ARGTYPES
+    fn = lib.index_combine_sort_launch
+    fn.argtypes = _SORT_ARGTYPES
     fn.restype = ctypes.c_int
-    status = fn(
-        sv.data_ptr(), si.data_ptr(), q, s_w, fv.data_ptr(), fi.data_ptr(),
-        k, vals.data_ptr(), idx.data_ptr(), n, l, k_out, g_cv.data_ptr(),
-        g_ci.data_ptr(), g_keys.data_ptr(), g_p, out_v.data_ptr(),
-        out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    status = fn(*head, g_cv.data_ptr(), g_ci.data_ptr(), g_keys.data_ptr(),
+                g_p, out_v.data_ptr(), out_i.data_ptr(), stream)
     build.check_launch(status, "index_combine_sparse")
     return out_v, out_i

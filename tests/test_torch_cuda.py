@@ -194,3 +194,53 @@ def test_dense_route_answers_identical_across_pipeline_depths(cuda):
                      for k in ("top_scores", "top_vertices")])
     for a, b in zip(*runs):
         assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.cuda
+def test_sparse_route_answers_identical_across_pipeline_depths(cuda):
+    """With ``combine_path="sparse"`` the sparse route's final combine is
+    ``index_combine_sparse`` (at rmat(14) and Q <= 64 the default is the
+    scatter), which sums every column in candidate order with no float
+    atomics: rmat(14) served at pipeline depths 1 and 4 gives the same
+    bytes."""
+    from repro_torch import rng
+    from repro_torch.core.index import build_index
+    from repro_torch.core.query import QueryConfig
+    from repro_torch.serving import PPRService, ServiceConfig
+    from repro_torch.serving.batching import BatchingConfig
+    from repro_torch.serving.pipeline import PipelineConfig
+
+    g = tsyn.rmat(14, avg_deg=10.0, seed=3, device=cuda)
+    index, _ = build_index(g, r=32, l=64, key=rng.prng_key(5),
+                           source_batch=1024, device=cuda)
+    work = np.random.default_rng(2).integers(0, g.n, 600).tolist()
+    runs = []
+    for depth in (1, 4):
+        svc = PPRService(g, index, ServiceConfig(
+            query=QueryConfig(t_iterations=2, top_k=50, hub_split_degree=64,
+                              combine_path="sparse"),
+            batching=BatchingConfig(max_batch=64),
+            pipeline=PipelineConfig(depth=depth)), device=cuda)
+        assert svc.frontier_path == "sparse"
+        tops.reset_launch_counts()
+        answers, _ = svc.run_closed_loop(work)
+        assert tops.launch_counts()["index_combine_sparse"] > 0
+        by_id = sorted(answers, key=lambda a: a.request_id)
+        runs.append([np.stack([getattr(a, k) for a in by_id])
+                     for k in ("top_scores", "top_vertices")])
+    for a, b in zip(*runs):
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.cuda
+def test_combine_plan_fits_two_hash_blocks_an_sm(cuda):
+    """The plan reads a hash block's shared memory from the kernel: the
+    main path's block leaves room for two an SM (228 KB, 1 KB of it
+    reserved a block), and a k_out the hash path does not take goes the
+    sort path."""
+    from repro_torch.kernels import index_combine as comb_k
+
+    plan = comb_k.combine_plan(257, 256, 256, 50)
+    assert plan.path == "hash" and plan.parts == 12
+    assert 2 * (plan.smem + 1024) <= 233472
+    assert comb_k.combine_plan(257, 256, 256, 2048).path == "sort"

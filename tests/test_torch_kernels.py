@@ -369,6 +369,106 @@ def test_index_combine_sparse_matches_reference(q, k_out):
     assert _l1(*got, ov, oi, n) <= 1e-5
 
 
+def _dyadic(r, shape, top=256):
+    return r.integers(1, top, shape).astype(np.float32) / 1024.0
+
+
+def _combine_case(case):
+    """Dyadic inputs (every f32 sum exact) for the sparse combine's edge
+    cases: a column in every live slot, ties at the ``k_out`` edge, and
+    ``k_out`` above the distinct columns."""
+    r = np.random.default_rng(17)
+    n, l, q, k, s_w = 64, 8, 5, 6, 4
+    vals = _dyadic(r, (n, l))
+    vals[:, l - 2:] = 0.0                          # zero-padded rows
+    idx = r.integers(0, n, (n, l)).astype(np.int32)
+    idx[vals == 0] = 0
+    sv, si = _dyadic(r, (q, s_w)), r.integers(0, n, (q, s_w)).astype(np.int32)
+    fv = _dyadic(r, (q, k))
+    fv[1, 2] = 0.0                                 # a zero-mass slot
+    fi = r.integers(0, n, (q, k)).astype(np.int32)
+    k_out = 12
+    if case == "column in every slot":
+        idx[:, 0], vals[:, 0] = 5, 1.0 / 64.0
+    elif case == "ties at the edge":
+        vals[vals > 0] = 1.0 / 64.0
+        fv[:], sv[:] = 1.0 / 8.0, 1.0 / 512.0
+        k_out = 7
+    else:                                          # k_out above d
+        fv[:, 1:] = 0.0
+        k_out = 40
+    return (sv, si, fv, fi, vals, idx), n, k_out
+
+
+@pytest.mark.parametrize("case", ["column in every slot", "ties at the edge",
+                                  "k_out above d"])
+def test_index_combine_sparse_edge_cases_match_reference(case):
+    """Bit for bit against the reference's kernel (interpret mode), ties
+    broken by column ascending as ``lax.top_k`` does."""
+    arrays, n, k_out = _combine_case(case)
+    sv, si, fv, fi, vals, idx = arrays
+    got = tops.index_combine_sparse(*(_t(x) for x in arrays), k_out=k_out)
+    s = JF.SparseFrontier(values=jnp.asarray(sv), indices=jnp.asarray(si),
+                          k=sv.shape[1], n=n)
+    f = JF.SparseFrontier(values=jnp.asarray(fv), indices=jnp.asarray(fi),
+                          k=fv.shape[1], n=n)
+    want = jops.index_combine_sparse(s, f, jnp.asarray(vals),
+                                     jnp.asarray(idx), k_out=k_out,
+                                     q_tile=4, interpret=True)
+    wv, wi = np.asarray(want.values), np.asarray(want.indices)
+    if case == "ties at the edge":
+        assert (wv[:, k_out - 1] == np.sort(wv, axis=1)[:, 0]).any()
+    if case == "k_out above d":
+        assert (wv == 0).any(axis=1).all()
+    np.testing.assert_array_equal(got[0].numpy().view(np.int32),
+                                  wv.view(np.int32))
+    np.testing.assert_array_equal(got[1].numpy(), wi)
+
+
+def test_combine_plan_spreads_the_main_path_over_parts():
+    """At the main path's shape (S = 257, K = L = 256, k_out = 50) the hash
+    path spreads a row over 12 blocks of 8,192-slot tables; a row of few
+    live slots takes fewer; a k_out the hash path does not take (the
+    kernel's shared-memory size -1) or a block too large for the card goes
+    the sort path, and forced paths.  The kernel's size is stood in for."""
+    from repro_torch.kernels import index_combine as comb_k
+
+    def smem(t_log2, k, k_out):
+        return -1 if k_out > 1024 else 8 * (1 << t_log2) + 8 * k
+
+    plan = comb_k.combine_plan(257, 256, 256, 50, smem)
+    assert (plan.path, plan.parts, 1 << plan.t_log2) == ("hash", 12, 8192)
+    assert plan.d_max == 3 * 8192 // 4 - comb_k.HASH_THREADS
+    assert plan.parts * plan.d_max >= 257 + 256 * 256
+    assert plan.smem == smem(13, 256, 50)
+    live = torch.tensor([0, 1, 104, 256])
+    parts = comb_k.row_parts(plan, 257, live, 256).tolist()
+    assert parts == [1, 1, 5, 12]
+    assert comb_k.combine_plan(257, 256, 256, 2048, smem).path == "sort"
+    assert comb_k.combine_plan(257, 1 << 15, 256, 50, smem).path == "sort"
+    assert comb_k.combine_plan(257, 256, 256, 50, smem,
+                               "sort").path == "sort"
+    small = comb_k.combine_plan(5, 4, 6, 40, smem)
+    assert (small.parts, 1 << small.t_log2) == (1, comb_k.HASH_MIN_SLOTS)
+    with pytest.raises(ValueError):
+        comb_k.combine_plan(257, 256, 256, 2048, smem, "hash")
+    with pytest.raises(ValueError):
+        comb_k.combine_plan(257, 256, 256, 50, smem, "bitonic")
+
+
+def test_hash_part_spreads_low_columns():
+    """The partition hash of the kernel, against a numpy reference; R-MAT
+    hubs crowd the low ids, and the multiplicative hash spreads them."""
+    from repro_torch.kernels import index_combine as comb_k
+
+    cols = np.arange(4096, dtype=np.int64)
+    want = ((cols * comb_k.PART_MUL) % 2 ** 32 * 12) >> 32
+    got = comb_k.hash_part(torch.from_numpy(cols), 12).numpy()
+    np.testing.assert_array_equal(got, want)
+    counts = np.bincount(got[:256], minlength=12)
+    assert counts.min() >= 256 // 12 - 4 and counts.max() <= 256 // 12 + 4
+
+
 def test_index_combine_sparse_empty_frontier():
     r = np.random.default_rng(9)
     n, l, q, k = 20, 4, 4, 3
