@@ -28,7 +28,10 @@ Phases, each timed and printed:
    every live slot, with every column in one hash part (more than one
    block's table holds), with ties at the ``k_out`` edge and with
    ``k_out`` above a row's distinct columns, the hash path's output the
-   same bytes on two launches;
+   same bytes on two launches; and, plain PyTorch on the card against the
+   CPU, bit-equal: ``rng.randint`` (spans 1, 2, 3, 2**16 + 1 and 2**31 -
+   1, one ``maxval`` per draw) and the dense walk engine
+   ``walks.simulate_walks``;
 3. the sparse main path: ``rmat(20, avg_deg=10)`` (n = 1,048,576),
    ``build_index`` over every source (3b), then ``PPRService`` on the
    sparse route (``hub_split_degree=64``) answering 16,384 requests closed
@@ -79,11 +82,28 @@ Phases, each timed and printed:
    from the same parameters (max abs logit difference within 1e-4 of
    max(1, max |logit|)); ``embedding_bag`` must launch once per forward
    and every output be finite;
+3h. the Monte-Carlo path on 3a's graph, with the counters zeroed just
+   before and read just after (``walk_step`` must launch): for 3e's 64
+   sources, the sparse MCFP at r = 1,000 (l = 8,192, which covers r / c),
+   the sparse MCEP at r = 1,000 and at ``theory.mcep_equivalent_walks(1000)``
+   = 6,667, the dense MCFP and MCEP at r = 1,000 (f32[64, 2^20] each), each
+   with its seconds, peak memory and RAG and precision at k = 50 against
+   3e's ``pi``, gated finite, non-negative and of row and top-50 mass at
+   most 1 + 1e-4, with the paper's ordering MCFP(1000) >= MCEP(6667) >
+   MCEP(1000) printed, not gated; ``PPRService`` in ``mcfp`` mode
+   (``r_online=2000``, batches of 256) serving 1,024 requests closed loop
+   at pipeline depth 4 and again at depth 1, with qps, p50 and p99, whose
+   answers must be the same bytes; the legacy build (r = 100, l = 256,
+   chunks of 256) over the first 16,384 sources, seconds a chunk; and
+   ``plan_for_budget`` and ``preprocessing_cost_model`` at n = 2^20 and
+   the budget of 3b's index, printed;
 2b. replay the inputs of each kernel's first launch on its path (and of
    ``ell_spmm``'s second, a batch's push of a spread-out frontier, and
    its ``dense`` variant, the last push of 3e's ``pi``, of
-   ``sharded_frontier_push``'s first second-iteration launch, and of
-   ``embedding_bag``'s first at ``serve_p99`` and at ``serve_bulk``)
+   ``sharded_frontier_push``'s first second-iteration launch, of
+   ``embedding_bag``'s first at ``serve_p99``, ``serve_bulk`` and
+   ``retrieval_cand``, and of ``walk_step``'s first in 3h, variant
+   ``mc``)
    through the kernel and its plain version: top-k outputs' sorted values
    within 1e-5 relative and at least 99% of indices equal (summation order
    may differ, which can swap ties at the top-k edge), dense outputs
@@ -93,9 +113,9 @@ Phases, each timed and printed:
    the dense and the sparse ``index_combine`` launched a second time must
    give the same bytes (the sparse one printing each row's live slots,
    candidates ``w`` and distinct columns ``d``, :func:`combine_counts`).
-   Times each kernel (and ``walk_step``'s kernel alone, from
-   ``torch.profiler``, since back-to-back calls of it time its wrapper's
-   host work), its plain version and, where one exists, one PyTorch
+   Times each kernel (and ``walk_step``'s and ``embedding_bag``'s kernel
+   alone, from ``torch.profiler``, since back-to-back calls of a short
+   launch time its wrapper's host work), its plain version and, where one exists, one PyTorch
    call of the same function (a sparse product,
    ``torch.nn.functional.embedding_bag``), with CUDA events; prints the
    share of ``f``'s columns that hold a non-zero for every ``ell_spmm``
@@ -111,13 +131,17 @@ Phases, each timed and printed:
    dense exchange within 1e-4 L1 of the sparse exchange at covering
    widths; and DLRM RM2's reduced config in f32 (``serve_p99`` and
    ``retrieval_cand``), card against CPU, logits within 1e-5 of their
-   largest.
+   largest; and the Monte-Carlo path, card against CPU, bit-equal: the
+   legacy build of every fourth source, the dense and sparse MCFP and
+   MCEP estimates of 64 sources, ``mcfp``-mode answers at dispatch keys
+   0-3, and ``randint``.
 
 The checks of phases 2a and 4 are also the ``cuda``-marked tests of
 ``tests/test_torch_cuda.py``, which call the functions here.
 
-Prints one JSON line with each kernel's numbers, the card's name and power
-limit, and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
+Prints one JSON line with each kernel's numbers (``launches`` summed over
+the paths that run it, each counted from zero, and split in
+``launches_by_path``), the card's name and power limit, and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
 no result line, if there is no GPU or any phase fails.
 """
 
@@ -167,6 +191,15 @@ DLRM_BULK_FORWARDS = 16        # serve_bulk forwards of 262,144
 DLRM_RETRIEVAL_FORWARDS = 4    # retrieval_cand forwards of 10^6 candidates
 DIST_EP = 4                    # model shards of phase 3f's tile step
 DIST_DATA = 2                  # data replicas of phase 3f's build
+MC_PATH = ("walk_step",)       # the sparse estimators of phase 3h
+MC_R = 1000                    # walks a source of phase 3h's estimators
+MC_L = 8192                    # their sketch width: covers r / c = 6,667
+MC_REQUESTS = 1024             # phase 3h's mcfp-mode requests, each depth
+MC_R_ONLINE = 2000             # walks a request in mcfp mode
+MC_LEGACY_SOURCES = 16384      # sources of phase 3h's legacy build
+MC_LEGACY_R = 100
+MC_LEGACY_BATCH = 256
+RANDINT_SPANS = (1, 2, 3, (1 << 16) + 1, 2**31 - 1)
 
 
 def phase(name, t0):
@@ -700,6 +733,60 @@ def synthetic_embedding_bag(torch, np, dev):
     return ok
 
 
+def synthetic_randint(torch, np, dev):
+    """``rng.randint`` on the card against the CPU, bit-equal: spans 1, 2,
+    3, 2**16 + 1 (the uint32 product wraps) and 2**31 - 1 from 0, a
+    negative ``minval``, ``maxval <= minval``, and one ``maxval`` per draw
+    (``max(deg, 1)`` of an rmat graph, as a walk move draws)."""
+    from repro_torch import rng
+
+    key = rng.fold_in(rng.prng_key(17), 3)
+    cases = [(0, span) for span in RANDINT_SPANS] + [(-70000, 5), (9, 9),
+                                                    (9, -3)]
+    deg = np.random.default_rng(16).zipf(1.5, 1 << 18) % (1 << 20)
+    cases.append((0, torch.clamp(torch.from_numpy(deg), min=1)))
+    ok = True
+    for lo, hi in cases:
+        shape = (1 << 18,)
+        got = rng.randint(key, shape, lo,
+                          hi.to(dev) if torch.is_tensor(hi) else hi, dev)
+        want = rng.randint(key, shape, lo, hi, "cpu")
+        same = bool(torch.equal(got.cpu(), want))
+        if not same:
+            print(f"  randint [{lo}, {hi if isinstance(hi, int) else 'deg'})"
+                  f" differs card vs CPU")
+        ok &= same
+    return ok
+
+
+def synthetic_simulate_walks(torch, np, dev):
+    """The dense walk engine on the card against the CPU, bit-equal in all
+    four ``WalkCounts`` fields: rmat(12) (hubs, dangling vertices) with 32
+    sources of 64 walks, and a graph whose last vertices are dangling (a
+    move's CSR slot past the last edge)."""
+    from repro_torch import rng
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.walks import simulate_walks, walks_for_sources
+    from repro_torch.graphs import synthetic
+
+    cases = [(lambda d: synthetic.rmat(12, avg_deg=8.0, seed=5, device=d),
+              np.random.default_rng(18).integers(0, 1 << 12, 32), 64),
+             (lambda d: Graph.from_edges([0, 0, 1, 2, 2, 3], [1, 4, 2, 0, 5, 1],
+                                         n=6, device=d), np.arange(6), 50)]
+    ok = True
+    for make, sources, r in cases:
+        got = {}
+        for d in (dev, "cpu"):
+            ws, wr = walks_for_sources(
+                torch.from_numpy(sources.astype(np.int32)).to(d), r)
+            got[d] = simulate_walks(make(d), ws, wr, rng.prng_key(19),
+                                    n_rows=len(sources))
+        for field in ("fp_counts", "ep_counts", "moves", "walks"):
+            ok &= bits_equal(torch, getattr(got[dev], field).cpu(),
+                             getattr(got["cpu"], field))
+    return ok
+
+
 SYNTHETIC_CHECKS = {
     "walk_step": synthetic_walk_step,
     "frontier_push": synthetic_frontier_push,
@@ -708,6 +795,8 @@ SYNTHETIC_CHECKS = {
     "index_combine": synthetic_index_combine_dense,
     "sharded_frontier_push": synthetic_sharded_frontier_push,
     "embedding_bag": synthetic_embedding_bag,
+    "randint": synthetic_randint,
+    "simulate_walks": synthetic_simulate_walks,
 }
 
 
@@ -979,21 +1068,21 @@ def replay(torch, name, variant, args, kwargs):
     del a, b
     ms = cuda_ms(torch, lambda: kernel(*args, **kwargs))
     device_ms = None
-    if name == "walk_step":
-        # a launch is shorter than its wrapper's host work, so cuda_ms's
-        # back-to-back calls time the host: read the kernel's own time.  A
-        # trace has been seen to hold none of the launches: try again, and
-        # report none rather than 0
-        reps = 50
+    if name in ("walk_step", "embedding_bag"):
+        # a short launch is shorter than its wrapper's host work, so
+        # cuda_ms's back-to-back calls time the host: read the kernel's own
+        # time.  A trace has been seen to hold none of the launches: try
+        # again, and report none rather than 0
+        reps = 50 if ms < 1.0 else 5
         for _ in range(3):
             _, _, split = device_time_split(
                 torch, lambda: [kernel(*args, **kwargs) for _ in range(reps)],
                 top=None)
-            traced = sum(t for k_, t in split if "walk_step" in k_)
+            traced = sum(t for k_, t in split if name in k_)
             if traced > 0:
                 device_ms = traced / reps
                 break
-        print(f"  {name}/{variant}: {ms:.4f} ms a call back to back "
+        print(f"  {name}/{variant}: {ms:.4f} ms a wrapper call back to back "
               f"(CUDA events), kernel time a launch (torch.profiler, {reps} "
               f"launches): " + (f"{device_ms:.4f} ms" if device_ms
                                 else "not measured (no launch traced)"))
@@ -1211,7 +1300,7 @@ def phase_dlrm(torch, np, dev, failures):
     # shape: (distinct batches, warm-up forwards, timed forwards, capture)
     plan = {"serve_p99": (DLRM_P99_BATCHES, 8, DLRM_P99_BATCHES, True),
             "serve_bulk": (4, 1, DLRM_BULK_FORWARDS, True),
-            "retrieval_cand": (1, 1, DLRM_RETRIEVAL_FORWARDS, False)}
+            "retrieval_cand": (1, 1, DLRM_RETRIEVAL_FORWARDS, True)}
     for name, (n_batches, warm, reps, capture) in plan.items():
         b = bundles[name]
         spec = b.batch_spec
@@ -1293,6 +1382,197 @@ def phase_dlrm(torch, np, dev, failures):
     if not all(finite):
         failures.append(f"dlrm: {finite.count(False)} outputs not finite")
     del params, table, p99_batch
+    return counts, captured
+
+
+def check_small_montecarlo(torch, np, dev):
+    """The Monte-Carlo path at ``rmat(14)`` on the card and through the
+    plain CPU path from one key, each bit-equal: the legacy build's index
+    (every fourth source), the dense and the sparse MCFP and MCEP
+    estimates of 64 sources, ``mcfp``-mode top-k answers at dispatch keys
+    0-3, and ``randint`` (2a's spans).  Returns ``{check: equal}``."""
+    from repro_torch import rng
+    from repro_torch.core import mcep, mcfp
+    from repro_torch.core.index import build_index
+    from repro_torch.core.query import BatchQueryEngine, QueryConfig
+    from repro_torch.graphs import synthetic
+
+    devs = (dev, "cpu")
+    graphs = {d: synthetic.rmat(14, avg_deg=10.0, seed=3, device=d)
+              for d in devs}
+    n = graphs["cpu"].n
+    key = rng.prng_key(6)
+    src = np.random.default_rng(13).integers(0, n, 64).astype(np.int32)
+    out = {}
+
+    def same(name, make):
+        got = {d: make(d) for d in devs}
+        pairs = list(zip(*(x if isinstance(x, tuple) else (x,)
+                           for x in (got[dev], got["cpu"]))))
+        out[name] = all(bits_equal(torch, a.cpu(), b) for a, b in pairs)
+
+    same("legacy build", lambda d: (lambda ix: (ix.values, ix.indices))(
+        build_index(graphs[d], r=32, l=64, key=key, source_batch=1024,
+                    sources=np.arange(0, n, 4), engine="legacy",
+                    device=d)[0]))
+    for label, mod in (("mcfp", mcfp), ("mcep", mcep)):
+        same(f"{label} dense", lambda d: mod.estimate_ppr(
+            graphs[d], torch.from_numpy(src), 100, key))
+        same(f"{label} sparse", lambda d: (lambda sf: (sf.values, sf.indices))(
+            mod.estimate_ppr_sparse(graphs[d], torch.from_numpy(src), 100,
+                                    key, l=512)))
+    engines = {d: BatchQueryEngine(graphs[d], None, QueryConfig(
+        mode="mcfp", r_online=200, top_k=50), device=d) for d in devs}
+    for seq in range(4):
+        same(f"mcfp mode, dispatch key {seq}",
+             lambda d: engines[d].query_topk_async(
+                 src, key=engines[d].dispatch_key(seq)))
+    out["randint"] = synthetic_randint(torch, np, dev)
+    return out
+
+
+def phase_montecarlo(torch, np, dev, g, sources, truth, work, failures):
+    """Phase 3h: the Monte-Carlo path on the main graph, with the launch
+    counters zeroed just before and read just after.  Returns the counts
+    and the captured first ``walk_step`` launch (of the sparse MCFP)."""
+    from repro_torch import rng
+    from repro_torch.core import mcep, mcfp, theory
+    from repro_torch.core.frontier import topk_dense
+    from repro_torch.core.index import (build_index, plan_for_budget,
+                                        preprocessing_cost_model)
+    from repro_torch.core.metrics import mean_rag, precision_at_k
+    from repro_torch.core.query import QueryConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import PPRService, ServiceConfig
+    from repro_torch.serving.batching import BatchingConfig
+    from repro_torch.serving.pipeline import PipelineConfig
+
+    key = rng.prng_key(1)
+    r_ep = theory.mcep_equivalent_walks(MC_R)
+    q = int(sources.shape[0])
+    ops.reset_launch_counts()
+    ops.capture_first_launches(True)
+    runs = {
+        f"mcfp sparse r={MC_R}": lambda: mcfp.estimate_ppr_sparse(
+            g, sources, MC_R, key, l=MC_L),
+        f"mcep sparse r={MC_R}": lambda: mcep.estimate_ppr_sparse(
+            g, sources, MC_R, key, l=MC_L),
+        f"mcep sparse r={r_ep}": lambda: mcep.estimate_ppr_sparse(
+            g, sources, r_ep, key, l=MC_L),
+        f"mcfp dense r={MC_R}": lambda: mcfp.estimate_ppr(
+            g, sources, MC_R, key),
+        f"mcep dense r={MC_R}": lambda: mcep.estimate_ppr(
+            g, sources, MC_R, key),
+    }
+    quality = {}
+    for label, fn in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        est = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        dense = est if torch.is_tensor(est) else densify(
+            torch, est.values, est.indices, g.n)
+        top_v, _ = topk_dense(dense, 50)
+        row_mass = dense.sum(dim=1)
+        if (dense.shape != (q, g.n) or not bool(torch.isfinite(dense).all())
+                or bool((dense < 0).any())
+                or float(top_v.sum(dim=1).max()) > 1.0 + 1e-4
+                or float(row_mass.max()) > 1.0 + 1e-4):
+            failures.append(f"{label}: estimates not finite, non-negative "
+                            f"and of mass <= 1")
+        quality[label] = dict(
+            seconds=secs, peak_gib_above_base=peak,
+            mean_rag=mean_rag(truth, dense, 50),
+            precision=float(precision_at_k(truth, dense, 50).mean()),
+            row_mass_min=float(row_mass.min()))
+        print(f"  {label}: {secs:.3f} s, peak {peak:.3f} GiB above the "
+              f"{base / 2**30:.2f} GiB held, " + json.dumps(
+                  {k: quality[label][k] for k in (
+                      "mean_rag", "precision", "row_mass_min")}))
+        del est, dense, top_v
+    rag = {k: v["mean_rag"] for k, v in quality.items()}
+    fp, ep1, ep2 = (rag[f"mcfp sparse r={MC_R}"], rag[f"mcep sparse r={MC_R}"],
+                    rag[f"mcep sparse r={r_ep}"])
+    print(f"  the paper's ordering in RAG@50, MCFP({MC_R}) >= MCEP({r_ep}) > "
+          f"MCEP({MC_R}): {fp:.5f} >= {ep2:.5f} > {ep1:.5f}: "
+          f"{fp >= ep2 > ep1} (printed, not gated)")
+    captured = ops.captured_launches().get("walk_step/main")
+    ops.capture_first_launches(False)
+
+    # the mcfp serving mode, closed loop, at depths 4 and 1: the same bytes
+    answers_by_depth = {}
+    for depth in (4, 1):
+        svc = PPRService(g, None, ServiceConfig(
+            query=QueryConfig(mode="mcfp", r_online=MC_R_ONLINE, top_k=50),
+            batching=BatchingConfig(max_batch=256, max_wait_s=10.0),
+            pipeline=PipelineConfig(depth=depth)), device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        answers, st = svc.run_closed_loop(work[:MC_REQUESTS])
+        torch.cuda.synchronize()
+        print(f"  mcfp mode, depth {depth}: " + json.dumps({k: st[k] for k in (
+            "served", "batches", "wall_s", "qps", "latency_p50",
+            "latency_p99", "pipeline_in_flight_peak", "batch_hist")})
+              + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        bad = bad_answers(np, answers, g.n)
+        if len(answers) != MC_REQUESTS or bad:
+            failures.append(f"mcfp mode depth {depth}: {len(answers)} "
+                            f"served, {len(bad)} bad")
+        by_id = sorted(answers, key=lambda a: a.request_id)
+        answers_by_depth[depth] = [
+            np.stack([getattr(a, k) for a in by_id]).tobytes()
+            for k in ("top_scores", "top_vertices")]
+    same = answers_by_depth[4] == answers_by_depth[1]
+    print(f"  mcfp mode answers at depths 4 and 1 the same bytes: {same}")
+    if not same:
+        failures.append("mcfp mode answers differ across pipeline depths")
+    eng = svc.engine
+    src256 = torch.tensor(work[:256], dtype=torch.int32, device=dev)
+    wall_ms, device_ms, split = device_time_split(
+        torch, lambda: eng.query_topk(src256, key=eng.dispatch_key(0)))
+    print(f"  mcfp batch of 256, device time by kernel (torch.profiler): "
+          f"wall {wall_ms:.3f} ms, device busy {device_ms:.3f} ms, idle "
+          f"{100 * (1 - device_ms / wall_ms):.1f}% of the wall")
+    for name, ms in split:
+        print(f"  {ms:9.3f} ms  {100 * ms / max(device_ms, 1e-9):5.1f}%  "
+              f"{name[:110]}")
+
+    # the legacy (dense-accumulator) build over the first sources
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    legacy, lstats = build_index(
+        g, r=MC_LEGACY_R, l=MAIN_L, key=key, source_batch=MC_LEGACY_BATCH,
+        sources=np.arange(MC_LEGACY_SOURCES), engine="legacy", device=dev)
+    torch.cuda.synchronize()
+    legacy_s = time.perf_counter() - t1
+    chunks = -(-MC_LEGACY_SOURCES // MC_LEGACY_BATCH)
+    rows = legacy.values[:MC_LEGACY_SOURCES]
+    if (not bool(torch.isfinite(rows).all()) or bool((rows < 0).any())
+            or float(rows.sum(dim=1).max()) > 1.0 + 1e-4):
+        failures.append("legacy build rows not finite, non-negative and of "
+                        "mass <= 1")
+    print(f"  legacy build: {MC_LEGACY_SOURCES} sources, r={MC_LEGACY_R}, "
+          f"l={MAIN_L}, {chunks} chunks of {MC_LEGACY_BATCH}: {legacy_s:.3f} "
+          f"s, {legacy_s / chunks:.4f} s a chunk, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; " + json.dumps(
+              {k: lstats[k] for k in ("kept_mass", "dropped_mass",
+                                      "drop_fraction", "pad_rows")}))
+    del legacy, rows
+    counts = ops.launch_counts()
+    print("monte-carlo-path launches:", json.dumps(counts))
+    failures += [f"kernel {k} never launched on the monte-carlo path"
+                 for k in MC_PATH if counts[k] <= 0]
+
+    # the planner at the budget of 3b's index
+    budget = g.n * MAIN_L * 8
+    plan = plan_for_budget(g.n, budget)
+    print(f"  plan_for_budget(n={g.n}, {budget} bytes): {plan}")
+    for r in (plan.r, MAIN_R):
+        print(f"  preprocessing_cost_model(n={g.n}, r={r}): "
+              + json.dumps(preprocessing_cost_model(g.n, r)))
     return counts, captured
 
 
@@ -1638,7 +1918,7 @@ def main() -> int:
         "powerwalk (4-shard sparse exchange)": dict(
             mean_rag=mean_rag(truth, approx, 50),
             precision=float(precision_at_k(truth, approx, 50).mean()))}))
-    del approx, truth, tiles
+    del approx, tiles
     # the first chunk of every shard against the single-device build
     ns_f = sh_stats["n_pad"] // DIST_EP
     chunk_equal = True
@@ -1662,6 +1942,14 @@ def main() -> int:
     t0 = time.perf_counter()
     counts_g, captured_g = phase_dlrm(torch, np, dev, failures)
     phase("3g dlrm-rm2 at full width", t0)
+
+    t0 = time.perf_counter()
+    counts_h, captured_walk = phase_montecarlo(
+        torch, np, dev, g, src64, truth, work, failures)
+    if captured_walk is not None:
+        captured_g["walk_step/mc"] = captured_walk
+    del truth
+    phase("3h monte-carlo path", t0)
 
     t0 = time.perf_counter()
     results = {}
@@ -1699,8 +1987,18 @@ def main() -> int:
           f"within {rel_dlrm:.3e} of their largest (limit 1e-5)")
     if not rel_dlrm <= 1e-5:
         failures.append("small dlrm reference check")
+    mc_equal = check_small_montecarlo(torch, np, dev)
+    print("small reference, monte-carlo path, card vs CPU bit-equal:",
+          json.dumps(mc_equal))
+    failures += [f"small monte-carlo reference: {k}"
+                 for k, v in mc_equal.items() if not v]
     phase("4 small reference", t0)
 
+    paths = {"sparse (3b, 3c)": (SPARSE_PATH, counts),
+             "dense (3d)": (DENSE_PATH, counts_d),
+             "distributed (3f)": (DIST_PATH, counts_f),
+             "dlrm (3g)": (DLRM_PATH, counts_g),
+             "monte-carlo (3h)": (MC_PATH, counts_h)}
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         runs = results.get(name)
@@ -1712,20 +2010,21 @@ def main() -> int:
         # other variants beside it
         main = next((x for x in runs if x["variant"] in (
             "streamed", "later", "second", "serve_bulk")), runs[0])
-        path_counts = (counts if name in SPARSE_PATH else counts_f
-                       if name in DIST_PATH else counts_g
-                       if name in DLRM_PATH else counts_d)
+        # every path that runs the kernel, each counted from zero
+        by_path = {path: c[name] for path, (kernels_of, c) in paths.items()
+                   if name in kernels_of}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=path_counts[name],
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(x["max_abs_err"] for x in runs),
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"], device_ms=main["device_ms"],
             variant=main["variant"],
-            variants={x["variant"]: dict(ms=x["ms"], plain_ms=x["plain_ms"],
-                                         bound_ms=x["bound_ms"])
-                      for x in runs},
+            variants={x["variant"]: dict(
+                ms=x["ms"], device_ms=x["device_ms"], plain_ms=x["plain_ms"],
+                bound_ms=x["bound_ms"], library_ms=x["library_ms"])
+                for x in runs},
         ))
     if failures:
         print("FAILED:", "; ".join(failures), file=sys.stderr)

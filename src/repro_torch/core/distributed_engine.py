@@ -20,6 +20,9 @@ scale").
   in replica order (``index.sparse_chunk_estimates``);
   :func:`make_sparse_walk_counts_step` splits walks over every shard and
   merges them through one gather.
+* **MCFP walk counts** (:func:`make_walk_counts_step`): walk cursors split
+  over the data axis, and every shard counts the visits that land in its
+  vertex interval, with no communication until the final sums.
 
 The mesh is a :class:`~repro_torch.distributed.mesh.ShardMesh`: shards
 are a stacked axis on one device, each shard's body runs in a loop over
@@ -27,8 +30,7 @@ it, and each collective is one tensor op on that axis.  On the card the
 sparse step launches ``sharded_frontier_push`` once per shard and
 iteration, as the reference calls its kernel once per device.  The
 reference's ``kernel_q_tile`` and ``kernel_interpret`` only tile or
-interpret the TPU kernel and are dropped; ``make_walk_counts_step`` draws
-with ``jax.random.randint`` and waits for the ``mcfp`` slice.
+interpret the TPU kernel and are dropped.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ from repro_torch.core import frontier as frontier_mod
 from repro_torch.core.graph import Graph
 from repro_torch.core.index import sparse_chunk_estimates
 from repro_torch.core.query import auto_frontier_floor
-from repro_torch.core.walks import DEFAULT_C, simulate_walks_sparse
+from repro_torch.core.walks import (DEFAULT_C, advance_walks,
+                                    simulate_walks_sparse, step_key_words)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 
@@ -436,6 +439,62 @@ def _merge_sparse_counts(parts, mesh, l: int):
     fp_v, fp_i, dropped = frontier_mod.merge_sketch_parts(
         av, ai, mesh.psum(torch.stack([p.fp_dropped for p in parts])), l)
     return fp_v, fp_i, moves, dropped
+
+
+def make_walk_counts_step(cfg: DistConfig, mesh, *, max_steps: int = 64):
+    """Returns ``fn(row_ptr, col_idx, out_deg, sources int32[W], rows
+    int32[W], key) -> (fp_counts f32[q_tile, n], moves f32[q_tile])``.
+
+    The graph arrays are whole on every shard.  The walks split into
+    ``mesh.data`` contiguous blocks, one per data replica, whose stream
+    folds the replica's index into every step key (``fold_in(fold_in(key,
+    t), d)``).  Every (data, model) shard counts the visits of its block
+    that land in its vertex interval into ``[q_tile, n_shard]``; the counts
+    are summed over the data axis and laid side by side over the model
+    axis, and ``moves`` is summed over every shard and divided by ``ep``,
+    as the reference's psum does.  The model shards of one replica share
+    its walks (their keys do not differ), so each block is walked once and
+    counted by every shard.  Requires ``W`` divisible by ``mesh.data``.
+    """
+    _check_mesh(cfg, mesh)
+    n_data, ep, ns = mesh.data, cfg.ep, cfg.n_shard
+
+    def fn(row_ptr, col_idx, out_deg, sources, rows, key):
+        if sources.shape[0] % n_data:
+            raise ValueError(f"{sources.shape[0]} walks do not split over "
+                             f"{n_data} data shards")
+        dev = sources.device
+        w = sources.shape[0] // n_data
+        c32 = torch.tensor(cfg.c, dtype=torch.float32, device=dev)
+        fp = torch.zeros((n_data, ep, cfg.q_tile, ns), dtype=torch.float32,
+                         device=dev)
+        moves = torch.zeros((n_data, ep, cfg.q_tile), dtype=torch.float32,
+                            device=dev)
+        for d in range(n_data):
+            src = sources[d * w:(d + 1) * w].to(torch.int32)
+            rw = rows[d * w:(d + 1) * w].long()
+            words = step_key_words(key, max_steps, dev, fold=d)
+            cursors = src
+            active = torch.ones((w,), dtype=torch.bool, device=dev)
+            for t in range(max_steps):
+                bits = rng.random_bits(words[t], (w,), dev)
+                af = active.to(torch.float32)
+                for me in range(ep):
+                    lo = me * ns
+                    local = (cursors >= lo) & (cursors < lo + ns)
+                    fp[d, me].index_put_(
+                        (rw, torch.clamp(cursors - lo, 0, ns - 1).long()),
+                        af * local.to(torch.float32), accumulate=True)
+                    moves[d, me].index_put_((rw,), af, accumulate=True)
+                active = active & ~(rng.bits_to_uniform(bits[0]) < c32)
+                cursors = advance_walks(row_ptr, col_idx, out_deg, cursors,
+                                        src, bits[1], bits[2])
+        fp = mesh.psum(fp)                       # over the data axis
+        fp = fp.transpose(0, 1).reshape(cfg.q_tile, ep * ns)
+        moves = mesh.psum(moves.reshape(n_data * ep, cfg.q_tile)) / ep
+        return fp, moves
+
+    return fn
 
 
 def make_sparse_walk_counts_step(cfg: DistConfig, mesh, *, r: int, l: int,

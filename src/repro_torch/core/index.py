@@ -5,8 +5,15 @@ int32[n, L]`` on the device, built by streaming source chunks through the
 sparse walk engine (``repro.core.index.build_index(engine="sparse")``):
 same chunk padding, ``sketch_l = min(n, max(2l, l+32))``, per-chunk key
 ``fold_in(key, chunk_offset)`` and stats, so a build from the same key
-equals the reference's bit for bit.  :func:`build_index_sharded` builds
-the same rows on a :class:`~repro_torch.distributed.mesh.ShardMesh`.
+equals the reference's bit for bit.  ``engine="legacy"`` keeps the dense
+MCFP oracle (``mcfp.estimate_ppr_batched`` truncated to top-L).
+:func:`build_index_sharded` builds the sparse rows on a
+:class:`~repro_torch.distributed.mesh.ShardMesh`.
+
+The memory planner (:func:`plan_for_budget`, :func:`walk_state_cost`,
+:func:`preprocessing_cost_model`) is the paper's offline/online knob:
+"the computation can be shifted to the offline stage as much as the
+memory budget allows".
 """
 
 from __future__ import annotations
@@ -19,9 +26,11 @@ import numpy as np
 import torch
 
 from repro_torch import rng
-from repro_torch.core import frontier
+from repro_torch.core import frontier, mcfp
 from repro_torch.core.graph import Graph
-from repro_torch.core.walks import DEFAULT_C, simulate_walks_sparse
+from repro_torch.core.walks import (DEFAULT_C, compaction_schedule,
+                                    respawn_schedule, schedule_slot_area,
+                                    simulate_walks_sparse)
 from repro_torch.device import resolve_device
 
 
@@ -181,21 +190,21 @@ def build_index(
 ) -> Tuple[PPRIndex, dict]:
     """Offline preprocessing: MCFP for every vertex, truncated to top-L.
 
-    ``r_splits``/``respawn`` select the sharded builder's per-chunk walk
-    split and respawn-mode scheduling (:func:`sparse_chunk_estimates`).
-    ``key`` is a port PRNG key (:func:`repro_torch.rng.prng_key`).  The
-    graph moves to ``device`` (default ``"cuda"``; pass ``"cpu"`` for the
-    plain path).  Duplicate ``sources`` are deduplicated up front
-    (``stats["duplicate_sources"]``).  Returns ``(index, stats)``; stats
-    carry the kept/dropped estimate mass, synced once at the end.
+    ``engine="sparse"`` (default) streams the compacted sketch engine into
+    the index; ``r_splits``/``respawn`` select the sharded builder's
+    per-chunk walk split and respawn-mode scheduling
+    (:func:`sparse_chunk_estimates`).  ``engine="legacy"`` is the dense
+    oracle (:func:`_build_index_legacy`).  ``key`` is a port PRNG key
+    (:func:`repro_torch.rng.prng_key`).  The graph moves to ``device``
+    (default ``"cuda"``; pass ``"cpu"`` for the plain path).  Duplicate
+    ``sources`` are deduplicated up front (``stats["duplicate_sources"]``).
+    Returns ``(index, stats)``; stats carry the kept/dropped estimate mass,
+    synced once at the end.
     """
-    if engine != "sparse":
-        raise NotImplementedError(
-            f"engine={engine!r}: only the sparse engine is ported; the "
-            "legacy engine draws with jax.random.randint, which waits for "
-            "a bit-exact counterpart in repro_torch/rng.py (ROADMAP.md "
-            "queue 1)"
-        )
+    if engine not in ("sparse", "legacy"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "legacy" and (r_splits != 1 or respawn):
+        raise ValueError("r_splits/respawn apply to the sparse engine only")
     graph = graph.to(device)
     dev = graph.device
     n = graph.n
@@ -208,6 +217,11 @@ def build_index(
         unique_sources = np.unique(sources)
         duplicate_sources = len(sources) - len(unique_sources)
         sources = unique_sources
+    if engine == "legacy":
+        return _build_index_legacy(
+            graph, r, l, key, c=c, max_steps=max_steps,
+            source_batch=source_batch, sources=sources,
+            duplicate_sources=duplicate_sources)
     sketch_l = _sketch_width(n, l)
     n_src = len(sources)
     pad_rows = (-n_src) % source_batch
@@ -262,6 +276,53 @@ def build_index(
         **_mass_stats(kept, dropped),
         nbytes=n * l * 8,
         duplicate_sources=duplicate_sources,
+    )
+    return PPRIndex(values=values, indices=indices, l=l, n=n), stats
+
+
+def _build_index_legacy(graph: Graph, r: int, l: int, key, *, c: float,
+                        max_steps: int, source_batch: int,
+                        sources: np.ndarray, duplicate_sources: int
+                        ) -> Tuple[PPRIndex, dict]:
+    """The dense-accumulator build: each chunk's ``f32[source_batch, n]``
+    MCFP rows (:func:`mcfp.estimate_ppr_batched`) truncated to top-``l``
+    in ``lax.top_k``'s order, written into the zero index on the device.
+    The total and kept mass of every chunk stay on the device and are
+    summed there, with one sync at the end."""
+    dev = graph.device
+    n = graph.n
+    values = torch.zeros((n, l), dtype=torch.float32, device=dev)
+    indices = torch.zeros((n, l), dtype=torch.int32, device=dev)
+    rows = torch.from_numpy(sources.astype(np.int64)).to(dev)
+    totals, kepts = [], []
+    stats: dict = {}
+    done = 0
+    for chunk_ids, est in mcfp.estimate_ppr_batched(
+        graph, sources, r, key, c=c, max_steps=max_steps,
+        source_batch=source_batch, stats=stats,
+    ):
+        vals, idxs = truncate_topl(est, l)
+        chunk_rows = rows[done:done + len(chunk_ids)]
+        done += len(chunk_ids)
+        values[chunk_rows] = vals
+        indices[chunk_rows] = idxs
+        totals.append(est.sum())
+        kepts.append(vals.sum())
+    if totals:
+        total = float(torch.stack(totals).sum())
+        kept = float(torch.stack(kepts).sum())
+    else:  # empty sources: a valid all-zero index
+        total = kept = 0.0
+    dropped = total - kept
+    stats.update(
+        r=r,
+        l=l,
+        engine="legacy",
+        duplicate_sources=duplicate_sources,
+        kept_mass=kept,
+        dropped_mass=dropped,
+        drop_fraction=dropped / max(total, 1e-12),
+        nbytes=n * l * 8,
     )
     return PPRIndex(values=values, indices=indices, l=l, n=n), stats
 
@@ -361,3 +422,149 @@ def build_index_sharded(
         nbytes=n_pad * l * 8,
     )
     return PPRIndex(values=values, indices=indices, l=l, n=n_pad), stats
+
+
+# ---------------------------------------------------------------------------
+# Memory-budget planning (paper Section 3: the offline/online trade-off)
+# ---------------------------------------------------------------------------
+
+# Paper Figure 5 / Section 4.2: iterations needed for RAG > 0.99 at R.
+_PAPER_T_FOR_R = ((0, 7), (10, 5), (100, 2))
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexPlan:
+    r: int              # walks per vertex offline
+    l: int              # index width (top-L)
+    t_online: int       # VERD iterations online
+    index_bytes: int
+    budget_bytes: int
+    walk_state_bytes: int = 0   # per-chunk walk/event state priced in
+    respawn: bool = True        # scheduling mode the plan was priced for
+
+
+# Walk-state pricing per slot: a live slot holds its cursor (int32) and
+# alive flag (bool); each round also holds, per slot-step, the two drawn
+# uniforms (2 x f32) and the stacked (af, pos, tf) event columns (f32 +
+# int32 + f32) the sketch folds consume.
+_SLOT_BYTES = 5
+_SLOT_STEP_BYTES = 20
+
+
+def walk_state_cost(
+    r: int,
+    *,
+    c: float = DEFAULT_C,
+    max_steps: int = 64,
+    compact_every: int = 8,
+    source_batch: int = 256,
+    respawn: bool = True,
+) -> dict:
+    """Device cost of one source chunk's walk pass, priced at the static
+    schedule the engine runs (respawn mode's narrow fixed-width rounds, or
+    the decay schedule starting at width ``r``): per-row ``slot_area``
+    (slot-steps, :func:`~repro_torch.core.walks.schedule_slot_area`), the
+    peak ``max_width``, the pass's ``total_steps`` and the
+    ``walk_state_bytes`` of a ``source_batch``-row chunk."""
+    if r <= 0:
+        return dict(max_width=0, slot_area=0, total_steps=0,
+                    walk_state_bytes=0)
+    if respawn:
+        widths, total_steps = respawn_schedule(
+            r, c=c, max_steps=max_steps, compact_every=compact_every)
+    else:
+        widths = compaction_schedule(
+            r, c=c, max_steps=max_steps, compact_every=compact_every)
+        total_steps = max_steps
+    area = schedule_slot_area(widths, total_steps, compact_every)
+    w_max = max(widths)
+    per_slot = _SLOT_BYTES + _SLOT_STEP_BYTES * min(compact_every,
+                                                    total_steps)
+    return dict(
+        max_width=w_max,
+        slot_area=area,
+        total_steps=total_steps,
+        walk_state_bytes=int(source_batch * w_max * per_slot),
+    )
+
+
+def plan_for_budget(
+    n: int,
+    budget_bytes: int,
+    *,
+    c: float = DEFAULT_C,
+    bytes_per_entry: int = 8,
+    max_steps: int = 64,
+    compact_every: int = 8,
+    source_batch: int = 256,
+    respawn: bool = True,
+) -> IndexPlan:
+    """Choose ``(R, L, T)`` for a memory budget: ``L`` is the largest width
+    whose index bytes ``n * L * 8`` plus one build chunk's walk state
+    (:func:`walk_state_cost`) fit, ``R = floor(c * L)`` saturates it (an
+    MCFP row from ``R`` walks has at most ``R / c`` nonzeros), and ``T``
+    follows the paper's measured ``R -> T`` table."""
+    def state_bytes(l: int) -> int:
+        return walk_state_cost(
+            int(c * l), c=c, max_steps=max_steps,
+            compact_every=compact_every, source_batch=source_batch,
+            respawn=respawn,
+        )["walk_state_bytes"]
+
+    def fits(l: int) -> bool:
+        return n * bytes_per_entry * l + state_bytes(l) <= budget_bytes
+
+    # both cost terms are monotone in l: binary-search the largest width
+    # that fits, starting from the index-only cap
+    lo, hi = 0, max(int(budget_bytes // (max(n, 1) * bytes_per_entry)), 0)
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if fits(mid):
+            lo = mid
+        else:
+            hi = mid - 1
+    l = lo
+    r = int(c * l)
+    t = 7
+    for r_ref, t_ref in _PAPER_T_FOR_R:
+        if r >= r_ref:
+            t = t_ref
+    return IndexPlan(
+        r=r, l=l, t_online=t,
+        index_bytes=n * l * bytes_per_entry, budget_bytes=budget_bytes,
+        walk_state_bytes=state_bytes(l), respawn=bool(respawn),
+    )
+
+
+def preprocessing_cost_model(
+    n: int,
+    r: int,
+    *,
+    c: float = DEFAULT_C,
+    step_rate: float = 5e8,
+    max_steps: int = 64,
+    compact_every: int = 8,
+    source_batch: int = 256,
+    respawn: bool = True,
+) -> dict:
+    """Analytic preprocessing cost (the paper's Table 2 extrapolation):
+    ``n * R / c`` walk positions at ``step_rate`` positions a second, the
+    uncapped index bytes ``n * (R / c) * 8``, and the device slot-steps,
+    slot occupancy and per-chunk walk state of the schedule the engine
+    runs (:func:`walk_state_cost`)."""
+    positions = n * r / c
+    sc = walk_state_cost(
+        r, c=c, max_steps=max_steps, compact_every=compact_every,
+        source_batch=source_batch, respawn=respawn,
+    )
+    slot_positions = n * sc["slot_area"]
+    return dict(
+        walk_positions=positions,
+        est_seconds=positions / step_rate,
+        index_bytes_uncapped=int(n * (r / c) * 8),
+        respawn=bool(respawn),
+        max_slot_width=sc["max_width"],
+        slot_positions=slot_positions,
+        slot_occupancy=positions / max(slot_positions, 1),
+        walk_state_bytes=sc["walk_state_bytes"],
+    )

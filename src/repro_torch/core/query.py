@@ -7,9 +7,10 @@ returns top-k answers.  The strategies of the paper's Table 3:
 * ``verd``      -- VERD with no index (the paper's R = 0 column),
 * ``fppr``      -- direct index lookup,
 * ``pi``        -- power iteration (the accuracy reference),
-* ``mcfp``      -- online Monte-Carlo: not ported (it draws with
-  ``jax.random.randint``, which ``repro_torch.rng`` has no bit-exact
-  counterpart of yet) and raises ``NotImplementedError``.
+* ``mcfp``      -- online Monte-Carlo (``r_online`` walks a query, no
+  index), drawn from the config seed's key: ``run()`` folds each chunk's
+  offset into it and the serving pipeline each dispatch's sequence number
+  (:meth:`BatchQueryEngine.dispatch_key`), so answers replay bit for bit.
 
 The VERD modes run on ``Q x K`` sparse state or on dense ``[Q, n]`` state
 (small graphs, hub-heavy graphs without hub splitting); the baselines run
@@ -28,6 +29,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import rng
+from repro_torch.core import mcfp as mcfp_mod
 from repro_torch.core import power_iteration as pi_mod
 from repro_torch.core import verd as verd_mod
 from repro_torch.core.frontier import topk_dense
@@ -39,12 +42,6 @@ from repro_torch.device import resolve_device
 AUTO_SPARSE_MIN_N = 1 << 14
 
 SCATTER_COMBINE_BUDGET_BYTES = 256 * 1024 * 1024
-
-_MCFP = (
-    "mode 'mcfp' (online Monte-Carlo) is not ported: it draws with "
-    "jax.random.randint, and repro_torch/rng.py has no bit-exact "
-    "counterpart of it yet (the next slice, ROADMAP.md queue 1)"
-)
 
 
 def auto_frontier_floor(top_k: int) -> int:
@@ -71,7 +68,7 @@ def _fppr_lookup(index: PPRIndex, sources, seed_w) -> torch.Tensor:
 
 @dataclasses.dataclass
 class QueryConfig:
-    mode: str = "powerwalk"       # powerwalk | verd | fppr | pi (| mcfp)
+    mode: str = "powerwalk"       # powerwalk | verd | fppr | mcfp | pi
     t_iterations: int = 2
     c: float = DEFAULT_C
     top_k: int = 200
@@ -84,7 +81,7 @@ class QueryConfig:
     combine_path: str = "auto"     # sparse | scatter | auto
     hub_split_degree: int = 0
     max_seeds: int = 1
-    seed: int = 0
+    seed: int = 0                  # base PRNG seed of the mcfp mode
 
 
 class BatchQueryEngine:
@@ -97,8 +94,6 @@ class BatchQueryEngine:
         self.index = None if index is None else index.to(self.device)
         self.config = config or QueryConfig()
         cfg = self.config
-        if cfg.mode == "mcfp":
-            raise NotImplementedError(_MCFP)
         if cfg.mode in ("powerwalk", "fppr") and index is None:
             raise ValueError(f"mode {cfg.mode} requires a PPR index")
         if index is not None and index.n < graph.n:
@@ -110,6 +105,10 @@ class BatchQueryEngine:
         if cfg.max_seeds > 1 and cfg.mode in ("mcfp", "pi"):
             raise ValueError(
                 f"mode {cfg.mode!r} does not support seed-set queries")
+        # the base key is pure config, so a rebuilt engine replays the same
+        # Monte-Carlo noise; the stateful key serves direct query_dense calls
+        self._base_key = rng.prng_key(cfg.seed)
+        self._key = self._base_key
         self._degree_cap: Optional[int] = None
 
     @property
@@ -214,14 +213,14 @@ class BatchQueryEngine:
 
     def query_dense(self, sources, *, key=None, weights=None
                     ) -> torch.Tensor:
-        """Dense ``f32[Q, n]`` answers of the configured mode (``key`` is
-        accepted for the reference's signature: no ported mode draws
-        randomness).  ``weights`` switches to seed-set rows (linear modes
-        only: ``pi`` raises)."""
-        del key
+        """Dense ``f32[Q, n]`` answers of the configured mode.  ``key``
+        sets the ``mcfp`` mode's stream; without it the engine's stateful
+        key splits once a call.  ``weights`` switches to seed-set rows
+        (linear modes only: ``mcfp`` and ``pi`` raise)."""
         cfg = self.config
-        if weights is not None and cfg.mode == "pi":
-            raise ValueError("mode 'pi' does not support seed-set queries")
+        if weights is not None and cfg.mode in ("mcfp", "pi"):
+            raise ValueError(
+                f"mode {cfg.mode!r} does not support seed-set queries")
         sources, seed_w = self._inputs(sources, weights)
         g = self.graph
         if cfg.mode in ("powerwalk", "verd"):
@@ -231,6 +230,11 @@ class BatchQueryEngine:
                 seed_weights=seed_w)
         if cfg.mode == "fppr":
             return _fppr_lookup(self.index, sources, seed_w)
+        if cfg.mode == "mcfp":
+            if key is None:
+                self._key, key = rng.split(self._key)
+            return mcfp_mod.estimate_ppr(g, sources, cfg.r_online, key,
+                                         c=cfg.c)
         if cfg.mode == "pi":
             return pi_mod.power_iteration(g, sources,
                                           n_iter=cfg.pi_iterations, c=cfg.c)
@@ -252,10 +256,11 @@ class BatchQueryEngine:
             raise AssertionError((tuple(vals.shape), tuple(idx.shape), k))
         return vals, idx
 
-    def dispatch_key(self, seq: int) -> int:
-        """Per-dispatch sequence number (the reference folds it into the
-        Monte-Carlo key; every ported mode is deterministic)."""
-        return seq
+    def dispatch_key(self, seq: int) -> torch.Tensor:
+        """Per-dispatch PRNG key: the config seed's key with the dispatch
+        sequence number folded in, so ``mcfp`` answers replay bit for bit
+        for a given (seed, dispatch order) at any pipeline depth."""
+        return rng.fold_in(self._base_key, seq)
 
     def query_topk_async(self, sources, *, key=None, weights=None, out=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -265,11 +270,14 @@ class BatchQueryEngine:
         is :meth:`query_topk`'s; the sparse route routes the final combine
         like the reference: scatter while the ``[Q, n]`` scratch fits the
         budget, else the ``index_combine_sparse`` kernel.  ``out`` (donated
-        result buffers) is not ported."""
+        result buffers) is not ported.  ``key`` seeds the ``mcfp`` mode
+        (default: the base key; the pipeline passes :meth:`dispatch_key`)."""
         if out is not None:
             raise NotImplementedError(
                 "donated result buffers (reuse_buffers) are not ported yet")
         cfg = self.config
+        if key is None:
+            key = self._base_key
         if not self.uses_sparse_path():
             return self.query_topk(sources, key=key, weights=weights)
         sources, seed_w = self._inputs(sources, weights)
@@ -299,7 +307,9 @@ class BatchQueryEngine:
         return vals, idx
 
     def run(self, sources, weights=None) -> dict:
-        """Execute a query set in ``max_batch`` chunks; answers + timing."""
+        """Execute a query set in ``max_batch`` chunks; answers + timing.
+        The ``mcfp`` mode folds each chunk's offset into the config seed's
+        key, so a rerun (or a rebuilt engine) replays every chunk."""
         sources = np.asarray(sources, dtype=np.int32)
         weights = None if weights is None else np.asarray(weights, np.float32)
         k = self.effective_top_k
@@ -309,7 +319,9 @@ class BatchQueryEngine:
         step = self.config.max_batch
         for i in range(0, len(sources), step):
             w_chunk = None if weights is None else weights[i:i + step]
-            v, ix = self.query_topk(sources[i:i + step], weights=w_chunk)
+            v, ix = self.query_topk(sources[i:i + step],
+                                    key=rng.fold_in(self._base_key, i),
+                                    weights=w_chunk)
             vals[i:i + len(v)] = v.cpu().numpy()
             idxs[i:i + len(v)] = ix.cpu().numpy()
         elapsed = time.perf_counter() - start

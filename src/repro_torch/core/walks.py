@@ -1,16 +1,23 @@
-"""Compacted sparse-sketch random-walk engine.
+"""Random-walk engines: the dense one and the compacted sparse-sketch one.
 
-The offline phase of PowerWalk: ``r`` walks per source, each terminating
-with probability ``c`` per position (dangling vertices jump home), visits
-folded into per-row top-``L`` count sketches.  Live-walk compaction
-follows the static ``(1-c)^t`` bucket schedule of
-:func:`compaction_schedule`, or, in respawn mode, the narrow fixed-width
-rounds of :func:`respawn_schedule`; every draw comes from the same
-threefry stream as the reference (``repro.core.walks.simulate_walks_sparse``),
-so the same key gives the same sketches bit for bit.
+Every walk terminates with probability ``c`` per position and a walk on a
+dangling vertex jumps home (paper Section 2.1); every draw comes from the
+same threefry stream as the reference's (``repro.core.walks``), so the same
+key gives the same counts bit for bit.
 
-The reference's ``lax.scan`` over steps is a Python loop here; the cursor
-advance goes through the ``walk_step`` kernel on CUDA tensors.
+* :func:`simulate_walks` is the dense engine: one cursor per walk, advanced
+  for ``max_steps`` positions, counts scattered into ``f32[rows, n]``
+  full-path (MCFP) and end-point (MCEP) accumulators.  Its moves draw with
+  ``jax.random.randint``'s law (:func:`repro_torch.rng.randint`); it is
+  gathers, RNG and scatter-adds in plain PyTorch, as the reference's is
+  XLA with no Pallas kernel.
+* :func:`simulate_walks_sparse` is the offline phase of PowerWalk: ``r``
+  walks per source, visits folded into per-row top-``L`` count sketches.
+  Live-walk compaction follows the static ``(1-c)^t`` bucket schedule of
+  :func:`compaction_schedule`, or, in respawn mode, the narrow fixed-width
+  rounds of :func:`respawn_schedule`.  The reference's ``lax.scan`` over
+  steps is a Python loop here; the cursor advance goes through the
+  ``walk_step`` kernel on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -28,6 +35,136 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.walk_step import sample_edge_offsets  # noqa: F401
 
 DEFAULT_C = 0.15
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkCounts:
+    """Aggregated walk statistics grouped into ``rows`` source rows.
+
+    fp_counts: f32[rows, n] full-path visit counts (MCFP numerator).
+    ep_counts: f32[rows, n] end-point counts (MCEP numerator).
+    moves:     f32[rows]    total counted positions per row (MCFP denom).
+    walks:     f32[rows]    number of walks per row (MCEP denominator).
+    """
+
+    fp_counts: torch.Tensor
+    ep_counts: torch.Tensor
+    moves: torch.Tensor
+    walks: torch.Tensor
+
+
+def step_key_words(key, steps: int, device, fold: Optional[int] = None
+                   ) -> torch.Tensor:
+    """The key words of every step of a dense walk pass, ``int64[steps, 3,
+    2]``: per step ``t``, ``k_move, k_term = split(fold_in(key, t))``
+    (``fold`` folded into the step key first when given: a data shard's
+    index), then ``randint``'s own split of ``k_move``, stacked as
+    ``(k_term, k_move halves)``.  Computed on the host and sent in one
+    copy, so the steps make no host round trip."""
+    step = rng.fold_in(rng.key_data(key).cpu(), torch.arange(steps))
+    if fold is not None:
+        step = rng.fold_in(step, fold)
+    step = rng.split(step)                                      # [T, 2, 2]
+    halves = rng.split(step[:, 0])                              # [T, 2, 2]
+    words = torch.cat([step[:, 1:2], halves], dim=1)
+    if torch.device(device).type == "cuda":
+        return words.pin_memory().to(device, non_blocking=True)
+    return words.to(device)
+
+
+def advance_walks(row_ptr, col_idx, out_deg, cursors: torch.Tensor,
+                  sources: torch.Tensor, higher: torch.Tensor,
+                  lower: torch.Tensor) -> torch.Tensor:
+    """Move every walk one edge: ``randint``'s draw from the words
+    ``(higher, lower)`` picks the out-edge; a dangling vertex jumps to its
+    source (its gather, which may point past the last edge, is clamped and
+    then replaced)."""
+    cur = cursors.long()
+    deg = out_deg[cur]
+    if col_idx.shape[0] == 0:
+        return sources
+    off = rng.bits_to_randint(higher, lower, 0, torch.clamp(deg, min=1))
+    edge = torch.clamp(row_ptr[cur] + off, max=col_idx.shape[0] - 1)
+    return torch.where(deg == 0, sources, col_idx[edge.long()])
+
+
+def simulate_walks(
+    graph: Graph,
+    walk_sources: torch.Tensor,
+    walk_rows: torch.Tensor,
+    key,
+    *,
+    n_rows: int,
+    c: float = DEFAULT_C,
+    max_steps: int = 64,
+) -> WalkCounts:
+    """Run one walk per entry of ``walk_sources`` and aggregate counts, on
+    the graph's device.
+
+    walk_sources: int32[W] start (= personalization) vertex of each walk.
+    walk_rows:    int32[W] output row each walk accumulates into (so ``R``
+                  walks of one source share a row).
+
+    Per step ``t``, in the reference's order: count every active walk's
+    position, draw termination (``uniform(k_term) < c``) and count the
+    terminated walks' endpoints, then move every walk (``randint(k_move)``
+    picks the out-edge; a dangling vertex jumps to its source).  Walks
+    still active after ``max_steps`` positions count their position as
+    their endpoint.  The counts are integers below 2**24, so the f32
+    scatter-adds are exact in any order: the card and the CPU give the
+    same bytes.
+    """
+    dev = graph.device
+    w = int(walk_sources.shape[0])
+    src = walk_sources.to(dev, torch.int32)
+    rows = walk_rows.to(dev).long()
+    words = step_key_words(key, max_steps, dev)
+    c32 = torch.tensor(c, dtype=torch.float32, device=dev)
+    fp = torch.zeros((n_rows, graph.n), dtype=torch.float32, device=dev)
+    ep = torch.zeros_like(fp)
+    moves = torch.zeros((n_rows,), dtype=torch.float32, device=dev)
+    walks_done = torch.zeros_like(moves)
+    cursors = src
+    active = torch.ones((w,), dtype=torch.bool, device=dev)
+    for t in range(max_steps):
+        bits = rng.random_bits(words[t], (w,), dev)             # [3, W]
+        cur = cursors.long()
+        af = active.to(torch.float32)
+        fp.index_put_((rows, cur), af, accumulate=True)
+        moves.index_put_((rows,), af, accumulate=True)
+        terminate = active & (rng.bits_to_uniform(bits[0]) < c32)
+        tf = terminate.to(torch.float32)
+        ep.index_put_((rows, cur), tf, accumulate=True)
+        walks_done.index_put_((rows,), tf, accumulate=True)
+        active = active & ~terminate
+        cursors = advance_walks(graph.row_ptr, graph.col_idx, graph.out_deg,
+                                cursors, src, bits[1], bits[2])
+    af = active.to(torch.float32)
+    ep.index_put_((rows, cursors.long()), af, accumulate=True)
+    walks_done.index_put_((rows,), af, accumulate=True)
+    return WalkCounts(fp_counts=fp, ep_counts=ep, moves=moves,
+                      walks=walks_done)
+
+
+def walks_for_sources(sources: torch.Tensor, r: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expand ``sources int32[S]`` into ``(walk_sources, walk_rows)`` with
+    ``r`` walks per source, on the sources' device."""
+    s = int(sources.shape[0])
+    walk_sources = sources.to(torch.int32)[:, None].expand(s, r).reshape(-1)
+    walk_rows = torch.arange(s, dtype=torch.int32, device=sources.device)[
+        :, None].expand(s, r).reshape(-1)
+    return walk_sources, walk_rows
+
+
+def sample_walk_lengths(key, w: int, c: float = DEFAULT_C,
+                        max_steps: int = 64, device="cpu") -> torch.Tensor:
+    """Walk lengths only (positions per walk, ``int32[w]``): the geometric(c)
+    law the theory relies on."""
+    u = rng.uniform(key, (w, max_steps), device)
+    c32 = torch.tensor(c, dtype=torch.float32, device=u.device)
+    alive = torch.cumprod((u >= c32).to(torch.int32), dim=1)
+    return (1 + alive.sum(dim=1)).to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)

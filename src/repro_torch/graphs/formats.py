@@ -1,4 +1,5 @@
-"""Row-chunked ELL pull view of a graph (``repro.graphs.formats``).
+"""Graph views for kernels (``repro.graphs.formats``): the row-chunked ELL
+pull view, the destination-sorted COO edge list and edge padding.
 
 Every vertex owns ``ceil(in_deg / k)`` rows of width ``k`` holding its
 in-neighbours, so a hub costs at most ``k - 1`` padding slots and the
@@ -11,6 +12,7 @@ integer arithmetic and one stable sort.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -97,3 +99,31 @@ def ell_pull(ell: EllChunks, frontier: torch.Tensor) -> torch.Tensor:
     partial = (gathered * ell.weight[None]).sum(dim=-1)
     out = torch.zeros((q, ell.n), dtype=frontier.dtype, device=frontier.device)
     return out.index_add_(1, ell.row2vertex.long(), partial)
+
+
+def to_coo_sorted_by_dst(graph: Graph
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(src int32[m], dst int32[m], weight f32[m])`` sorted by destination
+    (stable, so each destination keeps CSR order), ``weight = 1 /
+    out_deg[src]``: the push-mode edge list, on the graph's device."""
+    order = torch.argsort(graph.col_idx.long(), stable=True)
+    src = graph.src.long()[order]
+    w = 1.0 / graph.out_deg.to(torch.float32)[src]
+    return src.to(torch.int32), graph.col_idx[order], w
+
+
+def pad_edges(graph: Graph, multiple: int) -> Graph:
+    """The graph with its edge arrays padded to a multiple of ``multiple``
+    by ``m_pad - m`` copies of a ``0 -> 0`` edge; ``row_ptr``, ``out_deg`` and ``m`` stay
+    the true ones, so CSR readers never reach the padding.  For kernels
+    that need the edge count aligned."""
+    m = graph.m
+    m_pad = -(-m // multiple) * multiple
+    if m_pad == m:
+        return graph
+    zeros = torch.zeros(m_pad - m, dtype=torch.int32,
+                        device=graph.col_idx.device)
+    return Graph(row_ptr=graph.row_ptr,
+                 col_idx=torch.cat([graph.col_idx, zeros]),
+                 src=torch.cat([graph.src, zeros]),
+                 out_deg=graph.out_deg, n=graph.n, m=m)

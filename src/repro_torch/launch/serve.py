@@ -2,16 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         [--n-log2 11] [--r 100] [--t 2] [--queries 2000] \
-        [--mode powerwalk|verd|fppr|pi] [--device cuda|cpu]
+        [--mode powerwalk|verd|fppr|mcfp|pi] [--device cuda|cpu]
 
 Builds the index on the device (for the modes that read one: powerwalk
 and fppr), starts the batched service, runs a closed-loop workload and
 prints Table-3-style latency/throughput.  Graphs below 2**14 vertices, and
 hub-heavy graphs at the default ``--hub-split-degree 0`` (the reference's
 ``QueryConfig`` default), serve on the dense route; ``--hub-split-degree
-64`` routes rmat's hub-heavy graphs sparse.
-``--mode mcfp`` is accepted, as in the reference, and raises
-``NotImplementedError``: online Monte-Carlo is not ported yet.
+64`` routes rmat's hub-heavy graphs sparse.  ``--mode mcfp`` answers with
+no index, from ``QueryConfig.r_online`` walks a query.
 """
 
 from __future__ import annotations

@@ -164,6 +164,41 @@ def test_dlrm_forward_launches_embedding_bag_once(cuda):
 
 
 @pytest.mark.cuda
+def test_montecarlo_on_card_matches_the_cpu(cuda):
+    """The Monte-Carlo path at rmat(14), card against the plain CPU path,
+    bit for bit: the legacy build, the dense and sparse MCFP and MCEP
+    estimates, mcfp-mode answers at four dispatch keys and randint."""
+    equal = chip_smoke.check_small_montecarlo(torch, np, cuda)
+    assert all(equal.values()), equal
+
+
+@pytest.mark.cuda
+def test_mcfp_mode_answers_identical_across_pipeline_depths(cuda):
+    """mcfp answers fold each dispatch's sequence number into the key and
+    count walks with exact integer sums: rmat(14) served at pipeline
+    depths 1 and 4 gives the same bytes."""
+    from repro_torch.core.query import QueryConfig
+    from repro_torch.serving import PPRService, ServiceConfig
+    from repro_torch.serving.batching import BatchingConfig
+    from repro_torch.serving.pipeline import PipelineConfig
+
+    g = tsyn.rmat(14, avg_deg=10.0, seed=3, device=cuda)
+    work = np.random.default_rng(2).integers(0, g.n, 256).tolist()
+    runs = []
+    for depth in (1, 4):
+        svc = PPRService(g, None, ServiceConfig(
+            query=QueryConfig(mode="mcfp", r_online=200, top_k=50),
+            batching=BatchingConfig(max_batch=64, max_wait_s=60.0),
+            pipeline=PipelineConfig(depth=depth)), device=cuda)
+        answers, _ = svc.run_closed_loop(work)
+        by_id = sorted(answers, key=lambda a: a.request_id)
+        runs.append([np.stack([getattr(a, k) for a in by_id])
+                     for k in ("top_scores", "top_vertices")])
+    for a, b in zip(*runs):
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.cuda
 def test_dense_route_answers_identical_across_pipeline_depths(cuda):
     """The dense route's kernels sum every entry in a fixed order, so
     rmat(14) served at pipeline depths 1 and 4 gives the same bytes (the

@@ -29,7 +29,7 @@ from repro.kernels import ref as jref
 from repro.serving import PPRService as JService
 from repro.serving import ServiceConfig as JServiceConfig
 from repro.serving.batching import BatchingConfig as JBatching
-from repro_torch import convert
+from repro_torch import convert, rng
 from repro_torch.core import graph as tgraph
 from repro_torch.core import index as tindex
 from repro_torch.core import metrics as tmetrics
@@ -469,18 +469,31 @@ def test_dense_top_k_tie_order_matches_lax_top_k(setup):
 
 
 def test_mcfp_is_not_ported(setup):
-    _, tg, _, tidx = setup
-    with pytest.raises(NotImplementedError, match="randint"):
-        tquery.BatchQueryEngine(tg, tidx, tquery.QueryConfig(mode="mcfp"),
-                                device="cpu")
-    te = tquery.BatchQueryEngine(tg, None, tquery.QueryConfig(mode="pi"),
+    """The nonlinear modes on the dense route: ``mcfp`` serves with no
+    index, bit for bit with the reference at the base key, and both it and
+    ``pi`` refuse seed sets; the legacy build runs (its parity is in
+    ``tests/test_torch_montecarlo.py``)."""
+    jg, tg, _, _ = setup
+    cfg = dict(mode="mcfp", top_k=16, r_online=30)
+    te = tquery.BatchQueryEngine(tg, None, tquery.QueryConfig(**cfg),
                                  device="cpu")
-    with pytest.raises(ValueError, match="seed-set"):
-        te.query_topk(np.zeros((2, 2), np.int32),
-                      weights=np.ones((2, 2), np.float32))
-    with pytest.raises(NotImplementedError, match="randint"):
-        tindex.build_index(tg, r=2, l=4, key=None, engine="legacy",
-                           device="cpu")
+    je = jquery.BatchQueryEngine(jg, None, jquery.QueryConfig(**cfg))
+    src = np.arange(0, 40, 5, dtype=np.int32)
+    want = je.query_topk_async(jnp.asarray(src))
+    got = te.query_topk_async(src)
+    assert np.array_equal(got[0].numpy().view(np.uint32),
+                          np.asarray(want[0]).view(np.uint32))
+    assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
+    for mode in ("mcfp", "pi"):
+        te = tquery.BatchQueryEngine(tg, None, tquery.QueryConfig(mode=mode),
+                                     device="cpu")
+        with pytest.raises(ValueError, match="seed-set"):
+            te.query_topk(np.zeros((2, 2), np.int32),
+                          weights=np.ones((2, 2), np.float32))
+    index, stats = tindex.build_index(tg, r=2, l=4, key=rng.prng_key(0),
+                                      engine="legacy", sources=src,
+                                      source_batch=8, device="cpu")
+    assert stats["engine"] == "legacy" and index.values.shape == (tg.n, 4)
 
 
 # -- the service on the dense route ---------------------------------------------

@@ -96,14 +96,15 @@ def test_serve_cli_runs_on_cpu(capsys):
 
 def test_serve_cli_runs_the_dense_route_on_cpu(capsys):
     """At the reference's default n = 2,048 every mode serves dense; verd
-    needs no index.  mcfp is accepted and raises, naming its slice."""
+    needs no index, nor does mcfp."""
     serve.main(["--mode", "verd", "--queries", "40", "--max-batch", "16",
                 "--device", "cpu"])
     out = capsys.readouterr().out
     assert "n=2048" in out and "route=dense: 40 queries" in out
-    with pytest.raises(NotImplementedError, match="randint"):
-        serve.main(["--mode", "mcfp", "--n-log2", "6", "--queries", "4",
-                    "--device", "cpu"])
+    serve.main(["--mode", "mcfp", "--n-log2", "6", "--queries", "4",
+                "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "n=64" in out and "mode=mcfp route=dense: 4 queries" in out
 
 
 def test_convert_round_trips_reference_state():

@@ -141,9 +141,12 @@ def test_build_index_port_key_equals_reference_key(graphs):
 
 def test_build_index_rejects_what_is_not_ported(graphs):
     _, tg = graphs
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown engine"):
         tindex.build_index(tg, r=4, l=8, key=rng.prng_key(0),
-                           engine="legacy", device="cpu")
+                           engine="dense", device="cpu")
+    with pytest.raises(ValueError, match="sparse engine"):
+        tindex.build_index(tg, r=4, l=8, key=rng.prng_key(0),
+                           engine="legacy", respawn=True, device="cpu")
     with pytest.raises(NotImplementedError, match="repair"):
         twalks.simulate_walks_sparse(
             tg, torch.arange(4, dtype=torch.int32), 4, rng.prng_key(0), l=8,
