@@ -28,7 +28,10 @@ Phases, each timed and printed:
    every live slot, with every column in one hash part (more than one
    block's table holds), with ties at the ``k_out`` edge and with
    ``k_out`` above a row's distinct columns, the hash path's output the
-   same bytes on two launches; and, plain PyTorch on the card against the
+   same bytes on two launches; ``embedding_bag`` at 1, 31, 33, 1,000,
+   70,001 and 1,000,003 bags of 1 and 32 slots, D = 16, 17, 32, 48, 64
+   and 128, tables 4 and 8 bytes past alignment, with a mask and with
+   none, two launches the same bytes; and, plain PyTorch on the card against the
    CPU, bit-equal: ``rng.randint`` (spans 1, 2, 3, 2**16 + 1 and 2**31 -
    1, one ``maxval`` per draw) and the dense walk engine
    ``walks.simulate_walks``;
@@ -115,7 +118,10 @@ Phases, each timed and printed:
    candidates ``w`` and distinct columns ``d``, :func:`combine_counts`).
    Times each kernel (and ``walk_step``'s and ``embedding_bag``'s kernel
    alone, from ``torch.profiler``, since back-to-back calls of a short
-   launch time its wrapper's host work), its plain version and, where one exists, one PyTorch
+   launch time its wrapper's host work; where the trace holds no launch of
+   a kernel of a millisecond or more, the back-to-back CUDA-event time,
+   labelled so; each printed with its share of its bound), its plain
+   version and, where one exists, one PyTorch
    call of the same function (a sparse product,
    ``torch.nn.functional.embedding_bag``), with CUDA events; prints the
    share of ``f``'s columns that hold a non-zero for every ``ell_spmm``
@@ -248,6 +254,28 @@ def device_time_split(torch, fn, top=8):
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda x: -x[1])
     return wall_ms, sum(ms for _, ms in kernels), kernels[:top]
+
+
+def traced_launch_ms(torch, fn, name):
+    """Device milliseconds a launch of the kernels whose name holds
+    ``name``, over one call of ``fn`` under ``torch.profiler``: their
+    traced time over the launches the trace holds (a trace may hold fewer
+    launches than were made, or none), and that count;
+    ``(None, 0)`` where it holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and name in e.key
+            and e.self_device_time_total > 0]
+    count = sum(e.count for e in hits)
+    if not count:
+        return None, 0
+    return sum(e.self_device_time_total for e in hits) / 1e3 / count, count
 
 
 def bits_equal(torch, a, b):
@@ -704,32 +732,53 @@ def same_bits_or_nan(torch, a, b):
 
 
 def synthetic_embedding_bag(torch, np, dev):
-    """1,000 bags (not a multiple of the kernel's 8 rows a block) of 1 and
-    32 slots over tables of D = 64 and 48, values ``j / 1024`` with |x| <= 1
-    and masks in {0, 0.5, 1}, so every f32 sum is exact; ids from the whole
-    table, negative ones counting from its end, and a few outside it (NaN
-    rows); all three dtype contracts: f32 rows to f32, bf16-rounded rows to
-    f32 (``bag_lookup`` at bf16) and to bf16 (``lookup`` at bf16)."""
+    """Bags of 1 and 32 slots over tables of D = 16, 32, 64 (rows packed
+    several to a warp instruction), 48, 128 (a warp across a row) and 17
+    (one float a lane), for 1, 31, 33, 1,000 and 70,001 bags (none a
+    multiple of the kernel's chunk of 32 rows or of the smaller chunks of a
+    small launch) and, one slot a bag, 1,000,003 (full chunks over a grid
+    stride); tables whose storage starts 4 or 8 bytes past an aligned
+    address (the float and float2 loads at D = 64).  Values ``j / 1024``
+    with |x| <= 1 and masks in {0, 0.5, 1}, so every f32 sum is exact, and
+    no mask (every weight one, against the plain version with no mask);
+    ids from the whole table, negative ones counting from its end, and a
+    few outside it (NaN rows); all three dtype contracts: f32 rows to f32,
+    bf16-rounded rows to f32 (``bag_lookup`` at bf16) and to bf16
+    (``lookup`` at bf16).  A second launch must give the same bytes."""
     from repro_torch.kernels import embedding_bag as bag_k
 
     r = np.random.default_rng(13)
-    rows, vocab = 1000, 5000
+    vocab = 5000
+    cases = [(rows, d, bag, 0) for rows in (1, 31, 33, 1000, 70001)
+             for d in (16, 17, 32, 48, 64, 128) for bag in (1, 32)]
+    cases += [(1000003, d, 1, 0) for d in (17, 64, 128)]
+    cases += [(1000, 64, bag, shift) for shift in (1, 2) for bag in (1, 32)]
     ok = True
-    for bag in (1, 32):
-        for d in (64, 48):
-            table = r.integers(-1024, 1025, (vocab, d)).astype(
-                np.float32) / 1024.0
-            ids = r.integers(-vocab, vocab, (rows, bag)).astype(np.int32)
+    for rows, d, bag, shift in cases:
+        flat = r.integers(-1024, 1025, vocab * d + shift).astype(
+            np.float32) / 1024.0
+        table = torch.from_numpy(flat).to(dev)[shift:].view(vocab, d)
+        ids = r.integers(-vocab, vocab, (rows, bag)).astype(np.int32)
+        if rows >= 1000:
             ids[:3, 0] = [vocab, vocab + 7, -vocab - 1]        # NaN rows
-            mask = r.choice(np.float32([0.0, 0.5, 1.0]), (rows, bag))
-            args = [torch.from_numpy(x).to(dev) for x in (ids, mask, table)]
+        mask = r.choice(np.float32([0.0, 0.5, 1.0]), (rows, bag))
+        ids_t, mask_t = (torch.from_numpy(x).to(dev) for x in (ids, mask))
+        for m in (mask_t, None):
             for row_dt, out_dt in ((torch.float32, torch.float32),
                                    (torch.bfloat16, torch.float32),
                                    (torch.bfloat16, torch.bfloat16)):
                 kw = dict(row_dtype=row_dt, out_dtype=out_dt)
-                ok &= same_bits_or_nan(
-                    torch, bag_k.embedding_bag_cuda(*args, **kw),
-                    bag_k.embedding_bag_plain(*args, **kw))
+                a = bag_k.embedding_bag_cuda(ids_t, m, table, **kw)
+                again = bag_k.embedding_bag_cuda(ids_t, m, table, **kw)
+                same = (same_bits_or_nan(
+                    torch, a, bag_k.embedding_bag_plain(ids_t, m, table, **kw))
+                    and bits_equal(torch, a.view(torch.int16),
+                                   again.view(torch.int16)))
+                if not same:
+                    print(f"  embedding_bag differs: {rows} bags of {bag}, "
+                          f"D = {d}, table {4 * shift} B past aligned, mask "
+                          f"{m is not None}, {row_dt} rows to {out_dt}")
+                ok &= same
     return ok
 
 
@@ -840,13 +889,15 @@ def bytes_and_ops(torch, name, args, kwargs):
         ops = 2 * int((live.sum(dim=0) * row_nnz).sum())
         return nbytes, ops
     if name == "embedding_bag":
-        ids, _, table = args
+        ids, mask, table = args
         d = table.shape[1]
         out_bytes = torch.empty((), dtype=kwargs["out_dtype"]).element_size()
-        # ids and mask once (8 B a slot), each distinct row gathered once,
-        # the output written once
+        # ids once (4 B a slot) and the mask, where the call passes one,
+        # once (4 B more), each distinct row gathered once, the output
+        # written once
+        slot_bytes = 4 if mask is None else 8
         distinct = int(torch.unique(ids).numel())
-        return (8 * ids.numel() + 4 * d * distinct
+        return (slot_bytes * ids.numel() + 4 * d * distinct
                 + out_bytes * ids.shape[0] * d), 2 * ids.numel() * d
     if name == "sharded_frontier_push":
         fv, fi, row_ptr, _ = args
@@ -1067,25 +1118,34 @@ def replay(torch, name, variant, args, kwargs):
               f"{int(edges.max())}, mean {float(edges.float().mean()):.1f}")
     del a, b
     ms = cuda_ms(torch, lambda: kernel(*args, **kwargs))
-    device_ms = None
+    device_ms = device_source = None
     if name in ("walk_step", "embedding_bag"):
         # a short launch is shorter than its wrapper's host work, so
         # cuda_ms's back-to-back calls time the host: read the kernel's own
-        # time.  A trace has been seen to hold none of the launches: try
-        # again, and report none rather than 0
-        reps = 50 if ms < 1.0 else 5
+        # time.  A trace has been seen to hold none of the launches, or
+        # fewer than were made: divide by the launches it holds, try again
+        # where it holds none, and report none rather than 0
+        reps = 50 if ms < 1.0 else 20
+
+        def launches():  # each output freed before the next launch
+            for _ in range(reps):
+                kernel(*args, **kwargs)
+
         for _ in range(3):
-            _, _, split = device_time_split(
-                torch, lambda: [kernel(*args, **kwargs) for _ in range(reps)],
-                top=None)
-            traced = sum(t for k_, t in split if name in k_)
-            if traced > 0:
-                device_ms = traced / reps
+            device_ms, traced = traced_launch_ms(torch, launches, name)
+            if traced:
                 break
         print(f"  {name}/{variant}: {ms:.4f} ms a wrapper call back to back "
-              f"(CUDA events), kernel time a launch (torch.profiler, {reps} "
-              f"launches): " + (f"{device_ms:.4f} ms" if device_ms
-                                else "not measured (no launch traced)"))
+              f"(CUDA events), kernel time a launch (torch.profiler, "
+              f"{traced} of {reps} launches traced): "
+              + (f"{device_ms:.4f} ms" if device_ms
+                 else "not measured (no launch traced)"))
+        if device_ms is None and ms >= 1.0:
+            # a launch of a millisecond or more outlasts its wrapper's host
+            # work, so the back-to-back time is the kernel's
+            device_ms, device_source = ms, "CUDA events, back to back"
+        elif device_ms is not None:
+            device_source = "torch.profiler"
     plain_ms = cuda_ms(torch, lambda: plain(*args, **kwargs),
                        max_reps=1 if name == "sharded_frontier_push" else 5)
     library_ms = None
@@ -1100,11 +1160,16 @@ def replay(torch, name, variant, args, kwargs):
     nbytes, ops = bytes_and_ops(torch, name, args, kwargs)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / F32_OPS_PER_S * 1e3
-    shape = {k: list(v.shape) for k, v in zip(
+    if device_ms:
+        print(f"  {name}/{variant}: kernel {device_ms:.5f} ms a launch "
+              f"({device_source}), bound {max(by_bytes, by_ops):.5f} ms: "
+              f"{100 * max(by_bytes, by_ops) / device_ms:.1f}% of the bound")
+    shape = {k: None if v is None else list(v.shape) for k, v in zip(
         ("a0", "a1", "a2", "a3"), args[:4])}
     return dict(
         ok=ok, variant=variant, max_abs_err=err, index_agreement=agree,
-        ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+        ms=ms, device_ms=device_ms, device_ms_from=device_source,
+        plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=max(by_bytes, by_ops),
         bound_by="bytes" if by_bytes >= by_ops else "operations",
         bytes=nbytes, shapes=shape,

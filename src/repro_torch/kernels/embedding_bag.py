@@ -1,22 +1,24 @@
 """``embedding_bag``: the bag-sum lookup of the recsys embedding tables.
 
-``out[r, :] = sum_i mask[r, i] * round(table[ids[r, i], :])`` with
-``round`` a cast of each gathered row to ``row_dtype`` (the compute dtype
-the reference casts its whole table to before ``jnp.take``; here only the
-gathered rows are rounded, so the table is never copied), the products and
-their sum in f32 in bag order, and the result cast to ``out_dtype``.  An id
-in ``[-V, 0)`` counts from the end of the table; any other id outside
-``[0, V)`` gives a NaN row, as ``jnp.take`` does.
+``out[r, :] = sum_i mask[r, i] * round(table[ids[r, i], :])`` (a null
+``mask`` weighs every slot one) with ``round`` a cast of each gathered row
+to ``row_dtype`` (the compute dtype the reference casts its whole table to
+before ``jnp.take``; here only the gathered rows are rounded, so the table
+is never copied), the products and their sum in f32 in bag order, and the
+result cast to ``out_dtype``.  An id in ``[-V, 0)`` counts from the end of
+the table; any other id outside ``[0, V)`` gives a NaN row, as
+``jnp.take`` does.
 
 :func:`embedding_bag_plain` is the plain PyTorch version (the CPU path and
 the oracle on the card); :func:`embedding_bag_cuda` launches
-``csrc/embedding_bag.cu``.  Callers go through
-:func:`repro_torch.kernels.ops.embedding_bag`.
+``csrc/embedding_bag.cu`` on the grid :func:`launch_plan` sizes.  Callers
+go through :func:`repro_torch.kernels.ops.embedding_bag`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -27,7 +29,51 @@ OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_longlong]
-             + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+             + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
+WARPS = 8            # warps a block (``kWarps``)
+MAX_CHUNK = 32       # rows a chunk: one id a lane (``kMaxChunk``)
+PACKED_LANES = (4, 8, 16)   # D / 4 lanes of float4 a row (D = 16, 32, 64)
+
+_blocks_per_sm = {}  # (device, one-slot, mask, vec, lanes, dtypes) -> blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How the kernel covers ``rows`` output rows of ``d`` columns: ``vec``
+    values a load, ``lanes_per_row`` lanes a row (each lane at columns
+    ``(lane % lanes_per_row) * vec`` plus multiples of ``lanes_per_row *
+    vec``), warps of 32 lanes over chunks of ``chunk`` rows with a grid
+    stride of ``blocks * WARPS`` chunks."""
+    vec: int
+    lanes_per_row: int
+    chunk: int
+    blocks: int
+
+    @property
+    def rows_per_instruction(self) -> int:
+        return 32 // self.lanes_per_row
+
+
+def lanes_per_row(d: int, vec: int) -> int:
+    """``d / 4`` lanes of float4 where that divides a warp evenly (several
+    rows a warp instruction), else a whole warp across one row."""
+    return d // 4 if vec == 4 and d // 4 in PACKED_LANES else 32
+
+
+def launch_plan(rows: int, d: int, vec: int, sms: int,
+                blocks_per_sm: int) -> LaunchPlan:
+    """The persistent grid (``sms * blocks_per_sm`` blocks at most) and the
+    chunk: 32 rows, halved (down to one row a lane) while the halved
+    chunks would still all be in flight at once, so a small launch spreads
+    over every SM and no warp waits for a second chunk."""
+    lanes = lanes_per_row(d, vec)
+    resident = sms * blocks_per_sm
+    chunk = MAX_CHUNK
+    while chunk > 32 // lanes and -(-rows // (chunk // 2)) <= resident * WARPS:
+        chunk //= 2
+    n_chunks = -(-rows // chunk)
+    return LaunchPlan(vec, lanes, chunk,
+                      max(1, min(resident, -(-n_chunks // WARPS))))
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -44,23 +90,41 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def embedding_bag_plain(ids, mask, table, *, row_dtype=torch.float32,
                         out_dtype=torch.float32):
     """The bag sum of ``ids int[R, bag]`` (``bag >= 1``) weighted by ``mask
-    f32[R, bag]`` over ``table [V, D]``: ``[R, D]`` of ``out_dtype``, summed
-    in bag order as the kernel sums."""
+    f32[R, bag]`` (``None``: weight one) over ``table [V, D]``: ``[R, D]``
+    of ``out_dtype``, summed in bag order as the kernel sums."""
     rows = gather_rows(table, ids).to(row_dtype).to(torch.float32)
-    mask = mask.to(torch.float32)
-    out = rows[:, 0] * mask[:, :1]
+    if mask is not None:
+        rows = rows * mask.to(torch.float32)[..., None]
+    out = rows[:, 0]
     for i in range(1, ids.shape[1]):
-        out = out + rows[:, i] * mask[:, i:i + 1]
+        out = out + rows[:, i]
     return out.to(out_dtype)
+
+
+def _occupancy(lib, dev, *variant) -> int:
+    """Resident blocks an SM holds for ``variant`` (one-slot bags, a mask,
+    vec, lanes a row, bf16 rows, bf16 out), asked of the card once."""
+    key = (dev.index, *variant)
+    if key not in _blocks_per_sm:
+        fn = lib.embedding_bag_occupancy
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        n = ctypes.c_int(0)
+        build.check_launch(fn(*variant, ctypes.addressof(n)),
+                           "embedding_bag occupancy")
+        _blocks_per_sm[key] = max(1, n.value)
+    return _blocks_per_sm[key]
 
 
 def embedding_bag_cuda(ids, mask, table, *, row_dtype=torch.float32,
                        out_dtype=torch.float32):
-    """Launch the CUDA kernel on the current stream (no sync)."""
+    """Launch the CUDA kernel on the current stream (no sync); ``mask``
+    may be ``None`` (weight one, and no mask read)."""
     dev = ids.device
-    for name, t, dt in (("ids", ids, torch.int32),
-                        ("mask", mask, torch.float32),
-                        ("table", table, torch.float32)):
+    checks = [("ids", ids, torch.int32), ("table", table, torch.float32)]
+    if mask is not None:
+        checks.append(("mask", mask, torch.float32))
+    for name, t, dt in checks:
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(
                 f"embedding_bag: {name} must be a contiguous {dt} tensor on "
@@ -68,7 +132,8 @@ def embedding_bag_cuda(ids, mask, table, *, row_dtype=torch.float32,
     if row_dtype not in ROW_DTYPES or out_dtype not in OUT_DTYPES:
         raise ValueError(f"embedding_bag: row dtype {row_dtype} / out dtype "
                          f"{out_dtype} not in {ROW_DTYPES} / {OUT_DTYPES}")
-    if ids.dim() != 2 or mask.shape != ids.shape or table.dim() != 2:
+    if (ids.dim() != 2 or table.dim() != 2
+            or (mask is not None and mask.shape != ids.shape)):
         raise ValueError("embedding_bag: ids and mask must be [R, bag] and "
                          "table [V, D]")
     rows, bag = ids.shape
@@ -77,15 +142,23 @@ def embedding_bag_cuda(ids, mask, table, *, row_dtype=torch.float32,
         raise ValueError(f"embedding_bag: needs bag >= 1 and a table of at "
                          f"least one row, got bag {bag}, {vocab} rows")
     out = torch.empty((rows, d), dtype=out_dtype, device=dev)
-    vec2 = d % 2 == 0 and table.data_ptr() % 8 == 0
+    vec = next(v for v in (4, 2, 1)
+               if d % v == 0 and table.data_ptr() % (4 * v) == 0)
+    round_bf16 = int(row_dtype == torch.bfloat16)
+    out_bf16 = int(out_dtype == torch.bfloat16)
     lib = build.load("embedding_bag")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = launch_plan(rows, d, vec, sms, _occupancy(
+        lib, dev, int(bag == 1), int(mask is not None), vec,
+        lanes_per_row(d, vec), round_bf16, out_bf16))
     fn = lib.embedding_bag_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     status = fn(
-        ids.data_ptr(), mask.data_ptr(), table.data_ptr(), rows, bag, vocab,
-        d, int(row_dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        int(vec2), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        ids.data_ptr(), None if mask is None else mask.data_ptr(),
+        table.data_ptr(), rows, bag, vocab, d, round_bf16, out_bf16,
+        plan.vec, plan.lanes_per_row, plan.chunk, plan.blocks,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(status, "embedding_bag")
     return out

@@ -192,10 +192,10 @@ def sharded_frontier_push(
 def embedding_bag(ids, mask, table, *, row_dtype=torch.float32,
                   out_dtype=torch.float32):
     """Bag sum ``out[r] = sum_i mask[r, i] * table[ids[r, i]]`` of ``ids
-    int[R, bag]``, ``mask f32[R, bag]`` over ``table f32[V, D]``, each
-    gathered row rounded to ``row_dtype`` and the f32 sum cast to
-    ``out_dtype`` (see ``kernels/embedding_bag.py``); needs no tile
-    alignment."""
+    int[R, bag]``, ``mask f32[R, bag]`` (``None``: every weight one) over
+    ``table f32[V, D]``, each gathered row rounded to ``row_dtype`` and the
+    f32 sum cast to ``out_dtype`` (see ``kernels/embedding_bag.py``); needs
+    no tile alignment."""
     kwargs = dict(row_dtype=row_dtype, out_dtype=out_dtype)
     if ids.shape[1] == 0:  # empty bags sum to zero
         return torch.zeros((ids.shape[0], table.shape[1]), dtype=out_dtype,
@@ -203,7 +203,8 @@ def embedding_bag(ids, mask, table, *, row_dtype=torch.float32,
     if not _route("embedding_bag", ids):
         return _bag.embedding_bag_plain(ids, mask, table, **kwargs)
     args = (ids.to(torch.int32).contiguous(),
-            mask.to(torch.float32).contiguous(), table.contiguous())
+            None if mask is None else mask.to(torch.float32).contiguous(),
+            table.contiguous())
     out = _bag.embedding_bag_cuda(*args, **kwargs)
     _launched("embedding_bag", args, kwargs)
     return out

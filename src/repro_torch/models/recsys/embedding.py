@@ -52,12 +52,11 @@ def lookup(cfg: EmbeddingConfig, params, ids: torch.Tensor,
            compute_dtype=torch.float32) -> torch.Tensor:
     """One-hot fields: ``ids int32[B, n_fields] -> [B, n_fields, dim]`` of
     ``compute_dtype``: one ``embedding_bag`` launch over ``B * n_fields``
-    bags of one, each of weight one."""
+    bags of one, with no mask (each weight one)."""
     b = ids.shape[0]
     flat = (ids.to(torch.int32)
             + field_offsets(cfg, ids.device)[None, :]).reshape(-1, 1)
-    ones = torch.ones(flat.shape, dtype=torch.float32, device=ids.device)
-    rows = ops.embedding_bag(flat, ones, params["table"],
+    rows = ops.embedding_bag(flat, None, params["table"],
                              row_dtype=compute_dtype, out_dtype=compute_dtype)
     return rows.reshape(b, cfg.n_fields, cfg.dim)
 

@@ -114,6 +114,100 @@ def test_embedding_bag_rounds_rows_then_sums_in_f32(row, out):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("bag", [1, 3])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_embedding_bag_without_mask_is_the_reference_take(dt, bag):
+    """``mask=None`` weighs every slot one: a bag of one is the reference's
+    ``jnp.take`` of the table cast to the compute dtype, bit for bit, with
+    negative ids counting from the end and ids outside ``[-V, V)`` NaN
+    rows; a longer bag is the in-order sum of its slots' takes."""
+    r = np.random.default_rng(21)
+    table = r.standard_normal((40, 12)).astype(np.float32)
+    ids = r.integers(-40, 40, (30, bag)).astype(np.int32)
+    ids[:4, 0] = [40, 41, -41, -1]          # past the end, before the start
+    jd, td = DTYPES[dt]
+    got = _np(tops.embedding_bag(torch.from_numpy(ids), None,
+                                 torch.from_numpy(table), row_dtype=td,
+                                 out_dtype=td))
+    rows = [_np(jemb.item_lookup(jnp.asarray(table), jnp.asarray(ids[:, i]),
+                                 jd)) for i in range(bag)]
+    want = rows[0]
+    for x in rows[1:]:
+        want = _np(jnp.asarray(want, jnp.float32) + jnp.asarray(x))
+    want = _np(jnp.asarray(want).astype(jd))
+    nan = np.isnan(want)
+    assert nan[:3].all() and not nan[3:].any()
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(got[~nan].view(np.int32), want[~nan].view(np.int32))
+
+
+def test_lookup_passes_no_mask(monkeypatch):
+    """The one-hot ``lookup`` launches ``embedding_bag`` with no mask (no
+    all-ones tensor is made): the launch the wrappers capture holds
+    ``None`` in the mask's place.  The kernel is stood in for by its plain
+    version, so the launch path runs on the CPU."""
+    from repro_torch.kernels import embedding_bag as tbag
+
+    jc, tc, jp, tp = _emb_case(6)
+    ids = np.random.default_rng(7).integers(0, 30, (11, 5)).astype(np.int32)
+    monkeypatch.setattr(tops, "_route", lambda name, t: True)
+    monkeypatch.setattr(tbag, "embedding_bag_cuda", tbag.embedding_bag_plain)
+    tops.reset_launch_counts()
+    tops.capture_first_launches(True)
+    try:
+        got = temb.lookup(tc, tp, torch.from_numpy(ids), torch.bfloat16)
+        (flat, mask, table), kwargs = tops.captured_launches()[
+            "embedding_bag/main"]
+    finally:
+        tops.capture_first_launches(False)
+    assert tops.launch_counts()["embedding_bag"] == 1
+    assert mask is None and flat.shape == (11 * 5, 1)
+    assert kwargs == dict(row_dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+    want = jemb.lookup(jc, jp, jnp.asarray(ids), jnp.bfloat16)
+    assert np.array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("d", [16, 17, 48, 64, 128])
+@pytest.mark.parametrize("rows", [1, 31, 33, 13_312, 6_815_744, 26_000_000])
+def test_embedding_bag_launch_plan_covers_every_row_once(rows, d):
+    """The kernel's walk (``csrc/embedding_bag.cu``), replayed on the plan:
+    warp ``w`` of ``blocks * 8`` takes chunks ``w, w + W, ...``; lane
+    ``l`` serves rows ``k * (32 / LPR) + l / LPR`` of a chunk (``k <
+    chunk * LPR / 32``) at columns ``(l % LPR) * vec`` plus multiples of
+    ``LPR * vec``.  Every chunk goes to one warp, every (row, column) of a
+    chunk to one lane, and the chunks tile the rows; a small launch puts
+    every chunk in flight at once on the card's resident warps (132 SMs, 3
+    blocks of 8 warps each, as measured on an H100)."""
+    from repro_torch.kernels import embedding_bag as tbag
+
+    sms, per_sm = 132, 3
+    vec = 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
+    plan = tbag.launch_plan(rows, d, vec, sms, per_sm)
+    lanes, chunk = plan.lanes_per_row, plan.chunk
+    assert plan.vec == vec
+    assert lanes == 32 or lanes * vec == d
+    assert chunk & (chunk - 1) == 0
+    assert plan.rows_per_instruction <= chunk <= tbag.MAX_CHUNK
+    assert 1 <= plan.blocks <= sms * per_sm
+    n_chunks = -(-rows // chunk)
+    assert (n_chunks - 1) * chunk < rows <= n_chunks * chunk
+    warps = plan.blocks * tbag.WARPS
+    visits = (np.arange(warps)[:, None]
+              + warps * np.arange(-(-n_chunks // warps))[None, :]).ravel()
+    assert np.array_equal(np.bincount(visits[visits < n_chunks],
+                                      minlength=n_chunks), np.ones(n_chunks))
+    if chunk < tbag.MAX_CHUNK:      # shrunk: one wave, one chunk a warp
+        assert n_chunks <= warps
+    cells = np.zeros((chunk, d), np.int64)
+    for lane in range(32):
+        cols = np.arange((lane % lanes) * vec, d, lanes * vec)
+        for k in range(chunk * lanes // 32):
+            j = k * plan.rows_per_instruction + lane // lanes
+            for c in cols:
+                cells[j, c:c + vec] += 1
+    assert (cells == 1).all()
+
+
 # -- embedding lookups --------------------------------------------------------
 
 def _emb_case(seed, nf=5, vocab=30, dim=24):
