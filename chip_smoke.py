@@ -100,6 +100,31 @@ Phases, each timed and printed:
    chunks of 256) over the first 16,384 sources, seconds a chunk; and
    ``plan_for_budget`` and ``preprocessing_cost_model`` at n = 2^20 and
    the budget of 3b's index, printed;
+3i. maintenance and crash safety on 3a's graph, with the counters zeroed
+   just before and read just after (the sparse path's three kernels must
+   launch), the card's name and power limit printed first.  (a) 3b's
+   build with ``checkpoint_dir`` in a fresh temporary directory (removed
+   at the end), a commit every 64 chunks and a ``FaultPlan`` raising
+   before chunk 160, which must raise ``InjectedFault``; then resumed,
+   which must start at chunk 128 and give 3b's index and kept and dropped
+   totals bit for bit; ``PPRService.from_checkpoint`` then answers 1,024
+   of 3c's requests in the same bytes as a service over 3b's index;
+   prints each commit's step, bytes and seconds and both runs' seconds.
+   (b) the walks of the reference update benchmark
+   (``benchmarks/bench_updates.py``: r = 16, l = 32, c = 0.25,
+   ``max_steps`` 64, respawn mode) over all 2^20 sources in 1,024 chunks
+   of 1,024 (the benchmark's grid of 8 would be 131,072 chunks), with a
+   4 GiB touch sketch (4,096 bits a row): ``build_maintainable_index``,
+   a ``PPRService`` with its maintainer (sparse route, the sparse
+   combine, an answer cache) serving 4,096 requests, 4 edge batches
+   through ``apply_updates`` (4 fresh uniform edges each, the previous
+   batch's 4 deleted, the benchmark's pool from seed 5), each printed
+   with its seconds, edges/s, dirty rows, repaired chunks, resample ratio
+   and cache entries invalidated, the requests served again, and a
+   rebuild on the final graph: the maintained index and sketch must
+   equal the rebuild's bit for bit, the answers computed after the
+   updates a fresh service's on the rebuilt index byte for byte, and the
+   answers still cached none of a repaired row;
 2b. replay the inputs of each kernel's first launch on its path (and of
    ``ell_spmm``'s second, a batch's push of a spread-out frontier, and
    its ``dense`` variant, the last push of 3e's ``pi``, of
@@ -140,7 +165,10 @@ Phases, each timed and printed:
    largest; and the Monte-Carlo path, card against CPU, bit-equal: the
    legacy build of every fourth source, the dense and sparse MCFP and
    MCEP estimates of 64 sources, ``mcfp``-mode answers at dispatch keys
-   0-3, and ``randint``.
+   0-3, and ``randint``; and maintenance at ``rmat(14)``, bit-equal: the
+   repair on the card against the CPU's and against the card's rebuild,
+   on one device and on a stacked 2 x 2 mesh, and a checkpointed build
+   crashed and resumed on the card against an uninterrupted one.
 
 The checks of phases 2a and 4 are also the ``cuda``-marked tests of
 ``tests/test_torch_cuda.py``, which call the functions here.
@@ -153,10 +181,13 @@ no result line, if there is no GPU or any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -206,6 +237,25 @@ MC_LEGACY_SOURCES = 16384      # sources of phase 3h's legacy build
 MC_LEGACY_R = 100
 MC_LEGACY_BATCH = 256
 RANDINT_SPANS = (1, 2, 3, (1 << 16) + 1, 2**31 - 1)
+MAINT_PATH = SPARSE_PATH       # phase 3i: builds, repairs and serving
+CKPT_EVERY = 64                # 3i(a): a commit every 64 chunks of 4,096
+CKPT_CRASH_CHUNK = 160         # of 256: the resume starts at step 128
+CKPT_REQUESTS = 1024           # requests to the checkpoint-booted service
+UPD_R, UPD_L, UPD_C, UPD_MAX_STEPS = 16, 32, 0.25, 64  # bench_updates.py:41
+UPD_SOURCE_BATCH = 1024        # 1,024 chunks at n = 2^20 (the bench: 8)
+UPD_BATCHES = 4                # live edge batches of 3i(b)
+UPD_EDGES = 4                  # fresh edges a batch, the previous 4 deleted
+UPD_SEED = 5                   # the bench's seed: edge pool and key
+UPD_REQUESTS = 4096
+
+
+def card_name_and_power_limit():
+    """``nvidia-smi``'s name and power limit of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def phase(name, t0):
@@ -1641,6 +1691,304 @@ def phase_montecarlo(torch, np, dev, g, sources, truth, work, failures):
     return counts, captured
 
 
+def check_small_maintenance(torch, np, dev):
+    """Maintenance and crash safety at ``rmat(14)`` from one key: the
+    single-device repair on the card against the plain CPU path and
+    against the card's own rebuild, the sharded repair on a stacked 2 x 2
+    mesh on the card against the CPU and against the card's sharded
+    rebuild, and a checkpointed build on the card, crashed and resumed,
+    against an uninterrupted one (index, filters and totals).  Returns
+    ``{check: bit-equal}``."""
+    from repro_torch import rng
+    from repro_torch.core.index import build_index, build_index_sharded
+    from repro_torch.core.updates import (apply_updates,
+                                          build_maintainable_index)
+    from repro_torch.distributed import ShardMesh
+    from repro_torch.graphs import synthetic
+    from repro_torch.testing import FaultPlan, InjectedFault
+
+    devs = (dev, "cpu")
+    graphs = {d: synthetic.rmat(14, avg_deg=10.0, seed=3, device=d)
+              for d in devs}
+    n = graphs["cpu"].n
+    key = rng.prng_key(7)
+    kw = dict(c=UPD_C, max_steps=UPD_MAX_STEPS, respawn=True,
+              touch_bits=1024)
+    ins = np.random.default_rng(14).integers(0, n, (UPD_EDGES, 2))
+    dels = np.array([[int(graphs["cpu"].src[-1]),
+                      int(graphs["cpu"].col_idx[-1])]])
+    out = {}
+
+    def same(*pairs):
+        return all(bits_equal(torch, a.cpu(), b.cpu()) for a, b in pairs)
+
+    def state(m):
+        return (m.index.values, m.index.indices, m.touch.bits)
+
+    for label, sharded in (("repair", False), ("sharded repair", True)):
+        meshes = {d: ShardMesh(data=2, model=2, device=d) if sharded
+                  else None for d in devs}
+        repaired, reports = {}, {}
+        for d in devs:
+            m, _ = build_maintainable_index(
+                graphs[d], UPD_R, UPD_L, key, source_batch=256,
+                mesh=meshes[d], device=d, **kw)
+            g2, m2, rep = apply_updates(m, graphs[d], inserts=ins,
+                                        deletes=dels)
+            repaired[d], reports[d] = (g2, m2), rep
+        ok = same(*zip(state(repaired[dev][1]), state(repaired["cpu"][1])))
+        ok &= (reports[dev]["dirty_row_ids"].tobytes()
+               == reports["cpu"]["dirty_row_ids"].tobytes())
+        out[f"{label}, card vs CPU"] = ok
+        if sharded:
+            rebuilt, rstats = build_index_sharded(
+                repaired[dev][0], UPD_R, UPD_L, key, source_batch=256,
+                mesh=meshes[dev], **kw)
+        else:
+            rebuilt, rstats = build_index(
+                repaired[dev][0], UPD_R, UPD_L, key, source_batch=256,
+                device=dev, **kw)
+        out[f"{label} vs rebuild, card"] = same(
+            (repaired[dev][1].index.values, rebuilt.values),
+            (repaired[dev][1].index.indices, rebuilt.indices),
+            (repaired[dev][1].touch.bits, rstats["touch"]))
+        print(f"  small reference, {label}: {reports[dev]['dirty_rows']} "
+              f"dirty rows, {reports[dev]['repaired_chunks']} of "
+              f"{reports[dev]['total_chunks']} chunks")
+
+    d = tempfile.mkdtemp(prefix="powerwalk_ckpt_small_")
+    try:
+        ck = dict(r=UPD_R, l=UPD_L, key=key, source_batch=1024, device=dev,
+                  **kw)
+        want, wstats = build_index(graphs[dev], **ck)
+        try:
+            build_index(graphs[dev], checkpoint_dir=d, checkpoint_every=2,
+                        fault_plan=FaultPlan(raise_at_chunks=(5,)), **ck)
+            crashed = False
+        except InjectedFault:
+            crashed = True
+        got, gstats = build_index(graphs[dev], checkpoint_dir=d,
+                                  checkpoint_every=2, resume=True, **ck)
+        out["checkpointed build resumed on the card"] = (
+            crashed and gstats["resumed_at_chunk"] == 4
+            and same((got.values, want.values), (got.indices, want.indices),
+                     (gstats["touch"], wstats["touch"]))
+            and (gstats["kept_mass"], gstats["dropped_mass"])
+            == (wstats["kept_mass"], wstats["dropped_mass"]))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+@contextlib.contextmanager
+def timed_commits():
+    """Log every ``Checkpointer.save`` while the block runs: step,
+    seconds and the bytes of its arrays (a save that raises is not
+    logged)."""
+    from repro_torch.distributed.checkpoint import Checkpointer
+
+    log = []
+    save = Checkpointer.save
+
+    def timed(self, step, tree, extra=None, **kw):
+        t = time.perf_counter()
+        save(self, step, tree, extra, **kw)
+        log.append(dict(step=step, seconds=time.perf_counter() - t, bytes=sum(
+            v.numel() * v.element_size() if hasattr(v, "element_size")
+            else v.nbytes for v in tree.values())))
+
+    Checkpointer.save = timed
+    try:
+        yield log
+    finally:
+        Checkpointer.save = save
+
+
+def served_bytes(answers):
+    """``{vertex: (score bytes, vertex bytes, cached)}`` of each vertex's
+    first answer by request id."""
+    out = {}
+    for a in sorted(answers, key=lambda a: a.request_id):
+        out.setdefault(a.vertex, (a.top_scores.tobytes(),
+                                  a.top_vertices.tobytes(), a.cached))
+    return out
+
+
+def phase_maintenance(torch, np, dev, g, index, stats, cfg, work, failures):
+    """Phase 3i on 3a's graph, with the launch counters zeroed just before
+    and read just after.  (a) 3b's build with checkpoints, crashed at a
+    chunk and resumed, against 3b's index, then a service booted from the
+    checkpoint against one over 3b's index; (b) the reference update
+    benchmark's walks at n = 2^20: a maintainable build, a service with
+    its maintainer serving, edge batches applied live, a rebuild on the
+    final graph against the repaired index.  Returns the counts."""
+    from repro_torch import rng
+    from repro_torch.core.graph import apply_edge_updates
+    from repro_torch.core.index import build_index
+    from repro_torch.core.query import QueryConfig
+    from repro_torch.core.updates import (build_maintainable_index,
+                                          default_touch_bits)
+    from repro_torch.distributed.checkpoint import Checkpointer
+    from repro_torch.kernels import ops
+    from repro_torch.serving import CacheConfig, PPRService, ServiceConfig
+    from repro_torch.serving.batching import BatchingConfig
+    from repro_torch.serving.pipeline import PipelineConfig
+    from repro_torch.testing import FaultPlan, InjectedFault
+
+    print(f"  card: {card_name_and_power_limit()}")
+    ops.reset_launch_counts()
+    # -- (a) the crash-safe build at 3b's own arguments ----------------------
+    main = dict(r=MAIN_R, l=MAIN_L, key=rng.prng_key(0),
+                source_batch=MAIN_SOURCE_BATCH, device=dev,
+                checkpoint_every=CKPT_EVERY)
+    d = tempfile.mkdtemp(prefix="powerwalk_ckpt_")
+    try:
+        with timed_commits() as commits:
+            t1 = time.perf_counter()
+            try:
+                build_index(g, checkpoint_dir=d, fault_plan=FaultPlan(
+                    raise_at_chunks=(CKPT_CRASH_CHUNK,)), **main)
+                failures.append("checkpointed build: no InjectedFault")
+            except InjectedFault:
+                pass
+            torch.cuda.synchronize()
+            crashed_s = time.perf_counter() - t1
+            steps_left = Checkpointer(d).all_steps()
+            t1 = time.perf_counter()
+            got, gstats = build_index(g, checkpoint_dir=d, resume=True,
+                                      **main)
+            torch.cuda.synchronize()
+            resumed_s = time.perf_counter() - t1
+        equal = (bits_equal(torch, got.values, index.values)
+                 and bits_equal(torch, got.indices, index.indices)
+                 and (gstats["kept_mass"], gstats["dropped_mass"])
+                 == (stats["kept_mass"], stats["dropped_mass"]))
+        print(f"  crash-safe build: {MAIN_SOURCE_BATCH}-source chunks, a "
+              f"commit every {CKPT_EVERY}; crashed before chunk "
+              f"{CKPT_CRASH_CHUNK} after {crashed_s:.3f} s, committed steps "
+              f"{steps_left}; resumed at chunk {gstats['resumed_at_chunk']} "
+              f"in {resumed_s:.3f} s; index and kept/dropped totals "
+              f"bit-equal to 3b's: {equal}")
+        for c in commits:
+            print(f"  commit step {c['step']}: {c['bytes']} bytes in "
+                  f"{c['seconds']:.3f} s ({c['bytes'] / c['seconds'] / 1e9:.3f}"
+                  f" GB/s)")
+        print(f"  commits: {len(commits)}, {sum(c['bytes'] for c in commits)}"
+              f" bytes, {sum(c['seconds'] for c in commits):.3f} s")
+        if not equal or gstats["resumed_at_chunk"] != 2 * CKPT_EVERY:
+            failures.append("resumed checkpointed build differs from 3b's")
+        del got
+        t1 = time.perf_counter()
+        booted = PPRService.from_checkpoint(g, d, cfg, device=dev)
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    reqs = work[:CKPT_REQUESTS]
+    a_boot, _ = booted.run_closed_loop(reqs)
+    a_main, _ = PPRService(g, index, cfg, device=dev).run_closed_loop(reqs)
+    same = served_bytes(a_boot) == served_bytes(a_main)
+    print(f"  from_checkpoint: booted in {boot_s:.3f} s; {len(a_boot)} "
+          f"answers the same bytes as a service over 3b's index: {same}")
+    if not same or len(a_boot) != CKPT_REQUESTS:
+        failures.append("checkpoint-booted service answers differ")
+    del booted
+
+    # -- (b) maintenance at the update benchmark's walks ----------------------
+    np_rng = np.random.default_rng(UPD_SEED)
+    pool = np_rng.integers(0, g.n, size=(UPD_EDGES, 2), dtype=np.int64)
+    g0, _ = apply_edge_updates(g, inserts=pool)
+    key = rng.prng_key(UPD_SEED)
+    bits = default_touch_bits(UPD_R)
+    walk = dict(c=UPD_C, max_steps=UPD_MAX_STEPS, source_batch=UPD_SOURCE_BATCH,
+                respawn=True, touch_bits=bits)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    m, bstats = build_maintainable_index(g0, UPD_R, UPD_L, key, device=dev,
+                                         **walk)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    print(f"  maintainable build: r={UPD_R} l={UPD_L} c={UPD_C} "
+          f"source_batch={UPD_SOURCE_BATCH} ({m.n_chunks} chunks), touch "
+          f"sketch {m.touch.nbytes / 2**30:.2f} GiB ({bits} bits a row): "
+          f"{build_s:.3f} s; " + json.dumps({k: bstats[k] for k in (
+              "kept_mass", "dropped_mass", "drop_fraction")}))
+    ucfg = ServiceConfig(
+        query=QueryConfig(t_iterations=2, top_k=50, c=UPD_C,
+                          hub_split_degree=64, combine_path="sparse"),
+        batching=BatchingConfig(max_batch=256, max_wait_s=0.05),
+        pipeline=PipelineConfig(depth=4),
+        cache=CacheConfig(capacity=2 * UPD_REQUESTS))
+    svc = PPRService(g0, None, ucfg, device=dev, maintainer=m)
+    if svc.frontier_path != "sparse":
+        failures.append(f"3i service routes {svc.frontier_path}")
+    reqs = work[:UPD_REQUESTS]
+    first, st = svc.run_closed_loop(reqs)
+    print("  serve: " + json.dumps({k: st[k] for k in (
+        "served", "batches", "wall_s", "qps", "latency_p50", "latency_p99",
+        "combine_path", "cache_size")}))
+    dirty_all = set()
+    for b in range(UPD_BATCHES):
+        ins = np_rng.integers(0, g.n, size=(UPD_EDGES, 2), dtype=np.int64)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rep = svc.apply_updates(inserts=ins, deletes=pool)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        pool = ins
+        dirty_all |= set(rep["dirty_row_ids"].tolist())
+        edges = rep["edges_inserted"] + rep["edges_deleted"]
+        print(f"  update batch {b}: {wall:.3f} s, {edges / wall:.2f} edges/s, "
+              f"{rep['dirty_rows']} dirty rows, {rep['repaired_chunks']} of "
+              f"{rep['total_chunks']} chunks repaired, resample ratio "
+              f"{rep['resample_ratio']:.3f}, {rep['cache_invalidated']} cache "
+              f"entries invalidated")
+    again, st = svc.run_closed_loop(reqs)
+    print(f"  serve again: {len(again)} answers, "
+          f"{sum(a.cached for a in again)} from the cache; " + json.dumps(
+              {k: st[k] for k in ("wall_s", "qps", "latency_p50",
+                                  "latency_p99", "updates_applied",
+                                  "rows_repaired", "update_rollbacks")}))
+    t1 = time.perf_counter()
+    rebuilt, rstats = build_index(svc.graph, UPD_R, UPD_L, key, device=dev,
+                                  **walk)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t1
+    index_equal = (bits_equal(torch, svc.maintainer.index.values, rebuilt.values)
+                   and bits_equal(torch, svc.maintainer.index.indices,
+                                  rebuilt.indices)
+                   and bool(torch.equal(svc.maintainer.touch.bits,
+                                        rstats["touch"])))
+    fresh, _ = PPRService(svc.graph, rebuilt, ucfg, device=dev).run_closed_loop(
+        reqs)
+    # each vertex's first answer after the updates: a cache hit there is
+    # an entry from before them, which the repair left valid
+    before, after, want = (served_bytes(a) for a in (first, again, fresh))
+    cached = {v for v, x in after.items() if x[2]}
+    computed_ok = all(after[v][:2] == want[v][:2]
+                      for v in after if v not in cached)
+    cached_ok = (not cached & dirty_all
+                 and all(after[v][:2] == before[v][:2] for v in cached))
+    stale = sum(after[v][:2] != want[v][:2] for v in cached)
+    print(f"  rebuild on the final graph: {rebuild_s:.3f} s; maintained index "
+          f"and touch sketch bit-equal to it: {index_equal}; answers computed "
+          f"after the updates ({len(after) - len(cached)}) the same bytes as a "
+          f"fresh service's on the rebuilt index: {computed_ok}; cached "
+          f"answers ({len(cached)}) none of a repaired row and unchanged: "
+          f"{cached_ok}, of which {stale} differ from the fresh service's "
+          f"(the cache invalidates repaired rows only)")
+    if not (index_equal and computed_ok and cached_ok):
+        failures.append("maintained index or its answers differ from the "
+                        "rebuild's")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print("maintenance-path launches:", json.dumps(counts))
+    failures += [f"kernel {k} never launched on the maintenance path"
+                 for k in MAINT_PATH if counts[k] <= 0]
+    del svc, m, rebuilt, rstats
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2017,6 +2365,11 @@ def main() -> int:
     phase("3h monte-carlo path", t0)
 
     t0 = time.perf_counter()
+    counts_i = phase_maintenance(torch, np, dev, g, index, stats, cfg, work,
+                                 failures)
+    phase("3i maintenance and crash safety", t0)
+
+    t0 = time.perf_counter()
     results = {}
     captured_f = {tag: v for tag, v in captured_f.items()
                   if tag.startswith("sharded_frontier_push/")}
@@ -2057,13 +2410,18 @@ def main() -> int:
           json.dumps(mc_equal))
     failures += [f"small monte-carlo reference: {k}"
                  for k, v in mc_equal.items() if not v]
+    maint_equal = check_small_maintenance(torch, np, dev)
+    print("small reference, maintenance, bit-equal:", json.dumps(maint_equal))
+    failures += [f"small maintenance reference: {k}"
+                 for k, v in maint_equal.items() if not v]
     phase("4 small reference", t0)
 
     paths = {"sparse (3b, 3c)": (SPARSE_PATH, counts),
              "dense (3d)": (DENSE_PATH, counts_d),
              "distributed (3f)": (DIST_PATH, counts_f),
              "dlrm (3g)": (DLRM_PATH, counts_g),
-             "monte-carlo (3h)": (MC_PATH, counts_h)}
+             "monte-carlo (3h)": (MC_PATH, counts_h),
+             "maintenance (3i)": (MAINT_PATH, counts_i)}
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         runs = results.get(name)
@@ -2094,13 +2452,8 @@ def main() -> int:
     if failures:
         print("FAILED:", "; ".join(failures), file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
     print(json.dumps({"kernels": kernels}))
-    print(smi)
+    print(card_name_and_power_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -564,13 +564,11 @@ def make_sparse_index_build_step(
     chunk at global source offset ``o`` uses ``fold_in(key, o)``, the fold
     order of the single-device build.  On the stacked mesh the replicas'
     gather is that merge's concatenation.  Requires ``n_shard`` a multiple
-    of ``source_batch`` and ``r`` of the replica count.  ``touch_bits`` is
-    not ported.
+    of ``source_batch`` and ``r`` of the replica count.  ``touch_bits > 0``
+    appends a fifth output, the rows' walks-through Bloom filters
+    ``bool[rows, touch_bits]`` OR-merged over the replicas, pad rows all
+    False.
     """
-    if touch_bits:
-        raise NotImplementedError(
-            "touch_bits (the Bloom filters of incremental repair) is not "
-            "ported yet; see ROADMAP.md queue 1, touch filters and repair")
     ns = cfg.n_shard
     n_split = mesh.data
     if r % n_split != 0:
@@ -599,16 +597,20 @@ def make_sparse_index_build_step(
         kept_all = torch.empty((cfg.ep * rows_out,), dtype=torch.float32,
                                device=dev)
         dropped_all = torch.empty_like(kept_all)
+        touch_all = (torch.empty((cfg.ep * rows_out, touch_bits),
+                                 dtype=torch.bool, device=dev)
+                     if touch_bits else None)
         for me in range(cfg.ep):
             for j in range(chunk_start, chunk_start + chunk_count):
                 offset = me * ns + j * source_batch
                 sources = offset + torch.arange(source_batch,
                                                 dtype=torch.int32, device=dev)
-                vals, idxs, kept, dropped_est = sparse_chunk_estimates(
+                est = sparse_chunk_estimates(
                     g, sources, rng.fold_in(key, offset), r=r, l=l,
                     sketch_l=sketch_l, c=cfg.c, max_steps=max_steps,
                     compact_every=compact_every, r_splits=n_split,
-                    respawn=respawn)
+                    respawn=respawn, touch_bits=touch_bits)
+                vals, idxs, kept, dropped_est = est[:4]
                 # pad vertices walked in place: no phantom mass in the index
                 real = (sources < real_n)
                 o = me * rows_out + (j - chunk_start) * source_batch
@@ -617,6 +619,10 @@ def make_sparse_index_build_step(
                 indices[out] = torch.where(real[:, None], idxs, 0)
                 kept_all[out] = torch.where(real, kept, 0.0)
                 dropped_all[out] = torch.where(real, dropped_est, 0.0)
+                if touch_bits:
+                    touch_all[out] = est[4] & real[:, None]
+        if touch_bits:
+            return values, indices, kept_all, dropped_all, touch_all
         return values, indices, kept_all, dropped_all
 
     return fn

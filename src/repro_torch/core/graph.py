@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -172,6 +172,73 @@ def graph_fingerprint(graph: Graph) -> int:
     crc = zlib.crc32(np.ascontiguousarray(
         graph.col_idx.cpu().numpy().astype(np.int64)).tobytes(), crc)
     return crc & 0xFFFFFFFF
+
+
+def _edge_pairs(edges) -> np.ndarray:
+    """Coerce an edge batch to an int64 ``[k, 2]`` array (empty ok)."""
+    if edges is None:
+        return np.zeros((0, 2), dtype=np.int64)
+    arr = np.asarray(edges, dtype=np.int64)
+    if arr.size == 0:
+        return np.zeros((0, 2), dtype=np.int64)
+    if arr.ndim != 2 or arr.shape[1] != 2:
+        raise ValueError(f"edge batch must have shape [k, 2], got {arr.shape}")
+    return arr
+
+
+def apply_edge_updates(graph: Graph, inserts=None, deletes=None
+                       ) -> Tuple[Graph, np.ndarray]:
+    """Apply a batch of edge inserts and deletes: ``(new_graph, touched)``,
+    the new graph on the old one's device.
+
+    ``inserts``/``deletes`` are ``[k, 2]`` arrays of ``(src, dst)`` pairs
+    among the existing vertices (``n`` never changes).  Deleting an edge
+    that is not present, or more copies than are present, raises; a
+    duplicate insert is kept (CSR stores multiplicity).  ``touched`` is the
+    sorted unique int64 set of sources whose out-edges changed, the seed of
+    the invalidation set of ``core/updates.py``.
+
+    Determinism contract, which incremental repair relies on: an untouched
+    source keeps its exact CSR window, contents and order, because edges
+    are only removed from or appended after those of touched sources and
+    :meth:`Graph.from_edges` sorts by source with a stable sort.  The host
+    code is ``repro.core.graph.apply_edge_updates``'s, so both packages
+    give the same arrays.
+    """
+    ins = _edge_pairs(inserts)
+    dele = _edge_pairs(deletes)
+    for name, arr in (("inserts", ins), ("deletes", dele)):
+        if arr.size and (arr.min() < 0 or arr.max() >= graph.n):
+            raise ValueError(f"{name} contain vertex ids outside [0, {graph.n})")
+    if not ins.size and not dele.size:
+        return graph, np.zeros(0, dtype=np.int64)
+
+    src = graph.src.cpu().numpy().astype(np.int64)
+    dst = graph.col_idx.cpu().numpy().astype(np.int64)
+    if dele.size:
+        key = src * graph.n + dst
+        order = np.argsort(key, kind="stable")
+        skey = key[order]
+        dkey, dcnt = np.unique(dele[:, 0] * graph.n + dele[:, 1],
+                               return_counts=True)
+        lo = np.searchsorted(skey, dkey, side="left")
+        hi = np.searchsorted(skey, dkey, side="right")
+        missing = dcnt > (hi - lo)
+        if missing.any():
+            bad = dkey[missing][0]
+            raise ValueError(
+                f"cannot delete edge ({bad // graph.n}, {bad % graph.n}): "
+                "not present (or multiplicity exceeded)")
+        remove = np.zeros(src.shape[0], dtype=bool)
+        for pos, cnt in zip(lo, dcnt):
+            remove[order[pos:pos + cnt]] = True
+        keep = ~remove
+        src, dst = src[keep], dst[keep]
+    if ins.size:
+        src = np.concatenate([src, ins[:, 0]])
+        dst = np.concatenate([dst, ins[:, 1]])
+    touched = np.unique(np.concatenate([ins[:, 0], dele[:, 0]]))
+    return Graph.from_edges(src, dst, n=graph.n, device=graph.device), touched
 
 
 def push_forward(graph: Graph, frontier: torch.Tensor) -> torch.Tensor:

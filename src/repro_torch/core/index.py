@@ -10,6 +10,15 @@ MCFP oracle (``mcfp.estimate_ppr_batched`` truncated to top-L).
 :func:`build_index_sharded` builds the sparse rows on a
 :class:`~repro_torch.distributed.mesh.ShardMesh`.
 
+Both sparse builds can record each row's walks-through Bloom filter
+(``touch_bits``, the invalidation sketch of ``core/updates.py``) and can
+be crash-safe: with ``checkpoint_dir`` they commit their partial rows,
+ledger and filters every ``checkpoint_every`` chunks
+(:class:`~repro_torch.distributed.checkpoint.Checkpointer`, the
+reference's on-disk layout and build signature), and ``resume=True``
+continues from the newest committed step bit for bit.
+:func:`load_index_checkpoint` boots a finished build without walking.
+
 The memory planner (:func:`plan_for_budget`, :func:`walk_state_cost`,
 :func:`preprocessing_cost_model`) is the paper's offline/online knob:
 "the computation can be shifted to the offline stage as much as the
@@ -20,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
+import zlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -27,11 +37,13 @@ import torch
 
 from repro_torch import rng
 from repro_torch.core import frontier, mcfp
-from repro_torch.core.graph import Graph
-from repro_torch.core.walks import (DEFAULT_C, compaction_schedule,
-                                    respawn_schedule, schedule_slot_area,
+from repro_torch.core.graph import Graph, graph_fingerprint
+from repro_torch.core.walks import (DEFAULT_C, BuildLedger,
+                                    compaction_schedule, respawn_schedule,
+                                    schedule_slot_area,
                                     simulate_walks_sparse)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.checkpoint import Checkpointer, serialize_key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +93,18 @@ class PPRIndex:
             return self
         return PPRIndex(values=self.values.to(dev),
                         indices=self.indices.to(dev), l=self.l, n=self.n)
+
+    def replace_rows(self, rows, values: torch.Tensor,
+                     indices: torch.Tensor) -> "PPRIndex":
+        """A copy with the rows ``rows`` replaced: the repair primitive of
+        ``core/updates.py``.  This index is left as it is, so a service
+        serves it until it swaps in the copy."""
+        rows = torch.as_tensor(rows, device=self.values.device).long()
+        new_v = self.values.clone()
+        new_v[rows] = values.to(new_v)
+        new_i = self.indices.clone()
+        new_i[rows] = indices.to(new_i)
+        return PPRIndex(values=new_v, indices=new_i, l=self.l, n=self.n)
 
 
 def truncate_topl(estimates: torch.Tensor, l: int
@@ -135,10 +159,13 @@ def sparse_chunk_estimates(
     compact_every: int = 8,
     r_splits: int = 1,
     respawn: bool = False,
+    touch_bits: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """One source chunk of the build: walk at sketch width ``sketch_l``,
     normalize, truncate to ``l``.  Returns ``(vals, idxs, kept, dropped)``
-    left on the device.
+    left on the device; with ``touch_bits`` a fifth output, the rows'
+    walks-through Bloom filters ``bool[rows, touch_bits]`` (OR-merged over
+    the ``r_splits`` sub-passes).
 
     ``r_splits > 1`` runs ``r / r_splits`` walks per sub-pass under keys
     ``fold_in(key, split)`` and dedup-merges the sketches in split order
@@ -149,11 +176,13 @@ def sparse_chunk_estimates(
     if r % r_splits != 0:
         raise ValueError(f"r={r} must divide over r_splits={r_splits}")
     walk = dict(l=sketch_l, ep_l=0, c=c, max_steps=max_steps,
-                compact_every=compact_every, respawn=respawn)
+                compact_every=compact_every, respawn=respawn,
+                touch_bits=touch_bits)
     if r_splits == 1:
         counts = simulate_walks_sparse(graph, chunk_sources, r, key, **walk)
         fp_v, fp_i = counts.fp.values, counts.fp.indices
         moves, dropped = counts.moves, counts.fp_dropped
+        touch = counts.touch
     else:
         parts = [simulate_walks_sparse(graph, chunk_sources, r // r_splits,
                                        rng.fold_in(key, s), **walk)
@@ -169,7 +198,13 @@ def sparse_chunk_estimates(
             torch.cat([p.fp.indices for p in parts], dim=1),
             dropped, sketch_l,
         )
-    return normalize_sketch_to_index_rows(fp_v, fp_i, moves, dropped, l)
+        touch = None
+        if touch_bits:
+            touch = parts[0].touch
+            for p in parts[1:]:
+                touch = touch | p.touch
+    out = normalize_sketch_to_index_rows(fp_v, fp_i, moves, dropped, l)
+    return out + (touch,) if touch_bits else out
 
 
 def build_index(
@@ -186,6 +221,12 @@ def build_index(
     compact_every: int = 8,
     r_splits: int = 1,
     respawn: bool = False,
+    touch_bits: int = 0,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 8,
+    resume: bool = False,
+    checkpoint_keep: int = 3,
+    fault_plan=None,
     device="cuda",
 ) -> Tuple[PPRIndex, dict]:
     """Offline preprocessing: MCFP for every vertex, truncated to top-L.
@@ -200,13 +241,32 @@ def build_index(
     ``sources`` are deduplicated up front (``stats["duplicate_sources"]``).
     Returns ``(index, stats)``; stats carry the kept/dropped estimate mass,
     synced once at the end.
+
+    ``touch_bits > 0`` (sparse engine) also returns each row's
+    walks-through Bloom filter as ``stats["touch"]`` (``bool[n,
+    touch_bits]`` on the device, zero rows for unswept sources).
+
+    **Crash safety** (sparse engine): with ``checkpoint_dir`` the build
+    commits, every ``checkpoint_every`` chunks, the rows built so far, the
+    ledger (:class:`~repro_torch.core.walks.BuildLedger`) and the filters,
+    and at the end a ``complete=True`` step holding the index and stats.
+    ``resume=True`` restores the newest committed step that verifies
+    (``.tmp`` dirs and corrupt steps never are), refuses one whose build
+    signature (graph topology, key, chunk grid) differs, and continues
+    from its first incomplete chunk.  Chunk keys are positional, so the
+    resumed build equals an uninterrupted one bit for bit, totals
+    included.  ``fault_plan`` is the :mod:`repro_torch.testing.faults`
+    seam.  The checkpoint is the reference's (same layout and signature),
+    so either package resumes or loads the other's.
     """
+    if checkpoint_dir is not None and engine != "sparse":
+        raise ValueError("checkpointing requires engine='sparse'")
     if engine not in ("sparse", "legacy"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "legacy" and (r_splits != 1 or respawn):
-        raise ValueError("r_splits/respawn apply to the sparse engine only")
+    if engine == "legacy" and (r_splits != 1 or respawn or touch_bits):
+        raise ValueError(
+            "r_splits/respawn/touch_bits apply to the sparse engine only")
     graph = graph.to(device)
-    dev = graph.device
     n = graph.n
     l = min(l, n)
     if sources is None:
@@ -222,6 +282,70 @@ def build_index(
             graph, r, l, key, c=c, max_steps=max_steps,
             source_batch=source_batch, sources=sources,
             duplicate_sources=duplicate_sources)
+    index, stats = _build_index_sparse(
+        graph, r, l, key, c=c, max_steps=max_steps,
+        source_batch=source_batch, sources=sources,
+        compact_every=compact_every, r_splits=r_splits, respawn=respawn,
+        touch_bits=touch_bits, checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every, resume=resume,
+        checkpoint_keep=checkpoint_keep, fault_plan=fault_plan)
+    stats["duplicate_sources"] = duplicate_sources
+    return index, stats
+
+
+def _make_build_checkpointer(checkpoint_dir: Optional[str],
+                             checkpoint_every: int, checkpoint_keep: int,
+                             fault_plan) -> Optional[Checkpointer]:
+    if checkpoint_dir is None:
+        return None
+    if checkpoint_every < 1:
+        raise ValueError(
+            f"checkpoint_every must be >= 1, got {checkpoint_every}")
+    return Checkpointer(
+        checkpoint_dir, keep=checkpoint_keep,
+        pre_commit=None if fault_plan is None else fault_plan.pre_commit)
+
+
+def _resume_build_state(ckpt: Checkpointer, signature: dict):
+    """``(next_chunk, tree, extra)`` of the newest committed step that
+    verifies, or ``None`` (start from scratch).  A step written by another
+    build (its signature differs) is an error: resuming it would splice
+    other RNG streams into this build."""
+    hit = ckpt.restore_latest()
+    if hit is None:
+        return None
+    step, tree, extra = hit
+    if extra.get("signature") != signature:
+        raise ValueError(
+            f"checkpoint at {ckpt.root} step {step} was written by a "
+            "different build (graph/key/chunk-grid signature mismatch); "
+            "refusing to resume")
+    return int(extra["next_chunk"]), tree, extra
+
+
+def _complete_stats(extra: dict, tree: dict, touch_bits: int, dev) -> dict:
+    """Stats of a restored *complete* build (JSON keeps the floats exact)."""
+    stats = dict(extra["stats"])
+    stats["resumed_complete"] = True
+    if touch_bits:
+        stats["touch"] = torch.from_numpy(tree["touch"]).to(dev)
+        stats["touch_bits"] = touch_bits
+    return stats
+
+
+def _build_index_sparse(
+    graph: Graph, r: int, l: int, key, *, c: float, max_steps: int,
+    source_batch: int, sources: np.ndarray, compact_every: int,
+    r_splits: int, respawn: bool, touch_bits: int,
+    checkpoint_dir: Optional[str], checkpoint_every: int, resume: bool,
+    checkpoint_keep: int, fault_plan,
+) -> Tuple[PPRIndex, dict]:
+    """The streaming sparse build over the unique ``sources``.  Each
+    chunk's rows are written straight into the ``[n, l]`` index (and the
+    ``[n, touch_bits]`` filters), so the peak holds them once; a commit
+    copies the rows built so far, in source order, to the host."""
+    dev = graph.device
+    n = graph.n
     sketch_l = _sketch_width(n, l)
     n_src = len(sources)
     pad_rows = (-n_src) % source_batch
@@ -230,39 +354,89 @@ def build_index(
     ) if pad_rows else sources
     n_chunks = len(padded) // source_batch
     padded_dev = torch.from_numpy(padded).to(dev)
+    full = n_src == n and np.array_equal(sources, np.arange(n, dtype=np.int32))
+    src_rows = None if full else torch.from_numpy(
+        sources.astype(np.int64)).to(dev)
 
-    vals_chunks, idxs_chunks, kept_parts, dropped_parts = [], [], [], []
-    for ci in range(n_chunks):
-        i = ci * source_batch
-        chunk = padded_dev[i:i + source_batch]
-        real = min(source_batch, n_src - i)
-        vals, idxs, kept, dropped = sparse_chunk_estimates(
-            graph, chunk, rng.fold_in(key, i), r=r, l=l, sketch_l=sketch_l,
-            c=c, max_steps=max_steps, compact_every=compact_every,
-            r_splits=r_splits, respawn=respawn,
+    def rows_of(lo: int, hi: int):
+        """Index rows of the sources ``sources[lo:hi]``."""
+        return slice(lo, hi) if full else src_rows[lo:hi]
+
+    values = torch.zeros((n, l), dtype=torch.float32, device=dev)
+    indices = torch.zeros((n, l), dtype=torch.int32, device=dev)
+    touch = (torch.zeros((n, touch_bits), dtype=torch.bool, device=dev)
+             if touch_bits else None)
+    ckpt = _make_build_checkpointer(
+        checkpoint_dir, checkpoint_every, checkpoint_keep, fault_plan)
+    signature = None
+    if ckpt is not None:
+        signature = dict(
+            kind="build_index_sparse",
+            r=int(r), l=int(l), sketch_l=int(sketch_l), c=float(c),
+            max_steps=int(max_steps), compact_every=int(compact_every),
+            r_splits=int(r_splits), respawn=bool(respawn),
+            touch_bits=int(touch_bits), source_batch=int(source_batch),
+            n=int(n), n_src=int(n_src),
+            sources_crc=zlib.crc32(sources.tobytes()) & rng.MASK,
+            graph_crc=graph_fingerprint(graph),
+            key=serialize_key(key),
         )
-        vals_chunks.append(vals[:real])
-        idxs_chunks.append(idxs[:real])
-        kept_parts.append(kept[:real].sum())
-        dropped_parts.append(dropped[:real].sum())
+    ledger = BuildLedger(dev)
+    start_chunk = 0
+    commits = 0
+    if ckpt is not None and resume:
+        restored = _resume_build_state(ckpt, signature)
+        if restored is not None:
+            start_chunk, tree, extra = restored
+            if extra.get("complete"):
+                index = PPRIndex(
+                    values=torch.from_numpy(tree["vals"]).to(dev),
+                    indices=torch.from_numpy(tree["idxs"]).to(dev), l=l, n=n)
+                return index, _complete_stats(extra, tree, touch_bits, dev)
+            rows = rows_of(0, tree["vals"].shape[0])
+            values[rows] = torch.from_numpy(tree["vals"]).to(dev)
+            indices[rows] = torch.from_numpy(tree["idxs"]).to(dev)
+            if touch is not None:
+                touch[rows] = torch.from_numpy(tree["touch"]).to(dev)
+            ledger = BuildLedger.restore(tree["kept"], tree["dropped"], dev)
 
-    if not n_src:
-        values = torch.zeros((n, l), dtype=torch.float32, device=dev)
-        indices = torch.zeros((n, l), dtype=torch.int32, device=dev)
-    elif n_src == n and np.array_equal(sources, np.arange(n, dtype=np.int32)):
-        values = torch.cat(vals_chunks, dim=0)
-        indices = torch.cat(idxs_chunks, dim=0)
-    else:  # subset build: one scatter into the zero index
-        rows = torch.from_numpy(sources).to(dev).long()
-        values = torch.zeros((n, l), dtype=torch.float32, device=dev)
-        values[rows] = torch.cat(vals_chunks, dim=0)
-        indices = torch.zeros((n, l), dtype=torch.int32, device=dev)
-        indices[rows] = torch.cat(idxs_chunks, dim=0)
-    if kept_parts:
-        kept = float(torch.stack(kept_parts).sum())
-        dropped = float(torch.stack(dropped_parts).sum())
-    else:
-        kept = dropped = 0.0
+    def commit_partial(done: int) -> None:
+        nonlocal ledger, commits
+        kept_arr, dropped_arr = ledger.export()
+        rows = rows_of(0, done * source_batch)
+        tree = dict(vals=values[rows], idxs=indices[rows], kept=kept_arr,
+                    dropped=dropped_arr)
+        if touch is not None:
+            tree["touch"] = touch[rows]
+        ckpt.save(done, tree, dict(signature=signature, complete=False,
+                                   next_chunk=done, n_chunks=n_chunks))
+        commits += 1
+        # one entry a side from here on: the same flat stream, a short list
+        ledger = BuildLedger.restore(kept_arr, dropped_arr, dev)
+
+    for ci in range(start_chunk, n_chunks):
+        if fault_plan is not None:
+            fault_plan.chunk_boundary(ci)
+        i = ci * source_batch
+        real = min(source_batch, n_src - i)
+        out = sparse_chunk_estimates(
+            graph, padded_dev[i:i + source_batch], rng.fold_in(key, i), r=r,
+            l=l, sketch_l=sketch_l, c=c, max_steps=max_steps,
+            compact_every=compact_every, r_splits=r_splits, respawn=respawn,
+            touch_bits=touch_bits,
+        )
+        rows = rows_of(i, i + real)
+        values[rows] = out[0][:real]
+        indices[rows] = out[1][:real]
+        ledger.append(out[2][:real].sum(), out[3][:real].sum())
+        if touch is not None:
+            touch[rows] = out[4][:real]
+        done = ci + 1
+        if ckpt is not None and done < n_chunks \
+                and done % checkpoint_every == 0:
+            commit_partial(done)
+
+    kept, dropped = ledger.totals()
     stats = dict(
         r=r,
         l=l,
@@ -275,8 +449,21 @@ def build_index(
         pad_fraction=pad_rows / max(n_src + pad_rows, 1),
         **_mass_stats(kept, dropped),
         nbytes=n * l * 8,
-        duplicate_sources=duplicate_sources,
     )
+    if ckpt is not None:
+        stats["checkpoint_commits"] = commits
+        stats["resumed_at_chunk"] = start_chunk
+        kept_arr, dropped_arr = ledger.export()
+        tree = dict(vals=values, idxs=indices, kept=kept_arr,
+                    dropped=dropped_arr)
+        if touch is not None:
+            tree["touch"] = touch
+        ckpt.save(n_chunks, tree, dict(
+            signature=signature, complete=True, next_chunk=n_chunks,
+            n_chunks=n_chunks, stats=dict(stats)))
+    if touch is not None:
+        stats["touch"] = touch
+        stats["touch_bits"] = touch_bits
     return PPRIndex(values=values, indices=indices, l=l, n=n), stats
 
 
@@ -341,6 +528,10 @@ def build_index_sharded(
     respawn: bool = True,
     touch_bits: int = 0,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 8,
+    resume: bool = False,
+    checkpoint_keep: int = 3,
+    fault_plan=None,
 ) -> Tuple[PPRIndex, dict]:
     """The full-index build on a :class:`~repro_torch.distributed.mesh
     .ShardMesh` (``distributed_engine.make_sparse_index_build_step``).
@@ -353,27 +544,27 @@ def build_index_sharded(
     grid gives the same rows.  The vertex count pads up to ``ep`` shards
     of a multiple of ``source_batch`` (clamped, with a warning, to the
     shard interval); pad vertices are dangling, their rows zeroed, and the
-    index has ``n = n_pad``.  Runs on the mesh's device.
+    index has ``n = n_pad``.  Runs on the mesh's device.  ``touch_bits``
+    adds the rows' Bloom filters (``stats["touch"]``, ``bool[n_pad,
+    touch_bits]``, pad rows zero).
 
-    Not ported: checkpointed builds (``checkpoint_dir``) and ``touch_bits``
-    (the Bloom filters of incremental repair), ROADMAP.md queue 1.
+    With ``checkpoint_dir`` the sweep runs in segments of
+    ``checkpoint_every`` per-shard chunks, each segment's shard blocks
+    (rows, per-row ledgers, filters) committed as it ends and the
+    assembled index as a final ``complete=True`` step; ``resume=True``
+    continues from the newest committed step bit for bit, and refuses a
+    step of another graph, key, mesh or chunk grid.  ``fault_plan`` fires
+    ``chunk_boundary`` at each segment's first chunk.
     """
     from repro_torch.core.distributed_engine import (
         DistConfig, make_sparse_index_build_step)
 
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpointed sharded builds are not ported yet; see ROADMAP.md "
-            "queue 1, checkpointed builds")
-    if touch_bits:
-        raise NotImplementedError(
-            "touch_bits (the Bloom filters of incremental repair) is not "
-            "ported yet; see ROADMAP.md queue 1, touch filters and repair")
     ep, n_split = mesh.model, mesh.data
     if r % n_split != 0:
         raise ValueError(
             f"r={r} must divide evenly over the {n_split} walk shards")
     graph = graph.to(mesh.device)
+    dev = graph.device
     n = graph.n
     l = min(l, n)
     sketch_l = _sketch_width(n, l)
@@ -388,6 +579,7 @@ def build_index_sharded(
     source_batch = max(1, min(source_batch, ns))
     ns = -(-ns // source_batch) * source_batch
     n_pad = ns * ep
+    n_chunks = ns // source_batch
     cfg = DistConfig(n=n_pad, ep=ep, c=c)
     pad = n_pad - n
     row_ptr, out_deg = graph.row_ptr, graph.out_deg
@@ -395,13 +587,76 @@ def build_index_sharded(
         row_ptr = torch.cat([row_ptr, row_ptr[-1:].expand(pad)])
         out_deg = torch.cat([out_deg, torch.zeros(
             pad, dtype=out_deg.dtype, device=out_deg.device)])
-    step = make_sparse_index_build_step(
-        cfg, mesh, r=r, l=l, sketch_l=sketch_l, real_n=n,
-        max_steps=max_steps, compact_every=compact_every,
-        source_batch=source_batch, respawn=respawn,
-    )
-    values, indices, kept_rows, dropped_rows = step(
-        row_ptr, graph.col_idx, out_deg, key)
+
+    def sweep(chunk_start: int, chunk_count: Optional[int]):
+        step = make_sparse_index_build_step(
+            cfg, mesh, r=r, l=l, sketch_l=sketch_l, real_n=n,
+            max_steps=max_steps, compact_every=compact_every,
+            source_batch=source_batch, respawn=respawn,
+            touch_bits=touch_bits, chunk_start=chunk_start,
+            chunk_count=chunk_count,
+        )
+        return step(row_ptr, graph.col_idx, out_deg, key)
+
+    ckpt = _make_build_checkpointer(
+        checkpoint_dir, checkpoint_every, checkpoint_keep, fault_plan)
+    extra_stats: dict = {}
+    if ckpt is None:
+        out = sweep(0, None)
+    else:
+        signature = dict(
+            kind="build_index_sharded",
+            r=int(r), l=int(l), sketch_l=int(sketch_l), c=float(c),
+            max_steps=int(max_steps), compact_every=int(compact_every),
+            source_batch=int(source_batch), respawn=bool(respawn),
+            touch_bits=int(touch_bits), n=int(n), n_pad=int(n_pad),
+            shards=int(ep), r_splits=int(n_split),
+            model_axis="model", batch_axes=["data"],
+            mesh_shape=dict(mesh.shape),
+            graph_crc=graph_fingerprint(graph),
+            key=serialize_key(key),
+        )
+        names = ("vals", "idxs", "kept", "dropped", "touch")[
+            :5 if touch_bits else 4]
+        # per segment, shard-major blocks [ep, rows, ...] on the device
+        segs = []
+        start_chunk = 0
+        commits = 0
+        if resume:
+            restored = _resume_build_state(ckpt, signature)
+            if restored is not None:
+                start_chunk, tree, extra = restored
+                if extra.get("complete"):
+                    index = PPRIndex(
+                        values=torch.from_numpy(tree["vals"]).to(dev),
+                        indices=torch.from_numpy(tree["idxs"]).to(dev),
+                        l=l, n=n_pad)
+                    return index, _complete_stats(
+                        extra, tree, touch_bits, dev)
+                segs.append([torch.from_numpy(tree[k]).to(dev)
+                             for k in names])
+        ci = start_chunk
+        while ci < n_chunks:
+            if fault_plan is not None:
+                fault_plan.chunk_boundary(ci)
+            cnt = min(checkpoint_every, n_chunks - ci)
+            rows = cnt * source_batch
+            segs.append([x.reshape(ep, rows, *x.shape[1:])
+                         for x in sweep(ci, cnt)])
+            ci += cnt
+            if ci < n_chunks:
+                segs = [[torch.cat(parts, dim=1) for parts in zip(*segs)]]
+                ckpt.save(ci, dict(zip(names, segs[0])), dict(
+                    signature=signature, complete=False, next_chunk=ci,
+                    n_chunks=n_chunks))
+                commits += 1
+        # shard-major reassembly: the [n_pad, ...] row order of one sweep
+        out = [torch.cat(parts, dim=1).reshape(n_pad, *parts[0].shape[2:])
+               for parts in zip(*segs)]
+        extra_stats = dict(checkpoint_commits=commits,
+                           resumed_at_chunk=start_chunk)
+    values, indices, kept_rows, dropped_rows = out[:4]
+    touch = out[4] if touch_bits else None
     kept = float(kept_rows.sum())
     dropped = float(dropped_rows.sum())
     stats = dict(
@@ -421,7 +676,54 @@ def build_index_sharded(
         **_mass_stats(kept, dropped),
         nbytes=n_pad * l * 8,
     )
+    stats.update(extra_stats)
+    if ckpt is not None:
+        tree = dict(vals=values, idxs=indices, kept=kept_rows,
+                    dropped=dropped_rows)
+        if touch is not None:
+            tree["touch"] = touch
+        ckpt.save(n_chunks, tree, dict(
+            signature=signature, complete=True, next_chunk=n_chunks,
+            n_chunks=n_chunks, stats=dict(stats)))
+    if touch is not None:
+        stats["touch"] = touch
+        stats["touch_bits"] = touch_bits
     return PPRIndex(values=values, indices=indices, l=l, n=n_pad), stats
+
+
+def _restore_complete(checkpoint_dir: str) -> Tuple[dict, dict]:
+    """``(tree, extra)`` of the newest *complete* committed build step;
+    partial steps, ``.tmp`` dirs and corrupt steps are never candidates."""
+    hit = Checkpointer(checkpoint_dir).restore_latest(
+        predicate=lambda extra: bool(extra.get("complete")))
+    if hit is None:
+        raise FileNotFoundError(
+            f"no complete committed index checkpoint under {checkpoint_dir}")
+    return hit[1], hit[2]
+
+
+def _index_from_tree(tree: dict, extra: dict, device
+                     ) -> Tuple[PPRIndex, dict]:
+    dev = resolve_device(device)
+    stats = dict(extra["stats"])
+    values = torch.from_numpy(tree["vals"]).to(dev)
+    indices = torch.from_numpy(tree["idxs"]).to(dev)
+    n, l = values.shape
+    if "touch" in tree:
+        stats["touch"] = torch.from_numpy(tree["touch"]).to(dev)
+        stats["touch_bits"] = int(tree["touch"].shape[1])
+    return PPRIndex(values=values, indices=indices, l=int(l), n=int(n)), stats
+
+
+def load_index_checkpoint(checkpoint_dir: str, device="cuda"
+                          ) -> Tuple[PPRIndex, dict]:
+    """The serving boot path: the index and the JSON-safe build stats of
+    the newest *complete* committed step under ``checkpoint_dir`` (with
+    ``stats["touch"]`` where the build recorded filters), on ``device``,
+    without simulating a walk.  Corrupt steps fall back to the prior
+    complete one; none raises ``FileNotFoundError``.  Reads the
+    reference's build checkpoints too."""
+    return _index_from_tree(*_restore_complete(checkpoint_dir), device)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,11 @@ key gives the same counts bit for bit.
   :func:`compaction_schedule`, or, in respawn mode, the narrow fixed-width
   rounds of :func:`respawn_schedule`.  The reference's ``lax.scan`` over
   steps is a Python loop here; the cursor advance goes through the
-  ``walk_step`` kernel on CUDA tensors.
+  ``walk_step`` kernel on CUDA tensors.  With ``touch_bits`` it also
+  records each row's walks-through Bloom filter (:func:`touch_hash_bits`),
+  the invalidation sketch of incremental repair (``core/updates.py``).
+* :class:`BuildLedger` keeps a streaming build's kept/dropped mass, one
+  entry per chunk, exportable into a checkpoint.
 """
 
 from __future__ import annotations
@@ -173,9 +177,10 @@ class SparseWalkCounts:
 
     fp/ep: top-L visit / endpoint count sketches; moves/walks: MCFP/MCEP
     denominators; truncated: walks cut short by the schedule;
-    fp_dropped/ep_dropped: mass truncated out of each sketch.
-    Conservation: ``fp.mass() + fp_dropped == moves`` and ``ep.mass() +
-    ep_dropped == walks == r`` per row.
+    fp_dropped/ep_dropped: mass truncated out of each sketch; touch: the
+    rows' walks-through Bloom filters, ``bool[rows, touch_bits]`` (None
+    unless asked for).  Conservation: ``fp.mass() + fp_dropped == moves``
+    and ``ep.mass() + ep_dropped == walks == r`` per row.
     """
 
     fp: frontier_mod.SparseFrontier
@@ -185,6 +190,7 @@ class SparseWalkCounts:
     truncated: torch.Tensor
     fp_dropped: torch.Tensor
     ep_dropped: torch.Tensor
+    touch: Optional[torch.Tensor] = None
 
 
 def compaction_schedule(
@@ -281,6 +287,37 @@ def schedule_slot_area(
         area += w * steps
         t0 += steps
     return area
+
+
+TOUCH_HASHES = 4
+_HASH_MULS = (0x85EBCA6B, 0xC2B2AE35)
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """``h * c mod 2**32`` for ``h`` in ``[0, 2**32)``, in int64 without
+    overflow: the constant's two 16-bit halves multiply separately, so no
+    product passes 2**48."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & rng.MASK
+
+
+def touch_hash_bits(vertices: torch.Tensor, n_bits: int,
+                    k: int = TOUCH_HASHES) -> torch.Tensor:
+    """Bloom bit positions of each vertex id, ``vertices.shape + (k,)``
+    int32: ``k`` streams of fmix32 over the id xor a per-hash odd constant,
+    mod ``n_bits``.  The uint32 arithmetic runs in int64 with a mask after
+    every multiply, so it equals ``repro.core.walks.touch_hash_bits`` bit
+    for bit; a negative id hashes as its uint32 bits, as there."""
+    v = vertices.to(torch.int64) & rng.MASK
+    outs = []
+    for j in range(k):
+        h = v ^ (((2 * j + 1) * 0x9E3779B9) & rng.MASK)
+        h = _mul32(h ^ (h >> 16), _HASH_MULS[0])
+        h = _mul32(h ^ (h >> 13), _HASH_MULS[1])
+        h = h ^ (h >> 16)
+        outs.append((h % n_bits).to(torch.int32))
+    return torch.stack(outs, dim=-1)
 
 
 def advance_cursors(
@@ -399,13 +436,15 @@ def simulate_walks_sparse(
     a cumsum) refill at the source from the row's remaining quota; quota
     left at the end is flushed as length-1 walks (one counted position at
     the source, ledgered in ``truncated``), so every row finishes ``r``
-    walks.  ``touch_bits`` (the walks-through Bloom filter of incremental
-    repair) is not ported.
+    walks.
+
+    ``touch_bits > 0`` also records each row's Bloom filter over every
+    counted position (``counts.touch``, ``bool[rows, touch_bits]``,
+    :data:`TOUCH_HASHES` hashes): a row whose filter misses every vertex
+    an edge update touched re-simulates bit-identically on the new graph.
+    Dead events set a spare column past the filter, sliced away at the end
+    (an out-of-range scatter index would be a device assert on CUDA).
     """
-    if touch_bits:
-        raise NotImplementedError(
-            "touch_bits (the Bloom filters of incremental repair) is not "
-            "ported yet; see ROADMAP.md queue 1, touch filters and repair")
     dev = graph.device
     rows = sources.shape[0]
     n = graph.n
@@ -438,6 +477,15 @@ def simulate_walks_sparse(
     moves = torch.zeros((rows,), dtype=torch.float32, device=dev)
     walks_done = torch.zeros_like(moves)
     truncated = torch.zeros_like(moves)
+    touch = (torch.zeros((rows, touch_bits + 1), dtype=torch.bool,
+                         device=dev) if touch_bits > 0 else None)
+
+    def record_touch(ev_i, ev_live):
+        # the k bits of every live event's vertex; dead events park at the
+        # spare column ``touch_bits``
+        bits = touch_hash_bits(ev_i, touch_bits)
+        bits = torch.where(ev_live[..., None], bits, touch_bits)
+        touch.scatter_(1, bits.reshape(rows, -1).long(), True)
 
     def per_row(ev):
         # [steps, rows, w] -> per-row event columns [rows, steps * w]
@@ -475,8 +523,11 @@ def simulate_walks_sparse(
             nxt = advance_cursors(graph, cursors, src2d, u_move[s])
             cursors = torch.where(alive, nxt, cursors)
         vis_i = per_row(torch.stack(vis_i))
-        fp.add(per_row(torch.stack(vis_w)), vis_i)
+        vis_w = per_row(torch.stack(vis_w))
+        fp.add(vis_w, vis_i)
         ep.add(per_row(torch.stack(term_w)), vis_i)
+        if touch is not None:
+            record_touch(vis_i, vis_w > 0)
         t0 += steps
 
     af = alive.to(torch.float32)
@@ -491,6 +542,8 @@ def simulate_walks_sparse(
         truncated = truncated + q_rem
         fp.add(q_rem[:, None], src2d)
         ep.add(q_rem[:, None], src2d)
+        if touch is not None:
+            record_touch(src2d, q_rem[:, None] > 0)
     fp.flush()
     ep.flush()
     return SparseWalkCounts(
@@ -503,4 +556,62 @@ def simulate_walks_sparse(
         truncated=truncated,
         fp_dropped=fp.dropped,
         ep_dropped=ep.dropped,
+        touch=None if touch is None else touch[:, :touch_bits].contiguous(),
     )
+
+
+class BuildLedger:
+    """The conservation ledger of a streaming index build: one kept and
+    one dropped estimate-mass entry per swept chunk, summed once at the
+    end.  A checkpointed build exports it with the partial index rows, so
+    a resumed run sums the same f32 entries in the same order and
+    reproduces the uninterrupted run's totals bit for bit.
+
+    Entries may be device scalars, per-row device vectors or restored
+    numpy arrays; every one is flattened onto ``device`` in order.
+    """
+
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
+        self._kept: list = []
+        self._dropped: list = []
+
+    def append(self, kept, dropped) -> None:
+        self._kept.append(kept)
+        self._dropped.append(dropped)
+
+    @property
+    def empty(self) -> bool:
+        return not self._kept
+
+    def _flat(self, parts) -> torch.Tensor:
+        return torch.cat([torch.as_tensor(p).to(self.device, torch.float32)
+                          .reshape(-1) for p in parts])
+
+    def export(self):
+        """``(kept, dropped)`` as flat f32 numpy arrays, the checkpoint
+        payload (f32 round-trips ``np.save`` exactly)."""
+        import numpy as np
+
+        if self.empty:
+            z = np.zeros(0, np.float32)
+            return z, z
+        return (self._flat(self._kept).cpu().numpy(),
+                self._flat(self._dropped).cpu().numpy())
+
+    @classmethod
+    def restore(cls, kept, dropped, device="cpu") -> "BuildLedger":
+        """A ledger of one entry a side from exported arrays: its flat
+        stream equals the one it was exported from."""
+        led = cls(device)
+        led.append(kept, dropped)
+        return led
+
+    def totals(self):
+        """``(kept, dropped)`` as floats: one sum over each side's flat
+        entry stream, one host sync."""
+        if self.empty:
+            return 0.0, 0.0
+        kept, dropped = torch.stack([self._flat(self._kept).sum(),
+                                     self._flat(self._dropped).sum()]).tolist()
+        return kept, dropped

@@ -5,8 +5,12 @@ batches them (paper Section 3.3), runs the sparse VERD decomposition
 against the PPR index on the device, and returns top-k (vertex, score)
 lists with latency/throughput telemetry.  ``poll()`` dispatches ready
 batches without syncing and harvests finished ones (``pipeline.py``);
-``pipeline.depth=1`` is the blocking poll.  The counterpart of
-``repro.serving.engine`` without checkpoint boot and graph updates.
+``pipeline.depth=1`` is the blocking poll.  With a ``maintainer`` (a
+``core.updates.MaintainableIndex``) the service applies edge updates
+live, repairing the index and invalidating exactly the answers it
+changed (:meth:`PPRService.apply_updates`); :meth:`PPRService
+.from_checkpoint` boots from a checkpointed build.  The counterpart of
+``repro.serving.engine``.
 """
 
 from __future__ import annotations
@@ -53,12 +57,19 @@ class Answer:
 
 
 class PPRService:
-    """Serves PPR answers against a :class:`PPRIndex` on ``device``."""
+    """Serves PPR answers against a :class:`PPRIndex` on ``device``.
+
+    ``maintainer`` (a ``core.updates.MaintainableIndex``) enables
+    :meth:`apply_updates`; with ``index=None`` its index serves.
+    """
 
     def __init__(self, graph: Graph, index: Optional[PPRIndex],
                  cfg: Optional[ServiceConfig] = None, clock=None,
-                 device="cuda"):
+                 device="cuda", maintainer=None):
         self.cfg = cfg or ServiceConfig()
+        self.maintainer = maintainer
+        if index is None and maintainer is not None:
+            index = maintainer.index
         self.engine = BatchQueryEngine(graph, index, self.cfg.query,
                                        device=device)
         self.graph = self.engine.graph
@@ -76,11 +87,37 @@ class PPRService:
         self.stats: Dict[str, float] = dict(
             served=0, batches=0, total_latency=0.0, max_latency=0.0,
             pad_rows=0, first_batch_service_s=0.0, cache_served=0,
-            cache_stale_drops=0, shed=0,
+            cache_stale_drops=0, shed=0, updates_applied=0, rows_repaired=0,
+            update_rollbacks=0,
         )
         self._pending_cached: List[Tuple[int, int, str, float, Tuple]] = []
         self._inflight_keys: Dict[int, Tuple] = {}
         self._pending_rejected: List[Tuple[int, int, str, float]] = []
+
+    @classmethod
+    def from_checkpoint(cls, graph: Graph, checkpoint_dir: str,
+                        cfg: Optional[ServiceConfig] = None, clock=None,
+                        device="cuda") -> "PPRService":
+        """Boot from the *complete* committed step of a checkpointed build
+        (partial steps, ``.tmp`` dirs and corrupt steps never boot), with
+        no walk simulated.  A maintainable build (filters in the
+        checkpoint) boots with its ``maintainer``, so :meth:`apply_updates`
+        works across the restart; a plain one serves read-only."""
+        from repro_torch.core import index as index_mod
+        from repro_torch.core import updates as updates_mod
+
+        tree, extra = index_mod._restore_complete(checkpoint_dir)
+        if "touch" not in tree:
+            index, _ = index_mod._index_from_tree(tree, extra, device)
+            return cls(graph, index, cfg, clock=clock, device=device)
+        m, _ = updates_mod._maintainable_from_tree(
+            tree, extra, device, checkpoint_dir)
+        if m.real_n != graph.n:
+            raise ValueError(
+                f"checkpoint was built on {m.real_n} vertices but the "
+                f"graph has {graph.n}")
+        return cls(graph, None, cfg, clock=clock, device=device,
+                   maintainer=m)
 
     # -- client API ----------------------------------------------------------
     def submit(self, vertex: Optional[int] = None, tier: str = "interactive",
@@ -142,6 +179,57 @@ class PPRService:
         """Drop cached answers whose seed sets touch ``vertices`` and bump
         the cache epoch (in-flight batches are then not cached)."""
         return self.cache.invalidate(vertices)
+
+    def apply_updates(self, inserts=None, deletes=None) -> dict:
+        """Apply an edge-update batch to the live graph and index.
+
+        Needs a ``maintainer``.  Repairs the index
+        (``core.updates.apply_updates``), swaps the engine onto the new
+        graph and index, then invalidates exactly the repaired rows'
+        answers in the cache, which also bumps its epoch so a batch still
+        in flight on the old index is not cached.  Returns the repair
+        report with ``cache_invalidated``.
+
+        The swap is atomic: the repaired index and the new engine are
+        built before any attribute changes, so a failure in either leaves
+        the service serving the old graph and index
+        (``stats["update_rollbacks"]`` counts these).
+        """
+        if self.maintainer is None:
+            raise ValueError(
+                "apply_updates requires a maintainer (build the index with "
+                "core.updates.build_maintainable_index and pass it to "
+                "PPRService(..., maintainer=...))")
+        from repro_torch.core import updates as updates_mod
+
+        try:
+            new_graph, new_m, report = updates_mod.apply_updates(
+                self.maintainer, self.graph, inserts=inserts,
+                deletes=deletes)
+            new_engine = BatchQueryEngine(new_graph, new_m.index,
+                                          self.cfg.query,
+                                          device=self.engine.device)
+            frontier_path = (
+                "sparse" if new_engine.uses_sparse_path() else "dense")
+            answer_k = new_engine.effective_top_k
+        except BaseException:
+            self.stats["update_rollbacks"] += 1
+            raise
+        # the commit point: attribute assignments only, none can raise
+        self.graph = new_engine.graph
+        self.maintainer = new_m
+        self.engine = new_engine
+        self.pipeline.engine = new_engine
+        self.frontier_path = frontier_path
+        self.answer_k = answer_k
+        self.index_rows = new_m.index.n
+        # an answer is stale iff a seed's row was repaired; the call runs
+        # for an empty set too, for its epoch bump
+        report["cache_invalidated"] = self.cache.invalidate(
+            report["dirty_row_ids"])
+        self.stats["updates_applied"] += 1
+        self.stats["rows_repaired"] += report["dirty_rows"]
+        return report
 
     @property
     def in_flight(self) -> int:

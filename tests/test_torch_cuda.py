@@ -279,3 +279,30 @@ def test_combine_plan_fits_two_hash_blocks_an_sm(cuda):
     assert plan.path == "hash" and plan.parts == 12
     assert 2 * (plan.smem + 1024) <= 233472
     assert comb_k.combine_plan(257, 256, 256, 2048).path == "sort"
+
+
+@pytest.fixture(scope="module")
+def maintenance_checks():
+    """``chip_smoke.check_small_maintenance`` once for the module (each
+    check builds rmat(14) indexes on the card and on the CPU)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the hand-written kernels)")
+    return chip_smoke.check_small_maintenance(torch, np, torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("check", [
+    "repair vs rebuild, card", "repair, card vs CPU",
+    "sharded repair vs rebuild, card", "sharded repair, card vs CPU"])
+def test_repair_on_card_bit_equal(maintenance_checks, check):
+    """rmat(14): the repaired index and filters on the card equal the
+    card's rebuild on the mutated graph and the CPU's repair, single
+    device and on a stacked 2 x 2 mesh."""
+    assert maintenance_checks[check]
+
+
+@pytest.mark.cuda
+def test_checkpointed_build_resumed_on_card_bit_equal(maintenance_checks):
+    """rmat(14): a build crashed at chunk 5 of 16 and resumed on the card
+    equals an uninterrupted one: index, filters, kept and dropped totals."""
+    assert maintenance_checks["checkpointed build resumed on the card"]

@@ -556,12 +556,10 @@ def test_unported_build_options_raise(build_graph):
     _, tkey = _key()
     tg = _port_graph(build_graph)
     mesh = ShardMesh(1, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    with pytest.raises(ValueError, match="checkpoint_every"):
         tindex.build_index_sharded(tg, r=4, l=4, key=tkey, mesh=mesh,
-                                   checkpoint_dir="unused")
-    with pytest.raises(NotImplementedError, match="repair"):
-        tindex.build_index_sharded(tg, r=4, l=4, key=tkey, mesh=mesh,
-                                   touch_bits=8)
+                                   checkpoint_dir="unused",
+                                   checkpoint_every=0)
     with pytest.raises(ValueError, match="divide"):
         tindex.build_index_sharded(tg, r=5, l=4, key=tkey,
                                    mesh=ShardMesh(2, 2, device="cpu"))

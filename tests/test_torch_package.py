@@ -23,6 +23,7 @@ from repro_torch.configs import dlrm_rm2 as tdlrm_cfg
 from repro_torch.core import index as tindex
 from repro_torch.core.graph import Graph
 from repro_torch.core.query import BatchQueryEngine
+from repro_torch.core.updates import build_maintainable_index
 from repro_torch.graphs import synthetic as tsyn
 from repro_torch.launch import serve, steps
 from repro_torch.models.recsys import dlrm as tdlrm
@@ -61,7 +62,7 @@ def no_gpu():
         pytest.skip("a GPU is present: the default device is valid here")
 
 
-def test_default_device_entry_points_raise_without_gpu(no_gpu):
+def test_default_device_entry_points_raise_without_gpu(no_gpu, tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         tsyn.rmat(6)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -77,6 +78,13 @@ def test_default_device_entry_points_raise_without_gpu(no_gpu):
         BatchQueryEngine(g, index)
     with pytest.raises(RuntimeError, match="cuda"):
         PPRService(g, index)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_maintainable_index(g, r=2, l=4, key=rng.prng_key(0))
+    ckpt = tmp_path / "ckpt"
+    tindex.build_index(g, r=2, l=4, key=rng.prng_key(0), device="cpu",
+                       checkpoint_dir=str(ckpt))
+    with pytest.raises(RuntimeError, match="cuda"):
+        PPRService.from_checkpoint(g, str(ckpt))
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--n-log2", "6", "--r", "2", "--queries", "4"])
     with pytest.raises(RuntimeError, match="cuda"):

@@ -147,7 +147,10 @@ def test_build_index_rejects_what_is_not_ported(graphs):
     with pytest.raises(ValueError, match="sparse engine"):
         tindex.build_index(tg, r=4, l=8, key=rng.prng_key(0),
                            engine="legacy", respawn=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="repair"):
-        twalks.simulate_walks_sparse(
-            tg, torch.arange(4, dtype=torch.int32), 4, rng.prng_key(0), l=8,
-            touch_bits=16)
+    with pytest.raises(ValueError, match="sparse engine"):
+        tindex.build_index(tg, r=4, l=8, key=rng.prng_key(0),
+                           engine="legacy", touch_bits=16, device="cpu")
+    with pytest.raises(ValueError, match="requires engine='sparse'"):
+        tindex.build_index(tg, r=4, l=8, key=rng.prng_key(0),
+                           engine="legacy", checkpoint_dir="unused",
+                           device="cpu")
