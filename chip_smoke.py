@@ -247,6 +247,8 @@ UPD_BATCHES = 4                # live edge batches of 3i(b)
 UPD_EDGES = 4                  # fresh edges a batch, the previous 4 deleted
 UPD_SEED = 5                   # the bench's seed: edge pool and key
 UPD_REQUESTS = 4096
+LOADGEN_REQUESTS = 16384       # phase 3j: each open-loop run and the stream
+LOADGEN_SEED = 3
 
 
 def card_name_and_power_limit():
@@ -304,6 +306,262 @@ def device_time_split(torch, fn, top=8):
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda x: -x[1])
     return wall_ms, sum(ms for _, ms in kernels), kernels[:top]
+
+
+def batch_profile(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``: wall and device-busy
+    milliseconds, the device's idle share of the wall, and the trace's
+    device activities (kernels, memcpys, memsets) by kind and count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out = dict(wall_ms=wall_ms, device_ms=0.0, kernels=0, memcpys=0,
+               memsets=0)
+    for e in prof.key_averages():
+        if not (str(e.device_type).endswith("CUDA")
+                and e.self_device_time_total > 0):
+            continue
+        out["device_ms"] += e.self_device_time_total / 1e3
+        kind = ("memcpys" if e.key.startswith("Memcpy") else "memsets"
+                if e.key.startswith("Memset") else "kernels")
+        out[kind] += e.count
+    out["idle_share"] = 1.0 - out["device_ms"] / wall_ms
+    return out
+
+
+def eager_async(eng):
+    """``eng.query_topk_async`` without its graphs: the private eager query
+    (the body every graph records) on the same inputs, for the A/B."""
+    def query(sources, *, key=None, weights=None, out=None):
+        return eng._query_eager(sources, weights,
+                                eng._base_key if key is None else key)
+    return query
+
+
+def host_split(torch, np, svc, verts, captured):
+    """One batch of ``verts`` through ``svc``'s engine in the pipeline's
+    stages, each ending in a synchronize: ``[(stage, host_ms, wall_ms)]``,
+    ``host_ms`` until the stage's calls return, ``wall_ms`` until the card
+    has finished them too.  First the closed loop's client work (a submit
+    and a poll a request, nothing in flight); then, eager: drain and pad,
+    the pinned copy of the
+    inputs, the route's steps (the ``t`` pushes and the combine, or the
+    walks), the result copies and the event; captured: drain and pad, the
+    copy into the graph's static inputs, the replay, the result copies
+    and the event."""
+    from repro_torch.core import verd as verd_mod
+    from repro_torch.core import walks
+    from repro_torch.core.frontier import topk_dense
+    from repro_torch.core.query import MCFP_MAX_STEPS, normalize_seed_weights
+
+    eng = svc.engine
+    cfg = eng.config
+    g = eng.graph
+    k = eng.effective_top_k
+    st = {}
+    torch.cuda.synchronize()
+
+    def submits():
+        for v in verts[:-1]:
+            svc.submit(int(v))
+            svc.poll()
+        svc.submit(int(verts[-1]))
+
+    def drain():
+        requests, padded = svc.buffer.drain()
+        st["verts"], st["weights"] = svc.pipeline._batch_arrays(requests,
+                                                                padded)
+        st["key"] = eng.dispatch_key(0) if eng.uses_key else None
+
+    def h2d():
+        st["src"], st["w"] = eng._inputs_raw(st["verts"], st["weights"])
+        st["words"] = (walks.step_key_words(st["key"], MCFP_MAX_STEPS,
+                                            eng.device)
+                       if eng.uses_key else None)
+
+    def static_inputs():
+        shape = ((len(st["verts"]),), None)
+        cap = eng.graphs[shape]
+        st["cap"] = cap
+        eng._write((cap.sources, cap.weights, cap.words), (
+            eng._host_tensor(st["verts"], torch.int32), None,
+            walks.host_step_key_words(st["key"], MCFP_MAX_STEPS).pin_memory()
+            if eng.uses_key else None))
+
+    def replay():
+        st["vals"], st["idx"] = st["cap"].replay()
+
+    def pushes():
+        seed_w = (None if st["w"] is None
+                  else normalize_seed_weights(st["w"]))
+        st["s"], st["f"] = verd_mod.verd_iterate_sparse(
+            g, st["src"], seed_w, t=cfg.t_iterations, k=eng.frontier_k,
+            c=cfg.c, threshold=cfg.threshold, degree_cap=eng.degree_cap(),
+            hub_split_degree=cfg.hub_split_degree)
+
+    def combine():
+        if eng.uses_scatter_combine(len(st["verts"])):
+            st["vals"], st["idx"] = verd_mod.combine_with_index_scatter(
+                st["s"], st["f"], eng.index, out_k=k)
+        else:
+            sf = verd_mod.combine_with_index_sparse(st["s"], st["f"],
+                                                    eng.index, out_k=k)
+            st["vals"], st["idx"] = sf.values, sf.indices
+
+    def dense_pushes():
+        st["s"], st["f"] = verd_mod.verd_iterate(
+            g, st["src"], None, t=cfg.t_iterations, c=cfg.c,
+            threshold=cfg.threshold)
+
+    def dense_combine():
+        st["dense"] = verd_mod.combine_with_index(st["s"], st["f"], eng.index)
+
+    def walk():
+        from repro_torch.core import mcfp
+
+        st["dense"] = mcfp.estimate_ppr(g, st["src"], cfg.r_online, None,
+                                        c=cfg.c, max_steps=MCFP_MAX_STEPS,
+                                        words=st["words"])
+
+    def top_k():
+        st["vals"], st["idx"] = topk_dense(st["dense"], k)
+
+    def results():
+        hv = torch.empty(st["vals"].shape, dtype=torch.float32,
+                         pin_memory=True).copy_(st["vals"], non_blocking=True)
+        hi = torch.empty(st["idx"].shape, dtype=torch.int32,
+                         pin_memory=True).copy_(st["idx"], non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+        st["answer"] = (hv, hi)
+
+    if captured:
+        stages = [("drain and pad", drain),
+                  ("inputs into the graph's static inputs", static_inputs),
+                  ("graph replay", replay)]
+    elif cfg.mode == "mcfp":
+        stages = [("drain and pad", drain),
+                  ("key words and pinned copy of the sources", h2d),
+                  ("walks (estimate_ppr)", walk), ("top-k", top_k)]
+    elif eng.uses_sparse_path():
+        stages = [("drain and pad", drain),
+                  ("pinned copy of the sources", h2d),
+                  (f"{cfg.t_iterations} pushes (sparse_push_compact)", pushes),
+                  ("combine", combine)]
+    else:
+        stages = [("drain and pad", drain),
+                  ("pinned copy of the sources", h2d),
+                  (f"{cfg.t_iterations} pushes (ell_spmm)", dense_pushes),
+                  ("combine (index_combine)", dense_combine),
+                  ("top-k", top_k)]
+    stages.insert(0, (f"{len(verts)} submits and polls (the closed loop's "
+                      f"client)", submits))
+    stages.append(("result copies and the event", results))
+    out = []
+    for name, fn in stages:
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out.append((name, (t1 - t0) * 1e3, (t2 - t0) * 1e3))
+    return out, st["answer"]
+
+
+SERVE_KEYS = ("served", "batches", "wall_s", "qps", "qps_excl_first_batch",
+              "latency_p50",
+              "latency_p99", "first_batch_service_s", "pad_fraction",
+              "combine_path", "pipeline_in_flight_peak", "batch_hist",
+              "graphs_captured", "capture_s", "pipeline_buffers_allocated",
+              "pipeline_buffers_reused")
+
+
+def captured_vs_eager(torch, np, make_service, work, label, failures,
+                      depth1_requests):
+    """The A/B of a route: ``make_service(depth)`` serves ``work`` closed
+    loop through its graphs and through the eager query (depth 4), then
+    through its graphs at depth 1 (the first ``depth1_requests``), each
+    service after one warm-up batch and ``reset_stats``; prints
+    each run's numbers, the host split of one batch of 256 both ways, the
+    trace of one such batch both ways (idle share, kernels and memcpys)
+    and the graphs' capture seconds and pool bytes.  Fails unless every
+    answer is the same bytes in every run.  Returns the captured run's
+    ``(answers, stats, service)``."""
+    runs = {}
+    kept = None
+    for name, depth, eager, n_req in (
+            ("captured, depth 4", 4, False, len(work)),
+            ("eager, depth 4", 4, True, len(work)),
+            ("captured, depth 1", 1, False, depth1_requests)):
+        svc = make_service(depth)
+        if eager:
+            svc.engine.query_topk_async = eager_async(svc.engine)
+        # one batch first (the capture; the eager path's allocations),
+        # then the counters zeroed: both sides measured in steady state
+        svc.run_closed_loop(work[:256])
+        svc.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        answers, st = svc.run_closed_loop(work[:n_req])
+        torch.cuda.synchronize()
+        st["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        runs[name] = (answers, st)
+        print(f"  {label} {name}: " + json.dumps(
+            {k: st[k] for k in SERVE_KEYS + ("peak_gib",)}))
+        if name == "captured, depth 4":
+            eng = svc.engine
+            print(f"  {label} graphs: {len(eng.graphs)} captured in "
+                  f"{eng.capture_s:.3f} s, pool "
+                  f"{eng.graph_pool_bytes()} bytes; launches a replay: "
+                  + json.dumps({f"{k[0]}": dict(c.launches)
+                                for k, c in eng.graphs.items()}))
+            kept = svc
+        del svc
+        torch.cuda.empty_cache()
+    base = served_bytes(runs["captured, depth 4"][0])
+    for name, (answers, _) in runs.items():
+        got = served_bytes(answers)
+        same = all(got[v][:2] == base[v][:2] for v in got)
+        print(f"  {label} {name}: answers the same bytes as captured at "
+              f"depth 4: {same}")
+        if not same or len(answers) != (depth1_requests
+                                        if name.endswith("1")
+                                        else len(work)):
+            failures.append(f"{label} {name}: answers differ or missing")
+    # one batch of 256, both ways: the host split and the trace
+    svc = kept
+    verts = work[:256]
+    split_e, ans_e = host_split(torch, np, svc, verts, captured=False)
+    split_c, ans_c = host_split(torch, np, svc, verts, captured=True)
+    if not all(bits_equal(torch, a, b) for a, b in zip(ans_e, ans_c)):
+        failures.append(f"{label}: host-split batch differs eager vs "
+                        f"captured")
+    eng = svc.engine
+    src = np.asarray(verts, np.int32)
+    key = eng.dispatch_key(0) if eng.uses_key else None
+    for name, split, fn in (("eager", split_e, eager_async(eng)),
+                            ("captured", split_c, eng.query_topk_async)):
+        print(f"  {label} host split of a batch of 256, {name} "
+              f"(host ms until the calls return / wall ms until the card "
+              f"is done): total {sum(x[1] for x in split):.3f} / "
+              f"{sum(x[2] for x in split):.3f}")
+        for stage, host_ms, wall_ms in split:
+            print(f"    {host_ms:9.3f} / {wall_ms:9.3f} ms  {stage}")
+        prof = batch_profile(torch, lambda: fn(src, key=key))
+        # the dispatch's untraced wall, drain to event (the profiler
+        # slows the host): the device's idle share of it
+        wall = sum(x[2] for x in split[1:])
+        prof["idle_share_untraced"] = 1.0 - prof["device_ms"] / wall
+        print(f"  {label} one batch of 256, {name}, traced: " + json.dumps(
+            prof))
+    return runs["captured, depth 4"] + (kept,)
 
 
 def traced_launch_ms(torch, fn, name):
@@ -1618,32 +1876,15 @@ def phase_montecarlo(torch, np, dev, g, sources, truth, work, failures):
     captured = ops.captured_launches().get("walk_step/main")
     ops.capture_first_launches(False)
 
-    # the mcfp serving mode, closed loop, at depths 4 and 1: the same bytes
-    answers_by_depth = {}
-    for depth in (4, 1):
-        svc = PPRService(g, None, ServiceConfig(
+    # the mcfp serving mode, closed loop: through its graphs at depths 4
+    # and 1 and eagerly at depth 4, the same bytes
+    print("  mcfp mode, captured against eager on the same requests:")
+    _, _, svc = captured_vs_eager(
+        torch, np, lambda depth: PPRService(g, None, ServiceConfig(
             query=QueryConfig(mode="mcfp", r_online=MC_R_ONLINE, top_k=50),
             batching=BatchingConfig(max_batch=256, max_wait_s=10.0),
-            pipeline=PipelineConfig(depth=depth)), device=dev)
-        torch.cuda.reset_peak_memory_stats()
-        answers, st = svc.run_closed_loop(work[:MC_REQUESTS])
-        torch.cuda.synchronize()
-        print(f"  mcfp mode, depth {depth}: " + json.dumps({k: st[k] for k in (
-            "served", "batches", "wall_s", "qps", "latency_p50",
-            "latency_p99", "pipeline_in_flight_peak", "batch_hist")})
-              + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        bad = bad_answers(np, answers, g.n)
-        if len(answers) != MC_REQUESTS or bad:
-            failures.append(f"mcfp mode depth {depth}: {len(answers)} "
-                            f"served, {len(bad)} bad")
-        by_id = sorted(answers, key=lambda a: a.request_id)
-        answers_by_depth[depth] = [
-            np.stack([getattr(a, k) for a in by_id]).tobytes()
-            for k in ("top_scores", "top_vertices")]
-    same = answers_by_depth[4] == answers_by_depth[1]
-    print(f"  mcfp mode answers at depths 4 and 1 the same bytes: {same}")
-    if not same:
-        failures.append("mcfp mode answers differ across pipeline depths")
+            pipeline=PipelineConfig(depth=depth)), device=dev),
+        work[:MC_REQUESTS], "mcfp", failures, depth1_requests=MC_REQUESTS)
     eng = svc.engine
     src256 = torch.tensor(work[:256], dtype=torch.int32, device=dev)
     wall_ms, device_ms, split = device_time_split(
@@ -1654,6 +1895,7 @@ def phase_montecarlo(torch, np, dev, g, sources, truth, work, failures):
     for name, ms in split:
         print(f"  {ms:9.3f} ms  {100 * ms / max(device_ms, 1e-9):5.1f}%  "
               f"{name[:110]}")
+    del svc, eng
 
     # the legacy (dense-accumulator) build over the first sources
     torch.cuda.reset_peak_memory_stats()
@@ -1689,6 +1931,185 @@ def phase_montecarlo(torch, np, dev, g, sources, truth, work, failures):
         print(f"  preprocessing_cost_model(n={g.n}, r={r}): "
               + json.dumps(preprocessing_cost_model(g.n, r)))
     return counts, captured
+
+
+# -- captured CUDA graphs at rmat(14) (phase 4 and the cuda tests) ----------
+
+CAPTURE_CONFIGS = {   # label -> QueryConfig keywords; rmat(14), l = 64
+    "sparse, scatter combine": dict(hub_split_degree=64),
+    "sparse, sparse combine": dict(hub_split_degree=64,
+                                   combine_path="sparse"),
+    "dense": dict(),
+    "mcfp": dict(mode="mcfp", r_online=200),
+    # four seeds widen K past the auto route's n / 64 here: forced sparse
+    "sparse, seed sets of 4": dict(hub_split_degree=64, max_seeds=4,
+                                   frontier_path="sparse"),
+    "dense, seed sets of 4": dict(max_seeds=4),
+}
+_small_capture_setup = {}
+
+
+def small_capture_setup(torch, dev):
+    """rmat(14) and its index (r = 32, l = 64) on ``dev``, built once."""
+    if dev not in _small_capture_setup:
+        from repro_torch import rng
+        from repro_torch.core.index import build_index
+        from repro_torch.graphs import synthetic
+
+        g = synthetic.rmat(14, avg_deg=10.0, seed=3, device=dev)
+        index, _ = build_index(g, r=32, l=64, key=rng.prng_key(5),
+                               source_batch=1024, device=dev)
+        _small_capture_setup[dev] = (g, index)
+    return _small_capture_setup[dev]
+
+
+def small_capture_engine(torch, dev, label):
+    from repro_torch.core.query import BatchQueryEngine, QueryConfig
+
+    g, index = small_capture_setup(torch, dev)
+    cfg = QueryConfig(t_iterations=2, top_k=50, **CAPTURE_CONFIGS[label])
+    return BatchQueryEngine(g, None if cfg.mode == "mcfp" else index, cfg,
+                            device=dev)
+
+
+def check_captured_equals_eager(torch, np, dev, label):
+    """At every padded width of ``max_batch=256``, the captured query of
+    the config ``label`` (``CAPTURE_CONFIGS``) answers in the same bytes
+    as the eager query on the same inputs, each width one graph, and the
+    width's second dispatch (new inputs into the same graph) too."""
+    from repro_torch.core import walks
+    from repro_torch.core.query import MCFP_MAX_STEPS
+    from repro_torch.serving.batching import BatchingConfig
+
+    eng = small_capture_engine(torch, dev, label)
+    widths = BatchingConfig(max_batch=256).padded_shapes()
+    r = np.random.default_rng(21)
+    s_w = eng.config.max_seeds
+    ok = eng.uses_sparse_path() == label.startswith("sparse")
+    for w in widths:
+        for rep in range(2):
+            if s_w > 1:
+                src = r.integers(0, eng.graph.n, (w, s_w)).astype(np.int32)
+                wts = (r.random((w, s_w)) * (r.random((w, s_w)) > 0.3)
+                       ).astype(np.float32)
+            else:
+                src = r.integers(0, eng.graph.n, w).astype(np.int32)
+                wts = None
+            key = eng.dispatch_key(w + rep)
+            got = [x.clone() for x in eng.query_topk_async(
+                src, key=key, weights=wts)]
+            words = (walks.step_key_words(key, MCFP_MAX_STEPS, dev)
+                     if eng.uses_key else None)
+            want = eng._topk_eager(
+                torch.from_numpy(src).to(dev),
+                None if wts is None else torch.from_numpy(wts).to(dev),
+                words)
+            ok &= all(bits_equal(torch, a, b) for a, b in zip(got, want))
+    return ok and len(eng.graphs) == len(widths)
+
+
+def check_captured_shapes(torch, np, dev):
+    """The retrace guard's counterpart: an np array, a tensor on the card
+    and a list of one width replay one graph, so the graphs captured are
+    the widths."""
+    from repro_torch.serving.batching import BatchingConfig
+
+    eng = small_capture_engine(torch, dev, "sparse, scatter combine")
+    widths = BatchingConfig(max_batch=64).padded_shapes()
+    answers = []
+    for w in widths:
+        spellings = (np.zeros(w, np.int32),
+                     torch.zeros(w, dtype=torch.int32, device=dev),
+                     [0] * w)
+        got = [[x.clone() for x in eng.query_topk_async(
+            x, key=eng.dispatch_key(0))] for x in spellings]
+        answers.append(all(bits_equal(torch, a, b)
+                           for g in got[1:] for a, b in zip(got[0], g)))
+    return all(answers) and sorted(k[0][0] for k in eng.graphs) == widths
+
+
+def check_captured_launch_counts(torch, np, dev):
+    """``launch_counts`` grows by the graph's recorded kernels on every
+    replay, and a capture counts only its eager warm-up."""
+    from repro_torch.kernels import ops
+
+    ok = True
+    for label in ("sparse, sparse combine", "dense"):
+        eng = small_capture_engine(torch, dev, label)
+        src = np.arange(64, dtype=np.int32)
+        eng.query_topk_async(src)          # warm-up, capture, replay
+        graph = eng.graphs[((64,), None)]
+        want = {k: v for k, v in graph.launches.items() if v}
+        ok &= bool(want) and set(want) <= set(ops.KERNELS)
+        ops.reset_launch_counts()
+        for reps in (1, 2, 3):
+            eng.query_topk_async(src + reps)
+            got = {k: v for k, v in ops.launch_counts().items() if v}
+            ok &= got == {k: reps * v for k, v in want.items()}
+    return ok
+
+
+def check_captured_into_given_buffers(torch, np, dev):
+    """``out=`` on the card: the answer lands in the given tensors (the
+    same memory, returned), equal to the graph's own, not the donor's."""
+    eng = small_capture_engine(torch, dev, "sparse, sparse combine")
+    src = np.arange(64, dtype=np.int32)
+    v0, i0 = (x.clone() for x in eng.query_topk_async(src))
+    donor = v0.clone()
+    ptrs = (v0.data_ptr(), i0.data_ptr())
+    v1, i1 = eng.query_topk_async(src + 1, out=(v0, i0))
+    ok = (v1.data_ptr(), i1.data_ptr()) == ptrs
+    want = [x.clone() for x in eng.query_topk_async(src + 1)]
+    return (ok and bits_equal(torch, v1, want[0])
+            and bits_equal(torch, i1, want[1])
+            and not bits_equal(torch, v1, donor))
+
+
+def check_captured_after_updates(torch, np, dev):
+    """A service serving through graphs answers, after ``apply_updates``,
+    like a fresh service on the new graph and index (the graphs of the new
+    engine are captured inside ``apply_updates``)."""
+    from repro_torch import rng
+    from repro_torch.core.query import QueryConfig
+    from repro_torch.core.updates import build_maintainable_index
+    from repro_torch.serving import PPRService, ServiceConfig
+    from repro_torch.serving.batching import BatchingConfig
+
+    g, _ = small_capture_setup(torch, dev)
+    m, _ = build_maintainable_index(g, UPD_R, UPD_L, rng.prng_key(7),
+                                    source_batch=1024, device=dev, c=UPD_C,
+                                    max_steps=UPD_MAX_STEPS, respawn=True,
+                                    touch_bits=1024)
+    cfg = ServiceConfig(
+        query=QueryConfig(t_iterations=2, top_k=50, c=UPD_C,
+                          hub_split_degree=64, combine_path="sparse"),
+        batching=BatchingConfig(max_batch=64))
+    svc = PPRService(g, None, cfg, device=dev, maintainer=m)
+    work = np.random.default_rng(22).integers(0, g.n, 300).tolist()
+    svc.run_closed_loop(work)
+    shapes = set(svc.engine.graphs)
+    ok = bool(shapes)
+    ins = np.random.default_rng(23).integers(0, g.n, (UPD_EDGES, 2))
+    for b in range(2):
+        rep = svc.apply_updates(inserts=ins + b)
+        ok &= set(svc.engine.graphs) == shapes and rep["graphs_captured"] \
+            == len(shapes)
+        got, _ = svc.run_closed_loop(work)
+        fresh = PPRService(svc.graph, svc.maintainer.index, cfg, device=dev)
+        want, _ = fresh.run_closed_loop(work)
+        ok &= served_bytes(got) == served_bytes(want)
+    return ok
+
+
+CAPTURE_CHECKS = {
+    **{f"captured equals eager, {label}": (
+        lambda torch, np, dev, label=label: check_captured_equals_eager(
+            torch, np, dev, label)) for label in CAPTURE_CONFIGS},
+    "one graph per width whatever the spelling": check_captured_shapes,
+    "launch counts include replays": check_captured_launch_counts,
+    "out= writes into the given tensors": check_captured_into_given_buffers,
+    "captured service after apply_updates": check_captured_after_updates,
+}
 
 
 def check_small_maintenance(torch, np, dev):
@@ -1926,7 +2347,7 @@ def phase_maintenance(torch, np, dev, g, index, stats, cfg, work, failures):
     first, st = svc.run_closed_loop(reqs)
     print("  serve: " + json.dumps({k: st[k] for k in (
         "served", "batches", "wall_s", "qps", "latency_p50", "latency_p99",
-        "combine_path", "cache_size")}))
+        "combine_path", "cache_size", "graphs_captured", "capture_s")}))
     dirty_all = set()
     for b in range(UPD_BATCHES):
         ins = np_rng.integers(0, g.n, size=(UPD_EDGES, 2), dtype=np.int64)
@@ -1942,13 +2363,15 @@ def phase_maintenance(torch, np, dev, g, index, stats, cfg, work, failures):
               f"{rep['dirty_rows']} dirty rows, {rep['repaired_chunks']} of "
               f"{rep['total_chunks']} chunks repaired, resample ratio "
               f"{rep['resample_ratio']:.3f}, {rep['cache_invalidated']} cache "
-              f"entries invalidated")
+              f"entries invalidated, {rep['graphs_captured']} graphs of the "
+              f"new engine captured in {rep['capture_s']:.3f} s of it")
     again, st = svc.run_closed_loop(reqs)
     print(f"  serve again: {len(again)} answers, "
           f"{sum(a.cached for a in again)} from the cache; " + json.dumps(
               {k: st[k] for k in ("wall_s", "qps", "latency_p50",
                                   "latency_p99", "updates_applied",
-                                  "rows_repaired", "update_rollbacks")}))
+                                  "rows_repaired", "update_rollbacks",
+                                  "graphs_captured")}))
     t1 = time.perf_counter()
     rebuilt, rstats = build_index(svc.graph, UPD_R, UPD_L, key, device=dev,
                                   **walk)
@@ -1987,6 +2410,70 @@ def phase_maintenance(torch, np, dev, g, index, stats, cfg, work, failures):
                  for k in MAINT_PATH if counts[k] <= 0]
     del svc, m, rebuilt, rstats
     return counts
+
+
+def phase_loadgen(torch, np, dev, g, index, cfg, closed_qps, failures):
+    """Phase 3j: the load generator on 3c's service and 3b's index.
+    ``run_open_loop`` offers 16,384 uniform requests at 50% and at 90% of
+    3c's captured closed-loop qps; then ``bench_cache.py``'s stream
+    (``zipf_seed_workload``: seed sets of up to 4, skew 1.1, a pool of
+    1,024, a quarter single vertices) closed loop against a sparse-route
+    service with ``max_seeds=4`` and an answer cache of 512.  Each
+    service captures its widths first (``BatchingConfig.padded_shapes``)
+    and then zeroes its counters (``reset_stats``), as the reference's
+    benchmarks warm up."""
+    from repro_torch.core.query import QueryConfig
+    from repro_torch.serving import (CacheConfig, PPRService, ServiceConfig,
+                                     run_closed_loop, run_open_loop,
+                                     zipf_seed_workload)
+    from repro_torch.serving.batching import BatchingConfig
+    from repro_torch.serving.pipeline import PipelineConfig
+
+    keys = ("served", "batches", "offered_qps", "qps", "qps_excl_first_batch",
+            "latency_p50", "latency_p99", "pad_fraction", "batch_hist",
+            "graphs_captured")
+
+    def warmed(svc, seeds):
+        t1 = time.perf_counter()
+        widths = svc.cfg.batching.padded_shapes()
+        svc.engine.capture_shapes([
+            ((w, seeds), (w, seeds)) if seeds > 1 else ((w,), None)
+            for w in widths])
+        torch.cuda.synchronize()
+        print(f"  {len(widths)} widths captured in "
+              f"{time.perf_counter() - t1:.3f} s, pool "
+              f"{svc.engine.graph_pool_bytes()} bytes")
+        svc.reset_stats()
+        return svc
+
+    work = np.random.default_rng(LOADGEN_SEED).integers(
+        0, g.n, LOADGEN_REQUESTS).tolist()
+    svc = warmed(PPRService(g, index, cfg, device=dev), 1)
+    for share in (0.5, 0.9):
+        answers, st = run_open_loop(svc, work, share * closed_qps)
+        print(f"  open loop at {share:.0%} of {closed_qps:.1f} qps: "
+              + json.dumps({k: st[k] for k in keys}))
+        if len(answers) != LOADGEN_REQUESTS or bad_answers(np, answers, g.n):
+            failures.append(f"3j open loop at {share:.0%}: answers bad")
+        svc.reset_stats()
+    del svc
+    zcfg = ServiceConfig(
+        query=QueryConfig(t_iterations=2, top_k=50, hub_split_degree=64,
+                          max_seeds=4),
+        batching=BatchingConfig(max_batch=256, min_pad=64, max_wait_s=0.010),
+        pipeline=PipelineConfig(depth=2),
+        cache=CacheConfig(capacity=512))
+    zsvc = warmed(PPRService(g, index, zcfg, device=dev), 4)
+    stream = zipf_seed_workload(g.n, LOADGEN_REQUESTS, skew=1.1, max_seeds=4,
+                                pool=1024, singles_fraction=0.25,
+                                seed=LOADGEN_SEED)
+    answers, st = run_closed_loop(zsvc, stream)
+    print("  zipf seed-set stream (bench_cache.py's), closed loop: "
+          + json.dumps({k: st[k] for k in keys + ("cache_hit_rate",
+                                                  "cache_served")}))
+    if (len(answers) != LOADGEN_REQUESTS or bad_answers(np, answers, g.n)
+            or zsvc.frontier_path != "sparse"):
+        failures.append("3j zipf seed-set stream: answers bad")
 
 
 def main() -> int:
@@ -2078,10 +2565,7 @@ def main() -> int:
     captured_s = ops.captured_launches()
     ops.capture_first_launches(False)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print("serve:", json.dumps({k: sstats[k] for k in (
-        "served", "batches", "wall_s", "qps", "latency_p50", "latency_p99",
-        "first_batch_service_s", "pad_fraction", "combine_path",
-        "pipeline_in_flight_peak", "batch_hist")}))
+    print("serve:", json.dumps({k: sstats[k] for k in SERVE_KEYS}))
     print("main-path launches:", json.dumps(counts))
     failures += [f"kernel {k} never launched on the sparse main path"
                  for k in SPARSE_PATH if counts[k] <= 0]
@@ -2092,14 +2576,22 @@ def main() -> int:
     print(f"answer mass: min {mass.min():.6f} mean {mass.mean():.6f} "
           f"max {mass.max():.6f}")
     src256 = torch.tensor(work[:256], dtype=torch.int32, device=dev)
-    wall_ms, device_ms, split = device_time_split(
-        torch, lambda: eng.query_topk(src256))
-    print(f"sparse batch of 256, device time by kernel (torch.profiler): "
-          f"wall {wall_ms:.3f} ms, device busy {device_ms:.3f} ms, idle "
-          f"{100 * (1 - device_ms / wall_ms):.1f}% of the wall")
-    for name, ms in split:
-        print(f"  {ms:9.3f} ms  {100 * ms / max(device_ms, 1e-9):5.1f}%  "
-              f"{name[:110]}")
+    for how, fn in (("eager", lambda: eng.query_topk(src256)),
+                    ("captured", lambda: eng.query_topk_async(src256))):
+        wall_ms, device_ms, split = device_time_split(torch, fn)
+        print(f"sparse batch of 256, {how}, device time by kernel "
+              f"(torch.profiler): wall {wall_ms:.3f} ms, device busy "
+              f"{device_ms:.3f} ms, idle "
+              f"{100 * (1 - device_ms / wall_ms):.1f}% of the wall")
+        for name, ms in split:
+            print(f"  {ms:9.3f} ms  {100 * ms / max(device_ms, 1e-9):5.1f}%  "
+                  f"{name[:110]}")
+    print("sparse route, captured against eager on the same requests:")
+    _, sparse_ab, _ = captured_vs_eager(
+        torch, np, lambda depth: PPRService(g, index, ServiceConfig(
+            query=cfg.query, batching=cfg.batching,
+            pipeline=PipelineConfig(depth=depth)), device=dev),
+        work, "sparse", failures, depth1_requests=MAIN_REQUESTS // 4)
     phase("3c serve", t0)
 
     # -- 3b's breakdown, outside the counted run: one build chunk ---------
@@ -2167,12 +2659,11 @@ def main() -> int:
     ops.capture_first_launches(False)
     print(f"peak device memory (dense route, serving with its views "
           f"built): {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print("serve dense:", json.dumps({k: dstats[k] for k in (
-        "served", "batches", "wall_s", "qps", "latency_p50", "latency_p99",
-        "first_batch_service_s", "pad_fraction", "combine_path",
-        "pipeline_in_flight_peak", "batch_hist")}))
+    print("serve dense:", json.dumps({k: dstats[k] for k in SERVE_KEYS}))
     print("dense-path launches:", json.dumps(counts_d))
-    batches = int(dstats["batches"])
+    # every batch is a replay of its width's graph, and every graph's
+    # capture made one eager warm-up batch
+    batches = int(dstats["batches"]) + len(eng_d.graphs)
     want = {"ell_spmm": 2 * batches, "index_combine": batches}
     failures += [f"dense path: {k} launched {counts_d[k]} times, want {v}"
                  for k, v in want.items() if counts_d[k] != v]
@@ -2200,6 +2691,15 @@ def main() -> int:
     for name, ms in split:
         print(f"  {ms:9.3f} ms  {100 * ms / max(device_ms, 1e-9):5.1f}%  "
               f"{name[:110]}")
+    eng_d.graphs.clear()     # 3e queries eng_d eagerly: free its pool
+    torch.cuda.empty_cache()
+    print("dense route, captured against eager on the same requests:")
+    captured_vs_eager(
+        torch, np, lambda depth: PPRService(g, index, ServiceConfig(
+            query=dcfg.query, batching=dcfg.batching,
+            pipeline=PipelineConfig(depth=depth)), device=dev),
+        work[:MAIN_REQUESTS // 4], "dense", failures,
+        depth1_requests=MAIN_REQUESTS // 16)
     phase("3d serve, dense route", t0)
 
     # -- 3e: the baselines against power iteration ---------------------------
@@ -2370,6 +2870,10 @@ def main() -> int:
     phase("3i maintenance and crash safety", t0)
 
     t0 = time.perf_counter()
+    phase_loadgen(torch, np, dev, g, index, cfg, sparse_ab["qps"], failures)
+    phase("3j load generation", t0)
+
+    t0 = time.perf_counter()
     results = {}
     captured_f = {tag: v for tag, v in captured_f.items()
                   if tag.startswith("sharded_frontier_push/")}
@@ -2414,6 +2918,12 @@ def main() -> int:
     print("small reference, maintenance, bit-equal:", json.dumps(maint_equal))
     failures += [f"small maintenance reference: {k}"
                  for k, v in maint_equal.items() if not v]
+    t1 = time.perf_counter()
+    capture_ok = {k: fn(torch, np, dev) for k, fn in CAPTURE_CHECKS.items()}
+    print(f"small reference, captured graphs at rmat(14) "
+          f"({time.perf_counter() - t1:.3f} s):", json.dumps(capture_ok))
+    failures += [f"small captured-graph check: {k}"
+                 for k, v in capture_ok.items() if not v]
     phase("4 small reference", t0)
 
     paths = {"sparse (3b, 3c)": (SPARSE_PATH, counts),

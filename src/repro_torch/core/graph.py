@@ -280,6 +280,32 @@ def transition_with_dangling_seeds(graph: Graph, frontier: torch.Tensor,
     return pushed.index_put_((rows, seeds.long()), share, accumulate=True)
 
 
+def degree_histogram(graph: Graph, n_buckets: int = 10) -> np.ndarray:
+    """Paper Section 4.2 bucketing: bucket ``i`` holds out-degrees in
+    ``[2^(i-1), 2^i)``; the last bucket is unbounded."""
+    deg = graph.out_deg.cpu().numpy()
+    edges = [0] + [2 ** i for i in range(n_buckets - 1)] + [np.inf]
+    return np.histogram(deg, bins=edges)[0]
+
+
+def bucket_sample_sources(graph: Graph, per_bucket: int, n_buckets: int = 10,
+                          seed: int = 0) -> np.ndarray:
+    """Query vertices sampled stratified by out-degree (paper Section
+    4.2), the reference's draws from the same seed."""
+    rng = np.random.default_rng(seed)
+    deg = graph.out_deg.cpu().numpy()
+    picks = []
+    for i in range(1, n_buckets + 1):
+        lo = 2 ** (i - 1) if i > 1 else 0
+        hi = np.inf if i == n_buckets else 2 ** i
+        pool = np.nonzero((deg >= lo) & (deg < hi))[0]
+        if pool.size == 0:
+            continue
+        k = min(per_bucket, pool.size)
+        picks.append(rng.choice(pool, size=k, replace=False))
+    return np.concatenate(picks) if picks else np.zeros(0, dtype=np.int64)
+
+
 def reverse(graph: Graph) -> Graph:
     """Graph with every edge reversed, on the same device."""
     return Graph.from_edges(graph.col_idx.cpu().numpy(),

@@ -30,14 +30,16 @@ def estimate_ppr(
     *,
     c: float = DEFAULT_C,
     max_steps: int = 64,
+    words: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """MCFP estimate ``f32[S, n]`` of the PPR vectors of ``sources``, on the
-    graph's device."""
+    graph's device; ``words`` replaces ``key`` as in
+    :func:`~repro_torch.core.walks.simulate_walks`."""
     sources = torch.as_tensor(sources).to(graph.device, torch.int32)
     walk_sources, walk_rows = walks_for_sources(sources, r)
     counts = simulate_walks(graph, walk_sources, walk_rows, key,
                             n_rows=int(sources.shape[0]), c=c,
-                            max_steps=max_steps)
+                            max_steps=max_steps, words=words)
     return counts.fp_counts / torch.clamp(counts.moves[:, None], min=1.0)
 
 

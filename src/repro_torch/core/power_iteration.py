@@ -23,7 +23,8 @@ def power_iteration(graph: Graph, sources, *, n_iter: int = 100,
     rows = torch.arange(q, device=sources.device)
     e_u = torch.zeros((q, graph.n), dtype=torch.float32,
                       device=sources.device)
-    e_u[rows, sources.long()] = 1.0
+    e_u.index_put_((rows, sources.long()),
+                   torch.ones((), dtype=torch.float32, device=e_u.device))
     p = e_u
     for _ in range(n_iter):
         p = transition_with_dangling(graph, p, sources)

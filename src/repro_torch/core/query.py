@@ -24,15 +24,17 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import rng
+from repro_torch.core import capture as capture_mod
 from repro_torch.core import mcfp as mcfp_mod
 from repro_torch.core import power_iteration as pi_mod
 from repro_torch.core import verd as verd_mod
+from repro_torch.core import walks as walks_mod
 from repro_torch.core.frontier import topk_dense
 from repro_torch.core.graph import Graph
 from repro_torch.core.index import PPRIndex
@@ -42,6 +44,8 @@ from repro_torch.device import resolve_device
 AUTO_SPARSE_MIN_N = 1 << 14
 
 SCATTER_COMBINE_BUDGET_BYTES = 256 * 1024 * 1024
+
+MCFP_MAX_STEPS = 64   # positions a walk of the mcfp mode (estimate_ppr's)
 
 
 def auto_frontier_floor(top_k: int) -> int:
@@ -110,6 +114,11 @@ class BatchQueryEngine:
         self._base_key = rng.prng_key(cfg.seed)
         self._key = self._base_key
         self._degree_cap: Optional[int] = None
+        # one CUDA graph per dispatch shape, all in one memory pool; they
+        # live and die with the engine
+        self.graphs: Dict[tuple, capture_mod.CapturedQuery] = {}
+        self._pool = None
+        self.capture_s = 0.0
 
     @property
     def frontier_k(self) -> int:
@@ -175,24 +184,31 @@ class BatchQueryEngine:
     def effective_top_k(self) -> int:
         return max(1, min(self.config.top_k, self.graph.n))
 
-    def _to_device(self, x, dtype) -> torch.Tensor:
-        """Host arrays go up through pinned memory with a non-blocking
-        copy: a pageable copy would first wait for the whole stream, which
-        serializes the serving pipeline's dispatches."""
+    def _host_tensor(self, x, dtype) -> torch.Tensor:
+        """A dispatch input on the host, pinned on a CUDA engine (a
+        pageable copy would first wait for the whole stream, which
+        serializes the serving pipeline's dispatches), or the tensor
+        itself where it already lies on the engine's device."""
         if isinstance(x, torch.Tensor) and x.device.type == self.device.type:
-            return x.to(self.device, dtype)
+            return x.to(dtype)
         t = torch.as_tensor(np.asarray(x)).to(dtype)
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def _to_device(self, x, dtype) -> torch.Tensor:
+        return self._host_tensor(x, dtype).to(self.device, non_blocking=True)
+
+    def _inputs_raw(self, sources, weights):
+        """Sources and raw weights on the device (not normalized: the
+        query body normalizes them, inside a captured graph too)."""
+        sources = self._to_device(sources, torch.int32)
+        if weights is not None:
+            weights = self._to_device(weights, torch.float32)
+        return sources, weights
 
     def _inputs(self, sources, weights):
-        sources = self._to_device(sources, torch.int32)
-        seed_w = None
-        if weights is not None:
-            seed_w = normalize_seed_weights(
-                self._to_device(weights, torch.float32))
-        return sources, seed_w
+        sources, weights = self._inputs_raw(sources, weights)
+        return sources, (None if weights is None
+                         else normalize_seed_weights(weights))
 
     def query_sparse(self, sources, out_k: Optional[int] = None,
                      weights=None):
@@ -262,46 +278,159 @@ class BatchQueryEngine:
         for a given (seed, dispatch order) at any pipeline depth."""
         return rng.fold_in(self._base_key, seq)
 
+    @property
+    def uses_key(self) -> bool:
+        """Whether answers depend on the dispatch key (the ``mcfp`` mode)."""
+        return self.config.mode == "mcfp"
+
     def query_topk_async(self, sources, *, key=None, weights=None, out=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-k answers as tensors whose work is enqueued on the current
-        CUDA stream, with no host sync on the way (the degree cap is
-        resolved once per engine, the ELL view once per graph).  The dense route
-        is :meth:`query_topk`'s; the sparse route routes the final combine
-        like the reference: scatter while the ``[Q, n]`` scratch fits the
-        budget, else the ``index_combine_sparse`` kernel.  ``out`` (donated
-        result buffers) is not ported.  ``key`` seeds the ``mcfp`` mode
-        (default: the base key; the pipeline passes :meth:`dispatch_key`)."""
-        if out is not None:
-            raise NotImplementedError(
-                "donated result buffers (reuse_buffers) are not ported yet")
+        CUDA stream, with no host sync on the way.
+
+        On the card each dispatch shape (padded width, seed-set width) is
+        one CUDA graph (``core/capture.py``), captured at its first
+        dispatch, as the reference's jit compiles once per padded width:
+        the inputs go up through pinned memory into the graph's static
+        inputs, the graph replays, and the graph's static outputs come
+        back; they hold this answer until the next dispatch of the same
+        shape is enqueued.  ``out = (vals f32[Q, k], idx int32[Q, k])``
+        receives a copy of the answer, enqueued on the stream, and is
+        returned instead.  On the CPU the query runs eagerly.
+
+        The query is the reference's ``_fused_topk``: the sparse route
+        combines by scatter while the ``[Q, n]`` scratch fits the budget,
+        else through ``index_combine_sparse``; the dense route is
+        :meth:`query_topk`'s.  ``key`` seeds the ``mcfp`` mode (default:
+        the base key; the pipeline passes :meth:`dispatch_key`)."""
         cfg = self.config
-        if key is None:
+        if weights is not None and cfg.mode in ("mcfp", "pi"):
+            raise ValueError(
+                f"mode {cfg.mode!r} does not support seed-set queries")
+        if self.uses_key and key is None:
             key = self._base_key
-        if not self.uses_sparse_path():
-            return self.query_topk(sources, key=key, weights=weights)
-        sources, seed_w = self._inputs(sources, weights)
-        k = self.effective_top_k
-        if cfg.mode == "powerwalk" and self.uses_scatter_combine(
-                int(sources.shape[0])):
-            s, f = verd_mod.verd_iterate_sparse(
-                self.graph, sources, seed_w, t=cfg.t_iterations,
-                k=self.frontier_k, c=cfg.c, threshold=cfg.threshold,
-                degree_cap=self.degree_cap(),
-                hub_split_degree=cfg.hub_split_degree,
-            )
-            vals, idx = verd_mod.combine_with_index_scatter(
-                s, f, self.index, out_k=k)
+        if self.device.type == "cuda":
+            vals, idx = self._replay(sources, weights, key)
         else:
-            sf = verd_mod.verd_query_sparse(
-                self.graph, sources,
-                self.index if cfg.mode == "powerwalk" else None,
-                t=cfg.t_iterations, k=self.frontier_k, c=cfg.c,
-                threshold=cfg.threshold, out_k=k,
-                degree_cap=self.degree_cap(),
-                hub_split_degree=cfg.hub_split_degree, seed_weights=seed_w,
-            )
-            vals, idx = sf.values, sf.indices
+            vals, idx = self._query_eager(sources, weights, key)
+        if out is None:
+            return vals, idx
+        out[0].copy_(vals, non_blocking=True)
+        out[1].copy_(idx, non_blocking=True)
+        return out[0], out[1]
+
+    def _query_eager(self, sources, weights, key):
+        """The dispatch run op by op with no graph (the CPU's path)."""
+        sources, weights = self._inputs_raw(sources, weights)
+        words = (walks_mod.step_key_words(key, MCFP_MAX_STEPS, self.device)
+                 if self.uses_key else None)
+        return self._topk_eager(sources, weights, words)
+
+    def _replay(self, sources, weights, key):
+        """Write the dispatch's inputs into its shape's graph, capturing
+        the graph at the shape's first dispatch, and replay it."""
+        src = self._host_tensor(sources, torch.int32)
+        w = None if weights is None else self._host_tensor(weights,
+                                                           torch.float32)
+        shape = (tuple(src.shape), None if w is None else tuple(w.shape))
+        cap = self.graphs.get(shape)
+        words = (walks_mod.host_step_key_words(key, MCFP_MAX_STEPS)
+                 .pin_memory() if self.uses_key else None)
+        if cap is None:
+            static = [None if x is None else torch.empty(
+                x.shape, dtype=x.dtype, device=self.device)
+                for x in (src, w, words)]
+            self._write(static, (src, w, words))
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            cap = self.graphs[shape] = capture_mod.CapturedQuery(
+                self._topk_eager, *static, self.effective_top_k, self._pool)
+            self.capture_s += cap.capture_s
+        else:
+            self._write((cap.sources, cap.weights, cap.words),
+                        (src, w, words))
+        return cap.replay()
+
+    @staticmethod
+    def _write(static, values) -> None:
+        """Enqueue the copies of a dispatch's inputs (pinned host tensors,
+        or tensors on the card) into a graph's static inputs."""
+        for dst, x in zip(static, values):
+            if dst is not None:
+                dst.copy_(x, non_blocking=True)
+
+    def capture_shapes(self, shapes) -> None:
+        """Capture the graphs of ``shapes`` (keys of another engine's
+        :attr:`graphs`) ahead of serving, on inputs of vertex 0 (weight 1
+        on the first seed)."""
+        for src_shape, w_shape in shapes:
+            if (src_shape, w_shape) in self.graphs:
+                continue
+            weights = None
+            if w_shape is not None:
+                weights = np.zeros(w_shape, np.float32)
+                weights[:, 0] = 1.0
+            self._replay(np.zeros(src_shape, np.int32), weights,
+                         self._base_key if self.uses_key else None)
+
+    def graph_pool_bytes(self) -> Optional[int]:
+        """Device bytes of the engine's graph memory pool (None: not
+        measurable here)."""
+        if self._pool is None:
+            return 0
+        return capture_mod.pool_bytes(self._pool, self.device)
+
+    def _topk_eager(self, sources, weights, words
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The whole query on device inputs, op by op: the body each
+        captured graph records (the reference's ``_fused_topk_impl``).
+        ``weights`` are raw seed weights; ``words`` the ``mcfp`` mode's
+        step key words."""
+        cfg = self.config
+        g = self.graph
+        k = self.effective_top_k
+        seed_w = None if weights is None else normalize_seed_weights(weights)
+        if self.uses_sparse_path():
+            if cfg.mode == "powerwalk" and self.uses_scatter_combine(
+                    int(sources.shape[0])):
+                s, f = verd_mod.verd_iterate_sparse(
+                    g, sources, seed_w, t=cfg.t_iterations,
+                    k=self.frontier_k, c=cfg.c, threshold=cfg.threshold,
+                    degree_cap=self.degree_cap(),
+                    hub_split_degree=cfg.hub_split_degree,
+                )
+                vals, idx = verd_mod.combine_with_index_scatter(
+                    s, f, self.index, out_k=k)
+            else:
+                sf = verd_mod.verd_query_sparse(
+                    g, sources,
+                    self.index if cfg.mode == "powerwalk" else None,
+                    t=cfg.t_iterations, k=self.frontier_k, c=cfg.c,
+                    threshold=cfg.threshold, out_k=k,
+                    degree_cap=self.degree_cap(),
+                    hub_split_degree=cfg.hub_split_degree,
+                    seed_weights=seed_w,
+                )
+                vals, idx = sf.values, sf.indices
+        else:
+            if cfg.mode in ("powerwalk", "verd"):
+                dense = verd_mod.verd_query(
+                    g, sources,
+                    self.index if cfg.mode == "powerwalk" else None,
+                    t=cfg.t_iterations, c=cfg.c, threshold=cfg.threshold,
+                    seed_weights=seed_w)
+            elif cfg.mode == "fppr":
+                dense = _fppr_lookup(self.index, sources, seed_w)
+            elif cfg.mode == "mcfp":
+                dense = mcfp_mod.estimate_ppr(
+                    g, sources, cfg.r_online, None, c=cfg.c,
+                    max_steps=MCFP_MAX_STEPS, words=words)
+            elif cfg.mode == "pi":
+                dense = pi_mod.power_iteration(
+                    g, sources, n_iter=cfg.pi_iterations, c=cfg.c)
+            else:
+                raise ValueError(f"unknown mode {cfg.mode!r}")
+            vals, idx = topk_dense(dense, k)
         if vals.shape[-1] != k or idx.shape[-1] != k:
             raise AssertionError((tuple(vals.shape), tuple(idx.shape), k))
         return vals, idx

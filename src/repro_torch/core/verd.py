@@ -56,7 +56,8 @@ def verd_iterate(graph: Graph, sources, seed_weights=None, *, t: int,
     f = torch.zeros((q, graph.n), dtype=torch.float32, device=dev)
     rows = torch.arange(q, device=dev)
     if seed_weights is None:
-        f[rows, sources.long()] = 1.0
+        f.index_put_((rows, sources.long()),
+                     torch.ones((), dtype=torch.float32, device=dev))
     else:
         f.index_put_((rows[:, None].expand(sources.shape), sources.long()),
                      seed_weights.to(torch.float32), accumulate=True)
@@ -332,7 +333,10 @@ def combine_with_index_sparse(s, f, index: PPRIndex, *,
 def combine_with_index_scatter(s, f, index: PPRIndex, *, out_k: int,
                                n_cols: Optional[int] = None):
     """Final combine through a dense ``[Q, n]`` scatter-add, then a stable
-    descending sort for ``lax.top_k``'s order (value desc, column asc)."""
+    descending sort for ``lax.top_k``'s order (value desc, column asc).
+    The scatter is an accumulating ``index_put_``, which sums each
+    column's candidates in candidate order on the card too (no float
+    atomics), so its answers are the same bytes on every run."""
     cand_v, cand_i = gather_combine_candidates(
         s.values, s.indices, f.values, f.indices, index.values,
         index.indices)
@@ -340,8 +344,11 @@ def combine_with_index_scatter(s, f, index: PPRIndex, *, out_k: int,
     n = index.n if n_cols is None else n_cols
     keep = cand_i < n   # mode="drop": out-of-range columns are discarded
     dense = torch.zeros((q, n), dtype=torch.float32, device=cand_v.device)
-    dense.scatter_add_(1, torch.where(keep, cand_i, 0).long(),
-                       torch.where(keep, cand_v, 0.0))
+    flat = (torch.arange(q, dtype=torch.int64, device=cand_v.device)[:, None]
+            * n + torch.where(keep, cand_i, 0).long())
+    dense.view(-1).index_put_((flat.reshape(-1),),
+                              torch.where(keep, cand_v, 0.0).reshape(-1),
+                              accumulate=True)
     vals, idx = torch.sort(dense, dim=1, descending=True, stable=True)
     kk = min(out_k, n)
     vals, idx = vals[:, :kk], idx[:, :kk]

@@ -57,20 +57,26 @@ class WalkCounts:
     walks: torch.Tensor
 
 
-def step_key_words(key, steps: int, device, fold: Optional[int] = None
-                   ) -> torch.Tensor:
+def host_step_key_words(key, steps: int, fold: Optional[int] = None
+                        ) -> torch.Tensor:
     """The key words of every step of a dense walk pass, ``int64[steps, 3,
-    2]``: per step ``t``, ``k_move, k_term = split(fold_in(key, t))``
-    (``fold`` folded into the step key first when given: a data shard's
-    index), then ``randint``'s own split of ``k_move``, stacked as
-    ``(k_term, k_move halves)``.  Computed on the host and sent in one
-    copy, so the steps make no host round trip."""
+    2]`` on the host: per step ``t``, ``k_move, k_term = split(fold_in(key,
+    t))`` (``fold`` folded into the step key first when given: a data
+    shard's index), then ``randint``'s own split of ``k_move``, stacked as
+    ``(k_term, k_move halves)``."""
     step = rng.fold_in(rng.key_data(key).cpu(), torch.arange(steps))
     if fold is not None:
         step = rng.fold_in(step, fold)
     step = rng.split(step)                                      # [T, 2, 2]
     halves = rng.split(step[:, 0])                              # [T, 2, 2]
-    words = torch.cat([step[:, 1:2], halves], dim=1)
+    return torch.cat([step[:, 1:2], halves], dim=1)
+
+
+def step_key_words(key, steps: int, device, fold: Optional[int] = None
+                   ) -> torch.Tensor:
+    """:func:`host_step_key_words` on ``device``, sent in one copy, so the
+    steps make no host round trip."""
+    words = host_step_key_words(key, steps, fold)
     if torch.device(device).type == "cuda":
         return words.pin_memory().to(device, non_blocking=True)
     return words.to(device)
@@ -101,9 +107,12 @@ def simulate_walks(
     n_rows: int,
     c: float = DEFAULT_C,
     max_steps: int = 64,
+    words: Optional[torch.Tensor] = None,
 ) -> WalkCounts:
     """Run one walk per entry of ``walk_sources`` and aggregate counts, on
-    the graph's device.
+    the graph's device.  ``words`` (:func:`step_key_words` of ``key``, on
+    that device) replaces ``key``: a captured CUDA graph takes them as an
+    input, since computing them reads the host.
 
     walk_sources: int32[W] start (= personalization) vertex of each walk.
     walk_rows:    int32[W] output row each walk accumulates into (so ``R``
@@ -122,8 +131,9 @@ def simulate_walks(
     w = int(walk_sources.shape[0])
     src = walk_sources.to(dev, torch.int32)
     rows = walk_rows.to(dev).long()
-    words = step_key_words(key, max_steps, dev)
-    c32 = torch.tensor(c, dtype=torch.float32, device=dev)
+    if words is None:
+        words = step_key_words(key, max_steps, dev)
+    c32 = torch.full((), c, dtype=torch.float32, device=dev)
     fp = torch.zeros((n_rows, graph.n), dtype=torch.float32, device=dev)
     ep = torch.zeros_like(fp)
     moves = torch.zeros((n_rows,), dtype=torch.float32, device=dev)

@@ -11,9 +11,22 @@ import numpy as np
 from repro_torch.core.graph import Graph
 
 
+def figure2_graph(device="cuda") -> Graph:
+    """The 8-vertex graph of paper Figure 2 (v1..v8 -> 0..7): v1 -> v2,
+    v3; v2 -> v4, v5; v3 -> v6, v7; v4 -> v8; v5..v8 dangling."""
+    src = [0, 0, 1, 1, 2, 2, 3]
+    dst = [1, 2, 3, 4, 5, 6, 7]
+    return Graph.from_edges(src, dst, n=8, device=device)
+
+
 def cycle(n: int, device="cuda") -> Graph:
     src = np.arange(n)
     return Graph.from_edges(src, (src + 1) % n, n=n, device=device)
+
+
+def complete(n: int, device="cuda") -> Graph:
+    src, dst = np.nonzero(~np.eye(n, dtype=bool))
+    return Graph.from_edges(src, dst, n=n, device=device)
 
 
 def star(n: int, device="cuda") -> Graph:
@@ -63,3 +76,17 @@ def rmat(
         _, idx = np.unique(key, return_index=True)
         src, dst = src[idx], dst[idx]
     return Graph.from_edges(src, dst, n=n, device=device)
+
+
+def bipartite_recsys(n_users: int, n_items: int, avg_deg: float = 8.0,
+                     seed: int = 0, device="cuda") -> Graph:
+    """User->item + item->user interaction graph: vertices ``[0,
+    n_users)`` are users, the next ``n_items`` items, item popularity
+    Zipf-distributed like click-log skew."""
+    rng = np.random.default_rng(seed)
+    m = int(n_users * avg_deg)
+    users = rng.integers(0, n_users, size=m)
+    items = (rng.zipf(1.5, size=m) - 1) % n_items + n_users
+    src = np.concatenate([users, items])
+    dst = np.concatenate([items, users])
+    return Graph.from_edges(src, dst, n=n_users + n_items, device=device)

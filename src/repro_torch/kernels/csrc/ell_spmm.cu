@@ -41,6 +41,7 @@
 // is zero for every q: fma(w, 0, acc) == acc for a finite acc, so
 // skipping it keeps each sum's bits.
 #include "compact.cuh"
+#include "smem_optin.cuh"
 
 namespace {
 
@@ -238,12 +239,9 @@ extern "C" int ell_spmm_launch(const void* f, const void* nbr, const void* w,
                                              (int*)slot, (float*)ftc,
                                              (int*)n_live);
   }
+  static const int smem_err = pw::allow_max_dynamic_smem(ell_pull_kernel);
+  if (smem_err) return smem_err;
   const int smem = ell_spmm_stage_bytes(rows > 0 ? k : 0);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        ell_pull_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   const dim3 grid(n_blocks, (q + kQ - 1) / kQ);
   ell_pull_kernel<<<grid, kQ, smem, s>>>(
       (const float*)ftc, (const int*)slot, (const int*)nbr, (const float*)w,

@@ -77,6 +77,7 @@ __device__ __forceinline__ void pw_tick(int phase) {
 #endif
 
 #include "compact.cuh"
+#include "smem_optin.cuh"
 
 using pw::kEmpty;
 
@@ -759,17 +760,16 @@ extern "C" int index_combine_hash_launch(
       d_max > 3 * (1 << t_log2) / 4 - kHashThreads || (part_mul & 1u) == 0) {
     return (int)cudaErrorInvalidValue;
   }
+  static const int smem_err =
+      pw::allow_max_dynamic_smem(index_combine_hash_kernel);
+  if (smem_err) return smem_err;
   const int smem = hash_smem_bytes(t_log2, k, k_out);
-  cudaError_t err = cudaFuncSetAttribute(
-      index_combine_hash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   index_combine_hash_kernel<<<(unsigned)q * parts, kHashThreads, smem, st>>>(
       (const float*)sv, (const int*)si, s_w, (const float*)fv,
       (const int*)fi, k, (const float*)vals, (const int*)idx, n, l, k_out,
       parts, t_log2, d_max, bulk, part_mul, (unsigned long long*)part_keys);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   index_combine_merge_kernel<<<q, 256, 0, st>>>(
       (const unsigned long long*)part_keys, parts, k_out, (float*)out_v,

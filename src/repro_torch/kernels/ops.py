@@ -18,12 +18,20 @@ one-hot sources and of the second iteration's frontier), so a check can
 replay exactly the inputs the main path gave it.  With ``last=True`` it
 keeps each variant's last launch instead (``ell_spmm``'s "later" is then
 the last push of a run: a late power iteration's dense frontier).
+
+A CUDA graph launches its kernels with no wrapper call.  Its capture runs
+inside :func:`recording_launches`, which collects the graph's launches per
+kernel instead of counting them (and records no arguments: a capture's
+tensors live in the graph's pool, which every replay overwrites); each
+replay adds them with :func:`add_replayed_launches` (``core/capture.py``),
+so the counts include replayed launches.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, Iterator, Mapping, Optional
 
 import torch
 
@@ -39,6 +47,7 @@ KERNELS = ("walk_step", "frontier_push", "index_combine_sparse", "ell_spmm",
 _launches: collections.Counter = collections.Counter()
 _captured: Optional[Dict[str, tuple]] = None
 _capture_last = False
+_recording: Optional[collections.Counter] = None
 
 
 def launch_counts() -> Dict[str, int]:
@@ -65,8 +74,28 @@ def captured_launches() -> Dict[str, tuple]:
     return dict(_captured or {})
 
 
+@contextlib.contextmanager
+def recording_launches() -> Iterator[collections.Counter]:
+    """Around a graph capture: the wrappers' launches go to the yielded
+    counter instead of the counts, and record no arguments."""
+    global _recording
+    prev, _recording = _recording, collections.Counter()
+    try:
+        yield _recording
+    finally:
+        _recording = prev
+
+
+def add_replayed_launches(counts: Mapping[str, int]) -> None:
+    """Count one replay of a graph whose capture recorded ``counts``."""
+    _launches.update(counts)
+
+
 def _launched(name: str, args: tuple, kwargs: dict,
               variant: Optional[str] = "main") -> None:
+    if _recording is not None:
+        _recording[name] += 1
+        return
     _launches[name] += 1
     tag = f"{name}/{variant}"
     if _captured is not None and variant and (

@@ -111,6 +111,14 @@ def _urem(x: torch.Tensor, span: torch.Tensor) -> torch.Tensor:
     return torch.where(span == 0, x, x % torch.where(span == 0, 1, span))
 
 
+def _int64_on(x, device) -> torch.Tensor:
+    """``x`` as int64 on ``device``; a Python int becomes a fill, not a
+    host copy, so a CUDA graph can capture it."""
+    if isinstance(x, int):
+        return torch.full((), x, dtype=torch.int64, device=device)
+    return torch.as_tensor(x, dtype=torch.int64, device=device)
+
+
 def bits_to_randint(higher: torch.Tensor, lower: torch.Tensor, minval,
                     maxval) -> torch.Tensor:
     """``jax.random.randint``'s int32 draw from its two 32-bit words
@@ -123,8 +131,7 @@ def bits_to_randint(higher: torch.Tensor, lower: torch.Tensor, minval,
     ``maxval`` are ints or integer tensors that broadcast against the
     words."""
     dev = higher.device
-    lo = torch.as_tensor(minval, dtype=torch.int64, device=dev)
-    hi = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+    lo, hi = (_int64_on(x, dev) for x in (minval, maxval))
     out_of_range = hi > _I32_MAX
     lo = torch.clamp(lo, _I32_MIN, _I32_MAX)
     hi = torch.clamp(hi, _I32_MIN, _I32_MAX)

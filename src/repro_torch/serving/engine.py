@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -28,12 +28,9 @@ from repro_torch.serving.batching import (BatchingConfig, BufferOverloadError,
                                           RequestBuffer)
 from repro_torch.serving.cache import (AnswerCache, CacheConfig,
                                        canonicalize_seed_set)
+from repro_torch.serving.loadgen import WorkItem
 from repro_torch.serving.pipeline import (CompletedBatch, PipelineConfig,
                                           ServingPipeline)
-
-# a workload item is a vertex, a (vertex, tier) pair, or a seed-set dict
-# {"seeds": [...], "weights": [...], "tier": "..."}
-WorkItem = Union[int, Tuple[int, str], dict]
 
 
 @dataclasses.dataclass
@@ -184,11 +181,14 @@ class PPRService:
         """Apply an edge-update batch to the live graph and index.
 
         Needs a ``maintainer``.  Repairs the index
-        (``core.updates.apply_updates``), swaps the engine onto the new
-        graph and index, then invalidates exactly the repaired rows'
-        answers in the cache, which also bumps its epoch so a batch still
-        in flight on the old index is not cached.  Returns the repair
-        report with ``cache_invalidated``.
+        (``core.updates.apply_updates``), builds an engine on the new
+        graph and index with the old engine's CUDA graphs captured anew
+        (``capture_s``, ``graphs_captured`` in the report), swaps it in,
+        then invalidates exactly the repaired rows' answers in the cache,
+        which also bumps its epoch so a batch still in flight on the old
+        index is not cached.  Batches in flight hold the old engine, its
+        graphs and their pool until they are harvested.  Returns the
+        repair report with ``cache_invalidated``.
 
         The swap is atomic: the repaired index and the new engine are
         built before any attribute changes, so a failure in either leaves
@@ -212,6 +212,12 @@ class PPRService:
             frontier_path = (
                 "sparse" if new_engine.uses_sparse_path() else "dense")
             answer_k = new_engine.effective_top_k
+            # the old engine's graphs captured anew over the new graph and
+            # index, before the commit point: a failed capture rolls back
+            t0 = time.perf_counter()
+            new_engine.capture_shapes(list(self.engine.graphs))
+            report["capture_s"] = time.perf_counter() - t0
+            report["graphs_captured"] = len(new_engine.graphs)
         except BaseException:
             self.stats["update_rollbacks"] += 1
             raise
@@ -311,6 +317,8 @@ class PPRService:
         s["answer_k"] = self.answer_k
         s["index_rows"] = self.index_rows
         s["device"] = str(self.engine.device)
+        s["graphs_captured"] = len(self.engine.graphs)
+        s["capture_s"] = self.engine.capture_s
         s["pipeline_depth"] = self.cfg.pipeline.depth
         s["dispatch_path"] = self.cfg.pipeline.dispatch
         s["max_queue_depth"] = self.cfg.batching.max_queue_depth
@@ -334,29 +342,25 @@ class PPRService:
         self.cache.check_integrity()
         return s
 
+    def reset_stats(self) -> None:
+        """Zero the counters (after warm-up dispatches, say); cached
+        answers and captured graphs stay."""
+        for k in self.stats:
+            self.stats[k] = 0 if isinstance(self.stats[k], int) else 0.0
+        for k in self.pipeline.stats:
+            self.pipeline.stats[k] = 0
+        self.pipeline.batch_hist.clear()
+        for k in self.buffer.stats:
+            self.buffer.stats[k] = 0
+        for k in self.cache.stats:
+            self.cache.stats[k] = 0
+
     def run_closed_loop(
         self, vertices: Sequence[WorkItem]
     ) -> Tuple[List[Answer], dict]:
         """Serve a fixed workload to completion, offering requests as fast
-        as the loop runs; returns ``(answers, stats)`` with wall time, qps
-        and latency percentiles."""
-        answers: List[Answer] = []
-        t0 = self.clock()
-        for item in vertices:
-            if isinstance(item, dict):
-                self.submit(tier=item.get("tier", "interactive"),
-                            seeds=item["seeds"], weights=item.get("weights"))
-            else:
-                v, tier = item if isinstance(item, tuple) else (
-                    item, "interactive")
-                self.submit(v, tier=tier)
-            answers.extend(self.poll())
-        answers.extend(self.poll(force=True))
-        wall = self.clock() - t0
-        s = self.snapshot_stats()
-        lat = np.asarray([a.latency_s for a in answers], np.float64)
-        s["wall_s"] = wall
-        s["qps"] = len(answers) / max(wall, 1e-9)
-        s["latency_p50"] = float(np.percentile(lat, 50)) if lat.size else 0.0
-        s["latency_p99"] = float(np.percentile(lat, 99)) if lat.size else 0.0
-        return answers, s
+        as the loop runs (``loadgen.run_closed_loop``); returns
+        ``(answers, stats)`` with wall time, qps and latency percentiles."""
+        from repro_torch.serving import loadgen
+
+        return loadgen.run_closed_loop(self, vertices)

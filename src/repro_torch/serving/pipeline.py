@@ -5,10 +5,11 @@ PyTorch enqueues CUDA work and returns, so serving splits into two phases
 as in ``repro.serving.pipeline``:
 
 * **dispatch** — drain the request buffer, pad to a stable width, launch
-  ``engine.query_topk_async`` (no sync), enqueue the top-k's copy into
-  pinned host buffers (``non_blocking``) behind it, record a
-  ``torch.cuda.Event`` behind the copy, and push a :class:`PendingBatch`
-  ticket onto a bounded :class:`CompletionQueue`;
+  ``engine.query_topk_async`` (no sync; on the card one CUDA graph replay
+  per batch), enqueue the top-k's copy into pinned host buffers
+  (``non_blocking``) right behind it, record a ``torch.cuda.Event`` behind
+  the copy, and push a :class:`PendingBatch` ticket onto a bounded
+  :class:`CompletionQueue`;
 * **harvest** — pop tickets whose event has completed
   (``Event.query()``): their host buffers already hold the answers, so
   harvesting slices off the pad rows without touching the stream.
@@ -16,6 +17,15 @@ as in ``repro.serving.pipeline``:
 The queue depth bounds the batches in flight; a full queue makes the
 dispatcher block on its head (backpressure).  ``depth=1`` is the blocking
 baseline.  On the CPU every ticket is ready at once.
+
+With ``reuse_buffers`` (the default, as in the reference) the result
+buffers ring per ``(padded width, k)``: the pinned host pairs that the
+answers' copies land in on the card, the result pairs the engine writes
+into (``out=``) on the CPU.  A pair goes back on its ring once its batch
+has been harvested, so a steady-state loop allocates none
+(``stats["buffers_allocated"]`` plateaus at the depth per width).  Stream
+order keeps a width's graph outputs safe: its next replay is enqueued
+behind the copy of its last answer.
 """
 
 from __future__ import annotations
@@ -24,7 +34,7 @@ import collections
 import dataclasses
 import time
 import warnings
-from typing import Callable, Deque, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,8 +47,8 @@ class PipelineConfig:
     depth: int = 4                # max batches in flight (1 = blocking)
     dispatch: str = "fused"       # fused (query_topk_async) | legacy
                                   # (query_topk + synchronize per batch)
-    reuse_buffers: bool = False   # donated result-buffer ring: not ported
-                                  # yet (ROADMAP.md), True raises
+    reuse_buffers: bool = True    # ring harvested result buffers back
+                                  # into dispatch (per padded width)
     stall_timeout_s: Optional[float] = None  # stuck-ticket watchdog
 
     def __post_init__(self):
@@ -46,10 +56,6 @@ class PipelineConfig:
             raise ValueError(f"pipeline depth must be >= 1, got {self.depth}")
         if self.dispatch not in ("fused", "legacy"):
             raise ValueError(f"unknown dispatch {self.dispatch!r}")
-        if self.reuse_buffers:
-            raise NotImplementedError(
-                "reuse_buffers=True (the donated result-buffer ring) is not "
-                "ported yet; see ROADMAP.md")
         if self.stall_timeout_s is not None and self.stall_timeout_s <= 0:
             raise ValueError(
                 f"stall_timeout_s must be positive, got {self.stall_timeout_s}")
@@ -69,6 +75,9 @@ class PendingBatch:
     event: Optional[torch.cuda.Event] = None
     epoch: int = 0                # cache epoch at dispatch (invalidate fence)
     stall_warned: bool = False
+    engine: object = None         # keeps a swapped-out engine's graphs and
+                                  # their pool alive while this is in flight
+    ringed: bool = False          # values/indices return to the ring
 
     def is_ready(self) -> bool:
         """Non-blocking completion probe."""
@@ -144,9 +153,11 @@ class ServingPipeline:
         self._seq = 0
         self.stats: Dict[str, float] = dict(
             dispatched=0, harvested=0, queue_full_stalls=0, in_flight_peak=0,
-            stalled=0,
+            buffers_allocated=0, buffers_reused=0, stalled=0,
         )
         self.batch_hist: Dict[int, int] = collections.Counter()
+        # (padded, k) -> harvested result pairs for the next dispatch
+        self._ring: Dict[Tuple[int, int], Deque] = {}
 
     @property
     def in_flight(self) -> int:
@@ -192,6 +203,19 @@ class ServingPipeline:
                 weights[j, 0] = 1.0
         return seeds, weights
 
+    def _result_pair(self, padded: int, k: int, pinned: bool):
+        """A result pair ``(f32[padded, k], int32[padded, k])`` on the
+        host: off the ring when one is there, else a fresh one."""
+        ring = self._ring.get((padded, k))
+        if ring:
+            self.stats["buffers_reused"] += 1
+            return ring.popleft()
+        self.stats["buffers_allocated"] += 1
+        return (torch.empty((padded, k), dtype=torch.float32,
+                            pin_memory=pinned),
+                torch.empty((padded, k), dtype=torch.int32,
+                            pin_memory=pinned))
+
     def _dispatch_one(self) -> List[CompletedBatch]:
         out: List[CompletedBatch] = []
         if self.queue.full():  # backpressure: block on the oldest batch
@@ -199,27 +223,42 @@ class ServingPipeline:
             out.append(self._complete(self.queue.pop(block=True)))
         requests, padded = self.buffer.drain()
         verts, weights = self._batch_arrays(requests, padded)
+        # stamped before the launch: a shape's first dispatch captures
+        # its graph, and that time is the batch's
+        dispatched_at = self.clock()
+        engine = self.engine
+        ring = self.cfg.reuse_buffers and self.cfg.dispatch == "fused"
         if self.cfg.dispatch == "legacy":
-            vals, idx = self.engine.query_topk(verts, weights=weights)
+            vals, idx = engine.query_topk(verts, weights=weights)
             if vals.is_cuda:
                 torch.cuda.synchronize(vals.device)
         else:
-            vals, idx = self.engine.query_topk_async(
-                verts, key=self.engine.dispatch_key(self._seq),
-                weights=weights)
+            key = engine.dispatch_key(self._seq) if engine.uses_key else None
+            host = None
+            if ring and engine.device.type != "cuda":  # written in place
+                host = self._result_pair(padded, engine.effective_top_k,
+                                         pinned=False)
+            vals, idx = engine.query_topk_async(verts, key=key,
+                                                weights=weights, out=host)
         event = None
         if vals.is_cuda:
-            # the answers' copy rides the stream behind the query, so a
-            # harvest never enqueues anything behind later batches
-            vals = torch.empty(vals.shape, dtype=vals.dtype,
-                               pin_memory=True).copy_(vals, non_blocking=True)
-            idx = torch.empty(idx.shape, dtype=idx.dtype,
-                              pin_memory=True).copy_(idx, non_blocking=True)
+            # the answers' copy rides the stream right behind the query,
+            # so a harvest never enqueues anything behind later batches
+            # and the graph's next replay cannot overwrite them first
+            if ring:
+                hv, hi = self._result_pair(padded, vals.shape[1], pinned=True)
+            else:
+                hv = torch.empty(vals.shape, dtype=vals.dtype,
+                                 pin_memory=True)
+                hi = torch.empty(idx.shape, dtype=idx.dtype, pin_memory=True)
+            vals = hv.copy_(vals, non_blocking=True)
+            idx = hi.copy_(idx, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
         ticket = PendingBatch(
-            self._seq, requests, padded, vals, idx, self.clock(), event,
+            self._seq, requests, padded, vals, idx, dispatched_at, event,
             epoch=self.epoch_fn() if self.epoch_fn is not None else 0,
+            engine=engine, ringed=ring,
         )
         self._seq += 1
         self.queue.push(ticket)
@@ -273,6 +312,11 @@ class ServingPipeline:
         vals = ticket.values[:n_real].numpy().copy()
         idx = ticket.indices[:n_real].numpy().copy()
         self.stats["harvested"] += 1
+        if ticket.ringed:  # copied out: the pair serves the next dispatch
+            self._ring.setdefault(
+                tuple(ticket.values.shape), collections.deque()
+            ).append((ticket.values, ticket.indices))
+        ticket.engine = None
         return CompletedBatch(
             ticket.seq, ticket.requests, ticket.padded, vals, idx,
             ticket.dispatched_at, self.clock(), epoch=ticket.epoch,

@@ -306,3 +306,15 @@ def test_checkpointed_build_resumed_on_card_bit_equal(maintenance_checks):
     """rmat(14): a build crashed at chunk 5 of 16 and resumed on the card
     equals an uninterrupted one: index, filters, kept and dropped totals."""
     assert maintenance_checks["checkpointed build resumed on the card"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("check", sorted(chip_smoke.CAPTURE_CHECKS))
+def test_captured_query_on_card(cuda, check):
+    """The captured CUDA graphs at rmat(14): the same bytes as the eager
+    query at every padded width of ``max_batch=256`` on both routes, in
+    the ``mcfp`` mode and with seed sets of 4; one graph per width
+    whatever the input's spelling; launch counts that grow by a graph's
+    kernels on each replay; and a service through graphs that answers,
+    after ``apply_updates``, like a fresh service on the new index."""
+    assert chip_smoke.CAPTURE_CHECKS[check](torch, np, cuda)

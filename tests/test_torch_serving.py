@@ -136,8 +136,17 @@ def test_legacy_dispatch_and_rejected_options(setup):
     base = _serve(_port_service(setup, 2), work[:8])
     legacy = _serve(svc, work[:8])
     assert base[0].tobytes() == legacy[0].tobytes()
-    with pytest.raises(NotImplementedError, match="reuse_buffers"):
-        PipelineConfig(reuse_buffers=True)
+    # the result-buffer ring is the default, as in the reference, and
+    # serves the same bytes as fresh buffers
+    assert PipelineConfig().reuse_buffers
+    ringed = _port_service(setup, 2)
+    fresh = _port_service(setup, 2)
+    fresh.cfg.pipeline.reuse_buffers = False
+    a, b = _serve(ringed, work), _serve(fresh, work)
+    assert a[0].tobytes() == b[0].tobytes()
+    assert a[1].tobytes() == b[1].tobytes()
+    assert a[2]["pipeline_buffers_reused"] > 0
+    assert b[2]["pipeline_buffers_reused"] == 0
     with pytest.raises(ValueError):
         PipelineConfig(depth=0)
 
@@ -152,3 +161,96 @@ def test_completion_queue_order_and_backpressure():
     with pytest.raises(RuntimeError):
         q.push(t[2])
     assert q.pop().seq == 0 and q.pop(block=True).seq == 1 and q.pop() is None
+
+
+# -- the result-buffer ring (the reference's tests/test_serving.py) ---------
+
+RING_QKW = dict(mode="powerwalk", t_iterations=2, top_k=32, frontier_k=128,
+                frontier_path="sparse")
+
+
+@pytest.fixture(scope="module")
+def ring_setup():
+    jg = jsyn.rmat(10, avg_deg=6.0, seed=1)
+    tg = tsyn.rmat(10, avg_deg=6.0, seed=1, device="cpu")
+    jidx, _ = jindex.build_index(jg, r=16, l=16, key=jax.random.PRNGKey(2),
+                                 source_batch=512)
+    tidx = convert.index_from_arrays(jidx.values, jidx.indices, device="cpu")
+    return jg, tg, jidx, tidx
+
+
+def _ring_services(ring_setup, depth, reuse=True):
+    """The port's and the reference's service, single-width batches of 16."""
+    jg, tg, jidx, tidx = ring_setup
+    batching = dict(max_batch=16, min_pad=16)
+    port = PPRService(tg, tidx, ServiceConfig(
+        query=tquery.QueryConfig(**RING_QKW),
+        batching=BatchingConfig(**batching),
+        pipeline=PipelineConfig(depth=depth, reuse_buffers=reuse)),
+        device="cpu")
+    ref = JService(jg, jidx, JServiceConfig(
+        query=jquery.QueryConfig(**RING_QKW), batching=JBatching(**batching),
+        pipeline=JPipeline(depth=depth, reuse_buffers=reuse)))
+    return port, ref
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_buffer_ring_allocations_plateau_like_the_reference(ring_setup,
+                                                            depth):
+    """A long run at one padded width allocates at most ``depth`` result
+    pairs and reuses them for every other dispatch, in both packages (how
+    many it takes depends on when batches complete: on the CPU the port's
+    are complete at once)."""
+    port, ref = _ring_services(ring_setup, depth)
+    work = np.random.default_rng(11).integers(0, 1024, 16 * 12).tolist()
+    _, s = port.run_closed_loop(work)
+    _, want = ref.run_closed_loop(work)
+    assert s["pipeline_dispatched"] == want["pipeline_dispatched"] >= 10
+    for st in (s, want):
+        assert st["served"] == 16 * 12 and set(st["batch_hist"]) == {16}
+        assert 1 <= st["pipeline_buffers_allocated"] <= depth
+        assert (st["pipeline_buffers_reused"] == st["pipeline_dispatched"]
+                - st["pipeline_buffers_allocated"])
+
+
+def test_buffer_ring_disabled_never_reuses(ring_setup):
+    port, ref = _ring_services(ring_setup, 1, reuse=False)
+    work = np.random.default_rng(12).integers(0, 1024, 48).tolist()
+    _, s = port.run_closed_loop(work)
+    _, want = ref.run_closed_loop(work)
+    assert s["pipeline_buffers_reused"] == want["pipeline_buffers_reused"] == 0
+    assert s["pipeline_buffers_allocated"] == 0
+
+
+def test_query_into_given_buffers_same_memory_fresh_answers(ring_setup):
+    """``out=`` writes the answer into the given tensors: the same memory,
+    the fresh query's answer, not the donor's."""
+    port, _ = _ring_services(ring_setup, 1)
+    eng = port.engine
+    verts = np.arange(8, dtype=np.int32)
+    v0, i0 = eng.query_topk_async(verts)
+    donor = v0.clone()
+    ptrs = (v0.data_ptr(), i0.data_ptr())
+    v1, i1 = eng.query_topk_async(verts + 1, out=(v0, i0))
+    assert (v1.data_ptr(), i1.data_ptr()) == ptrs
+    want_v, want_i = eng.query_topk_async(verts + 1)
+    assert torch.equal(v1, want_v) and torch.equal(i1, want_i)
+    assert not torch.equal(v1, donor)
+
+
+def test_service_reset_stats_like_the_reference(ring_setup):
+    """``reset_stats`` zeroes the service, pipeline, buffer and cache
+    counters (keeping the cache's entries), the reference's keys alike."""
+    port, ref = _ring_services(ring_setup, 2)
+    work = np.random.default_rng(13).integers(0, 1024, 40).tolist()
+    for svc in (port, ref):
+        svc.run_closed_loop(work)
+        assert svc.stats["served"] == 40
+        svc.reset_stats()
+    for got, want in ((port.stats, ref.stats),
+                      (port.pipeline.stats, ref.pipeline.stats),
+                      (port.buffer.stats, ref.buffer.stats),
+                      (port.cache.stats, ref.cache.stats)):
+        assert all(v == 0 for v in got.values())
+        assert set(want) <= set(got) | {"sharded_index"}
+    assert not port.pipeline.batch_hist
