@@ -30,8 +30,9 @@ Phases, each timed and printed:
    ``k_out`` above a row's distinct columns, the hash path's output the
    same bytes on two launches; ``embedding_bag`` at 1, 31, 33, 1,000,
    70,001 and 1,000,003 bags of 1 and 32 slots, D = 16, 17, 32, 48, 64
-   and 128, tables 4 and 8 bytes past alignment, with a mask and with
-   none, two launches the same bytes; and, plain PyTorch on the card against the
+   and 128, and apart at D = 50 (SASRec's width), tables 4 and 8 bytes
+   past alignment, with a mask and with none, two launches the same
+   bytes; and, plain PyTorch on the card against the
    CPU, bit-equal: ``rng.randint`` (spans 1, 2, 3, 2**16 + 1 and 2**31 -
    1, one ``maxval`` per draw) and the dense walk engine
    ``walks.simulate_walks``;
@@ -72,19 +73,30 @@ Phases, each timed and printed:
    the push's share of it, the
    computed wire bytes per iteration, and RAG and precision at k = 50
    against 3e's ``pi``;
-3g. DLRM RM2 (arXiv:1906.00091) at full width: ``steps.build("dlrm-rm2",
-   ...)`` with parameters from the port's ``init`` (seed 0) on the card,
-   the 26 x 10^6-row f32 table (6.66 GB) included, bf16 compute; with the
-   counters zeroed just before and read just after: 520 closed-loop
-   ``serve_p99`` forwards of 512 (latency p50/p99 from CUDA events over the
-   last 512), 17 ``serve_bulk`` forwards of 262,144, 5 ``retrieval_cand``
-   forwards of 10^6 candidates, each with examples/s and model TFLOP/s,
-   peak memory, the device time of one ``serve_p99`` and one
-   ``serve_bulk`` forward by kernel (``torch.profiler``), and one
-   ``serve_p99`` batch in f32 on the card and through the plain CPU path
-   from the same parameters (max abs logit difference within 1e-4 of
-   max(1, max |logit|)); ``embedding_bag`` must launch once per forward
-   and every output be finite;
+3g. the recsys zoo at full width, each model with the counters zeroed
+   just before its forwards and read just after, its parameters from the
+   port's ``init`` (seed 0) on the card, bf16 compute, the card's name and
+   power limit printed first.  DLRM RM2 (arXiv:1906.00091) through
+   ``steps.build("dlrm-rm2", ...)``, the 26 x 10^6-row f32 table (6.66 GB)
+   included: 520 closed-loop ``serve_p99`` forwards of 512 (latency
+   p50/p99 from CUDA events over the last 512), 17 ``serve_bulk`` forwards
+   of 262,144, 5 ``retrieval_cand`` forwards of 10^6 candidates, each with
+   examples/s and model TFLOP/s, peak memory, the device time of one
+   ``serve_p99`` and one ``serve_bulk`` forward by kernel
+   (``torch.profiler``), and one ``serve_p99`` batch in f32 on the card
+   and through the plain CPU path from the same parameters (max abs
+   difference within 1e-4 of max(1, max |output|)).  Then DCN-v2
+   (arXiv:2008.13535; a 26 x 10^6 x 16 table, 1.66 GB), SASRec
+   (arXiv:1808.09781; 10^6 x 50) and MIND (arXiv:1904.08030; 10^6 x 64)
+   the same way, each with 128 ``serve_p99`` forwards (p50/p99 over the
+   last 120), 5 ``serve_bulk``, 3 ``retrieval_cand`` and one ``serve_bulk``
+   forward split by kernel; serving is DCN-v2's ``forward``, SASRec's
+   ``user_embedding`` and MIND's ``user_interests``.  ``embedding_bag``
+   must launch ``ZOO_LOOKUPS`` times a forward (one a gather: SASRec's
+   items and positions, and in retrieval its candidates), and every
+   output be finite and of its shape.  Each model's ``embedding_bag``
+   launches are replayed (2b) before its table is freed and the next
+   model built;
 3h. the Monte-Carlo path on 3a's graph, with the counters zeroed just
    before and read just after (``walk_step`` must launch): for 3e's 64
    sources, the sparse MCFP at r = 1,000 (l = 8,192, which covers r / c),
@@ -129,8 +141,10 @@ Phases, each timed and printed:
    ``ell_spmm``'s second, a batch's push of a spread-out frontier, and
    its ``dense`` variant, the last push of 3e's ``pi``, of
    ``sharded_frontier_push``'s first second-iteration launch, of
-   ``embedding_bag``'s first at ``serve_p99``, ``serve_bulk`` and
-   ``retrieval_cand``, and of ``walk_step``'s first in 3h, variant
+   ``embedding_bag``'s first at DLRM's ``serve_p99``, ``serve_bulk`` and
+   ``retrieval_cand`` and at each zoo model's ``serve_bulk`` and its
+   candidate gather at ``retrieval_cand`` (variants ``<arch>.<shape>``;
+   these are replayed in 3g), and of ``walk_step``'s first in 3h, variant
    ``mc``)
    through the kernel and its plain version: top-k outputs' sorted values
    within 1e-5 relative and at least 99% of indices equal (summation order
@@ -160,9 +174,9 @@ Phases, each timed and printed:
    distributed engine: the sharded build
    bit-equal, the sparse tile step within 1e-5 L1, and on the card the
    dense exchange within 1e-4 L1 of the sparse exchange at covering
-   widths; and DLRM RM2's reduced config in f32 (``serve_p99`` and
-   ``retrieval_cand``), card against CPU, logits within 1e-5 of their
-   largest; and the Monte-Carlo path, card against CPU, bit-equal: the
+   widths; and the reduced configs of DLRM RM2, DCN-v2, SASRec and MIND
+   in f32 (``serve_p99`` and ``retrieval_cand``), card against CPU,
+   outputs within 1e-5 of their largest; and the Monte-Carlo path, card against CPU, bit-equal: the
    legacy build of every fourth source, the dense and sparse MCFP and
    MCEP estimates of 64 sources, ``mcfp``-mode answers at dispatch keys
    0-3, and ``randint``; and maintenance at ``rmat(14)``, bit-equal: the
@@ -221,11 +235,24 @@ KERNEL_SOURCES = {
 SPARSE_PATH = ("walk_step", "frontier_push", "index_combine_sparse")
 DENSE_PATH = ("ell_spmm", "index_combine")
 DIST_PATH = ("walk_step", "sharded_frontier_push")
-DLRM_PATH = ("embedding_bag",)
-DLRM_SEED = 0
-DLRM_P99_BATCHES = 512         # closed-loop serve_p99 forwards of 512, timed
-DLRM_BULK_FORWARDS = 16        # serve_bulk forwards of 262,144
-DLRM_RETRIEVAL_FORWARDS = 4    # retrieval_cand forwards of 10^6 candidates
+RECSYS_PATH = ("embedding_bag",)   # phase 3g: each recsys model's forwards
+# embedding_bag launches one forward makes, one a gather: the one-hot
+# fields (DLRM, DCN-v2; field 0 holds the candidates in retrieval),
+# SASRec's items and positions (and its candidates), MIND's history (and
+# its candidates)
+ZOO_LOOKUPS = {("dlrm-rm2", "rec_serve"): 1, ("dlrm-rm2", "rec_retrieval"): 1,
+               ("dcn-v2", "rec_serve"): 1, ("dcn-v2", "rec_retrieval"): 1,
+               ("sasrec", "rec_serve"): 2, ("sasrec", "rec_retrieval"): 3,
+               ("mind", "rec_serve"): 1, ("mind", "rec_retrieval"): 2}
+REC_SEED = 0                   # the recsys models' parameters (3g)
+ZOO = ("dcn-v2", "sasrec", "mind")
+# phase 3g's forwards a shape: (distinct batches, warm-up forwards, timed
+# forwards); serve_p99 is B = 512, serve_bulk 262,144, retrieval_cand one
+# user against 10^6 candidates
+DLRM_PLAN = {"serve_p99": (512, 8, 512), "serve_bulk": (4, 1, 16),
+             "retrieval_cand": (1, 1, 4)}
+ZOO_PLAN = {"serve_p99": (128, 8, 120), "serve_bulk": (2, 1, 4),
+            "retrieval_cand": (1, 1, 2)}
 DIST_EP = 4                    # model shards of phase 3f's tile step
 DIST_DATA = 2                  # data replicas of phase 3f's build
 MC_PATH = ("walk_step",)       # the sparse estimators of phase 3h
@@ -285,25 +312,48 @@ def cuda_ms(torch, fn, budget_ms=300.0, max_reps=50):
     return start.elapsed_time(end) / reps
 
 
+@contextlib.contextmanager
+def warm_profile(torch):
+    """``torch.profiler`` over CPU and CUDA activity, recording only after a
+    warm-up step of a few small kernels, which the trace does not hold.
+    Traces opened cold late in this script dropped the first launches made
+    in them (3 of 20 or 50 back-to-back ``embedding_bag`` launches on an
+    H100), so a forward whose first kernel is its only lookup (MIND's)
+    showed none.  The step's own span (``ProfilerStep*``) is not a kernel:
+    readers of the trace skip it (``traced_kernel``)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        x = torch.zeros(1024, device="cuda")
+        for _ in range(8):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+        prof.step()
+        yield prof
+
+
+def traced_kernel(e):
+    """Whether a ``key_averages()`` entry is device work of the trace."""
+    return (str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep"))
+
+
 def device_time_split(torch, fn, top=8):
     """Device time of one call of ``fn`` by kernel name (``torch.profiler``
     over CPU and CUDA activity): ``(wall_ms, device_ms, [(name, ms), ...])``
     with the ``top`` kernels by time (all with ``top=None``), or
     ``device_ms`` 0.0 where the trace shows no device time.  The wall time includes the profiler's own
     overhead."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with warm_profile(torch) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [(e.key, e.self_device_time_total / 1e3)
-               for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")
-               and e.self_device_time_total > 0]
+               for e in prof.key_averages() if traced_kernel(e)]
     kernels.sort(key=lambda x: -x[1])
     return wall_ms, sum(ms for _, ms in kernels), kernels[:top]
 
@@ -312,11 +362,7 @@ def batch_profile(torch, fn):
     """One call of ``fn`` under ``torch.profiler``: wall and device-busy
     milliseconds, the device's idle share of the wall, and the trace's
     device activities (kernels, memcpys, memsets) by kind and count."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with warm_profile(torch) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -324,8 +370,7 @@ def batch_profile(torch, fn):
     out = dict(wall_ms=wall_ms, device_ms=0.0, kernels=0, memcpys=0,
                memsets=0)
     for e in prof.key_averages():
-        if not (str(e.device_type).endswith("CUDA")
-                and e.self_device_time_total > 0):
+        if not traced_kernel(e):
             continue
         out["device_ms"] += e.self_device_time_total / 1e3
         kind = ("memcpys" if e.key.startswith("Memcpy") else "memsets"
@@ -570,16 +615,11 @@ def traced_launch_ms(torch, fn, name):
     traced time over the launches the trace holds (a trace may hold fewer
     launches than were made, or none), and that count;
     ``(None, 0)`` where it holds none."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with warm_profile(torch) as prof:
         fn()
         torch.cuda.synchronize()
     hits = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and name in e.key
-            and e.self_device_time_total > 0]
+            if traced_kernel(e) and name in e.key]
     count = sum(e.count for e in hits)
     if not count:
         return None, 0
@@ -1039,14 +1079,18 @@ def same_bits_or_nan(torch, a, b):
                             b.view(view[b.dtype])[~nan]))
 
 
-def synthetic_embedding_bag(torch, np, dev):
-    """Bags of 1 and 32 slots over tables of D = 16, 32, 64 (rows packed
-    several to a warp instruction), 48, 128 (a warp across a row) and 17
-    (one float a lane), for 1, 31, 33, 1,000 and 70,001 bags (none a
-    multiple of the kernel's chunk of 32 rows or of the smaller chunks of a
-    small launch) and, one slot a bag, 1,000,003 (full chunks over a grid
-    stride); tables whose storage starts 4 or 8 bytes past an aligned
-    address (the float and float2 loads at D = 64).  Values ``j / 1024``
+def synthetic_embedding_bag(torch, np, dev, widths=(16, 17, 32, 48, 64, 128),
+                            wide=(17, 64, 128), shifted=64):
+    """Bags of 1 and 32 slots over tables of D = ``widths``: 16, 32, 64
+    (rows packed several to a warp instruction), 48, 128 (a warp across a
+    row) and 17 (one float a lane), for 1, 31, 33, 1,000 and 70,001 bags
+    (none a multiple of the kernel's chunk of 32 rows or of the smaller
+    chunks of a small launch) and, one slot a bag, 1,000,003 (full chunks
+    over a grid stride) at D = ``wide``; tables of D = ``shifted`` whose
+    storage starts 4 or 8 bytes past an aligned address (the float and
+    float2 loads at D = 64).  ``SYNTHETIC_CHECKS`` also runs it at D = 50
+    alone (SASRec's width: float2 loads, a warp across a row; float loads
+    4 bytes past alignment).  Values ``j / 1024``
     with |x| <= 1 and masks in {0, 0.5, 1}, so every f32 sum is exact, and
     no mask (every weight one, against the plain version with no mask);
     ids from the whole table, negative ones counting from its end, and a
@@ -1058,9 +1102,10 @@ def synthetic_embedding_bag(torch, np, dev):
     r = np.random.default_rng(13)
     vocab = 5000
     cases = [(rows, d, bag, 0) for rows in (1, 31, 33, 1000, 70001)
-             for d in (16, 17, 32, 48, 64, 128) for bag in (1, 32)]
-    cases += [(1000003, d, 1, 0) for d in (17, 64, 128)]
-    cases += [(1000, 64, bag, shift) for shift in (1, 2) for bag in (1, 32)]
+             for d in widths for bag in (1, 32)]
+    cases += [(1000003, d, 1, 0) for d in wide]
+    cases += [(1000, shifted, bag, shift) for shift in (1, 2)
+              for bag in (1, 32)]
     ok = True
     for rows, d, bag, shift in cases:
         flat = r.integers(-1024, 1025, vocab * d + shift).astype(
@@ -1152,6 +1197,8 @@ SYNTHETIC_CHECKS = {
     "index_combine": synthetic_index_combine_dense,
     "sharded_frontier_push": synthetic_sharded_frontier_push,
     "embedding_bag": synthetic_embedding_bag,
+    "embedding_bag_d50": lambda torch, np, dev: synthetic_embedding_bag(
+        torch, np, dev, widths=(50,), wide=(50,), shifted=50),
     "randint": synthetic_randint,
     "simulate_walks": synthetic_simulate_walks,
 }
@@ -1622,8 +1669,8 @@ def tree_to(tree, dev):
     return tree.to(dev)
 
 
-def check_small_dlrm(torch, np, dev):
-    """DLRM RM2 at its reduced config in f32: ``serve_p99`` and
+def check_small_recsys(torch, np, dev, arch):
+    """A recsys model at its reduced config in f32: ``serve_p99`` and
     ``retrieval_cand`` on the card and through the plain CPU path from the
     same parameters and batch.  Returns the worst ``max |card - cpu| /
     max |cpu|`` over the two."""
@@ -1631,8 +1678,8 @@ def check_small_dlrm(torch, np, dev):
 
     worst = 0.0
     for shape in ("serve_p99", "retrieval_cand"):
-        cpu = steps.build("dlrm-rm2", shape, reduced=True, device="cpu")
-        card = steps.build("dlrm-rm2", shape, reduced=True, device=dev)
+        cpu = steps.build(arch, shape, reduced=True, device="cpu")
+        card = steps.build(arch, shape, reduced=True, device=dev)
         params = cpu.init_fn(3)
         batch = cpu.make_batch(torch.Generator().manual_seed(4))
         want = cpu.step_fn(params, batch)
@@ -1644,43 +1691,78 @@ def check_small_dlrm(torch, np, dev):
     return worst
 
 
-def phase_dlrm(torch, np, dev, failures):
-    """Phase 3g: DLRM RM2 at full width on the card.  Returns the launch
-    counts of the phase and the captured first launches of
-    ``embedding_bag`` at ``serve_p99`` and at ``serve_bulk``."""
+def replay_all(torch, captured, results, failures):
+    """Phase 2b's replay of each captured launch (``"name/variant" ->
+    (args, kwargs)``), each result appended to ``results[name]``."""
+    for tag in sorted(captured):
+        name, variant = tag.split("/")
+        args, kwargs = captured[tag]
+        res = replay(torch, name, variant, args, kwargs)
+        print(f"replay {tag}:", json.dumps(res))
+        if not res["ok"]:
+            failures.append(f"replay {tag}")
+        results.setdefault(name, []).append(res)
+
+
+def rec_output_shape(arch, cfg, kind, n):
+    """The serve step's output shape for ``n`` examples or candidates."""
+    if kind == "rec_retrieval" or arch in ("dlrm-rm2", "dcn-v2"):
+        return (n,)
+    if arch == "sasrec":
+        return (n, cfg.embed_dim)                  # user embeddings
+    return (n, cfg.n_interests, cfg.embed_dim)     # MIND's interests
+
+
+def phase_recsys(torch, np, dev, arch, plan, profiled, failures):
+    """Phase 3g for one recsys model at full width on the card, with the
+    launch counters zeroed just before and read just after its forwards:
+    ``plan``'s forwards, ``profiled``'s forward split by kernel, peak
+    memory, and a ``serve_p99`` batch in f32 card against CPU.  Then, its
+    parameters still held, phase 2b's replays of ``embedding_bag`` on this
+    path: at each shape's first launch (DLRM: all three shapes; the zoo:
+    ``serve_bulk``), and at ``retrieval_cand``'s candidate gather (the
+    first launch where a forward makes one, else the last), so each table
+    is freed before the next model is built.  Returns the launch counts
+    and the replays' results."""
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
 
+    spec = get_arch(arch)
+    cfg = spec.config
+    dlrm = arch == "dlrm-rm2"
+    print(f"{arch} ({spec.source}): {card_name_and_power_limit()}")
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    forwards = 0
+    forwards = lookups = 0
     t1 = time.perf_counter()
-    bundles = {name: steps.build("dlrm-rm2", name, device=dev)
-               for name in ("serve_p99", "serve_bulk", "retrieval_cand")}
-    params = bundles["serve_p99"].init_fn(DLRM_SEED)
-    table = params["embedding"]["table"]
+    bundles = {name: steps.build(arch, name, device=dev) for name in plan}
+    params = bundles["serve_p99"].init_fn(REC_SEED)
+    table = (params["embedding"] if "embedding" in params
+             else params["item_embed"])["table"]
     torch.cuda.synchronize()
-    print(f"dlrm-rm2: table {list(table.shape)} "
-          f"{table.numel() * table.element_size() / 1e9:.2f} GB, compute "
-          f"bf16, params made in {time.perf_counter() - t1:.3f} s")
-    gen = torch.Generator(device=dev).manual_seed(DLRM_SEED + 1)
+    print(f"{arch}: table {list(table.shape)} "
+          f"{table.numel() * table.element_size() / 1e9:.2f} GB, "
+          f"{cfg.param_count()} parameters, compute bf16, params made in "
+          f"{time.perf_counter() - t1:.3f} s")
+    gen = torch.Generator(device=dev).manual_seed(REC_SEED + 1)
     finite = []
     captured = {}
 
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
-    # shape: (distinct batches, warm-up forwards, timed forwards, capture)
-    plan = {"serve_p99": (DLRM_P99_BATCHES, 8, DLRM_P99_BATCHES, True),
-            "serve_bulk": (4, 1, DLRM_BULK_FORWARDS, True),
-            "retrieval_cand": (1, 1, DLRM_RETRIEVAL_FORWARDS, True)}
-    for name, (n_batches, warm, reps, capture) in plan.items():
+    for name, (n_batches, warm, reps) in plan.items():
         b = bundles[name]
-        spec = b.batch_spec
-        examples = (spec["candidates"] if "candidates" in spec
-                    else spec["dense"])[0][0]
+        kind = spec.shape(name).kind
+        per_forward = ZOO_LOOKUPS[(arch, kind)]
+        first_spec = next(iter(b.batch_spec.values()))
+        examples = (b.batch_spec["candidates"] if "candidates" in b.batch_spec
+                    else first_spec)[0][0]
         batches = [b.make_batch(gen) for _ in range(n_batches)]
-        ops.capture_first_launches(capture)
+        # the candidate gather is a retrieval forward's last launch
+        ops.capture_first_launches(
+            True, last=kind == "rec_retrieval" and per_forward > 1)
         ms = []
         for j in range(warm + reps):       # closed loop: one in flight
             ev0.record()
@@ -1688,16 +1770,19 @@ def phase_dlrm(torch, np, dev, failures):
             ev1.record()
             ev1.synchronize()
             forwards += 1
+            lookups += per_forward
             if j >= warm:
                 ms.append(ev0.elapsed_time(ev1))
             finite.append(bool(torch.isfinite(out).all()))
-        if capture:
-            captured[f"embedding_bag/{name}"] = (
+        if dlrm or name != "serve_p99":
+            variant = name if dlrm else f"{arch}.{name}"
+            captured[f"embedding_bag/{variant}"] = (
                 ops.captured_launches()["embedding_bag/main"])
         ops.capture_first_launches(False)
-        if out.shape != (examples,):
-            failures.append(f"dlrm {name}: output shape {tuple(out.shape)}, "
-                            f"want ({examples},)")
+        want_shape = rec_output_shape(arch, cfg, kind, examples)
+        if tuple(out.shape) != want_shape:
+            failures.append(f"{arch} {name}: output shape "
+                            f"{tuple(out.shape)}, want {want_shape}")
         ms = np.array(ms)
         tflops = b.model_flops_per_step / (np.median(ms) / 1e3) / 1e12
         print(f"  {name}: {reps} forwards of {examples}: p50 "
@@ -1706,14 +1791,20 @@ def phase_dlrm(torch, np, dev, failures):
               f"{examples / (ms.mean() / 1e3):.1f} examples/s; model "
               f"{b.model_flops_per_step / examples / 1e6:.4f} MFLOP per "
               f"example, {tflops:.3f} TFLOP/s at the median")
-        if name != "retrieval_cand":
-            wall_ms, device_ms, top = device_time_split(
-                torch, lambda: b.step_fn(params, batches[0]))
+        if name in profiled:
+            wall_ms, device_ms, split = device_time_split(
+                torch, lambda: b.step_fn(params, batches[0]), top=None)
             forwards += 1
+            lookups += per_forward
+            bag_ms = sum(kms for kname, kms in split
+                         if "embedding_bag" in kname)
             print(f"  {name}, one forward by kernel (torch.profiler): wall "
                   f"{wall_ms:.3f} ms, device busy {device_ms:.3f} ms "
-                  f"({100 * device_ms / wall_ms:.1f}% of the wall)")
-            for kname, kms in top:
+                  f"({100 * device_ms / wall_ms:.1f}% of the wall); "
+                  f"embedding_bag {bag_ms:.3f} ms "
+                  f"({100 * bag_ms / max(device_ms, 1e-9):.1f}%)"
+                  + ("" if bag_ms else ", no launch of it in the trace"))
+            for kname, kms in split[:8]:
                 print(f"  {kms:9.3f} ms  "
                       f"{100 * kms / max(device_ms, 1e-9):5.1f}%  "
                       f"{kname[:110]}")
@@ -1723,39 +1814,44 @@ def phase_dlrm(torch, np, dev, failures):
             p99_batch = batches[0]
     del out
     peak = torch.cuda.max_memory_allocated()
-    print(f"  peak device memory in 3g: {peak / 1e9:.2f} GB "
+    print(f"  peak device memory in 3g ({arch}): {peak / 1e9:.2f} GB "
           f"({(peak - base) / 1e9:.2f} GB above the {base / 1e9:.2f} GB "
           f"held before it)")
 
     # the full width in f32, on the card and through the plain CPU path
     over = dict(compute_dtype=torch.float32)
     t1 = time.perf_counter()
-    got = steps.build("dlrm-rm2", "serve_p99", device=dev,
+    got = steps.build(arch, "serve_p99", device=dev,
                       config_overrides=over).step_fn(params, p99_batch)
     forwards += 1
+    lookups += ZOO_LOOKUPS[(arch, "rec_serve")]
     finite.append(bool(torch.isfinite(got).all()))
-    want = steps.build("dlrm-rm2", "serve_p99", device="cpu",
+    want = steps.build(arch, "serve_p99", device="cpu",
                        config_overrides=over).step_fn(
         tree_to(params, "cpu"), tree_to(p99_batch, "cpu"))
     err = float((got.cpu() - want).abs().max())
     scale = max(1.0, float(want.abs().max()))
-    print(f"  full width f32, card vs CPU: max abs logit difference "
+    print(f"  full width f32, card vs CPU: max abs output difference "
           f"{err:.3e} (limit {1e-4 * scale:.3e}), "
           f"{time.perf_counter() - t1:.3f} s")
     if not err <= 1e-4 * scale:
-        failures.append(f"dlrm full-width card vs CPU: {err:.3e}")
+        failures.append(f"{arch} full-width card vs CPU: {err:.3e}")
+    del got, want
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    print(f"  dlrm-path launches: {json.dumps(counts)} over {forwards} "
-          f"forwards")
-    if counts["embedding_bag"] != forwards:
-        failures.append(f"dlrm path: embedding_bag launched "
+    print(f"  {arch} path launches: {json.dumps(counts)} over {forwards} "
+          f"forwards ({lookups} embedding_bag launches stated)")
+    if counts["embedding_bag"] != lookups:
+        failures.append(f"{arch} path: embedding_bag launched "
                         f"{counts['embedding_bag']} times in {forwards} "
-                        f"forwards")
+                        f"forwards, {lookups} stated")
     if not all(finite):
-        failures.append(f"dlrm: {finite.count(False)} outputs not finite")
-    del params, table, p99_batch
-    return counts, captured
+        failures.append(f"{arch}: {finite.count(False)} outputs not finite")
+    results = {}
+    replay_all(torch, captured, results, failures)
+    del params, table, p99_batch, captured
+    torch.cuda.empty_cache()
+    return counts, results.get("embedding_bag", [])
 
 
 def check_small_montecarlo(torch, np, dev):
@@ -2853,14 +2949,20 @@ def main() -> int:
     phase("3f distributed engine", t0)
 
     t0 = time.perf_counter()
-    counts_g, captured_g = phase_dlrm(torch, np, dev, failures)
-    phase("3g dlrm-rm2 at full width", t0)
+    counts_g, replays_g = phase_recsys(torch, np, dev, "dlrm-rm2", DLRM_PLAN,
+                                       ("serve_p99", "serve_bulk"), failures)
+    counts_zoo = {}
+    for arch in ZOO:
+        counts_zoo[arch], res = phase_recsys(
+            torch, np, dev, arch, ZOO_PLAN, ("serve_bulk",), failures)
+        replays_g += res
+    phase("3g the recsys zoo at full width", t0)
 
     t0 = time.perf_counter()
     counts_h, captured_walk = phase_montecarlo(
         torch, np, dev, g, src64, truth, work, failures)
-    if captured_walk is not None:
-        captured_g["walk_step/mc"] = captured_walk
+    captured_h = {} if captured_walk is None else {
+        "walk_step/mc": captured_walk}
     del truth
     phase("3h monte-carlo path", t0)
 
@@ -2874,21 +2976,15 @@ def main() -> int:
     phase("3j load generation", t0)
 
     t0 = time.perf_counter()
-    results = {}
+    # 3g's embedding_bag launches were replayed in 3g, before each table
+    # was freed
+    results = {"embedding_bag": replays_g}
     captured_f = {tag: v for tag, v in captured_f.items()
                   if tag.startswith("sharded_frontier_push/")}
     captured.update(captured_e)
-    for tag in (sorted(captured_s) + sorted(captured) + sorted(captured_f)
-                + sorted(captured_g)):
-        name, variant = tag.split("/")
-        args, kwargs = (captured_s.get(tag) or captured.get(tag)
-                        or captured_f.get(tag) or captured_g[tag])
-        res = replay(torch, name, variant, args, kwargs)
-        print(f"replay {tag}:", json.dumps(res))
-        if not res["ok"]:
-            failures.append(f"replay {tag}")
-        results.setdefault(name, []).append(res)
-    del captured, captured_s, captured_e, captured_f, captured_g
+    for batch in (captured_s, captured, captured_f, captured_h):
+        replay_all(torch, batch, results, failures)
+    del captured, captured_s, captured_e, captured_f, captured_h
     phase("2b kernel vs plain, main-path inputs", t0)
 
     t0 = time.perf_counter()
@@ -2904,11 +3000,12 @@ def main() -> int:
           f"dense exchange vs sparse at covering widths {l1_exchange:.3e}")
     if not build_equal or not l1_dist <= 1e-5 or not l1_exchange <= 1e-4:
         failures.append("small distributed reference check")
-    rel_dlrm = check_small_dlrm(torch, np, dev)
-    print(f"small reference, dlrm-rm2 reduced in f32: logits card vs CPU "
-          f"within {rel_dlrm:.3e} of their largest (limit 1e-5)")
-    if not rel_dlrm <= 1e-5:
-        failures.append("small dlrm reference check")
+    for arch in ("dlrm-rm2",) + ZOO:
+        rel = check_small_recsys(torch, np, dev, arch)
+        print(f"small reference, {arch} reduced in f32: outputs card vs CPU "
+              f"within {rel:.3e} of their largest (limit 1e-5)")
+        if not rel <= 1e-5:
+            failures.append(f"small {arch} reference check")
     mc_equal = check_small_montecarlo(torch, np, dev)
     print("small reference, monte-carlo path, card vs CPU bit-equal:",
           json.dumps(mc_equal))
@@ -2929,7 +3026,9 @@ def main() -> int:
     paths = {"sparse (3b, 3c)": (SPARSE_PATH, counts),
              "dense (3d)": (DENSE_PATH, counts_d),
              "distributed (3f)": (DIST_PATH, counts_f),
-             "dlrm (3g)": (DLRM_PATH, counts_g),
+             "dlrm (3g)": (RECSYS_PATH, counts_g),
+             **{f"{arch} (3g)": (RECSYS_PATH, counts_zoo[arch])
+                for arch in ZOO},
              "monte-carlo (3h)": (MC_PATH, counts_h),
              "maintenance (3i)": (MAINT_PATH, counts_i)}
     kernels = []

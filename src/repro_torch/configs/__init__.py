@@ -1,18 +1,20 @@
 """Architecture registry of the port: ``get_arch("<id>") -> ArchSpec``.
 
-It holds only what is ported: ``dlrm-rm2`` (serving).  The reference's
-other architectures come with the rest of the model zoo, a later slice of
-the port (ROADMAP queue 1, item 7).
+It holds what is ported: the four recsys architectures (serving).  The
+reference's transformer and GCN architectures come with the rest of the
+model zoo, a later slice of the port.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
-from repro_torch.configs import dlrm_rm2
+from repro_torch.configs import dcn_v2, dlrm_rm2, mind, sasrec
 from repro_torch.configs.base import ArchSpec
 
-REGISTRY: Dict[str, ArchSpec] = {m.SPEC.id: m.SPEC for m in (dlrm_rm2,)}
+_MODULES = (dcn_v2, dlrm_rm2, sasrec, mind)
+
+REGISTRY: Dict[str, ArchSpec] = {m.SPEC.id: m.SPEC for m in _MODULES}
 
 
 def get_arch(arch_id: str) -> ArchSpec:
@@ -21,3 +23,13 @@ def get_arch(arch_id: str) -> ArchSpec:
             f"arch {arch_id!r} is not ported; the port's registry holds "
             f"{sorted(REGISTRY)}, the rest of the model zoo is a later slice")
     return REGISTRY[arch_id]
+
+
+def all_arch_ids() -> List[str]:
+    return list(REGISTRY)
+
+
+def all_cells() -> List[tuple]:
+    """Every (arch_id, shape_name) cell of the ported architectures."""
+    return [(spec.id, shape.name) for spec in REGISTRY.values()
+            for shape in spec.shapes]

@@ -29,7 +29,7 @@ class ArchSpec:
 
     id: str
     family: str                  # recsys
-    model_kind: str              # dlrm
+    model_kind: str              # dcn | dlrm | sasrec | mind
     config: Any                  # model config, full size
     reduced: Any                 # reduced smoke config
     shapes: Tuple[ShapeSpec, ...]

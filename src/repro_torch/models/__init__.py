@@ -1,1 +1,2 @@
-"""Model zoo: the recsys models ported so far (DLRM RM2 serving)."""
+"""Model zoo: the shared layers, attention, and the recsys models' serving
+(DLRM RM2, DCN-v2, SASRec, MIND)."""

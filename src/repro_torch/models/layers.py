@@ -2,8 +2,9 @@
 
 Parameters stay f32 and are cast to the compute dtype at use.  A dense
 weight keeps the reference's ``[d_in, d_out]`` layout (so ``y = x @ w``),
-which lets ``convert.dlrm_params_from_arrays`` carry the reference's
-parameters across without a transpose.
+which lets ``convert.recsys_params_from_arrays`` carry the reference's
+parameters across without a transpose.  Every ``*_init`` draws from a
+``torch.Generator`` and makes its tensors on the generator's device.
 """
 
 from __future__ import annotations
@@ -13,36 +14,147 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-
-def dense_init(gen: torch.Generator, d_in: int, d_out: int):
-    """``w`` of ``N(0, 1/d_in)`` on the generator's device, ``b`` zeros."""
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
-                    device=gen.device) / math.sqrt(d_in)
-    return {"w": w, "b": torch.zeros((d_out,), dtype=torch.float32,
-                                     device=gen.device)}
+from repro_torch.kernels import ops
 
 
-def dense_apply(p, x, *, compute_dtype):
-    """``x @ w + b``, each operand cast to ``compute_dtype`` first."""
-    dt = compute_dtype
-    return x.to(dt) @ p["w"].to(dt) + p["b"].to(dt)
+def _randn(gen: torch.Generator, shape) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
 
 
-def mlp_init(gen: torch.Generator, dims: Sequence[int]):
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
+               bias: bool = False, scale: Optional[float] = None):
+    """``w`` of ``N(0, 1) * scale`` (``N(0, 1) / sqrt(d_in)`` by default),
+    and ``b`` zeros where ``bias``."""
+    w = _randn(gen, (d_in, d_out))
+    p = {"w": w / math.sqrt(d_in) if scale is None else w * scale}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=gen.device)
+    return p
+
+
+def dense_apply(p, x, *, compute_dtype=None):
+    """``x @ w`` (``+ b`` where ``p`` has one), each operand cast to
+    ``compute_dtype`` (``None``: ``x``'s dtype) first."""
+    dt = compute_dtype or x.dtype
+    y = x.to(dt) @ p["w"].to(dt)
+    if "b" in p:
+        y = y + p["b"].to(dt)
+    return y
+
+
+def embedding_init(gen: torch.Generator, vocab: int, dim: int):
+    """The table ``[vocab, dim]`` of ``N(0, 1) * 0.02``."""
+    return {"table": _randn(gen, (vocab, dim)).mul_(0.02)}  # in place
+
+
+def embedding_apply(p, ids, *, compute_dtype=None):
+    """``table[ids]`` (``[*ids.shape, dim]``) in ``compute_dtype`` (``None``:
+    the table's dtype): one ``embedding_bag`` launch over bags of one with
+    no mask, so each row is the table's row rounded once, as the
+    reference's ``jnp.take`` of the cast table gives it; negative ids count
+    from the end, ids outside ``[-V, V)`` give NaN rows."""
+    table = p["table"]
+    dt = compute_dtype or table.dtype
+    rows = ops.embedding_bag(ids.reshape(-1, 1).to(torch.int32), None, table,
+                             row_dtype=dt, out_dtype=dt)
+    return rows.reshape(*ids.shape, table.shape[1])
+
+
+def rmsnorm_init(dim: int, device="cpu"):
+    return {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm_apply(p, x, *, eps: float = 1e-6):
+    """RMS norm computed in f32, cast back to ``x``'s dtype."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(dim: int, device="cpu"):
+    return {"scale": torch.ones((dim,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((dim,), dtype=torch.float32, device=device)}
+
+
+def layernorm_apply(p, x, *, eps: float = 1e-5):
+    """Layer norm (population variance, as ``jnp.var``) computed in f32,
+    cast back to ``x``'s dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    centered = x32 - mean
+    var = centered.square().mean(dim=-1, keepdim=True)
+    y = centered * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def mlp_init(gen: torch.Generator, dims: Sequence[int], *, bias: bool = True):
     """Plain MLP tower: ``layer_i`` maps ``dims[i] -> dims[i + 1]``."""
-    return {f"layer_{i}": dense_init(gen, dims[i], dims[i + 1])
+    return {f"layer_{i}": dense_init(gen, dims[i], dims[i + 1], bias=bias)
             for i in range(len(dims) - 1)}
 
 
-def mlp_apply(p, x, *, compute_dtype,
-              final_act: Optional[Callable] = None):
-    """Dense layers with a ReLU between them and ``final_act`` (if any)
+def mlp_apply(p, x, *, act: Callable = torch.relu,
+              final_act: Optional[Callable] = None, compute_dtype=None):
+    """Dense layers with ``act`` between them and ``final_act`` (if any)
     after the last."""
     n = len(p)
     for i in range(n):
         x = dense_apply(p[f"layer_{i}"], x, compute_dtype=compute_dtype)
         if i < n - 1:
-            x = torch.relu(x)
+            x = act(x)
         elif final_act is not None:
             x = final_act(x)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     device="cpu") -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """``x [..., seq, heads, head_dim]``; ``positions`` broadcastable to
+    ``[..., seq]``.  Rotates the two halves of each head in f32."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs    # [..., S, hd/2]
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean token NLL of ``logits [..., V]`` at int ``labels [...]``
+    (masked mean where ``mask`` is given)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long()).squeeze(-1)
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def binary_cross_entropy(logits: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+    logits = logits.float()
+    labels = labels.float()
+    return torch.mean(torch.clamp(logits, min=0) - logits * labels
+                      + torch.log1p(torch.exp(-logits.abs())))

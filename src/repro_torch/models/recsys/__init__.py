@@ -1,1 +1,2 @@
-"""RecSys models: DLRM RM2 and the shared embedding substrate."""
+"""RecSys models: DCN-v2, DLRM RM2, SASRec, MIND and the shared embedding
+substrate."""

@@ -1,12 +1,13 @@
 """The sparse-embedding substrate of the recsys models.
 
 All categorical fields share one fused table ``[n_fields * vocab_per_field,
-dim]`` with per-field row offsets.  :func:`lookup` and :func:`bag_lookup`
-go through :func:`repro_torch.kernels.ops.embedding_bag`: the hand-written
-CUDA kernel on the card, its plain version on the CPU.  The kernel rounds
-each gathered row to the compute dtype, so the table (6.66 GB in f32 at
-DLRM RM2's full width) is never cast whole, where the reference casts it
-before its ``jnp.take``; the values are the same.
+dim]`` with per-field row offsets.  :func:`lookup`, :func:`bag_lookup` and
+:func:`item_lookup` go through :func:`repro_torch.kernels.ops.
+embedding_bag`: the hand-written CUDA kernel on the card, its plain
+version on the CPU.  The kernel rounds each gathered row to the compute
+dtype, so a table (6.66 GB in f32 at DLRM RM2's full width) is never cast
+whole, where the reference casts it before its ``jnp.take``; the values
+are the same.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import embedding_bag as _bag
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,12 +54,8 @@ def lookup(cfg: EmbeddingConfig, params, ids: torch.Tensor,
     """One-hot fields: ``ids int32[B, n_fields] -> [B, n_fields, dim]`` of
     ``compute_dtype``: one ``embedding_bag`` launch over ``B * n_fields``
     bags of one, with no mask (each weight one)."""
-    b = ids.shape[0]
-    flat = (ids.to(torch.int32)
-            + field_offsets(cfg, ids.device)[None, :]).reshape(-1, 1)
-    rows = ops.embedding_bag(flat, None, params["table"],
-                             row_dtype=compute_dtype, out_dtype=compute_dtype)
-    return rows.reshape(b, cfg.n_fields, cfg.dim)
+    flat = ids.to(torch.int32) + field_offsets(cfg, ids.device)[None, :]
+    return L.embedding_apply(params, flat, compute_dtype=compute_dtype)
 
 
 def bag_lookup(cfg: EmbeddingConfig, params, ids: torch.Tensor,
@@ -82,5 +79,8 @@ def bag_lookup(cfg: EmbeddingConfig, params, ids: torch.Tensor,
 
 def item_lookup(table: torch.Tensor, ids: torch.Tensor,
                 compute_dtype=torch.float32) -> torch.Tensor:
-    """Plain row gather (sequence models, candidate scoring)."""
-    return _bag.gather_rows(table, ids).to(compute_dtype)
+    """Plain row gather (sequence models, candidate scoring): one
+    ``embedding_bag`` launch over bags of one with no mask; ids outside
+    ``[-V, V)`` give NaN rows, as ``jnp.take`` does."""
+    return L.embedding_apply({"table": table}, ids,
+                             compute_dtype=compute_dtype)

@@ -136,7 +136,36 @@ def test_tile_step_launches_the_push_once_per_shard_and_iteration(cuda):
 def test_dlrm_on_card_matches_the_cpu(cuda):
     """DLRM RM2's reduced config in f32, card against the plain CPU path
     from the same parameters: logits within 1e-5 of their largest."""
-    assert chip_smoke.check_small_dlrm(torch, np, cuda) <= 1e-5
+    assert chip_smoke.check_small_recsys(torch, np, cuda, "dlrm-rm2") <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", chip_smoke.ZOO)
+def test_zoo_on_card_matches_the_cpu(cuda, arch):
+    """DCN-v2's, SASRec's and MIND's reduced configs in f32, card against
+    the plain CPU path from the same parameters (``serve_p99`` and
+    ``retrieval_cand``): outputs within 1e-5 of their largest."""
+    assert chip_smoke.check_small_recsys(torch, np, cuda, arch) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", chip_smoke.ZOO)
+@pytest.mark.parametrize("shape", ["serve_p99", "retrieval_cand"])
+def test_zoo_forward_launches_embedding_bag_as_stated(cuda, arch, shape):
+    """Every gather of a forward is one ``embedding_bag`` launch on the
+    card: ``chip_smoke.ZOO_LOOKUPS`` of them, the count phase 3g gates
+    on."""
+    from repro_torch.launch import steps
+
+    bundle = steps.build(arch, shape, reduced=True, device=cuda)
+    params = bundle.init_fn(0)
+    batch = bundle.make_batch(torch.Generator().manual_seed(1))
+    tops.reset_launch_counts()
+    out = bundle.step_fn(params, batch)
+    kind = "rec_retrieval" if shape == "retrieval_cand" else "rec_serve"
+    assert tops.launch_counts()["embedding_bag"] == chip_smoke.ZOO_LOOKUPS[
+        (arch, kind)]
+    assert bool(torch.isfinite(out).all())
 
 
 @pytest.mark.cuda

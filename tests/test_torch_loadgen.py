@@ -109,26 +109,52 @@ def service_setup():
     return tg, tidx
 
 
+def _zipf_service(tg, tidx, clock):
+    return PPRService(tg, tidx, ServiceConfig(
+        query=tquery.QueryConfig(t_iterations=2, top_k=16, max_seeds=4,
+                                 hub_split_degree=16,
+                                 frontier_path="sparse"),
+        batching=BatchingConfig(max_batch=16),
+        cache=CacheConfig(capacity=256)), clock=clock, device="cpu")
+
+
+def _virtual_open_loop(tg, tidx, work, qps):
+    """``run_open_loop`` on a virtual clock that only its injected
+    ``sleep`` advances, as the reference's own open-loop tests drive it:
+    batches form the same way on every run, however loaded the host."""
+    t = [0.0]
+
+    def sleep(dt):
+        t[0] += dt
+
+    return run_open_loop(_zipf_service(tg, tidx, lambda: t[0]), work, qps,
+                         sleep=sleep)
+
+
+def _answer_bytes(answers):
+    by_id = sorted(answers, key=lambda a: a.request_id)
+    return b"".join(a.top_scores.tobytes() + a.top_vertices.tobytes()
+                    for a in by_id)
+
+
 def test_open_and_closed_loop_serve_a_zipf_seed_stream(service_setup):
     """``bench_cache.py``'s stream (seed sets of up to 4, an answer cache)
     through the port's service: every request answered, repeats served
-    from the cache, and every loop the same bytes."""
+    from the cache, and every loop the same bytes.  Each loop runs on a
+    virtual clock (the closed loops never sleep, so theirs stands still),
+    so how requests batch, and so how many repeats find their answer
+    cached, does not depend on the host's load."""
     tg, tidx = service_setup
     work = zipf_seed_workload(tg.n, 96, max_seeds=4, pool=24, seed=1)
 
-    def service():
-        return PPRService(tg, tidx, ServiceConfig(
-            query=tquery.QueryConfig(t_iterations=2, top_k=16, max_seeds=4,
-                                     hub_split_degree=16,
-                                     frontier_path="sparse"),
-            batching=BatchingConfig(max_batch=16),
-            cache=CacheConfig(capacity=256)), device="cpu")
+    def still():
+        return _zipf_service(tg, tidx, lambda: 0.0)
 
     runs = []
-    for drive in (lambda s: run_open_loop(s, work, 1e5),
-                  lambda s: run_closed_loop(s, work),
-                  lambda s: s.run_closed_loop(work)):
-        answers, stats = drive(service())
+    for drive in (lambda: _virtual_open_loop(tg, tidx, work, 1e5),
+                  lambda: run_closed_loop(still(), work),
+                  lambda: still().run_closed_loop(work)):
+        answers, stats = drive()
         assert len(answers) == len(work) == stats["served"]
         # how many repeats find their answer cached depends on when
         # batches complete, which the open loop's clock decides
@@ -136,10 +162,22 @@ def test_open_and_closed_loop_serve_a_zipf_seed_stream(service_setup):
         for k in ("latency_p50", "latency_p99", "qps", "offered_qps",
                   "qps_excl_first_batch", "wall_s"):
             assert np.isfinite(stats[k])
-        by_id = sorted(answers, key=lambda a: a.request_id)
-        runs.append(b"".join(a.top_scores.tobytes() + a.top_vertices.tobytes()
-                             for a in by_id))
+        runs.append(_answer_bytes(answers))
     assert runs[0] == runs[1] == runs[2]
+
+
+def test_answers_do_not_depend_on_how_requests_batch(service_setup):
+    """The same stream offered at three rates on the virtual clock splits
+    into other batches (and other cache hits), and every request gets the
+    same bytes: an answer depends on its seed set alone, not on the
+    padded width or the batch it rode in.  The reference behaves the
+    same way on these batchings."""
+    tg, tidx = service_setup
+    work = zipf_seed_workload(tg.n, 96, max_seeds=4, pool=24, seed=1)
+    runs = [_virtual_open_loop(tg, tidx, work, qps)
+            for qps in (1e5, 1e3, 50.0)]
+    assert len({st["batches"] for _, st in runs}) == 3
+    assert len({_answer_bytes(a) for a, _ in runs}) == 1
 
 
 @pytest.mark.parametrize("make", [

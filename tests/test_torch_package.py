@@ -20,6 +20,7 @@ from repro.graphs import synthetic as jsyn
 from repro.models.recsys import dlrm as jdlrm
 from repro_torch import convert, rng
 from repro_torch.configs import dlrm_rm2 as tdlrm_cfg
+from repro_torch.configs import get_arch
 from repro_torch.core import index as tindex
 from repro_torch.core.graph import Graph
 from repro_torch.core.query import BatchQueryEngine
@@ -93,6 +94,14 @@ def test_default_device_entry_points_raise_without_gpu(no_gpu, tmp_path):
         tdlrm.init(tdlrm_cfg.reduced(), 0)
     with pytest.raises(RuntimeError, match="cuda"):
         convert.dlrm_params_from_arrays({"w": np.zeros(2, np.float32)})
+    for arch in ("dcn-v2", "sasrec", "mind"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            steps.build(arch, "serve_p99", reduced=True)
+        spec = get_arch(arch)
+        with pytest.raises(RuntimeError, match="cuda"):
+            steps._REC_MODS[spec.model_kind].init(spec.reduced, 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.recsys_params_from_arrays({"w": np.zeros(2, np.float32)})
 
 
 def test_serve_cli_runs_on_cpu(capsys):

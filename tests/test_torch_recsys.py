@@ -351,11 +351,12 @@ def test_steps_full_config_is_dlrm_rm2():
     assert cfg.embedding.total_rows == 26_000_000 and cfg.embed_dim == 64
     assert cfg.top_in == 415 and cfg.compute_dtype == torch.bfloat16
     assert cfg.param_count() == jcfg.full().param_count()
-    assert steps._rec_dense_flops(cfg, 1) == pytest.approx(1_613_440.0)
+    assert steps._rec_dense_flops("dlrm", cfg, 1) == pytest.approx(
+        1_613_440.0)
 
 
 def test_rec_train_and_other_archs_are_not_ported():
     with pytest.raises(NotImplementedError, match="training"):
         steps.build("dlrm-rm2", "train_batch", reduced=True, device="cpu")
     with pytest.raises(KeyError, match="later slice"):
-        steps.build("dcn-v2", "serve_p99", reduced=True, device="cpu")
+        steps.build("smollm-135m", "serve_p99", reduced=True, device="cpu")
