@@ -30,8 +30,9 @@ Phases, each timed and printed:
    ``k_out`` above a row's distinct columns, the hash path's output the
    same bytes on two launches; ``embedding_bag`` at 1, 31, 33, 1,000,
    70,001 and 1,000,003 bags of 1 and 32 slots, D = 16, 17, 32, 48, 64
-   and 128, and apart at D = 50 (SASRec's width), tables 4 and 8 bytes
-   past alignment, with a mask and with none, two launches the same
+   and 128, and apart at D = 50 (SASRec's width) and D = 576
+   (smollm-135m's: 4.5 passes of a warp's 128 columns), tables 4 and 8
+   bytes past alignment, with a mask and with none, two launches the same
    bytes; and, plain PyTorch on the card against the
    CPU, bit-equal: ``rng.randint`` (spans 1, 2, 3, 2**16 + 1 and 2**31 -
    1, one ``maxval`` per draw) and the dense walk engine
@@ -137,6 +138,28 @@ Phases, each timed and printed:
    equal the rebuild's bit for bit, the answers computed after the
    updates a fresh service's on the rebuilt index byte for byte, and the
    answers still cached none of a repaired row;
+3j. load generation: ``run_open_loop`` of 16,384 requests at 50% and 90%
+   of 3c's captured qps, and ``bench_cache.py``'s Zipf seed-set stream;
+3k. smollm-135m (hf:HuggingFaceTB/SmolLM-135M) at full width through
+   ``steps.build``: 30 layers, d = 576, 9 heads over 3 KV heads, vocab
+   49,152, parameters from the port's ``init`` (seed 0) on the card, bf16
+   compute, the card's name and power limit printed first, the counters
+   zeroed just before its forwards and steps and read just after:
+   ``prefill_32k`` at B = 1 (the reference's 32: one f32 score chunk is
+   77 GB at 32), S = 32,768, one warm-up and two timed forwards (ms,
+   tokens/s, model TFLOP/s by ``2 N B S`` and the plain f32 attention's
+   FLOPs beside it, peak memory), one forward traced by kernel with the
+   device's idle share; ``decode_32k`` at B = 64 (the reference's 128: its
+   bf16 cache is 96.6 GB) and ``long_500k`` at B = 1, each cache filled
+   from a seeded generator with ``length`` at S - 1 - 19, two warm-up and
+   16 timed steps (p50 / p99 from CUDA events, tokens/s, cache GB, peak
+   memory) and one traced step; then a prefill of [2, 64] and 4 decode
+   steps from an empty cache in f32, card against the plain CPU path
+   (max abs logit difference within 1e-4 of max(1, max |logit|)).
+   ``embedding_bag`` must launch ``LM_LOOKUPS`` times (once a forward or
+   step), and every logit be finite; the prefill's token lookup (32,768
+   ids into the [49,152, 576] f32 table, bf16 out) is replayed (2b)
+   before the parameters are freed;
 2b. replay the inputs of each kernel's first launch on its path (and of
    ``ell_spmm``'s second, a batch's push of a spread-out frontier, and
    its ``dense`` variant, the last push of 3e's ``pi``, of
@@ -144,7 +167,8 @@ Phases, each timed and printed:
    ``embedding_bag``'s first at DLRM's ``serve_p99``, ``serve_bulk`` and
    ``retrieval_cand`` and at each zoo model's ``serve_bulk`` and its
    candidate gather at ``retrieval_cand`` (variants ``<arch>.<shape>``;
-   these are replayed in 3g), and of ``walk_step``'s first in 3h, variant
+   these are replayed in 3g) and at smollm-135m's ``prefill_32k``
+   (replayed in 3k), and of ``walk_step``'s first in 3h, variant
    ``mc``)
    through the kernel and its plain version: top-k outputs' sorted values
    within 1e-5 relative and at least 99% of indices equal (summation order
@@ -176,7 +200,10 @@ Phases, each timed and printed:
    dense exchange within 1e-4 L1 of the sparse exchange at covering
    widths; and the reduced configs of DLRM RM2, DCN-v2, SASRec and MIND
    in f32 (``serve_p99`` and ``retrieval_cand``), card against CPU,
-   outputs within 1e-5 of their largest; and the Monte-Carlo path, card against CPU, bit-equal: the
+   outputs within 1e-5 of their largest, and smollm-135m's (G = 1 and
+   G = 3) in f32, a prefill and 8 decode steps, logits and caches within
+   1e-5 of their largest; and the Monte-Carlo path, card against CPU,
+   bit-equal: the
    legacy build of every fourth source, the dense and sparse MCFP and
    MCEP estimates of 64 sources, ``mcfp``-mode answers at dispatch keys
    0-3, and ``randint``; and maintenance at ``rmat(14)``, bit-equal: the
@@ -196,6 +223,7 @@ no result line, if there is no GPU or any phase fails.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -244,6 +272,10 @@ ZOO_LOOKUPS = {("dlrm-rm2", "rec_serve"): 1, ("dlrm-rm2", "rec_retrieval"): 1,
                ("dcn-v2", "rec_serve"): 1, ("dcn-v2", "rec_retrieval"): 1,
                ("sasrec", "rec_serve"): 2, ("sasrec", "rec_retrieval"): 3,
                ("mind", "rec_serve"): 1, ("mind", "rec_retrieval"): 2}
+# embedding_bag launches an LM step makes: one token lookup a prefill
+# forward and one a decode step (phase 3k)
+LM_LOOKUPS = {("smollm-135m", "lm_prefill"): 1,
+              ("smollm-135m", "lm_decode"): 1}
 REC_SEED = 0                   # the recsys models' parameters (3g)
 ZOO = ("dcn-v2", "sasrec", "mind")
 # phase 3g's forwards a shape: (distinct batches, warm-up forwards, timed
@@ -253,6 +285,18 @@ DLRM_PLAN = {"serve_p99": (512, 8, 512), "serve_bulk": (4, 1, 16),
              "retrieval_cand": (1, 1, 4)}
 ZOO_PLAN = {"serve_p99": (128, 8, 120), "serve_bulk": (2, 1, 4),
             "retrieval_cand": (1, 1, 2)}
+LM_ARCH = "smollm-135m"        # phase 3k: the LM a single card holds whole
+LM_PATH = ("embedding_bag",)   # its token lookups
+LM_SEED = 0
+# phase 3k's cuts, batch only (width, depth, vocabulary and sequence
+# lengths are the published ones): prefill_32k at B = 1 of the
+# reference's 32 (one f32 score chunk [32, 3, 3, 32768, 2048] is 77 GB),
+# decode_32k at B = 64 of 128 (the bf16 cache 96.6 -> 48.3 GB); long_500k
+# is the reference's B = 1
+LM_BATCH = {"prefill_32k": 1, "decode_32k": 64, "long_500k": 1}
+LM_PREFILL_PLAN = (1, 2)       # warm-up, timed forwards
+LM_DECODE_PLAN = (2, 16)       # warm-up, timed steps
+LM_CHECK = (2, 64, 4)          # card vs CPU at full width: B, S, decode steps
 DIST_EP = 4                    # model shards of phase 3f's tile step
 DIST_DATA = 2                  # data replicas of phase 3f's build
 MC_PATH = ("walk_step",)       # the sparse estimators of phase 3h
@@ -1090,7 +1134,8 @@ def synthetic_embedding_bag(torch, np, dev, widths=(16, 17, 32, 48, 64, 128),
     storage starts 4 or 8 bytes past an aligned address (the float and
     float2 loads at D = 64).  ``SYNTHETIC_CHECKS`` also runs it at D = 50
     alone (SASRec's width: float2 loads, a warp across a row; float loads
-    4 bytes past alignment).  Values ``j / 1024``
+    4 bytes past alignment) and at D = 576 alone (smollm-135m's width:
+    4.5 passes of a warp's 128 columns a row).  Values ``j / 1024``
     with |x| <= 1 and masks in {0, 0.5, 1}, so every f32 sum is exact, and
     no mask (every weight one, against the plain version with no mask);
     ids from the whole table, negative ones counting from its end, and a
@@ -1199,6 +1244,8 @@ SYNTHETIC_CHECKS = {
     "embedding_bag": synthetic_embedding_bag,
     "embedding_bag_d50": lambda torch, np, dev: synthetic_embedding_bag(
         torch, np, dev, widths=(50,), wide=(50,), shifted=50),
+    "embedding_bag_d576": lambda torch, np, dev: synthetic_embedding_bag(
+        torch, np, dev, widths=(576,), wide=(576,), shifted=576),
     "randint": synthetic_randint,
     "simulate_walks": synthetic_simulate_walks,
 }
@@ -1850,6 +1897,277 @@ def phase_recsys(torch, np, dev, arch, plan, profiled, failures):
     results = {}
     replay_all(torch, captured, results, failures)
     del params, table, p99_batch, captured
+    torch.cuda.empty_cache()
+    return counts, results.get("embedding_bag", [])
+
+
+def print_split(label, wall_ms, device_ms, split, top=8):
+    """One traced call's device time by kernel (``device_time_split``),
+    with the device's idle share of the wall and ``embedding_bag``'s
+    share of the busy time."""
+    bag_ms = sum(ms for name, ms in split if "embedding_bag" in name)
+    print(f"  {label} by kernel (torch.profiler): wall {wall_ms:.3f} ms, "
+          f"device busy {device_ms:.3f} ms, idle "
+          f"{100 * (1 - device_ms / wall_ms):.1f}% of the wall; "
+          f"embedding_bag {bag_ms:.4f} ms "
+          f"({100 * bag_ms / max(device_ms, 1e-9):.2f}%)"
+          + ("" if bag_ms else ", no launch of it in the trace"))
+    for name, ms in split[:top]:
+        print(f"  {ms:9.3f} ms  {100 * ms / max(device_ms, 1e-9):5.1f}%  "
+              f"{name[:110]}")
+
+
+def fill_cache(cache, gen):
+    """``cache``'s K and V filled with ``N(0, 1)`` from ``gen``, a layer at
+    a time (no f32 copy of the whole cache); no view of them outlives the
+    call."""
+    for name in ("k", "v"):
+        for i in range(cache[name].shape[0]):
+            cache[name][i].normal_(generator=gen)
+    return cache
+
+
+def tree_bytes(tree):
+    """Bytes of a parameter tree's tensors."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def check_small_lm(torch, np, dev, steps_n=8):
+    """``smollm-135m``'s reduced config in f32, and with 6 heads over 2 KV
+    heads (G = 3, smollm's grouping), on the card and through the plain CPU
+    path from the same parameters: ``prefill_32k``'s logits, then
+    ``steps_n`` ``decode_32k`` steps from empty caches, each step's logits
+    and the caches after them.  Returns the worst ``max |card - cpu| /
+    max |cpu|``."""
+    from repro_torch.launch import steps
+
+    worst = 0.0
+    for over in ({}, dict(n_heads=6, n_kv_heads=2)):
+        kw = dict(reduced=True, config_overrides=over or None)
+        pre_cpu = steps.build(LM_ARCH, "prefill_32k", device="cpu", **kw)
+        pre_card = steps.build(LM_ARCH, "prefill_32k", device=dev, **kw)
+        dec_cpu = steps.build(LM_ARCH, "decode_32k", device="cpu", **kw)
+        dec_card = steps.build(LM_ARCH, "decode_32k", device=dev, **kw)
+        params = pre_cpu.init_fn(3)
+        on_card = tree_to(params, dev)
+        batch = pre_cpu.make_batch(torch.Generator().manual_seed(4))
+        pairs = [(pre_card.step_fn(on_card, tree_to(batch, dev)),
+                  pre_cpu.step_fn(params, batch))]
+        c_cpu, c_card = dec_cpu.make_cache(), dec_card.make_cache()
+        gen = torch.Generator().manual_seed(5)
+        for _ in range(steps_n):
+            tok = dec_cpu.make_batch(gen)
+            want, c_cpu = dec_cpu.step_fn(params, c_cpu, tok)
+            got, c_card = dec_card.step_fn(on_card, c_card, tree_to(tok, dev))
+            pairs.append((got, want))
+        if not int(c_card["length"]) == int(c_cpu["length"]) == steps_n:
+            return float("inf")
+        pairs += [(c_card[n], c_cpu[n]) for n in ("k", "v")]
+        for got, want in pairs:
+            got = got.cpu()
+            if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                return float("inf")
+            worst = max(worst, float((got - want).abs().max())
+                        / max(float(want.abs().max()), 1e-30))
+    return worst
+
+
+def phase_lm(torch, np, dev, failures):
+    """Phase 3k: ``smollm-135m`` at full width on the card through
+    ``steps.build``, with the launch counters zeroed just before its
+    forwards and steps and read just after: ``prefill_32k`` and the decode
+    shapes at ``LM_BATCH``'s rows (each cut printed), each timed with CUDA
+    events, one of each traced by kernel, then a prefill and
+    ``LM_CHECK``'s decode steps in f32 on the card and through the plain
+    CPU path.  Then, its parameters still held, phase 2b's replay of the
+    prefill's token lookup.  Returns the launch counts and the replay's
+    results."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+
+    spec = get_arch(LM_ARCH)
+    cfg = spec.config
+    print(f"{LM_ARCH} ({spec.source}): {card_name_and_power_limit()}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        failures.append("3k: TF32 is allowed in the attention's f32 products")
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    stated = 0                         # LM_LOOKUPS: one a forward or step
+    finite = []
+    t1 = time.perf_counter()
+    prefill = steps.build(LM_ARCH, "prefill_32k", device=dev)
+    params = prefill.init_fn(LM_SEED)
+    torch.cuda.synchronize()
+    print(f"  {cfg.param_count()} parameters, {tree_bytes(params) / 1e9:.3f} "
+          f"GB in f32, made in {time.perf_counter() - t1:.3f} s; compute "
+          f"bf16; {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv_heads} KV heads, ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"attention chunk {cfg.attn_chunk}")
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    captured = {}
+
+    # -- prefill_32k -----------------------------------------------------
+    (b_ref, s), _ = prefill.batch_spec["tokens"]
+    b = LM_BATCH["prefill_32k"]
+    chunk_gb = b_ref * cfg.n_heads * s * cfg.attn_chunk * 4 / 1e9
+    print(f"  prefill_32k: B = {b}, cut from the reference's {b_ref} (one f32 "
+          f"score chunk [{b_ref}, {cfg.n_kv_heads}, "
+          f"{cfg.n_heads // cfg.n_kv_heads}, {s}, {cfg.attn_chunk}] is "
+          f"{chunk_gb:.1f} GB at B = {b_ref}); S = {s} uncut")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     dtype=torch.int32, device=dev)}
+    flops = 2.0 * cfg.active_param_count() * b * s      # the reference's
+    # the plain attention's products as run: QK and PV over every chunk
+    attn_flops = 4.0 * b * cfg.n_heads * s * s * cfg.hd * cfg.n_layers
+    warm, reps = LM_PREFILL_PLAN
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for j in range(warm + reps):
+        ops.capture_first_launches(j == 0)
+        ev0.record()
+        out = prefill.step_fn(params, batch)
+        ev1.record()
+        ev1.synchronize()
+        if j == 0:
+            captured[f"embedding_bag/{LM_ARCH}.prefill_32k"] = (
+                ops.captured_launches()["embedding_bag/main"])
+            ops.capture_first_launches(False)
+        stated += 1
+        finite.append(bool(torch.isfinite(out).all()))
+        if j >= warm:
+            ms.append(ev0.elapsed_time(ev1))
+    if tuple(out.shape) != (b, 1, cfg.vocab):
+        failures.append(f"3k prefill: logits {tuple(out.shape)}")
+    ms = np.array(ms)
+    sec = np.median(ms) / 1e3
+    print(f"  prefill_32k: {reps} forwards of [{b}, {s}]: "
+          f"{', '.join(f'{x:.1f}' for x in ms)} ms; "
+          f"{b * s / sec:.1f} tokens/s; model {flops / 1e12:.3f} TFLOP "
+          f"(2 N B S), {flops / sec / 1e12:.3f} TFLOP/s; the plain f32 "
+          f"attention's products {attn_flops / 1e12:.1f} TFLOP, "
+          f"{attn_flops / sec / 1e12:.2f} TFLOP/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB above "
+          f"the {base / 1e9:.2f} GB held before 3k)")
+    wall_ms, device_ms, split = device_time_split(
+        torch, lambda: prefill.step_fn(params, batch), top=None)
+    stated += 1
+    print_split("prefill_32k, one forward", wall_ms, device_ms, split)
+    del out, batch
+
+    # -- decode_32k, long_500k -------------------------------------------
+    warm, reps = LM_DECODE_PLAN
+    for shape in ("decode_32k", "long_500k"):
+        dec = steps.build(LM_ARCH, shape, device=dev)
+        (b_ref, _), _ = dec.batch_spec["tokens"]
+        b = LM_BATCH[shape]
+        s = dec.cache_spec["k"][0][2]
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        cache = fill_cache(dec.make_cache(b), gen)
+        n_steps = warm + reps + 1                # the last one traced
+        cache["length"].fill_(s - 1 - n_steps)
+        torch.cuda.synchronize()
+        cache_gb = sum(cache[n].numel() * cache[n].element_size()
+                       for n in ("k", "v")) / 1e9
+        print(f"  {shape}: B = {b}" + (
+            f", cut from the reference's {b_ref} (its bf16 cache "
+            f"{cache_gb * b_ref / b:.1f} GB)" if b != b_ref else
+            " (the reference's)") + f"; S = {s} uncut; cache "
+            f"{cache['k'].dtype} {cache_gb:.2f} GB, filled from a seeded "
+            f"generator in {time.perf_counter() - t1:.3f} s, length "
+            f"{s - 1 - n_steps}")
+        toks = torch.randint(0, cfg.vocab, (n_steps, b, 1), generator=gen,
+                             dtype=torch.int32, device=dev)
+        ms = []
+        for j in range(warm + reps):
+            ev0.record()
+            logits, cache = dec.step_fn(params, cache, {"tokens": toks[j]})
+            ev1.record()
+            ev1.synchronize()
+            stated += 1
+            finite.append(bool(torch.isfinite(logits).all()))
+            if j >= warm:
+                ms.append(ev0.elapsed_time(ev1))
+        if tuple(logits.shape) != (b, 1, cfg.vocab):
+            failures.append(f"3k {shape}: logits {tuple(logits.shape)}")
+        ms = np.array(ms)
+        state = {"cache": cache}
+
+        def one_step():
+            state["logits"], state["cache"] = dec.step_fn(
+                params, state["cache"], {"tokens": toks[-1]})
+
+        wall_ms, device_ms, split = device_time_split(torch, one_step,
+                                                      top=None)
+        stated += 1
+        finite.append(bool(torch.isfinite(state["logits"]).all()))
+        if int(state["cache"]["length"]) != s - 1:
+            failures.append(f"3k {shape}: length "
+                            f"{int(state['cache']['length'])}, want {s - 1}")
+        p50 = np.percentile(ms, 50)
+        print(f"  {shape}: {reps} steps: p50 {p50:.3f} ms, p99 "
+              f"{np.percentile(ms, 99):.3f} ms, mean {ms.mean():.3f} ms; "
+              f"{b / (ms.mean() / 1e3):.1f} tokens/s; the cache read at "
+              f"{cache_gb / (p50 / 1e3):.1f} GB/s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+              f"({(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB "
+              f"above 3k's start)")
+        print_split(f"{shape}, one step", wall_ms, device_ms, split)
+        del cache, state, logits, toks
+        torch.cuda.empty_cache()
+
+    # -- the full width in f32, card against the plain CPU path ------------
+    t1 = time.perf_counter()
+    b, s, n = LM_CHECK
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    over = dict(compute_dtype=torch.float32)
+    host = tree_to(params, "cpu")
+    toks = torch.randint(0, cfg.vocab, (b, s + n), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(5))
+    pairs = []
+    for where, p in ((dev, params), ("cpu", host)):
+        pre = steps.build(LM_ARCH, "prefill_32k", device=where,
+                          config_overrides=over)
+        dec = steps.build(LM_ARCH, "decode_32k", device=where,
+                          config_overrides=over)
+        outs = [pre.step_fn(p, {"tokens": toks[:, :s].to(where)})]
+        cache = tfm.init_cache(f32, b, s, torch.float32, device=where)
+        for j in range(n):
+            logits, cache = dec.step_fn(
+                p, cache, {"tokens": toks[:, s + j:s + j + 1].to(where)})
+            outs.append(logits)
+        pairs.append([x.cpu() for x in outs])
+    stated += 1 + n
+    err = max(float((g - w).abs().max()) for g, w in zip(*pairs))
+    scale = max(1.0, max(float(w.abs().max()) for w in pairs[1]))
+    finite += [bool(torch.isfinite(x).all()) for x in pairs[0]]
+    print(f"  full width f32, B = {b}, a prefill of {s} then {n} decode steps "
+          f"from an empty cache, card vs CPU: max abs logit difference "
+          f"{err:.3e} (limit {1e-4 * scale:.3e}), "
+          f"{time.perf_counter() - t1:.3f} s")
+    if not err <= 1e-4 * scale:
+        failures.append(f"3k full-width card vs CPU: {err:.3e}")
+    del host, pairs
+
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"  {LM_ARCH} path launches: {json.dumps(counts)} ({stated} "
+          f"embedding_bag launches stated: one a forward or step)")
+    if counts["embedding_bag"] != stated:
+        failures.append(f"3k: embedding_bag launched "
+                        f"{counts['embedding_bag']} times, {stated} stated")
+    if not all(finite):
+        failures.append(f"3k: {finite.count(False)} outputs not finite")
+    results = {}
+    replay_all(torch, captured, results, failures)
+    del params, captured
     torch.cuda.empty_cache()
     return counts, results.get("embedding_bag", [])
 
@@ -2598,6 +2916,7 @@ def main() -> int:
     from repro_torch.serving.batching import BatchingConfig
     from repro_torch.serving.pipeline import PipelineConfig
 
+    run_t0 = time.perf_counter()
     dev = "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2976,9 +3295,13 @@ def main() -> int:
     phase("3j load generation", t0)
 
     t0 = time.perf_counter()
-    # 3g's embedding_bag launches were replayed in 3g, before each table
-    # was freed
-    results = {"embedding_bag": replays_g}
+    counts_k, replays_k = phase_lm(torch, np, dev, failures)
+    phase("3k smollm-135m at full width", t0)
+
+    t0 = time.perf_counter()
+    # 3g's and 3k's embedding_bag launches were replayed there, before
+    # each table was freed
+    results = {"embedding_bag": replays_g + replays_k}
     captured_f = {tag: v for tag, v in captured_f.items()
                   if tag.startswith("sharded_frontier_push/")}
     captured.update(captured_e)
@@ -3006,6 +3329,12 @@ def main() -> int:
               f"within {rel:.3e} of their largest (limit 1e-5)")
         if not rel <= 1e-5:
             failures.append(f"small {arch} reference check")
+    rel = check_small_lm(torch, np, dev)
+    print(f"small reference, {LM_ARCH} reduced in f32 (G = 1 and G = 3): "
+          f"prefill and 8 decode steps' logits and caches card vs CPU within "
+          f"{rel:.3e} of their largest (limit 1e-5)")
+    if not rel <= 1e-5:
+        failures.append(f"small {LM_ARCH} reference check")
     mc_equal = check_small_montecarlo(torch, np, dev)
     print("small reference, monte-carlo path, card vs CPU bit-equal:",
           json.dumps(mc_equal))
@@ -3030,7 +3359,8 @@ def main() -> int:
              **{f"{arch} (3g)": (RECSYS_PATH, counts_zoo[arch])
                 for arch in ZOO},
              "monte-carlo (3h)": (MC_PATH, counts_h),
-             "maintenance (3i)": (MAINT_PATH, counts_i)}
+             "maintenance (3i)": (MAINT_PATH, counts_i),
+             f"{LM_ARCH} (3k)": (LM_PATH, counts_k)}
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         runs = results.get(name)
@@ -3058,6 +3388,7 @@ def main() -> int:
                 bound_ms=x["bound_ms"], library_ms=x["library_ms"])
                 for x in runs},
         ))
+    print(f"chip_smoke total: {time.perf_counter() - run_t0:.3f} s")
     if failures:
         print("FAILED:", "; ".join(failures), file=sys.stderr)
         return 1

@@ -14,11 +14,16 @@ from typing import Any, Dict, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
-    """One input-shape cell; ``kind`` is ``rec_train``, ``rec_serve`` or
-    ``rec_retrieval`` for the recsys family."""
+    """One input-shape cell.
+
+    kind:
+      lm_train | lm_prefill | lm_decode          (LM family)
+      rec_train | rec_serve | rec_retrieval       (RecSys family)
+    """
 
     name: str
     kind: str
+    seq_len: int = 0
     global_batch: int = 0
     extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
@@ -28,8 +33,8 @@ class ArchSpec:
     """An architecture entry in the registry."""
 
     id: str
-    family: str                  # recsys
-    model_kind: str              # dcn | dlrm | sasrec | mind
+    family: str                  # lm | recsys
+    model_kind: str              # transformer | dcn | dlrm | sasrec | mind
     config: Any                  # model config, full size
     reduced: Any                 # reduced smoke config
     shapes: Tuple[ShapeSpec, ...]
@@ -42,6 +47,14 @@ class ArchSpec:
                 return s
         raise KeyError(f"{self.id} has no shape {name!r}")
 
+
+LM_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("train_4k", "lm_train", seq_len=4096, global_batch=256),
+    ShapeSpec("prefill_32k", "lm_prefill", seq_len=32768, global_batch=32),
+    ShapeSpec("decode_32k", "lm_decode", seq_len=32768, global_batch=128),
+    # long-context decode: the serve step is O(S) per token
+    ShapeSpec("long_500k", "lm_decode", seq_len=524288, global_batch=1),
+)
 
 REC_SHAPES: Tuple[ShapeSpec, ...] = (
     ShapeSpec("train_batch", "rec_train", global_batch=65536),

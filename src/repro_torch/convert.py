@@ -67,17 +67,20 @@ def sharded_index_from_arrays(values, indices, ep: int, device="cuda"):
             index.indices.reshape(ep, n // ep, l))
 
 
-def recsys_params_from_arrays(tree, device="cuda"):
-    """The port's parameters of any recsys model (DLRM RM2, DCN-v2, SASRec,
-    MIND) from the reference's parameter pytree given as nested dicts of
-    numpy arrays (``jax.tree.map(np.asarray, params)``): the same nesting
-    and names, each array copied into a tensor of its dtype.  Dense weights
-    keep the reference's ``[d_in, d_out]`` layout, so nothing is
-    transposed."""
+def params_from_arrays(tree, device="cuda"):
+    """The port's parameters of any ported model (``smollm-135m``, DLRM
+    RM2, DCN-v2, SASRec, MIND) from the reference's parameter pytree given
+    as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``):
+    the same nesting and names, each array copied into a tensor of its
+    dtype.  Dense weights keep the reference's ``[d_in, d_out]`` layout and
+    the transformer's layers their leading ``n_layers`` axis, so nothing is
+    transposed.  A KV cache (``k``, ``v``, ``length``) crosses the same
+    way."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
-        return {k: recsys_params_from_arrays(v, dev) for k, v in tree.items()}
+        return {k: params_from_arrays(v, dev) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, copy=True)).to(dev)
 
 
-dlrm_params_from_arrays = recsys_params_from_arrays
+recsys_params_from_arrays = params_from_arrays
+dlrm_params_from_arrays = params_from_arrays

@@ -1,10 +1,14 @@
 """Step factory: (arch, shape) -> init / step callables + batch specs.
 
 The counterpart of the reference's ``launch/steps.py`` for what the port
-holds: the recsys serve kinds of DLRM RM2, DCN-v2, SASRec and MIND
-(``rec_serve``: ``serve_p99`` at B = 512 and ``serve_bulk`` at B = 262,144;
-``rec_retrieval``: ``retrieval_cand``, one user against 10^6 candidates).
-``rec_train`` comes with the training slice and raises.
+holds: ``smollm-135m``'s serve kinds (``lm_prefill``: ``prefill_32k``, the
+next-token logits of a ``[B, S]`` batch; ``lm_decode``: ``decode_32k`` and
+``long_500k``, one token a row against a KV cache, which
+:attr:`StepBundle.make_cache` makes on the device) and the recsys serve
+kinds of DLRM RM2, DCN-v2, SASRec and MIND (``rec_serve``: ``serve_p99``
+at B = 512 and ``serve_bulk`` at B = 262,144; ``rec_retrieval``:
+``retrieval_cand``, one user against 10^6 candidates).  ``lm_train`` and
+``rec_train`` come with the training slice and raise.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tfm
 from repro_torch.models.recsys import dcn, dlrm, mind, sasrec
 
 F32 = torch.float32
@@ -33,11 +38,94 @@ class StepBundle:
     shape_name: str
     kind: str                               # serve
     init_fn: Callable[[int], Any]           # seed -> params on the device
-    step_fn: Callable[..., Any]             # (params, batch) -> outputs
+    step_fn: Callable[..., Any]             # (params, [cache,] batch) -> outputs
     batch_spec: Dict[str, TensorSpec]
     make_batch: Callable[[torch.Generator], Dict[str, torch.Tensor]]
     model_flops_per_step: float = 0.0
+    # lm_decode: the cache's tensors, and ``make_cache(batch=None)``, an
+    # empty cache on the device (``batch`` rows in place of the shape's)
+    cache_spec: Optional[Dict[str, TensorSpec]] = None
+    make_cache: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
 
+
+# ---------------------------------------------------------------------------
+# LM family
+# ---------------------------------------------------------------------------
+
+def _reduce_lm_shape(shape: ShapeSpec) -> ShapeSpec:
+    table = {
+        "lm_train": dict(seq_len=32, global_batch=4),
+        "lm_prefill": dict(seq_len=64, global_batch=2),
+        "lm_decode": dict(seq_len=64, global_batch=2),
+    }
+    return dataclasses.replace(shape, **table[shape.kind])
+
+
+def _lm_bundle(arch: ArchSpec, shape: ShapeSpec, cfg: tfm.TransformerConfig,
+               device: torch.device) -> StepBundle:
+    if shape.kind == "lm_train":
+        raise NotImplementedError(
+            f"{arch.id}/{shape.name}: training (lm_train) is not ported; it "
+            "comes with the training slice, its loss_fn and its optimizer")
+    b, s = shape.global_batch, shape.seq_len
+    n_params_active = cfg.active_param_count()
+
+    def init_fn(seed: int):
+        return tfm.init(cfg, seed, device=device)
+
+    def tokens(rows: int, cols: int):
+        def make_batch(gen: torch.Generator):
+            return dict(tokens=torch.randint(
+                0, cfg.vocab, (rows, cols), generator=gen, dtype=I32,
+                device=gen.device).to(device))
+        return make_batch
+
+    if shape.kind == "lm_prefill":
+        def serve_prefill(params, batch):
+            h, _ = tfm.forward(cfg, params, batch["tokens"])
+            dt = cfg.compute_dtype
+            return h[:, -1:, :].to(dt) @ params["lm_head"]["w"].to(dt)
+
+        return StepBundle(
+            arch.id, shape.name, "serve", init_fn, serve_prefill,
+            dict(tokens=((b, s), I32)), tokens(b, s),
+            model_flops_per_step=2.0 * n_params_active * b * s)
+
+    # lm_decode: the int8 cache with per-token scales wherever the bf16
+    # cache would exceed ~0.5 TB (the reference's switch)
+    cache_bytes_bf16 = (cfg.n_layers * b * s * cfg.n_kv_heads
+                        * cfg.hd * 2 * 2)
+    if cache_bytes_bf16 > 0.5e12 and cfg.compute_dtype == torch.bfloat16:
+        cfg = dataclasses.replace(cfg, kv_quant=True)
+    cache_dt = torch.bfloat16 if cfg.compute_dtype == torch.bfloat16 else F32
+    cshape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.hd)
+    if cfg.kv_quant:
+        sshape = cshape[:-1]
+        cache_spec = dict(k=(cshape, torch.int8), v=(cshape, torch.int8),
+                          k_scale=(sshape, torch.bfloat16),
+                          v_scale=(sshape, torch.bfloat16),
+                          length=((), I32))
+    else:
+        cache_spec = dict(k=(cshape, cache_dt), v=(cshape, cache_dt),
+                          length=((), I32))
+
+    def serve_decode(params, cache, batch):
+        return tfm.decode_step(cfg, params, cache, batch["tokens"])
+
+    def make_cache(batch: Optional[int] = None):
+        return tfm.init_cache(cfg, b if batch is None else batch, s,
+                              cache_dt, device=device)
+
+    return StepBundle(
+        arch.id, shape.name, "serve", init_fn, serve_decode,
+        dict(tokens=((b, 1), I32)), tokens(b, 1),
+        model_flops_per_step=2.0 * n_params_active * b,  # a token a row
+        cache_spec=cache_spec, make_cache=make_cache)
+
+
+# ---------------------------------------------------------------------------
+# RecSys family
+# ---------------------------------------------------------------------------
 
 _REC_MODS = {"dcn": dcn, "dlrm": dlrm, "sasrec": sasrec, "mind": mind}
 
@@ -173,8 +261,11 @@ def build(arch: Union[str, ArchSpec], shape_name: str, *,
         arch = get_arch(arch)
     shape = arch.shape(shape_name)
     cfg = arch.reduced if reduced else arch.config
+    lm = arch.family == "lm"
     if reduced:
-        shape = _reduce_rec_shape(shape)
+        shape = (_reduce_lm_shape if lm else _reduce_rec_shape)(shape)
     if config_overrides:
         cfg = dataclasses.replace(cfg, **config_overrides)
+    if lm:
+        return _lm_bundle(arch, shape, cfg, dev)
     return _rec_bundle(arch, shape, cfg, dev)

@@ -2,7 +2,7 @@
 
 Parameters stay f32 and are cast to the compute dtype at use.  A dense
 weight keeps the reference's ``[d_in, d_out]`` layout (so ``y = x @ w``),
-which lets ``convert.recsys_params_from_arrays`` carry the reference's
+which lets ``convert.params_from_arrays`` carry the reference's
 parameters across without a transpose.  Every ``*_init`` draws from a
 ``torch.Generator`` and makes its tensors on the generator's device.
 """

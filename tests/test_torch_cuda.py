@@ -193,6 +193,38 @@ def test_dlrm_forward_launches_embedding_bag_once(cuda):
 
 
 @pytest.mark.cuda
+def test_lm_on_card_matches_the_cpu(cuda):
+    """smollm-135m's reduced config in f32 (G = 1, and G = 3 with 6 heads
+    over 2 KV heads), card against the plain CPU path from the same
+    parameters: the prefill's logits and 8 decode steps' logits and
+    caches within 1e-5 of their largest."""
+    assert chip_smoke.check_small_lm(torch, np, cuda) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kind", [("prefill_32k", "lm_prefill"),
+                                        ("decode_32k", "lm_decode")])
+def test_lm_step_launches_embedding_bag_as_stated(cuda, shape, kind):
+    """A prefill forward and a decode step each make one ``embedding_bag``
+    launch on the card (``chip_smoke.LM_LOOKUPS``, the count phase 3k
+    gates on)."""
+    from repro_torch.launch import steps
+
+    bundle = steps.build(chip_smoke.LM_ARCH, shape, reduced=True,
+                         device=cuda)
+    params = bundle.init_fn(0)
+    batch = bundle.make_batch(torch.Generator().manual_seed(1))
+    args = (params, bundle.make_cache(), batch) if bundle.make_cache \
+        else (params, batch)
+    tops.reset_launch_counts()
+    out = bundle.step_fn(*args)
+    out = out[0] if bundle.make_cache else out
+    assert tops.launch_counts()["embedding_bag"] == chip_smoke.LM_LOOKUPS[
+        (chip_smoke.LM_ARCH, kind)]
+    assert out.shape == (2, 1, 512) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
 def test_montecarlo_on_card_matches_the_cpu(cuda):
     """The Monte-Carlo path at rmat(14), card against the plain CPU path,
     bit for bit: the legacy build, the dense and sparse MCFP and MCEP

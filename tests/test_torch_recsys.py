@@ -359,4 +359,4 @@ def test_rec_train_and_other_archs_are_not_ported():
     with pytest.raises(NotImplementedError, match="training"):
         steps.build("dlrm-rm2", "train_batch", reduced=True, device="cpu")
     with pytest.raises(KeyError, match="later slice"):
-        steps.build("smollm-135m", "serve_p99", reduced=True, device="cpu")
+        steps.build("gcn-cora", "full_graph_sm", reduced=True, device="cpu")

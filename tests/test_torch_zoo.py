@@ -460,33 +460,43 @@ def test_rec_train_raises(arch):
         steps.build(arch, "train_batch", reduced=True, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ZOO + ("dlrm-rm2",))
+# the reference's config fields the port does not carry: its parameters
+# are f32 (``param_dtype``), and the transformer's other three only steer
+# XLA's lowering (activation sharding, rematerialisation, casting the
+# parameters before an FSDP gather)
+DROPPED_FIELDS = ("param_dtype", "act_shard", "remat", "precast_params")
+
+
+@pytest.mark.parametrize("arch", ZOO + ("dlrm-rm2", "smollm-135m"))
 def test_configs_match_reference(arch):
-    """``full()`` and ``reduced()`` field for field (dtypes mapped),
-    ``param_count()``, the spec's kind, source, shapes and (for the zoo)
-    notes."""
+    """``full()`` and ``reduced()`` field for field (dtypes mapped, the
+    dropped fields aside), ``param_count()``, the spec's kind, source,
+    shapes and (for the zoo and the LM) notes."""
     want, got = jconfigs.get_arch(arch), tconfigs.get_arch(arch)
     dt = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
     for w, g in ((want.config, got.config), (want.reduced, got.reduced)):
         wf = dataclasses.asdict(w)
-        wf.pop("param_dtype", None)
+        for name in DROPPED_FIELDS:
+            wf.pop(name, None)
         wf["compute_dtype"] = dt[wf["compute_dtype"]]
         assert dataclasses.asdict(g) == wf
         assert g.param_count() == w.param_count()
     # DLRM's notes describe the port's table (one fused table, not
     # sharded), since its first slice
     names = ("id", "family", "model_kind", "source") + (
-        ("notes",) if arch in ZOO else ())
+        ("notes",) if arch != "dlrm-rm2" else ())
     for name in names:
         assert getattr(got, name) == getattr(want, name)
-    assert [(s.name, s.kind, s.global_batch, s.extra) for s in got.shapes] \
-        == [(s.name, s.kind, s.global_batch, s.extra) for s in want.shapes]
+    assert [(s.name, s.kind, s.seq_len, s.global_batch, s.extra)
+            for s in got.shapes] \
+        == [(s.name, s.kind, s.seq_len, s.global_batch, s.extra)
+            for s in want.shapes]
 
 
 def test_all_cells_are_the_references_for_the_ported_archs():
     ids = tconfigs.all_arch_ids()
-    assert sorted(ids) == sorted(ZOO + ("dlrm-rm2",))
+    assert sorted(ids) == sorted(ZOO + ("dlrm-rm2", "smollm-135m"))
     assert set(ids) <= set(jconfigs.all_arch_ids())
     assert tconfigs.all_cells() == [c for c in jconfigs.all_cells()
                                     if c[0] in ids]
-    assert len(tconfigs.all_cells()) == 16
+    assert len(tconfigs.all_cells()) == 20
