@@ -5,9 +5,11 @@
 
 Phases, each timed and printed:
 
-1. build the seven CUDA kernels (``walk_step``, ``frontier_push``,
+1. build the eight CUDA kernels (``walk_step``, ``frontier_push``,
    ``index_combine_sparse``, ``ell_spmm``, ``index_combine``,
-   ``sharded_frontier_push``, ``embedding_bag``) from
+   ``sharded_frontier_push``, ``embedding_bag``, and
+   ``embedding_bag_backward``, which has no TPU kernel: the lookups'
+   table gradient, the transpose of the reference's gather) from
    ``src/repro_torch/kernels/csrc`` with nvcc, one process per source, all
    started together;
 2a. hold each kernel against its plain PyTorch version on the card, on
@@ -33,7 +35,11 @@ Phases, each timed and printed:
    and 128, and apart at D = 50 (SASRec's width) and D = 576
    (smollm-135m's: 4.5 passes of a warp's 128 columns), tables 4 and 8
    bytes past alignment, with a mask and with none, two launches the same
-   bytes; and, plain PyTorch on the card against the
+   bytes; ``embedding_bag_backward`` at D = 16, 50, 64 and 576, bags of 1
+   and 8 with one row hit 10,000 (2,000) times, negative and outside ids,
+   with a mask and none, f32 and bf16 rows and gradients, against the
+   plain version bit for bit and two launches the same bytes; and, plain
+   PyTorch on the card against the
    CPU, bit-equal: ``rng.randint`` (spans 1, 2, 3, 2**16 + 1 and 2**31 -
    1, one ``maxval`` per draw) and the dense walk engine
    ``walks.simulate_walks``;
@@ -160,6 +166,30 @@ Phases, each timed and printed:
    step), and every logit be finite; the prefill's token lookup (32,768
    ids into the [49,152, 576] f32 table, bf16 out) is replayed (2b)
    before the parameters are freed;
+3l. training at full width, each cell with the counters zeroed just
+   before its steps and read just after, the card's name and power limit
+   printed first: DLRM RM2, DCN-v2, SASRec and MIND ``train_batch`` (B =
+   65,536) and smollm-135m ``train_4k`` at B = 8 (the reference's 256: its
+   f32 logits are 206 GB), S = 4,096, each through ``steps.build`` under
+   its ``DEFAULT_OPT`` (bf16 moments), one warm-up step and 3 timed steps
+   on one batch (CUDA events; examples or tokens/s, model TFLOP/s, peak
+   memory); the second step's loss must be below 1.5x the first's, every
+   loss finite, and ``embedding_bag`` and ``embedding_bag_backward`` each
+   launch ``TRAIN_LOOKUPS`` times a step; on DLRM, rows the batch does not
+   touch must be updated by weight decay alone, bit for bit, and one more
+   step is split by kernel (``torch.profiler``).  Then one step of each
+   architecture in f32 at full widths card against the plain CPU path
+   (DLRM's and DCN-v2's ``vocab_per_field`` at 10^4, the first 256 rows of
+   a batch, the LM one row of 256 tokens): the loss within 1e-5, each
+   gradient within 1e-3 of its leaf's norm (``TRAIN_CHECK_GRAD``: a ReLU
+   input within rounding of 0 may take the other branch on one side),
+   the parameters within the tests' rule, and two controls from the same
+   parameters and batch, the step in bf16 and the backward dropping one
+   slot, each more than 1e-3 from the CPU's gradients; then
+   ``launch/train.py``'s loop on DLRM at
+   ``vocab_per_field`` 10^5: 6 steps with a commit every 2 and a failure
+   at step 3 must end with the bytes of an uninterrupted run; then the
+   backward's replay (2b) at DLRM's own ids and gradient;
 2b. replay the inputs of each kernel's first launch on its path (and of
    ``ell_spmm``'s second, a batch's push of a spread-out frontier, and
    its ``dense`` variant, the last push of 3e's ``pi``, of
@@ -168,14 +198,18 @@ Phases, each timed and printed:
    ``retrieval_cand`` and at each zoo model's ``serve_bulk`` and its
    candidate gather at ``retrieval_cand`` (variants ``<arch>.<shape>``;
    these are replayed in 3g) and at smollm-135m's ``prefill_32k``
-   (replayed in 3k), and of ``walk_step``'s first in 3h, variant
-   ``mc``)
+   (replayed in 3k), of ``embedding_bag_backward``'s first in DLRM's
+   train step (replayed in 3l; its library call is ``index_add_`` into a
+   zero table, its bound counts the touched rows and not the zero fill),
+   and of ``walk_step``'s first in 3h, variant ``mc``)
    through the kernel and its plain version: top-k outputs' sorted values
    within 1e-5 relative and at least 99% of indices equal (summation order
    may differ, which can swap ties at the top-k edge), dense outputs
    within 1e-5 L1 per row and 1e-5 relative per entry, or, for an entry of many terms,
    within the f32 bound on two summation orders of its own count of terms
-   (:func:`dense_agree`), ``walk_step`` and ``embedding_bag`` bit-equal;
+   (:func:`dense_agree`), ``walk_step``, ``embedding_bag`` and
+   ``embedding_bag_backward`` bit-equal (the backward also the same bytes
+   on a second launch);
    the dense and the sparse ``index_combine`` launched a second time must
    give the same bytes (the sparse one printing each row's live slots,
    candidates ``w`` and distinct columns ``d``, :func:`combine_counts`).
@@ -202,7 +236,10 @@ Phases, each timed and printed:
    in f32 (``serve_p99`` and ``retrieval_cand``), card against CPU,
    outputs within 1e-5 of their largest, and smollm-135m's (G = 1 and
    G = 3) in f32, a prefill and 8 decode steps, logits and caches within
-   1e-5 of their largest; and the Monte-Carlo path, card against CPU,
+   1e-5 of their largest; one train step of each of the five train
+   cells' reduced configs in f32, card against CPU (loss within 1e-5,
+   gradients within 1e-5 of each leaf's norm, parameters within the
+   tests' rule); and the Monte-Carlo path, card against CPU,
    bit-equal: the
    legacy build of every fourth source, the dense and sparse MCFP and
    MCEP estimates of 64 sources, ``mcfp``-mode answers at dispatch keys
@@ -259,6 +296,11 @@ KERNEL_SOURCES = {
         "src/repro/kernels/frontier_push.py:265"),
     "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                       "src/repro/kernels/embedding_bag.py:40"),
+    # no TPU kernel: the transpose of the reference's gather (a scatter-add
+    # XLA emits), which every train step's lookups need
+    "embedding_bag_backward": (
+        "src/repro_torch/kernels/csrc/embedding_bag_backward.cu",
+        "src/repro/models/recsys/embedding.py:56"),
 }
 SPARSE_PATH = ("walk_step", "frontier_push", "index_combine_sparse")
 DENSE_PATH = ("ell_spmm", "index_combine")
@@ -276,6 +318,38 @@ ZOO_LOOKUPS = {("dlrm-rm2", "rec_serve"): 1, ("dlrm-rm2", "rec_retrieval"): 1,
 # forward and one a decode step (phase 3k)
 LM_LOOKUPS = {("smollm-135m", "lm_prefill"): 1,
               ("smollm-135m", "lm_decode"): 1}
+# embedding_bag launches a train step makes, each with one launch of its
+# backward (phase 3l): the lookups of the forward above, and SASRec's
+# positives and negatives, MIND's target and negatives in the loss
+TRAIN_LOOKUPS = {("dlrm-rm2", "rec_train"): 1, ("dcn-v2", "rec_train"): 1,
+                 ("sasrec", "rec_train"): 4, ("mind", "rec_train"): 2,
+                 ("smollm-135m", "lm_train"): 1}
+TRAIN_PATH = ("embedding_bag", "embedding_bag_backward")   # phase 3l
+TRAIN_CELLS = {"dlrm-rm2": "train_batch", "dcn-v2": "train_batch",
+               "sasrec": "train_batch", "mind": "train_batch",
+               "smollm-135m": "train_4k"}
+TRAIN_SEED = 0
+TRAIN_PLAN = (1, 3)            # warm-up, timed steps a cell (one batch)
+# phase 3l's card-vs-CPU gradient gate at full width, of each leaf's norm:
+# a ReLU (or max) input within rounding of 0 can take the other branch on
+# one side, and that one element moves every leaf upstream of it (one of
+# SASRec's 2.56M feed-forward pre-activations, |z| = 2.2e-7, moved them by
+# 2.2e-4); two steps wrong on purpose (bf16 compute, a dropped slot in the
+# backward: ``dropped_slot``) read 5.8e-3 and more, and must stay above
+# the gate, which sits between the two; the reduced configs are held to 1e-5
+TRAIN_CHECK_GRAD = 1e-3
+# phase 3l's cuts: train_4k at B = 8 of the reference's 256 (its f32
+# logits alone are 206 GB at 256; the step's peak at B = 4 was 18.1 GB),
+# S = 4,096, width, depth and vocabulary uncut; the card-vs-CPU step at full widths with DLRM's and DCN-v2's
+# vocab_per_field at 10^4, on the first 256 rows of a batch (the LM: one
+# row of 256 tokens); the crash-and-resume run on DLRM at vocab_per_field
+# 10^5 (a commit is about 1.3 GB)
+LM_TRAIN_BATCH = 8
+TRAIN_CHECK_VOCAB = 10_000
+TRAIN_CHECK_ROWS = 256
+TRAIN_CHECK_LM = (1, 256)
+TRAIN_CKPT_VOCAB = 100_000
+TRAIN_CKPT_PLAN = (6, 2, 3)    # steps, a commit every 2, failure at step 3
 REC_SEED = 0                   # the recsys models' parameters (3g)
 ZOO = ("dcn-v2", "sasrec", "mind")
 # phase 3g's forwards a shape: (distinct batches, warm-up forwards, timed
@@ -1180,6 +1254,56 @@ def synthetic_embedding_bag(torch, np, dev, widths=(16, 17, 32, 48, 64, 128),
     return ok
 
 
+def synthetic_embedding_bag_backward(torch, np, dev,
+                                     widths=(16, 50, 64, 576)):
+    """The table gradient of ``embedding_bag`` (``embedding_bag_backward``)
+    at D = 16, 50, 64 and 576, bags of 1 and 8: one row hit 10,000 times
+    (bags of one; 2,000 times in bags of 8), ids from the whole table,
+    negative ones counting from its end and a few outside it (no
+    gradient); gradients ``j / 1024`` in [-1, 1] and masks in {0, 0.5, 1},
+    and no mask; f32 rows with f32 gradients, bf16 rows with f32 and with
+    bf16 gradients (the bf16 runs round every partial sum).  Bit-equal to
+    the plain version (run on the CPU copies: its one pass a position in a
+    run is 10,000 small launches on the card), two launches the same
+    bytes."""
+    from repro_torch.kernels import embedding_bag as bag_k
+
+    r = np.random.default_rng(21)
+    vocab = 3000
+    ok = True
+    for d in widths:
+        for bag, heavy in ((1, 10_000), (8, 2_000)):
+            rows = 24_000 // bag
+            ids = r.integers(-vocab, vocab, (rows, bag)).astype(np.int32)
+            ids.flat[r.choice(ids.size, heavy, replace=False)] = 7
+            ids.flat[:5] = [vocab, vocab + 3, -vocab - 1, 2**31 - 1, -2**31]
+            g = r.integers(-1024, 1025, (rows, d)).astype(np.float32) / 1024.0
+            mask = r.choice(np.float32([0.0, 0.5, 1.0]), (rows, bag))
+            ids_t, g_t, mask_t = (torch.from_numpy(x).to(dev)
+                                  for x in (ids, g, mask))
+            for m in (mask_t, None):
+                for row_dt, g_dt in ((torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)):
+                    gg = g_t.to(g_dt)
+                    a = bag_k.embedding_bag_backward_cuda(
+                        ids_t, m, gg, vocab, row_dtype=row_dt)
+                    again = bag_k.embedding_bag_backward_cuda(
+                        ids_t, m, gg, vocab, row_dtype=row_dt)
+                    want = bag_k.embedding_bag_backward_plain(
+                        ids_t.cpu(), None if m is None else m.cpu(),
+                        gg.cpu(), vocab, row_dtype=row_dt)
+                    same = (bits_equal(torch, a.cpu(), want)
+                            and bits_equal(torch, a, again))
+                    if not same:
+                        print(f"  embedding_bag_backward differs: {rows} "
+                              f"bags of {bag}, D = {d}, mask "
+                              f"{m is not None}, {row_dt} rows, {g_dt} "
+                              f"gradient")
+                    ok &= same
+    return ok
+
+
 def synthetic_randint(torch, np, dev):
     """``rng.randint`` on the card against the CPU, bit-equal: spans 1, 2,
     3, 2**16 + 1 (the uint32 product wraps) and 2**31 - 1 from 0, a
@@ -1246,6 +1370,7 @@ SYNTHETIC_CHECKS = {
         torch, np, dev, widths=(50,), wide=(50,), shifted=50),
     "embedding_bag_d576": lambda torch, np, dev: synthetic_embedding_bag(
         torch, np, dev, widths=(576,), wide=(576,), shifted=576),
+    "embedding_bag_backward": synthetic_embedding_bag_backward,
     "randint": synthetic_randint,
     "simulate_walks": synthetic_simulate_walks,
 }
@@ -1301,6 +1426,19 @@ def bytes_and_ops(torch, name, args, kwargs):
         distinct = int(torch.unique(ids).numel())
         return (slot_bytes * ids.numel() + 4 * d * distinct
                 + out_bytes * ids.shape[0] * d), 2 * ids.numel() * d
+    if name == "embedding_bag_backward":
+        from repro_torch.kernels.embedding_bag import sort_slots
+
+        ids, mask, g = args
+        d = g.shape[1]
+        keys, _ = sort_slots(ids, kwargs["vocab"])
+        # ids once (4 B a slot) and the mask, where there is one (4 B
+        # more), grad_out once, each touched row of the f32 gradient
+        # written once; the zero fill of the untouched rows is not counted
+        slot_bytes = 4 if mask is None else 8
+        touched = int(torch.unique(keys[keys < kwargs["vocab"]]).numel())
+        return (slot_bytes * ids.numel() + g.numel() * g.element_size()
+                + 4 * d * touched), 2 * ids.numel() * d
     if name == "sharded_frontier_push":
         fv, fi, row_ptr, _ = args
         q, k = fv.shape
@@ -1367,6 +1505,21 @@ def library_call(torch, name, args, kwargs):
         ids, mask, table = args
         return lambda: torch.nn.functional.embedding_bag(
             ids, table, per_sample_weights=mask, mode="sum")
+    if name == "embedding_bag_backward":
+        # index_add_ of each slot's f32 row gradient into a zero table (float
+        # atomics: its sums' order is not fixed)
+        from repro_torch.kernels.embedding_bag import sort_slots
+
+        ids, mask, g = args
+        vocab, bag = kwargs["vocab"], ids.shape[1]
+        keys, order = sort_slots(ids, vocab)
+        src = g.float().repeat_interleave(bag, dim=0)
+        if mask is not None:
+            src = src * mask.reshape(-1, 1)
+        valid = keys < vocab
+        idx, src = keys[valid].long(), src[order[valid]]
+        return lambda: torch.zeros((vocab, g.shape[1]), dtype=torch.float32,
+                                   device=g.device).index_add_(0, idx, src)
     if name == "index_combine":
         s_, f, vals, idx = args
         nv, n = f.shape[1], s_.shape[1]
@@ -1459,13 +1612,20 @@ def replay(torch, name, variant, args, kwargs):
                                   push_k.sharded_frontier_push_plain),
         "embedding_bag": (bag_k.embedding_bag_cuda,
                           bag_k.embedding_bag_plain),
+        "embedding_bag_backward": (bag_k.embedding_bag_backward_cuda,
+                                   bag_k.embedding_bag_backward_plain),
     }[name]
     a = kernel(*args, **kwargs)
     b = plain(*args, **kwargs)
     torch.cuda.synchronize()
-    if name in ("walk_step", "embedding_bag"):
-        ok = (bits_equal(torch, a, b) if name == "walk_step"
-              else same_bits_or_nan(torch, a, b))
+    if name in ("walk_step", "embedding_bag", "embedding_bag_backward"):
+        ok = (same_bits_or_nan(torch, a, b) if name == "embedding_bag"
+              else bits_equal(torch, a, b))
+        if name == "embedding_bag_backward":   # no atomics: the same bytes
+            again = bits_equal(torch, a, kernel(*args, **kwargs))
+            print(f"  {name}/{variant}: a second launch gives the same "
+                  f"bytes: {again}")
+            ok &= again
         err = float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
         agree = 1.0 if ok else float((a == b).float().mean())
     elif name in DENSE_PATH:
@@ -1521,7 +1681,7 @@ def replay(torch, name, variant, args, kwargs):
     del a, b
     ms = cuda_ms(torch, lambda: kernel(*args, **kwargs))
     device_ms = device_source = None
-    if name in ("walk_step", "embedding_bag"):
+    if name in ("walk_step", "embedding_bag", "embedding_bag_backward"):
         # a short launch is shorter than its wrapper's host work, so
         # cuda_ms's back-to-back calls time the host: read the kernel's own
         # time.  A trace has been seen to hold none of the launches, or
@@ -2170,6 +2330,362 @@ def phase_lm(torch, np, dev, failures):
     del params, captured
     torch.cuda.empty_cache()
     return counts, results.get("embedding_bag", [])
+
+
+# -- phase 3l: training ---------------------------------------------------------
+
+def tree_bits_equal(torch, a, b):
+    """Two trees of tensors hold the same dtypes, shapes and bytes."""
+    from repro_torch.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def train_loss_fn(arch, cfg):
+    """``loss_fn(params, batch)`` of ``arch`` at config ``cfg``."""
+    import functools
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    from repro_torch.models.recsys import dcn, dlrm, mind, sasrec
+
+    mod = {"transformer": transformer, "dlrm": dlrm, "dcn": dcn,
+           "sasrec": sasrec, "mind": mind}[get_arch(arch).model_kind]
+    return functools.partial(mod.loss_fn, cfg)
+
+
+@contextlib.contextmanager
+def dropped_slot(ops):
+    """A control fault for phase 3l's gradient gate: within the block, the
+    first launch of the lookups' backward drops one slot, the first in
+    slot order whose row gradient is not zero (its id is set outside the
+    table, which the kernel skips, as the reference's fill mode drops such
+    an id).  Later launches are sound."""
+    real = ops.embedding_bag_backward
+    armed = [True]
+
+    def faulty(ids, mask, grad_out, vocab, **kwargs):
+        if armed[0]:
+            armed[0] = False
+            live = grad_out.float().abs().amax(dim=1)[:, None] != 0
+            if mask is not None:
+                live = live & (mask != 0)
+            pick = int(live.expand(ids.shape).reshape(-1).nonzero()[0])
+            ids = ids.contiguous().clone()
+            ids.view(-1)[pick] = vocab
+        return real(ids, mask, grad_out, vocab, **kwargs)
+
+    ops.embedding_bag_backward = faulty
+    try:
+        yield
+    finally:
+        ops.embedding_bag_backward = real
+
+
+def train_card_vs_cpu(torch, np, dev, arch, *, reduced, overrides=None,
+                      rows=None, seq=None, seed=3, controls=False):
+    """One train step of ``arch`` in f32 (``compute_dtype`` overridden) on
+    the card and through the plain CPU path from the same parameters and
+    batch (its first ``rows`` rows and ``seq`` positions where given),
+    under the bundle's own optimizer config.  Returns the loss's relative
+    difference, the worst gradient leaf's ``||card - cpu|| / ||cpu||``,
+    and the parameters' largest difference beyond the tests' rule (1e-5,
+    or 2 lr where the CPU gradient is below 1e-6 of its leaf's largest:
+    Adam turns such an element's rounding noise into a full step).  With
+    ``controls``, also the gradients' worst leaf of two card runs that are
+    wrong on purpose, against the same CPU gradients: ``control_bf16``
+    computes in bf16, ``control_dropped_slot`` drops one slot in the
+    backward (``dropped_slot``)."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_leaves, tree_map
+
+    shape = TRAIN_CELLS[arch]
+    over = dict(compute_dtype=torch.float32, **(overrides or {}))
+    spec = get_arch(arch)
+    base = spec.reduced if reduced else spec.config
+    loss = train_loss_fn(arch, dc.replace(base, **over))
+    cpu = steps.build(arch, shape, reduced=reduced, device="cpu",
+                      config_overrides=over)
+    card = steps.build(arch, shape, reduced=reduced, device=dev,
+                       config_overrides=over)
+    params = cpu.init_fn(seed)
+    batch = cpu.make_batch(torch.Generator().manual_seed(seed + 1))
+    if rows:
+        batch = {k: v[:rows] for k, v in batch.items()}
+    if seq:
+        batch = {k: v[:, :seq] for k, v in batch.items()}
+    wrong = {}  # the controls' gradients, taken before the CPU step below
+    if controls:                          # updates params in place
+        for name, how, fault in (
+                ("control_bf16", dict(over, compute_dtype=torch.bfloat16),
+                 contextlib.nullcontext()),
+                ("control_dropped_slot", over, dropped_slot(ops))):
+            with fault:
+                _, _, grads = train_loop.value_and_grad(
+                    train_loss_fn(arch, dc.replace(base, **how)))(
+                        tree_map(lambda x: x.to(dev, copy=True), params),
+                        tree_to(batch, dev))
+            wrong[name] = [g.cpu() for g in tree_leaves(grads)]
+            del grads
+    runs = []
+    on_card = tree_map(lambda x: x.to(dev, copy=True), params)  # the step
+    for bundle, p, b in ((card, on_card, tree_to(batch, dev)),  # is in place
+                         (cpu, params, batch)):
+        value, _, grads = train_loop.value_and_grad(loss)(p, b)
+        state = train_loop.init_state(bundle.opt_cfg, p)
+        p, state, metrics = bundle.step_fn(p, state, b)
+        runs.append((float(value), [g.cpu() for g in tree_leaves(grads)],
+                     [x.cpu() for x in tree_leaves(p)],
+                     float(metrics["lr"])))
+        del grads, p, state
+    (l_card, g_card, p_card, _), (l_cpu, g_cpu, p_cpu, lr) = runs
+
+    def grad_rel(gs):
+        return max(float((a - b).norm()) / max(float(b.norm()), 1e-30)
+                   for a, b in zip(gs, g_cpu))
+
+    loss_rel = abs(l_card - l_cpu) / max(abs(l_cpu), 1e-30)
+    beyond = 0.0
+    for a, b, g in zip(p_card, p_cpu, g_cpu):
+        noisy = g.abs() < 1e-6 * float(g.abs().max())
+        limit = torch.where(noisy, 1e-5 + 2 * lr, 1e-5)
+        beyond = max(beyond, float(((a - b).abs() - limit).max()))
+    finite = np.isfinite(l_card) and all(bool(torch.isfinite(x).all())
+                                         for x in p_card)
+    res = dict(loss_rel=loss_rel if finite else float("inf"),
+               grad_rel=grad_rel(g_card), param_beyond=max(beyond, 0.0))
+    res.update({name: grad_rel(g) for name, g in wrong.items()})
+    return res
+
+
+def train_cell(torch, np, dev, arch, failures, captured):
+    """One train cell of phase 3l at full width: ``TRAIN_PLAN``'s steps on
+    one batch with CUDA events, one more traced by kernel (DLRM), the peak
+    memory, the lookups' and their backward's launches against
+    ``TRAIN_LOOKUPS``, and on DLRM the decay-only update of rows the batch
+    does not touch, bit for bit.  Returns the launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.training import train_loop
+
+    spec = get_arch(arch)
+    cfg = spec.config
+    shape = TRAIN_CELLS[arch]
+    kind = spec.shape(shape).kind
+    lm = kind == "lm_train"
+    dlrm = arch == "dlrm-rm2"
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    bundle = steps.build(arch, shape, device=dev)
+    params = bundle.init_fn(TRAIN_SEED)
+    state = train_loop.init_state(bundle.opt_cfg, params)
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 1)
+    opt = bundle.opt_cfg
+    if lm:
+        (b_ref, s), _ = bundle.batch_spec["tokens"]
+        b = LM_TRAIN_BATCH
+        toks = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                             dtype=torch.int32, device=dev)
+        batch = dict(tokens=toks, labels=torch.roll(toks, -1, dims=1),
+                     mask=torch.ones((b, s), dtype=torch.float32, device=dev))
+        examples = b * s
+        flops = 6.0 * cfg.active_param_count() * b * s
+        cut = (f"B = {b}, cut from the reference's {b_ref} (its f32 logits "
+               f"are {b_ref * s * cfg.vocab * 4 / 1e9:.0f} GB); S = {s}")
+    else:
+        batch = bundle.make_batch(gen)
+        examples = next(iter(bundle.batch_spec.values()))[0][0]
+        flops = bundle.model_flops_per_step
+        cut = f"B = {examples} (the reference's)"
+    torch.cuda.synchronize()
+    print(f"  {arch} {shape}: {cut}; {cfg.param_count()} parameters, moments "
+          f"{opt.mu_dt} / {opt.nu_dt}, warm-up {opt.warmup_steps} steps; "
+          f"made in {time.perf_counter() - t1:.3f} s")
+    probe = None
+    if dlrm:   # rows no slot of the batch touches: their update is decay
+        table = params["embedding"]["table"]
+        offs = (torch.arange(cfg.n_sparse, device=dev, dtype=torch.int64)
+                * cfg.vocab_per_field)
+        hit = (batch["sparse_ids"].long() + offs).reshape(-1)
+        probe = torch.randint(0, table.shape[0], (1 << 20,), generator=gen,
+                              device=dev)
+        probe = probe[~torch.isin(probe, hit)]
+        before = table[probe].clone()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    warm, reps = TRAIN_PLAN
+    losses, ms, stated = [], [], 0
+    for j in range(warm + reps):
+        ops.capture_first_launches(dlrm and j == 0)
+        ev0.record()
+        params, state, metrics = bundle.step_fn(params, state, batch)
+        ev1.record()
+        ev1.synchronize()
+        stated += TRAIN_LOOKUPS[(arch, kind)]
+        losses.append(float(metrics["loss"]))
+        if j >= warm:
+            ms.append(ev0.elapsed_time(ev1))
+        if dlrm and j == 0:
+            captured[f"embedding_bag_backward/{arch}.{shape}"] = (
+                ops.captured_launches()["embedding_bag_backward/main"])
+            ops.capture_first_launches(False)
+            # p - lr (0 + wd p), as the optimizer computes it
+            lr = metrics["lr"]
+            want = before - lr * (torch.zeros_like(before)
+                                  + opt.weight_decay * before)
+            decay_ok = bits_equal(torch, table[probe], want)
+            print(f"  {arch}: {probe.numel()} rows the batch does not touch "
+                  f"updated by weight decay alone, bit for bit: {decay_ok}")
+            if not decay_ok:
+                failures.append(f"3l {arch}: untouched rows not decay-only")
+            del before, want
+    peak = torch.cuda.max_memory_allocated()
+    ms = np.array(ms)
+    sec = np.median(ms) / 1e3
+    print(f"  {arch}: losses {', '.join(f'{x:.6f}' for x in losses)}; "
+          f"{reps} timed steps {', '.join(f'{x:.3f}' for x in ms)} ms "
+          f"(p50 {np.percentile(ms, 50):.3f}); "
+          + (f"{examples / sec:.1f} tokens/s; " if lm else
+             f"{examples / sec:.1f} examples/s; ")
+          + f"model {flops / sec / 1e12:.3f} TFLOP/s; peak device memory "
+          f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the "
+          f"{base / 1e9:.2f} GB held before)")
+    if not all(np.isfinite(losses)):
+        failures.append(f"3l {arch}: a loss is not finite: {losses}")
+    if not losses[1] < 1.5 * losses[0]:
+        failures.append(f"3l {arch}: second step's loss {losses[1]} not "
+                        f"below 1.5x the first's {losses[0]}")
+    if dlrm:
+        wall_ms, device_ms, split = device_time_split(
+            torch, lambda: bundle.step_fn(params, state, batch), top=None)
+        stated += TRAIN_LOOKUPS[(arch, kind)]
+        bwd = sum(x for n, x in split if "embedding_bag_backward" in n)
+        fwd = sum(x for n, x in split if "embedding_bag" in n) - bwd
+        print(f"  {arch}, one train step by kernel (torch.profiler): wall "
+              f"{wall_ms:.3f} ms, device busy {device_ms:.3f} ms, idle "
+              f"{100 * (1 - device_ms / wall_ms):.1f}%; embedding_bag "
+              f"{fwd:.3f} ms, embedding_bag_backward {bwd:.3f} ms")
+        for name, kms in split[:12]:
+            print(f"  {kms:9.3f} ms  {100 * kms / max(device_ms, 1e-9):5.1f}%"
+                  f"  {name[:110]}")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"  {arch} train path launches: {json.dumps(counts)} ({stated} "
+          f"lookups and as many backward launches stated)")
+    for name in TRAIN_PATH:
+        if counts[name] != stated:
+            failures.append(f"3l {arch}: {name} launched {counts[name]} "
+                            f"times, {stated} stated")
+    del params, state, batch, metrics
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_crash_resume(torch, np, dev, failures):
+    """``launch/train.py``'s loop on DLRM RM2 at full widths with
+    ``vocab_per_field`` at ``TRAIN_CKPT_VOCAB``: ``TRAIN_CKPT_PLAN``'s steps
+    with a commit every 2 and a simulated failure, against an
+    uninterrupted run with no commits; the final parameters and optimizer
+    state must be the same bytes."""
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_mod
+
+    n, every, fail = TRAIN_CKPT_PLAN
+    bundle = steps.build("dlrm-rm2", "train_batch", device=dev,
+                         config_overrides=dict(vocab_per_field=TRAIN_CKPT_VOCAB))
+    root = tempfile.mkdtemp(prefix="pw_train_ckpt_")
+    try:
+        t1 = time.perf_counter()
+        pa, sa, info = train_mod.run(
+            bundle, steps=n, ckpt_dir=os.path.join(root, "a"),
+            ckpt_every=every, simulate_failure=fail,
+            log=lambda s: print(f"  [train] {s}"))
+        crashed_s = time.perf_counter() - t1
+        ck = info["ckpt"]
+        sizes = {s: sum(os.path.getsize(os.path.join(ck.root, f"step_{s}", f))
+                        for f in os.listdir(os.path.join(ck.root, f"step_{s}")))
+                 for s in ck.all_steps()}
+        t1 = time.perf_counter()
+        pb, sb, _ = train_mod.run(
+            bundle, steps=n, ckpt_dir=os.path.join(root, "b"),
+            ckpt_every=10**9, log=lambda s: None)
+        plain_s = time.perf_counter() - t1
+        same = tree_bits_equal(torch, (pa, sa), (pb, sb))
+        print(f"  crash and resume (DLRM RM2, vocab_per_field "
+              f"{TRAIN_CKPT_VOCAB}): {n} steps, a commit every {every}, "
+              f"failure at step {fail}, restored from step "
+              f"{info['restored_at_failure']}; commits "
+              f"{json.dumps({s: round(b / 1e9, 3) for s, b in sizes.items()})}"
+              f" GB; {crashed_s:.3f} s against {plain_s:.3f} s uninterrupted;"
+              f" final parameters and optimizer state bit-equal: {same}")
+        if not same or info["restored_at_failure"] != fail:
+            failures.append("3l: the resumed training run differs from the "
+                            "uninterrupted one")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train(torch, np, dev, failures):
+    """Phase 3l: every train cell at full width (``train_cell``), each
+    counted from zero; one step of each architecture card against CPU at
+    full widths (``train_card_vs_cpu``, the cuts of ``TRAIN_CHECK_*``);
+    ``launch/train.py``'s crash and resume (``train_crash_resume``); then
+    phase 2b's replay of the backward at DLRM's own ids and gradient.
+    Returns the launch counts by architecture and the replays' results."""
+    print(f"3l training: {card_name_and_power_limit()}")
+    counts, captured = {}, {}
+    for arch in TRAIN_CELLS:
+        counts[arch] = train_cell(torch, np, dev, arch, failures, captured)
+    for arch in TRAIN_CELLS:
+        t1 = time.perf_counter()
+        lm = arch == LM_ARCH
+        over = (dict(vocab_per_field=TRAIN_CHECK_VOCAB)
+                if arch in ("dlrm-rm2", "dcn-v2") else None)
+        res = train_card_vs_cpu(
+            torch, np, dev, arch, reduced=False, overrides=over,
+            rows=TRAIN_CHECK_LM[0] if lm else TRAIN_CHECK_ROWS,
+            seq=TRAIN_CHECK_LM[1] if lm else None, controls=True)
+        print(f"  {arch} full width f32, one step card vs CPU"
+              + (f" (vocab_per_field {TRAIN_CHECK_VOCAB})" if over else "")
+              + f": {json.dumps(res)} (limits: loss 1e-5, gradients "
+              f"{TRAIN_CHECK_GRAD} of each leaf's norm, parameters 0 beyond "
+              f"the rule; each control's gradients above "
+              f"{TRAIN_CHECK_GRAD}), {time.perf_counter() - t1:.3f} s")
+        if not (res["loss_rel"] <= 1e-5
+                and res["grad_rel"] <= TRAIN_CHECK_GRAD
+                and res["param_beyond"] == 0.0):
+            failures.append(f"3l {arch} card vs CPU: {res}")
+        blind = [k for k in res if k.startswith("control_")
+                 and not res[k] > TRAIN_CHECK_GRAD]
+        if blind:
+            failures.append(f"3l {arch}: the gradient gate does not see "
+                            f"{blind}: {res}")
+    train_crash_resume(torch, np, dev, failures)
+    results = {}
+    replay_all(torch, captured, results, failures)
+    return counts, results.get("embedding_bag_backward", [])
+
+
+def check_small_train(torch, np, dev, arch):
+    """One train step of ``arch``'s reduced config in f32, card against the
+    plain CPU path (``train_card_vs_cpu``): loss within 1e-5, gradients
+    within 1e-5 of each leaf's norm, parameters within the rule."""
+    res = train_card_vs_cpu(torch, np, dev, arch, reduced=True)
+    return (res["loss_rel"] <= 1e-5 and res["grad_rel"] <= 1e-5
+            and res["param_beyond"] == 0.0), res
 
 
 def check_small_montecarlo(torch, np, dev):
@@ -3299,9 +3815,14 @@ def main() -> int:
     phase("3k smollm-135m at full width", t0)
 
     t0 = time.perf_counter()
+    counts_l, replays_l = phase_train(torch, np, dev, failures)
+    phase("3l training at full width", t0)
+
+    t0 = time.perf_counter()
     # 3g's and 3k's embedding_bag launches were replayed there, before
-    # each table was freed
-    results = {"embedding_bag": replays_g + replays_k}
+    # each table was freed, and 3l's embedding_bag_backward at its end
+    results = {"embedding_bag": replays_g + replays_k,
+               "embedding_bag_backward": replays_l}
     captured_f = {tag: v for tag, v in captured_f.items()
                   if tag.startswith("sharded_frontier_push/")}
     captured.update(captured_e)
@@ -3335,6 +3856,12 @@ def main() -> int:
           f"{rel:.3e} of their largest (limit 1e-5)")
     if not rel <= 1e-5:
         failures.append(f"small {LM_ARCH} reference check")
+    for arch in TRAIN_CELLS:
+        ok, res = check_small_train(torch, np, dev, arch)
+        print(f"small reference, {arch} reduced in f32: one train step card "
+              f"vs CPU: {json.dumps(res)}")
+        if not ok:
+            failures.append(f"small {arch} train check")
     mc_equal = check_small_montecarlo(torch, np, dev)
     print("small reference, monte-carlo path, card vs CPU bit-equal:",
           json.dumps(mc_equal))
@@ -3360,7 +3887,9 @@ def main() -> int:
                 for arch in ZOO},
              "monte-carlo (3h)": (MC_PATH, counts_h),
              "maintenance (3i)": (MAINT_PATH, counts_i),
-             f"{LM_ARCH} (3k)": (LM_PATH, counts_k)}
+             f"{LM_ARCH} (3k)": (LM_PATH, counts_k),
+             **{f"train {arch} (3l)": (TRAIN_PATH, counts_l[arch])
+                for arch in TRAIN_CELLS}}
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         runs = results.get(name)

@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``get_arch("<id>") -> ArchSpec``.
 
-It holds what is ported: ``smollm-135m`` (prefill and KV-cache decode)
-and the four recsys architectures (serving).  The reference's other four
-LMs wait for a multi-GPU mesh (their f32 parameters outgrow one card),
-and ``gcn-cora`` comes with training (its shapes are all train shapes).
+It holds what is ported: ``smollm-135m`` (training, prefill and KV-cache
+decode) and the four recsys architectures (training and serving).  The
+reference's other four LMs wait for a multi-GPU mesh (their f32
+parameters outgrow one card), and ``gcn-cora`` for its GCN model and
+neighbour sampler (its shapes are all train shapes).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ def get_arch(arch_id: str) -> ArchSpec:
         raise KeyError(
             f"arch {arch_id!r} is not ported; the port's registry holds "
             f"{sorted(REGISTRY)}; the other LMs come with a multi-GPU mesh and "
-            "gcn-cora with training, each a later slice")
+            "gcn-cora with its GCN model and sampler, each a later slice")
     return REGISTRY[arch_id]
 
 

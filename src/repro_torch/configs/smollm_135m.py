@@ -24,7 +24,7 @@ def full() -> TransformerConfig:
 def reduced() -> TransformerConfig:
     return TransformerConfig(
         n_layers=4, d_model=96, n_heads=3, n_kv_heads=3, d_ff=256,
-        vocab=512, compute_dtype=torch.float32, attn_chunk=16,
+        vocab=512, compute_dtype=torch.float32, attn_chunk=16, remat=False,
     )
 
 

@@ -1,12 +1,13 @@
 """Checkpoints with atomic commit, per-array checksums and async writes.
 
-The on-disk layout of ``repro.distributed.checkpoint``, so a build
-checkpoint written by either package restores in the other::
+The on-disk layout of ``repro.distributed.checkpoint``, so a checkpoint
+written by either package restores in the other::
 
     <root>/step_<n>.tmp/            # written first
-        meta.json                   # step, keys, dtypes, shapes, crc32s
-        arr_<i>.npy                 # one file per array, keys in sorted order
-        extra.json                  # caller state (build signature, stats)
+        meta.json                   # step, tree structure, dtypes, shapes,
+                                    # crc32s (and keys, for a flat dict)
+        arr_<i>.npy                 # one file per leaf, in JAX's flatten order
+        extra.json                  # caller state (data step, build signature)
     <root>/step_<n>/                # atomic rename on success
 
 Fault-tolerance contract:
@@ -19,10 +20,16 @@ Fault-tolerance contract:
 * a non-blocking save writes on a thread; its error is raised by the next
   save or :meth:`Checkpointer.wait`.
 
-Payloads are flat dicts of arrays (tensors or numpy arrays), the form the
-index builds commit; restore returns numpy arrays.  The reference's
-``like`` trees, bf16 leaves and re-sharding onto a JAX mesh serve its
-training checkpoints and have no counterpart here.
+A payload is any tree of the reference's kinds (dicts, tuples, lists,
+NamedTuples such as ``(params, AdamState)``; :mod:`repro_torch.tree`)
+whose leaves are tensors, numpy arrays or scalars, its leaves stored in
+JAX's flatten order.  bf16 leaves are stored as a ``uint16`` view with the
+dtype ``"bfloat16"``, as the reference stores them.  :meth:`Checkpointer.restore` puts
+the leaves back into the structure of a ``like`` tree, each a tensor on its
+``like`` leaf's device, then applies ``shard_fn``; without ``like``, a flat
+dict (the index builds' payload, whose keys ``meta.json`` records) comes
+back as numpy arrays.  A non-blocking save copies every leaf to the host
+before it returns, so a caller may update its tensors in place at once.
 """
 
 from __future__ import annotations
@@ -32,22 +39,51 @@ import os
 import shutil
 import threading
 import zlib
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_flatten, tree_unflatten
+
 MASK = 0xFFFFFFFF
+# dtypes numpy lacks, stored as an unsigned view of their width:
+# torch dtype -> (stored name, torch integer view, numpy stored dtype,
+# numpy dtype torch.from_numpy takes)
+_VIEWS = {torch.bfloat16: ("bfloat16", torch.int16, np.uint16, np.int16)}
+_FROM_VIEW = {v[0]: (v[3], dt) for dt, v in _VIEWS.items()}
 
 
 class CheckpointCorruptionError(RuntimeError):
     """A committed checkpoint failed checksum or structural verification."""
 
 
-def _to_numpy(x) -> np.ndarray:
+def _to_numpy(x) -> Tuple[np.ndarray, str]:
+    """A host copy of ``x`` (never sharing its memory) and its dtype name."""
     if torch.is_tensor(x):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+        t = x.detach()
+        view = _VIEWS.get(t.dtype)
+        if view is not None:
+            t = t.view(view[1])
+        arr = t.cpu().numpy()
+        if not x.is_cuda:
+            arr = arr.copy()
+        if view is not None:
+            return arr.view(view[2]), view[0]
+        return arr, str(arr.dtype)
+    arr = np.array(x, copy=True)
+    return arr, str(arr.dtype)
+
+
+def _from_numpy(arr: np.ndarray, dtype: str, like) -> Any:
+    """A stored array as ``like`` holds it: a tensor on ``like``'s device
+    (bf16 from its view), else the numpy array."""
+    if not torch.is_tensor(like):
+        return arr
+    if dtype in _FROM_VIEW:
+        np_view, dt = _FROM_VIEW[dtype]
+        return torch.from_numpy(arr.view(np_view)).view(dt).to(like.device)
+    return torch.from_numpy(arr).to(like.device)
 
 
 def _crc(arr: np.ndarray) -> int:
@@ -95,23 +131,25 @@ class Checkpointer:
         self._error: Optional[BaseException] = None
 
     # -- write ---------------------------------------------------------------
-    def save(self, step: int, tree: Dict[str, object],
-             extra: Optional[dict] = None, *, blocking: bool = True) -> None:
-        """Commit the flat dict ``tree`` (arrays by string key) and the
-        JSON-safe ``extra`` as step ``step``.  The arrays are copied to the
-        host before this returns, also when ``blocking`` is False."""
-        if not isinstance(tree, dict) or not all(
-                isinstance(k, str) for k in tree):
-            raise TypeError("a checkpoint payload is a dict keyed by str")
-        keys = sorted(tree)
-        arrays = [_to_numpy(tree[k]) for k in keys]
+    def save(self, step: int, tree: Any, extra: Optional[dict] = None,
+             *, blocking: bool = True) -> None:
+        """Commit the tree ``tree`` and the JSON-safe ``extra`` as step
+        ``step``.  The leaves are copied to the host before this returns,
+        also when ``blocking`` is False."""
+        leaves, treedef = tree_flatten(tree)
+        host = [_to_numpy(x) for x in leaves]
+        arrays = [a for a, _ in host]
         meta = dict(
             step=step,
-            dtypes=[str(a.dtype) for a in arrays],
+            treedef=repr(treedef),
+            dtypes=[d for _, d in host],
             shapes=[list(a.shape) for a in arrays],
             checksums=[_crc(a) for a in arrays],
-            keys=keys,
         )
+        if isinstance(tree, dict) and all(isinstance(k, str) for k in tree):
+            # a flat dict restores without a `like` tree: the keys in the
+            # order tree_flatten used (sorted) map back to arr_<i>
+            meta["keys"] = sorted(tree)
         extra = extra or {}
 
         def write():
@@ -213,18 +251,41 @@ class Checkpointer:
             arrays.append(arr)
         return meta, arrays
 
-    def restore(self, step: int) -> Tuple[Dict[str, np.ndarray], dict]:
-        """``(tree, extra)`` of a committed step, every array verified; the
-        tree maps the saved keys to numpy arrays."""
+    def restore(self, step: int, like: Any = None,
+                shard_fn: Optional[Callable[[Any], Any]] = None,
+                ) -> Tuple[Any, dict]:
+        """``(tree, extra)`` of a committed step, every array verified.
+
+        With ``like``, the leaves fill ``like``'s structure, each a tensor
+        on its ``like`` leaf's device (a numpy array where that leaf is not
+        a tensor); without it, a flat dict payload comes back as numpy
+        arrays by its saved keys.  ``shard_fn(tree) -> tree`` then places
+        the leaves (the elastic restart's hook)."""
         meta, arrays = self._load_arrays(step)
-        keys = meta.get("keys")
-        if keys is None:
-            raise ValueError(f"step {step} was not saved as a flat dict")
-        return dict(zip(keys, arrays)), self.read_extra(step)
+        if like is None:
+            keys = meta.get("keys")
+            if keys is None:
+                raise ValueError(
+                    f"step {step} was not saved as a flat dict; pass `like`")
+            tree = dict(zip(keys, arrays))
+        else:
+            like_leaves, treedef = tree_flatten(like)
+            if len(like_leaves) != len(arrays):
+                raise ValueError(
+                    f"step {step} holds {len(arrays)} arrays, `like` "
+                    f"{len(like_leaves)} leaves")
+            tree = tree_unflatten(treedef, [
+                _from_numpy(a, d, lk) for a, d, lk in
+                zip(arrays, meta["dtypes"], like_leaves)])
+        if shard_fn is not None:
+            tree = shard_fn(tree)
+        return tree, self.read_extra(step)
 
     def restore_latest(
-        self, predicate: Optional[Callable[[dict], bool]] = None,
-    ) -> Optional[Tuple[int, Dict[str, np.ndarray], dict]]:
+        self, like: Any = None,
+        shard_fn: Optional[Callable[[Any], Any]] = None,
+        predicate: Optional[Callable[[dict], bool]] = None,
+    ) -> Optional[Tuple[int, Any, dict]]:
         """Restore the newest committed step that verifies.
 
         Walks committed steps newest first, skips any whose ``extra`` fails
@@ -240,7 +301,7 @@ class Checkpointer:
                 except (OSError, ValueError):
                     continue
             try:
-                tree, extra = self.restore(step)
+                tree, extra = self.restore(step, like, shard_fn=shard_fn)
             except (CheckpointCorruptionError, OSError, ValueError):
                 continue
             return step, tree, extra

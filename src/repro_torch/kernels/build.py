@@ -30,6 +30,7 @@ SOURCES = {
     "ell_spmm": "ell_spmm.cu",
     "sharded_frontier_push": "sharded_frontier_push.cu",
     "embedding_bag": "embedding_bag.cu",
+    "embedding_bag_backward": "embedding_bag_backward.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

@@ -13,6 +13,20 @@ the table; any other id outside ``[0, V)`` gives a NaN row, as
 the oracle on the card); :func:`embedding_bag_cuda` launches
 ``csrc/embedding_bag.cu`` on the grid :func:`launch_plan` sizes.  Callers
 go through :func:`repro_torch.kernels.ops.embedding_bag`.
+
+The gradient with respect to the table (``ops.embedding_bag`` is a
+``torch.autograd.Function`` when the table needs one) is
+:func:`embedding_bag_backward_plain` and :func:`embedding_bag_backward_cuda`
+(``csrc/embedding_bag_backward.cu``): the reference's autodiff of
+``jnp.take`` of the cast table, a scatter-add of each slot's row gradient
+``round(g[r] * mask[r, i])`` (``round`` to ``row_dtype``) into a zero table
+of ``row_dtype``, one add at a time in slot order (row-major over ``[R,
+bag]``), each sum rounded to ``row_dtype`` (XLA's scatter on the CPU adds
+bf16 updates into a bf16 table), widened to f32.  Ids in ``[-V, 0)`` count
+from the end; others outside ``[0, V)`` give no gradient (``jnp.take``'s
+fill mode drops them); rows no slot hits are zero.  Both sort the slots by
+id, stably, and sum each run of equal ids in slot order, so there are no
+atomics and two launches give the same bytes.
 """
 
 from __future__ import annotations
@@ -35,6 +49,8 @@ MAX_CHUNK = 32       # rows a chunk: one id a lane (``kMaxChunk``)
 PACKED_LANES = (4, 8, 16)   # D / 4 lanes of float4 a row (D = 16, 32, 64)
 
 _blocks_per_sm = {}  # (device, one-slot, mask, vec, lanes, dtypes) -> blocks
+BACKWARD_WARPS = 8   # warps a block of the backward (``kWarps``)
+BACKWARD_BLOCKS_PER_SM = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,4 +177,102 @@ def embedding_bag_cuda(ids, mask, table, *, row_dtype=torch.float32,
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(status, "embedding_bag")
+    return out
+
+
+# -- the gradient with respect to the table -----------------------------------
+
+def sort_slots(ids: torch.Tensor, vocab: int):
+    """``(sorted keys int32[S], slot order int64[S])`` of the ``S = R * bag``
+    slots, sorted by row id, stably (slot order within a run of equal ids);
+    negative ids count from the end, ids outside ``[-V, V)`` take the key
+    ``vocab`` and sort last."""
+    i = ids.reshape(-1).long()
+    i = torch.where(i < 0, i + vocab, i)
+    key = torch.where((i >= 0) & (i < vocab), i, vocab).to(torch.int32)
+    return torch.sort(key, stable=True)
+
+
+def embedding_bag_backward_plain(ids, mask, grad_out, vocab: int, *,
+                                 row_dtype=torch.float32):
+    """``grad_table f32[vocab, D]`` of ``ids int[R, bag]``, ``mask f32[R,
+    bag]`` (``None``: weight one) and ``grad_out [R, D]``: each run of
+    equal ids summed in slot order, each sum rounded to ``row_dtype`` (one
+    vectorized add per position within a run, so a run of ``n`` slots
+    costs ``n`` passes)."""
+    rows, bag = ids.shape
+    d = grad_out.shape[1]
+    dev = grad_out.device
+    out = torch.zeros((vocab, d), dtype=torch.float32, device=dev)
+    if ids.numel() == 0 or vocab == 0:
+        return out
+    key, order = sort_slots(ids, vocab)
+    g = grad_out.to(torch.float32)
+    n = key.numel()
+    pos = torch.arange(n, device=dev)
+    start = torch.ones(n, dtype=torch.bool, device=dev)
+    start[1:] = key[1:] != key[:-1]
+    rank = pos - torch.cummax(torch.where(start, pos, 0), 0).values
+    live = key < vocab
+    by_rank = torch.sort(torch.where(live, rank, n), stable=True)
+    counts = torch.bincount(rank[live], minlength=1).tolist()
+    at = 0
+    for c in counts:                       # position c within each run
+        sel = by_rank.indices[at:at + c]
+        at += c
+        slot = order[sel]
+        x = g[slot // bag]
+        if mask is not None:
+            x = x * mask.reshape(-1)[slot].to(torch.float32)[:, None]
+        x = x.to(row_dtype).to(torch.float32)
+        dst = key[sel].long()
+        out[dst] = (out[dst] + x).to(row_dtype).to(torch.float32)
+    return out
+
+
+def embedding_bag_backward_cuda(ids, mask, grad_out, vocab: int, *,
+                                row_dtype=torch.float32):
+    """Launch ``csrc/embedding_bag_backward.cu`` on the current stream (no
+    sync): the stable sort of the slots (``torch.sort``) and the zero fill
+    of the ``[vocab, D]`` f32 gradient first, then one warp a run of equal
+    ids, each touched row written once."""
+    dev = grad_out.device
+    if ids.device != dev or (mask is not None and (
+            mask.device != dev or mask.dtype != torch.float32
+            or not mask.is_contiguous() or mask.shape != ids.shape)):
+        raise ValueError(
+            "embedding_bag_backward: ids and mask (f32, contiguous, of ids' "
+            f"shape) must be on {dev}")
+    if (grad_out.dtype not in OUT_DTYPES or row_dtype not in ROW_DTYPES
+            or not grad_out.is_contiguous() or grad_out.dim() != 2
+            or ids.dim() != 2 or grad_out.shape[0] != ids.shape[0]):
+        raise ValueError(
+            f"embedding_bag_backward: grad_out [R, D] contiguous of "
+            f"{OUT_DTYPES} for ids [R, bag], row dtype in {ROW_DTYPES}; got "
+            f"{grad_out.dtype} {list(grad_out.shape)}, ids "
+            f"{list(ids.shape)}, {row_dtype}")
+    rows, bag = ids.shape
+    d = grad_out.shape[1]
+    out = torch.zeros((vocab, d), dtype=torch.float32, device=dev)
+    slots = rows * bag
+    if slots == 0 or vocab == 0 or d == 0:
+        return out
+    key, order = sort_slots(ids, vocab)
+    lib = build.load("embedding_bag_backward")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = max(1, min(sms * BACKWARD_BLOCKS_PER_SM,
+                        -(-slots // BACKWARD_WARPS)))
+    fn = lib.embedding_bag_backward_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_longlong]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    status = fn(
+        key.data_ptr(), order.data_ptr(),
+        None if mask is None else mask.data_ptr(), grad_out.data_ptr(),
+        slots, bag, vocab, d, int(row_dtype == torch.bfloat16),
+        int(grad_out.dtype == torch.bfloat16), blocks, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check_launch(status, "embedding_bag_backward")
     return out

@@ -42,7 +42,8 @@ from repro_torch.kernels import index_combine as _comb
 from repro_torch.kernels import walk_step as _walk
 
 KERNELS = ("walk_step", "frontier_push", "index_combine_sparse", "ell_spmm",
-           "index_combine", "sharded_frontier_push", "embedding_bag")
+           "index_combine", "sharded_frontier_push", "embedding_bag",
+           "embedding_bag_backward")
 
 _launches: collections.Counter = collections.Counter()
 _captured: Optional[Dict[str, tuple]] = None
@@ -218,17 +219,8 @@ def sharded_frontier_push(
     return out
 
 
-def embedding_bag(ids, mask, table, *, row_dtype=torch.float32,
-                  out_dtype=torch.float32):
-    """Bag sum ``out[r] = sum_i mask[r, i] * table[ids[r, i]]`` of ``ids
-    int[R, bag]``, ``mask f32[R, bag]`` (``None``: every weight one) over
-    ``table f32[V, D]``, each gathered row rounded to ``row_dtype`` and the
-    f32 sum cast to ``out_dtype`` (see ``kernels/embedding_bag.py``); needs
-    no tile alignment."""
+def _embedding_bag_forward(ids, mask, table, row_dtype, out_dtype):
     kwargs = dict(row_dtype=row_dtype, out_dtype=out_dtype)
-    if ids.shape[1] == 0:  # empty bags sum to zero
-        return torch.zeros((ids.shape[0], table.shape[1]), dtype=out_dtype,
-                           device=table.device)
     if not _route("embedding_bag", ids):
         return _bag.embedding_bag_plain(ids, mask, table, **kwargs)
     args = (ids.to(torch.int32).contiguous(),
@@ -237,3 +229,57 @@ def embedding_bag(ids, mask, table, *, row_dtype=torch.float32,
     out = _bag.embedding_bag_cuda(*args, **kwargs)
     _launched("embedding_bag", args, kwargs)
     return out
+
+
+def embedding_bag_backward(ids, mask, grad_out, vocab: int, *,
+                           row_dtype=torch.float32):
+    """The gradient ``f32[vocab, D]`` of :func:`embedding_bag` with respect
+    to its table, for ``grad_out [R, D]`` (see ``kernels/embedding_bag.py``:
+    each run of equal ids summed in slot order, no atomics)."""
+    kwargs = dict(vocab=int(vocab), row_dtype=row_dtype)
+    if not _route("embedding_bag_backward", grad_out):
+        return _bag.embedding_bag_backward_plain(ids, mask, grad_out,
+                                                 **kwargs)
+    args = (ids.contiguous(),
+            None if mask is None else mask.to(torch.float32).contiguous(),
+            grad_out.contiguous())
+    out = _bag.embedding_bag_backward_cuda(*args, **kwargs)
+    _launched("embedding_bag_backward", args, kwargs)
+    return out
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """:func:`embedding_bag` with the table's gradient: the forward kernel
+    (or plain version) forward, :func:`embedding_bag_backward` backward.
+    ``ids`` and ``mask`` are data and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, table, ids, mask, row_dtype, out_dtype):
+        ctx.save_for_backward(ids, mask)
+        ctx.vocab = table.shape[0]
+        ctx.row_dtype = row_dtype
+        return _embedding_bag_forward(ids, mask, table, row_dtype, out_dtype)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ids, mask = ctx.saved_tensors
+        grad = embedding_bag_backward(ids, mask, grad_out, ctx.vocab,
+                                      row_dtype=ctx.row_dtype)
+        return grad, None, None, None, None
+
+
+def embedding_bag(ids, mask, table, *, row_dtype=torch.float32,
+                  out_dtype=torch.float32):
+    """Bag sum ``out[r] = sum_i mask[r, i] * table[ids[r, i]]`` of ``ids
+    int[R, bag]``, ``mask f32[R, bag]`` (``None``: every weight one) over
+    ``table f32[V, D]``, each gathered row rounded to ``row_dtype`` and the
+    f32 sum cast to ``out_dtype`` (see ``kernels/embedding_bag.py``); needs
+    no tile alignment.  Where grad mode is on and ``table`` needs a
+    gradient, the call goes through a ``torch.autograd.Function`` whose
+    backward is :func:`embedding_bag_backward`."""
+    if ids.shape[1] == 0:  # empty bags sum to zero
+        return torch.zeros((ids.shape[0], table.shape[1]), dtype=out_dtype,
+                           device=table.device)
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbeddingBag.apply(table, ids, mask, row_dtype, out_dtype)
+    return _embedding_bag_forward(ids, mask, table, row_dtype, out_dtype)

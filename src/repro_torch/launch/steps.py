@@ -1,19 +1,28 @@
 """Step factory: (arch, shape) -> init / step callables + batch specs.
 
 The counterpart of the reference's ``launch/steps.py`` for what the port
-holds: ``smollm-135m``'s serve kinds (``lm_prefill``: ``prefill_32k``, the
-next-token logits of a ``[B, S]`` batch; ``lm_decode``: ``decode_32k`` and
-``long_500k``, one token a row against a KV cache, which
-:attr:`StepBundle.make_cache` makes on the device) and the recsys serve
-kinds of DLRM RM2, DCN-v2, SASRec and MIND (``rec_serve``: ``serve_p99``
-at B = 512 and ``serve_bulk`` at B = 262,144; ``rec_retrieval``:
-``retrieval_cand``, one user against 10^6 candidates).  ``lm_train`` and
-``rec_train`` come with the training slice and raise.
+holds, every cell of ``smollm-135m`` and of DLRM RM2, DCN-v2, SASRec and
+MIND:
+
+* training (``kind == "train"``): ``lm_train`` (``train_4k``, B = 256, S =
+  4,096) and ``rec_train`` (``train_batch``, B = 65,536); ``step_fn(params,
+  opt_state, batch) -> (params, opt_state, metrics)`` is
+  ``training.train_loop.make_train_step`` of the model's ``loss_fn`` under
+  :attr:`StepBundle.opt_cfg` (``DEFAULT_OPT``, bf16 moments, at full size;
+  ``SMOKE_OPT`` reduced), and updates the parameters and moments in place;
+* ``lm_prefill`` (``prefill_32k``, the next-token logits of a ``[B, S]``
+  batch) and ``lm_decode`` (``decode_32k``, ``long_500k``: one token a row
+  against a KV cache, which :attr:`StepBundle.make_cache` makes on the
+  device);
+* ``rec_serve`` (``serve_p99`` at B = 512, ``serve_bulk`` at B = 262,144)
+  and ``rec_retrieval`` (``retrieval_cand``, one user against 10^6
+  candidates).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -23,6 +32,8 @@ from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.recsys import dcn, dlrm, mind, sasrec
+from repro_torch.training import train_loop
+from repro_torch.training.optimizer import AdamWConfig
 
 F32 = torch.float32
 I32 = torch.int32
@@ -36,9 +47,11 @@ class StepBundle:
 
     arch_id: str
     shape_name: str
-    kind: str                               # serve
+    kind: str                               # train | serve
     init_fn: Callable[[int], Any]           # seed -> params on the device
-    step_fn: Callable[..., Any]             # (params, [cache,] batch) -> outputs
+    # train: (params, opt_state, batch) -> (params, opt_state, metrics);
+    # serve: (params, [cache,] batch) -> outputs
+    step_fn: Callable[..., Any]
     batch_spec: Dict[str, TensorSpec]
     make_batch: Callable[[torch.Generator], Dict[str, torch.Tensor]]
     model_flops_per_step: float = 0.0
@@ -46,6 +59,12 @@ class StepBundle:
     # empty cache on the device (``batch`` rows in place of the shape's)
     cache_spec: Optional[Dict[str, TensorSpec]] = None
     make_cache: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
+    opt_cfg: Optional[AdamWConfig] = None   # the config step_fn uses (train)
+
+
+DEFAULT_OPT = AdamWConfig(moment_dtype=torch.bfloat16)
+SMOKE_OPT = AdamWConfig(moment_dtype=torch.float32, warmup_steps=2,
+                        total_steps=100)
 
 
 # ---------------------------------------------------------------------------
@@ -62,16 +81,43 @@ def _reduce_lm_shape(shape: ShapeSpec) -> ShapeSpec:
 
 
 def _lm_bundle(arch: ArchSpec, shape: ShapeSpec, cfg: tfm.TransformerConfig,
-               device: torch.device) -> StepBundle:
-    if shape.kind == "lm_train":
-        raise NotImplementedError(
-            f"{arch.id}/{shape.name}: training (lm_train) is not ported; it "
-            "comes with the training slice, its loss_fn and its optimizer")
+               opt_cfg: AdamWConfig, device: torch.device) -> StepBundle:
     b, s = shape.global_batch, shape.seq_len
     n_params_active = cfg.active_param_count()
 
     def init_fn(seed: int):
         return tfm.init(cfg, seed, device=device)
+
+    if shape.kind == "lm_train":
+        # the reference's rules: gradient accumulation grows with model
+        # size, and the biggest models take fp8 mu, bf16 nu and a bf16
+        # accumulator (neither reached by a model one card holds)
+        n_params = cfg.param_count()
+        mb = 8 if n_params > 1.2e11 else 4 if n_params > 6e10 else \
+            2 if n_params > 1.5e10 else 1
+        mb = mb if b % max(mb, 1) == 0 else 1
+        accum = F32
+        if n_params > 6e10 and opt_cfg is DEFAULT_OPT:
+            opt_cfg = dataclasses.replace(
+                opt_cfg, mu_dtype=torch.float8_e4m3fn,
+                nu_dtype=torch.bfloat16)
+            accum = torch.bfloat16
+        step = train_loop.make_train_step(
+            functools.partial(tfm.loss_fn, cfg), opt_cfg, microbatches=mb,
+            accum_dtype=accum)
+
+        def make_batch(gen: torch.Generator):
+            toks = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                 dtype=I32, device=gen.device).to(device)
+            return dict(tokens=toks, labels=torch.roll(toks, -1, dims=1),
+                        mask=torch.ones((b, s), dtype=F32, device=device))
+
+        spec = dict(tokens=((b, s), I32), labels=((b, s), I32),
+                    mask=((b, s), F32))
+        return StepBundle(
+            arch.id, shape.name, "train", init_fn, step, spec, make_batch,
+            model_flops_per_step=6.0 * n_params_active * b * s,  # fwd+bwd
+            opt_cfg=opt_cfg)
 
     def tokens(rows: int, cols: int):
         def make_batch(gen: torch.Generator):
@@ -137,19 +183,34 @@ def _reduce_rec_shape(shape: ShapeSpec) -> ShapeSpec:
     return dataclasses.replace(shape, global_batch=32)
 
 
-def _rec_batch_spec(kind_model: str, cfg, b: int) -> dict:
+def _rec_batch_spec(kind_model: str, cfg, b: int,
+                    with_label: bool = False) -> dict:
     if kind_model in ("dcn", "dlrm"):
-        return dict(dense=((b, cfg.n_dense), F32),
+        spec = dict(dense=((b, cfg.n_dense), F32),
                     sparse_ids=((b, cfg.n_sparse), I32))
-    if kind_model == "sasrec":
-        return dict(item_seq=((b, cfg.seq_len), I32))
-    return dict(hist=((b, cfg.hist_len), I32),
-                hist_mask=((b, cfg.hist_len), F32))
+        if with_label:
+            spec["label"] = ((b,), F32)
+    elif kind_model == "sasrec":
+        spec = dict(item_seq=((b, cfg.seq_len), I32))
+        if with_label:
+            spec.update(pos=((b, cfg.seq_len), I32),
+                        neg=((b, cfg.seq_len), I32),
+                        mask=((b, cfg.seq_len), F32))
+    else:
+        spec = dict(hist=((b, cfg.hist_len), I32),
+                    hist_mask=((b, cfg.hist_len), F32))
+        if with_label:
+            spec.update(target=((b,), I32),
+                        neg=((b, cfg.n_negatives), I32))
+    return spec
 
 
-def _rec_make_batch(kind_model: str, cfg, b: int, device: torch.device):
+def _rec_make_batch(kind_model: str, cfg, b: int, device: torch.device,
+                    with_label: bool = False):
     """``make_batch(gen)``: a random batch drawn on the generator's device,
-    moved to ``device``."""
+    moved to ``device``; ``with_label`` adds the training targets (a
+    Bernoulli(0.3) click label; SASRec's positives, negatives and mask;
+    MIND's target and negatives)."""
     def make_batch(gen: torch.Generator):
         g = gen.device
         ints = lambda hi, shape: torch.randint(  # noqa: E731
@@ -159,12 +220,23 @@ def _rec_make_batch(kind_model: str, cfg, b: int, device: torch.device):
                 dense=torch.randn((b, cfg.n_dense), generator=gen,
                                   dtype=F32, device=g),
                 sparse_ids=ints(cfg.vocab_per_field, (b, cfg.n_sparse)))
+            if with_label:
+                out["label"] = (torch.rand((b,), generator=gen, device=g)
+                                < 0.3).to(F32)
         elif kind_model == "sasrec":
             out = dict(item_seq=ints(cfg.n_items, (b, cfg.seq_len)))
+            if with_label:
+                out.update(pos=ints(cfg.n_items, (b, cfg.seq_len)),
+                           neg=ints(cfg.n_items, (b, cfg.seq_len)),
+                           mask=torch.ones((b, cfg.seq_len), dtype=F32,
+                                           device=g))
         else:
             out = dict(hist=ints(cfg.n_items, (b, cfg.hist_len)),
                        hist_mask=torch.ones((b, cfg.hist_len), dtype=F32,
                                             device=g))
+            if with_label:
+                out.update(target=ints(cfg.n_items, (b,)),
+                           neg=ints(cfg.n_items, (b, cfg.n_negatives)))
         return {k: v.to(device) for k, v in out.items()}
     return make_batch
 
@@ -195,7 +267,7 @@ def _rec_dense_flops(kind_model: str, cfg, b: int) -> float:
     return b * float(2 * cfg.hist_len * d * d + routing)
 
 
-def _rec_bundle(arch: ArchSpec, shape: ShapeSpec, cfg,
+def _rec_bundle(arch: ArchSpec, shape: ShapeSpec, cfg, opt_cfg: AdamWConfig,
                 device: torch.device) -> StepBundle:
     kind_model = arch.model_kind
     mod = _REC_MODS[kind_model]
@@ -205,9 +277,14 @@ def _rec_bundle(arch: ArchSpec, shape: ShapeSpec, cfg,
 
     b = shape.global_batch
     if shape.kind == "rec_train":
-        raise NotImplementedError(
-            f"{arch.id}/{shape.name}: training (rec_train) is not ported; it "
-            "comes with the training slice and its optimizer")
+        step = train_loop.make_train_step(
+            functools.partial(mod.loss_fn, cfg), opt_cfg)
+        return StepBundle(
+            arch.id, shape.name, "train", init_fn, step,
+            _rec_batch_spec(kind_model, cfg, b, with_label=True),
+            _rec_make_batch(kind_model, cfg, b, device, with_label=True),
+            model_flops_per_step=3.0 * _rec_dense_flops(kind_model, cfg, b),
+            opt_cfg=opt_cfg)
     if shape.kind == "rec_serve":
         def serve(params, batch):
             if kind_model in ("dcn", "dlrm"):
@@ -251,10 +328,13 @@ def _rec_bundle(arch: ArchSpec, shape: ShapeSpec, cfg,
 
 def build(arch: Union[str, ArchSpec], shape_name: str, *,
           reduced: bool = False, device="cuda",
+          opt_cfg: Optional[AdamWConfig] = None,
           config_overrides: Optional[Dict[str, Any]] = None) -> StepBundle:
     """The :class:`StepBundle` of one cell, its parameters and batches on
     ``device``.  ``reduced=True`` swaps in the smoke config and the reduced
-    shape; ``config_overrides`` replaces model-config fields (such as
+    shape; ``opt_cfg`` replaces a train cell's optimizer config
+    (``SMOKE_OPT`` reduced, ``DEFAULT_OPT`` otherwise);
+    ``config_overrides`` replaces model-config fields (such as
     ``compute_dtype``)."""
     dev = resolve_device(device)
     if isinstance(arch, str):
@@ -266,6 +346,7 @@ def build(arch: Union[str, ArchSpec], shape_name: str, *,
         shape = (_reduce_lm_shape if lm else _reduce_rec_shape)(shape)
     if config_overrides:
         cfg = dataclasses.replace(cfg, **config_overrides)
+    opt = opt_cfg or (SMOKE_OPT if reduced else DEFAULT_OPT)
     if lm:
-        return _lm_bundle(arch, shape, cfg, dev)
-    return _rec_bundle(arch, shape, cfg, dev)
+        return _lm_bundle(arch, shape, cfg, opt, dev)
+    return _rec_bundle(arch, shape, cfg, opt, dev)

@@ -154,7 +154,12 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def binary_cross_entropy(logits: torch.Tensor,
                          labels: torch.Tensor) -> torch.Tensor:
+    """Mean of ``max(x, 0) - x * y + log1p(exp(-|x|))``, with the
+    reference's gradients at x = 0: ``jnp.maximum`` splits a tie in half
+    (as ``torch.maximum`` does, not ``clamp``) and ``jnp.abs`` has slope 1
+    there (``torch.abs`` has 0)."""
     logits = logits.float()
     labels = labels.float()
-    return torch.mean(torch.clamp(logits, min=0) - logits * labels
-                      + torch.log1p(torch.exp(-logits.abs())))
+    abs_x = torch.where(logits >= 0, logits, -logits)
+    return torch.mean(torch.maximum(logits, torch.zeros_like(logits))
+                      - logits * labels + torch.log1p(torch.exp(-abs_x)))

@@ -1,7 +1,7 @@
 """DCN-v2 (arXiv:2008.13535): explicit cross network + deep tower.
 
-Serving only: ``forward`` and ``retrieval_scores``.  The reference's
-``loss_fn`` comes with the training slice.
+``forward`` and ``retrieval_scores`` serve; ``loss_fn`` trains (binary
+cross-entropy of the forward).
 """
 
 from __future__ import annotations
@@ -73,6 +73,12 @@ def forward(cfg: DCNConfig, params, batch) -> torch.Tensor:
     deep = L.mlp_apply(params["deep"], x0, compute_dtype=dt)
     feats = torch.cat([x, deep], dim=-1)
     return L.dense_apply(params["head"], feats, compute_dtype=dt)[:, 0]
+
+
+def loss_fn(cfg: DCNConfig, params, batch) -> torch.Tensor:
+    """Binary cross-entropy of the logits against ``label f32[B]``."""
+    logits = forward(cfg, params, batch)
+    return L.binary_cross_entropy(logits, batch["label"])
 
 
 def retrieval_scores(cfg: DCNConfig, params, batch) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """DLRM RM2 (arXiv:1906.00091): bottom MLP + dot interaction + top MLP.
 
-Serving only: ``forward`` and ``retrieval_scores``.  The reference's
-``loss_fn`` comes with the training slice.
+``forward`` and ``retrieval_scores`` serve; ``loss_fn`` trains (binary
+cross-entropy of the forward; the table's gradient comes from
+``embedding_bag``'s backward kernel).
 """
 
 from __future__ import annotations
@@ -82,6 +83,11 @@ def forward(cfg: DLRMConfig, params, batch) -> torch.Tensor:
     inter = _interact(vectors)
     top_in = torch.cat([inter, d0], dim=-1)
     return L.mlp_apply(params["top"], top_in, compute_dtype=dt)[:, 0]
+
+
+def loss_fn(cfg: DLRMConfig, params, batch) -> torch.Tensor:
+    """Binary cross-entropy of the logits against ``label f32[B]``."""
+    return L.binary_cross_entropy(forward(cfg, params, batch), batch["label"])
 
 
 def retrieval_scores(cfg: DLRMConfig, params, batch) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """MIND (arXiv:1904.08030): multi-interest capsule network for retrieval.
 
-Serving only: ``user_interests``, ``label_aware_scores`` and
-``retrieval_scores``.  The reference's ``loss_fn`` comes with the training
-slice.  Every gather (history, candidates) is one ``embedding_bag`` launch.
+``user_interests``, ``label_aware_scores`` and ``retrieval_scores``
+serve; ``loss_fn`` trains (a sampled softmax).  Every gather (history,
+candidates) is one ``embedding_bag`` launch, and in training one launch of
+its backward.
 """
 
 from __future__ import annotations
@@ -77,6 +78,25 @@ def label_aware_scores(cfg: MINDConfig, interests: torch.Tensor,
     sims = torch.einsum("bkd,bd->bk", interests, target_e)
     att = torch.softmax(cfg.pow_p * sims, dim=-1)
     return (att * sims).sum(dim=-1)
+
+
+def loss_fn(cfg: MINDConfig, params, batch) -> torch.Tensor:
+    """Sampled softmax: the target against ``n_negatives`` sampled items a
+    row (in-batch negatives would build a ``[B, K, B]`` tensor).
+
+    batch: ``hist [B, H]``, ``hist_mask [B, H]``, ``target [B]``, ``neg [B,
+    n_negatives]``."""
+    dt = cfg.compute_dtype
+    interests = user_interests(cfg, params, batch["hist"],
+                               batch["hist_mask"])
+    cand = torch.cat([batch["target"][:, None], batch["neg"]], dim=1)
+    ce = E.item_lookup(params["item_embed"]["table"], cand, dt)  # [B, C, d]
+    sims = torch.einsum("bkd,bcd->bkc", interests, ce)           # [B, K, C]
+    att = torch.softmax(cfg.pow_p * sims, dim=1)
+    scores = (att * sims).sum(dim=1)                             # [B, C]
+    labels = torch.zeros((scores.shape[0],), dtype=torch.int32,
+                         device=scores.device)   # the target at column 0
+    return L.softmax_cross_entropy(scores, labels)
 
 
 def retrieval_scores(cfg: MINDConfig, params, batch) -> torch.Tensor:

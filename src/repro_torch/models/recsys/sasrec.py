@@ -1,8 +1,9 @@
 """SASRec (arXiv:1808.09781): self-attentive sequential recommendation.
 
-Serving only: ``encode``, ``user_embedding`` and ``retrieval_scores``.
-The reference's ``loss_fn`` comes with the training slice.  Every gather
-(items, positions, candidates) is one ``embedding_bag`` launch.
+``encode``, ``user_embedding`` and ``retrieval_scores`` serve; ``loss_fn``
+trains (BPR over sampled negatives).  Every gather (items, positions,
+candidates, the loss's positives and negatives) is one ``embedding_bag``
+launch, and in training one launch of its backward.
 """
 
 from __future__ import annotations
@@ -82,6 +83,22 @@ def encode(cfg: SASRecConfig, params, item_seq: torch.Tensor) -> torch.Tensor:
             p["ff2"], torch.relu(L.dense_apply(p["ff1"], x, compute_dtype=dt)),
             compute_dtype=dt)
     return h
+
+
+def loss_fn(cfg: SASRecConfig, params, batch) -> torch.Tensor:
+    """Next-item BPR loss with sampled negatives.
+
+    batch: ``item_seq``, ``pos``, ``neg`` (int32) and ``mask`` (f32), each
+    ``[B, S]``."""
+    h = encode(cfg, params, batch["item_seq"])
+    table = params["item_embed"]["table"]
+    pos_e = E.item_lookup(table, batch["pos"], h.dtype)
+    neg_e = E.item_lookup(table, batch["neg"], h.dtype)
+    pos_s = (h * pos_e).sum(dim=-1)
+    neg_s = (h * neg_e).sum(dim=-1)
+    mask = batch["mask"]
+    nll = -torch.log(torch.sigmoid(pos_s - neg_s) + 1e-9) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def user_embedding(cfg: SASRecConfig, params,

@@ -1,24 +1,31 @@
 """Decoder-only transformer LM: GQA + RoPE + SwiGLU (the reference's
-``models/transformer.py``), serving only.
+``models/transformer.py``).
 
 ``forward`` is the prefill (every position of a ``[B, S]`` batch at
-once); ``init_cache`` and ``decode_step`` are the KV-cache decode, with
+once); ``loss_fn`` is the next-token cross-entropy of training (the
+logits whole, or ``loss_chunk`` positions at a time, each chunk's logits
+recomputed in the backward); ``init_cache`` and ``decode_step`` are the
+KV-cache decode, with
 the reference's int8 cache (``kv_quant``: per-token, per-head bf16
 scales).  Parameters keep the reference's tree: ``embed.table``,
 ``layers.{ln_attn, ln_ffn, wq, wk, wv, wo, w_gate, w_up, w_down}`` stacked
 with a leading ``n_layers`` axis, ``ln_final`` and ``lm_head``, so a plain
 tree copy (``convert.params_from_arrays``) carries the reference's
 parameters across.  The reference's ``lax.scan`` over the stacked layers
-is a Python loop over their slices here.
+is a Python loop over their slices here (``unbind``, so the backward
+stacks each leaf's layer gradients once); with ``remat`` (the
+reference's default) each layer body runs under
+``torch.utils.checkpoint`` when grad mode is on, so the backward keeps
+only each layer's input and recomputes the rest.
 
 Every token lookup is one ``embedding_bag`` launch
 (``layers.embedding_apply``); the attention is the plain PyTorch of
 ``models/attention.py``, whose rounding is the reference's.  The
 reference's config fields that only steer XLA's lowering (``act_shard``,
-``remat``, ``precast_params``) are not carried; ``param_dtype`` neither:
-parameters are f32, cast to ``compute_dtype`` at use.  The MoE FFN and
-``loss_fn`` are not ported: ``moe`` stays a field, and ``init``,
-``forward`` and ``decode_step`` raise when it is set.
+``precast_params``) are not carried; ``param_dtype`` neither:
+parameters are f32, cast to ``compute_dtype`` at use.  The MoE FFN is not
+ported: ``moe`` stays a field, and ``init``, ``forward``, ``loss_fn`` and
+``decode_step`` raise when it is set.
 
 ``decode_step`` writes the new K/V into the cache's tensors in place (the
 reference's ``dynamic_update_slice`` copies the whole cache) at
@@ -30,10 +37,12 @@ graph.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -63,7 +72,8 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     compute_dtype: Any = torch.bfloat16
     attn_chunk: int = 1024
-    loss_chunk: int = 0        # 0 = unchunked (the loss is not ported)
+    loss_chunk: int = 0        # 0 = unchunked
+    remat: bool = True         # recompute each layer body in the backward
     # int8 KV cache (per-token, per-head dynamic scales)
     kv_quant: bool = False
 
@@ -147,10 +157,14 @@ def init(cfg: TransformerConfig, seed: int = 0, *,
     }
 
 
-def _layer(layers, i: int):
-    """Layer ``i``'s parameters: each stacked leaf's slice ``i`` (a view)."""
-    return {name: {k: v[i] for k, v in p.items()}
-            for name, p in layers.items()}
+def _unbound(layers, n: int) -> List[Dict[str, Any]]:
+    """Every layer's parameters (views), each stacked leaf ``unbind``-ed
+    once (its backward stacks the ``n`` slices' gradients in one
+    tensor)."""
+    parts = {name: {k: v.unbind(0) for k, v in p.items()}
+             for name, p in layers.items()}
+    return [{name: {k: v[i] for k, v in p.items()}
+             for name, p in parts.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -210,10 +224,51 @@ def forward(cfg: TransformerConfig, params,
     _no_moe(cfg, "forward")
     h = L.embedding_apply(params["embed"], tokens,
                           compute_dtype=cfg.compute_dtype)
-    for i in range(cfg.n_layers):
-        h = _layer_body(cfg, h, _layer(params["layers"], i))
+    body = functools.partial(_layer_body, cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p in _unbound(params["layers"], cfg.n_layers):
+        h = checkpoint(body, h, p, use_reentrant=False) if remat \
+            else body(h, p)
     h = L.rmsnorm_apply(params["ln_final"], h)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def loss_fn(cfg: TransformerConfig, params,
+            batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy ``(loss, {"ce", "aux"})`` of ``tokens``,
+    ``labels`` (int32) and ``mask`` (f32), each ``[B, S]``.  With
+    ``loss_chunk`` dividing S, the logits are made ``loss_chunk`` positions
+    at a time and each chunk is recomputed in the backward (the
+    reference's checkpointed scan), so no ``[B, S, V]`` buffer is kept."""
+    h, aux = forward(cfg, params, batch["tokens"])
+    head = params["lm_head"]
+    labels, mask = batch["labels"], batch["mask"]
+    dt = cfg.compute_dtype
+    if cfg.loss_chunk and h.shape[1] % cfg.loss_chunk == 0:
+        b, s, d = h.shape
+        nc = s // cfg.loss_chunk
+        hc = h.reshape(b, nc, cfg.loss_chunk, d).transpose(0, 1)
+        lc = labels.reshape(b, nc, cfg.loss_chunk).transpose(0, 1)
+        mc = mask.reshape(b, nc, cfg.loss_chunk).transpose(0, 1)
+
+        def chunk_nll(hx, lx, mx):
+            logits32 = L.dense_apply(head, hx, compute_dtype=dt).float()
+            logz = torch.logsumexp(logits32, dim=-1)
+            gold = torch.gather(logits32, -1, lx[..., None].long())[..., 0]
+            return ((logz - gold) * mx).sum(), mx.sum()
+
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(nc):
+            t, c = checkpoint(chunk_nll, hc[i], lc[i], mc[i],
+                              use_reentrant=False)
+            tot, cnt = tot + t, cnt + c
+        ce = tot / torch.clamp(cnt, min=1.0)
+    else:
+        logits = L.dense_apply(head, h, compute_dtype=dt)
+        ce = L.softmax_cross_entropy(logits, labels, mask)
+    loss = ce + aux
+    return loss, dict(ce=ce, aux=aux)
 
 
 # ---------------------------------------------------------------------------
@@ -265,8 +320,7 @@ def decode_step(cfg: TransformerConfig, params, cache,
     slot = torch.clamp(length, 0, cache["k"].shape[2] - 1).reshape(1).long()
     pos = length.expand(b, 1)
     h = L.embedding_apply(params["embed"], tokens, compute_dtype=dt)
-    for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
+    for i, p in enumerate(_unbound(params["layers"], cfg.n_layers)):
         q, k, v = _qkv(cfg, p, L.rmsnorm_apply(p["ln_attn"], h), pos)
         kc, vc = cache["k"][i], cache["v"][i]
         if cfg.kv_quant:

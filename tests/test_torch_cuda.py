@@ -225,6 +225,59 @@ def test_lm_step_launches_embedding_bag_as_stated(cuda, shape, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(chip_smoke.TRAIN_CELLS))
+def test_train_step_on_card_matches_the_cpu(cuda, arch):
+    """One reduced train step in f32, card against the plain CPU path: the
+    loss, every gradient and the updated parameters (the lookups' backward
+    on the ``embedding_bag_backward`` kernel)."""
+    ok, res = chip_smoke.check_small_train(torch, np, cuda, arch)
+    assert ok, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(chip_smoke.TRAIN_CELLS))
+def test_train_step_launches_the_backward_as_stated(cuda, arch):
+    """A reduced train step launches ``TRAIN_LOOKUPS`` lookups on the card
+    and as many launches of their backward kernel."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.training import train_loop
+
+    shape = chip_smoke.TRAIN_CELLS[arch]
+    bundle = steps.build(arch, shape, reduced=True, device=cuda)
+    params = bundle.init_fn(0)
+    state = train_loop.init_state(bundle.opt_cfg, params)
+    batch = bundle.make_batch(torch.Generator(device=cuda).manual_seed(1))
+    tops.reset_launch_counts()
+    bundle.step_fn(params, state, batch)
+    torch.cuda.synchronize()
+    n = chip_smoke.TRAIN_LOOKUPS[(arch, get_arch(arch).shape(shape).kind)]
+    counts = tops.launch_counts()
+    assert counts["embedding_bag"] == counts["embedding_bag_backward"] == n
+
+
+@pytest.mark.cuda
+def test_embedding_bag_backward_launches_and_matches_plain(cuda):
+    """The wrapper routes a CUDA gradient to the kernel (one launch), which
+    matches the plain version bit for bit, duplicates included."""
+    from repro_torch.kernels import embedding_bag as bag_k
+
+    r = np.random.default_rng(2)
+    ids = torch.from_numpy(r.integers(-50, 60, (4000, 3)).astype(
+        np.int32)).to(cuda)
+    mask = torch.from_numpy(r.random((4000, 3)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(r.standard_normal((4000, 64)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    tops.reset_launch_counts()
+    got = tops.embedding_bag_backward(ids, mask, g, 50,
+                                      row_dtype=torch.bfloat16)
+    assert tops.launch_counts()["embedding_bag_backward"] == 1
+    want = bag_k.embedding_bag_backward_plain(ids, mask, g, 50,
+                                              row_dtype=torch.bfloat16)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_montecarlo_on_card_matches_the_cpu(cuda):
     """The Monte-Carlo path at rmat(14), card against the plain CPU path,
     bit for bit: the legacy build, the dense and sparse MCFP and MCEP

@@ -490,7 +490,7 @@ def test_launch_counters_start_at_zero_and_reset():
     assert tops.launch_counts() == {
         "walk_step": 0, "frontier_push": 0, "index_combine_sparse": 0,
         "ell_spmm": 0, "index_combine": 0, "sharded_frontier_push": 0,
-        "embedding_bag": 0}
+        "embedding_bag": 0, "embedding_bag_backward": 0}
 
 
 def test_wrappers_refuse_unsupported_devices():
@@ -508,6 +508,8 @@ def test_wrappers_refuse_unsupported_devices():
             ep=1, n_shard=1, wire_k=1)
     with pytest.raises(ValueError):
         tops.embedding_bag(t[:, None].int(), t[:, None], t[:, None])
+    with pytest.raises(ValueError):
+        tops.embedding_bag_backward(t[:, None].int(), None, t[:, None], 2)
 
 
 # -- the kernel build ---------------------------------------------------------

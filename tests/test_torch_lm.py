@@ -38,6 +38,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.launch import steps
 from repro_torch.models import layers as tL
 from repro_torch.models import transformer as ttfm
+from repro_torch.training import train_loop as ttl
 
 torch.set_num_threads(1)
 
@@ -378,9 +379,16 @@ def test_embedding_bag_launches_a_forward_and_a_step(shape, kind,
     assert torch.equal(got, want)
 
 
-def test_lm_train_and_moe_raise():
-    with pytest.raises(NotImplementedError, match="training"):
-        steps.build(ARCH, "train_4k", reduced=True, device="cpu")
+def test_lm_train_and_moe_raise(monkeypatch):
+    """Training is ported (the name is from when it raised): two steps of
+    the reduced ``train_4k`` on one batch, the second loss below 1.5x the
+    first (the reference's ``test_second_train_step_decreases_or_close``),
+    one lookup and one backward launch a step; the MoE FFN still raises,
+    in training too."""
+    l1, l2, counts = _two_train_steps(ARCH, "train_4k", monkeypatch)
+    assert np.isfinite(l1) and np.isfinite(l2) and l2 < 1.5 * l1
+    n = chip_smoke.TRAIN_LOOKUPS[(ARCH, "lm_train")]
+    assert counts["embedding_bag"] == counts["embedding_bag_backward"] == n
     cfg = dataclasses.replace(tconfigs.get_arch(ARCH).reduced,
                               moe=ttfm.MoEConfig(n_experts=4, top_k=2))
     with pytest.raises(NotImplementedError, match="MoE"):
@@ -388,6 +396,34 @@ def test_lm_train_and_moe_raise():
     tp = ttfm.init(tconfigs.get_arch(ARCH).reduced, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         ttfm.forward(cfg, tp, torch.zeros((1, 4), dtype=torch.int32))
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        ttfm.loss_fn(cfg, tp, dict(tokens=tokens, labels=tokens,
+                                   mask=torch.ones((1, 4))))
+
+
+def _two_train_steps(arch, shape, monkeypatch):
+    """Two train steps of the reduced cell on one batch, the lookups and
+    their backward on the kernels' launch path (each stood in for by its
+    plain version, so the path runs on the CPU): ``(first loss, second
+    loss, launch counts of the first step)``."""
+    bundle = steps.build(arch, shape, reduced=True, device="cpu")
+    assert bundle.kind == "train" and bundle.opt_cfg is steps.SMOKE_OPT
+    params = bundle.init_fn(0)
+    state = ttl.init_state(bundle.opt_cfg, params)
+    batch = bundle.make_batch(torch.Generator().manual_seed(1))
+    for name, (shp, dtype) in bundle.batch_spec.items():
+        assert batch[name].shape == shp and batch[name].dtype == dtype
+    monkeypatch.setattr(tops, "_route", lambda name, t: True)
+    monkeypatch.setattr(tbag, "embedding_bag_cuda", tbag.embedding_bag_plain)
+    monkeypatch.setattr(tbag, "embedding_bag_backward_cuda",
+                        tbag.embedding_bag_backward_plain)
+    tops.reset_launch_counts()
+    params, state, m1 = bundle.step_fn(params, state, batch)
+    counts = tops.launch_counts()
+    params, state, m2 = bundle.step_fn(params, state, batch)
+    assert int(state.step) == 2
+    return float(m1["loss"]), float(m2["loss"]), counts
 
 
 @pytest.fixture()

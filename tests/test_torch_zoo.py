@@ -41,6 +41,7 @@ from repro_torch.models import layers as tL
 from repro_torch.models.recsys import dcn as tdcn
 from repro_torch.models.recsys import mind as tmind
 from repro_torch.models.recsys import sasrec as tsasrec
+from repro_torch.training import train_loop as ttl
 
 torch.set_num_threads(1)
 
@@ -455,16 +456,47 @@ def test_embedding_bag_launches_a_forward(arch, kind, monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ZOO)
-def test_rec_train_raises(arch):
-    with pytest.raises(NotImplementedError, match="training"):
-        steps.build(arch, "train_batch", reduced=True, device="cpu")
+def test_rec_train_raises(arch, monkeypatch):
+    """Training is ported (the name is from when it raised): two steps of
+    the reduced ``train_batch`` on one batch, the second loss below 1.5x
+    the first (the margin of the reference's
+    ``test_second_train_step_decreases_or_close``), and a step launching
+    ``chip_smoke.TRAIN_LOOKUPS`` lookups and as many of their backward."""
+    l1, l2, counts = _two_train_steps(arch, "train_batch", monkeypatch)
+    assert np.isfinite(l1) and np.isfinite(l2) and l2 < 1.5 * l1
+    n = chip_smoke.TRAIN_LOOKUPS[(arch, "rec_train")]
+    assert counts["embedding_bag"] == counts["embedding_bag_backward"] == n
+
+
+def _two_train_steps(arch, shape, monkeypatch):
+    """Two train steps of the reduced cell on one batch, the lookups and
+    their backward on the kernels' launch path (each stood in for by its
+    plain version, so the path runs on the CPU): ``(first loss, second
+    loss, launch counts of the first step)``."""
+    bundle = steps.build(arch, shape, reduced=True, device="cpu")
+    assert bundle.kind == "train" and bundle.opt_cfg is steps.SMOKE_OPT
+    params = bundle.init_fn(0)
+    state = ttl.init_state(bundle.opt_cfg, params)
+    batch = bundle.make_batch(torch.Generator().manual_seed(1))
+    for name, (shp, dtype) in bundle.batch_spec.items():
+        assert batch[name].shape == shp and batch[name].dtype == dtype
+    monkeypatch.setattr(tops, "_route", lambda name, t: True)
+    monkeypatch.setattr(tbag, "embedding_bag_cuda", tbag.embedding_bag_plain)
+    monkeypatch.setattr(tbag, "embedding_bag_backward_cuda",
+                        tbag.embedding_bag_backward_plain)
+    tops.reset_launch_counts()
+    params, state, m1 = bundle.step_fn(params, state, batch)
+    counts = tops.launch_counts()
+    params, state, m2 = bundle.step_fn(params, state, batch)
+    assert int(state.step) == 2
+    return float(m1["loss"]), float(m2["loss"]), counts
 
 
 # the reference's config fields the port does not carry: its parameters
-# are f32 (``param_dtype``), and the transformer's other three only steer
-# XLA's lowering (activation sharding, rematerialisation, casting the
-# parameters before an FSDP gather)
-DROPPED_FIELDS = ("param_dtype", "act_shard", "remat", "precast_params")
+# are f32 (``param_dtype``), and the transformer's other two only steer
+# XLA's lowering (activation sharding, casting the parameters before an
+# FSDP gather); ``remat`` is carried since training is ported
+DROPPED_FIELDS = ("param_dtype", "act_shard", "precast_params")
 
 
 @pytest.mark.parametrize("arch", ZOO + ("dlrm-rm2", "smollm-135m"))
