@@ -37,8 +37,13 @@ Phases, each timed and printed:
    bytes past alignment, with a mask and with none, two launches the same
    bytes; ``embedding_bag_backward`` at D = 16, 50, 64 and 576, bags of 1
    and 8 with one row hit 10,000 (2,000) times, negative and outside ids,
-   with a mask and none, f32 and bf16 rows and gradients, against the
-   plain version bit for bit and two launches the same bytes; and, plain
+   with a mask and none, f32 and bf16 rows and gradients, and its fused
+   zero fill (``embedding_bag_backward_fill``: 24,000 slots into 10^6
+   rows, the first and last rows untouched, a prime number of rows, every
+   row touched, no live id, rows hit 10,000 times at a tile's first and
+   last row, D = 17 and 50, gradients 4 and 8 bytes past alignment), each
+   launched into a NaN-filled gradient, against the plain version bit for
+   bit, rows no id hits +0.0, and two launches the same bytes; and, plain
    PyTorch on the card against the
    CPU, bit-equal: ``rng.randint`` (spans 1, 2, 3, 2**16 + 1 and 2**31 -
    1, one ``maxval`` per draw) and the dense walk engine
@@ -188,8 +193,11 @@ Phases, each timed and printed:
    slot, each more than 1e-3 from the CPU's gradients; then
    ``launch/train.py``'s loop on DLRM at
    ``vocab_per_field`` 10^5: 6 steps with a commit every 2 and a failure
-   at step 3 must end with the bytes of an uninterrupted run; then the
-   backward's replay (2b) at DLRM's own ids and gradient;
+   at step 3 must end with the bytes of an uninterrupted run.  After each
+   cell, its parameters freed, the backward's replay (2b) at the cell's
+   own ids and gradient: the warm-up step's last backward launch (DLRM's
+   and DCN-v2's fields, SASRec's ``item_seq``, MIND's history, the LM's
+   tokens), whose inputs wait on the host meanwhile;
 2b. replay the inputs of each kernel's first launch on its path (and of
    ``ell_spmm``'s second, a batch's push of a spread-out frontier, and
    its ``dense`` variant, the last push of 3e's ``pi``, of
@@ -198,9 +206,11 @@ Phases, each timed and printed:
    ``retrieval_cand`` and at each zoo model's ``serve_bulk`` and its
    candidate gather at ``retrieval_cand`` (variants ``<arch>.<shape>``;
    these are replayed in 3g) and at smollm-135m's ``prefill_32k``
-   (replayed in 3k), of ``embedding_bag_backward``'s first in DLRM's
-   train step (replayed in 3l; its library call is ``index_add_`` into a
-   zero table, its bound counts the touched rows and not the zero fill),
+   (replayed in 3k), of ``embedding_bag_backward``'s last in each train
+   cell's warm-up step (replayed in 3l; its library call is
+   ``index_add_`` into a zero table, its bound counts the whole gradient
+   written once, and PR 24's, the touched rows only, is printed beside it
+   with a memset of the gradient and each of its two kernels' times),
    and of ``walk_step``'s first in 3h, variant ``mc``)
    through the kernel and its plain version: top-k outputs' sorted values
    within 1e-5 relative and at least 99% of indices equal (summation order
@@ -727,21 +737,29 @@ def captured_vs_eager(torch, np, make_service, work, label, failures,
     return runs["captured, depth 4"] + (kept,)
 
 
-def traced_launch_ms(torch, fn, name):
-    """Device milliseconds a launch of the kernels whose name holds
-    ``name``, over one call of ``fn`` under ``torch.profiler``: their
-    traced time over the launches the trace holds (a trace may hold fewer
-    launches than were made, or none), and that count;
-    ``(None, 0)`` where it holds none."""
+def traced_kernels(torch, fn, name):
+    """``[(kernel, traced ms, launches)]`` of the kernels whose name holds
+    ``name`` over one call of ``fn`` under ``torch.profiler``."""
     with warm_profile(torch) as prof:
         fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
             if traced_kernel(e) and name in e.key]
-    count = sum(e.count for e in hits)
+
+
+def traced_launch_ms(torch, fn, name):
+    """Device milliseconds a wrapper call of the kernels whose name holds
+    ``name``, over one call of ``fn`` under ``torch.profiler``: their
+    traced time over the calls the trace holds (the launches of the most
+    launched kernel: ``embedding_bag_backward`` launches two, its pre-pass
+    and its tiles, a call; a trace may hold fewer launches than were made,
+    or none), and that count; ``(None, 0)`` where it holds none."""
+    hits = traced_kernels(torch, fn, name)
+    count = max((n for _, _, n in hits), default=0)
     if not count:
         return None, 0
-    return sum(e.self_device_time_total for e in hits) / 1e3 / count, count
+    return sum(ms for _, ms, _ in hits) / count, count
 
 
 def bits_equal(torch, a, b):
@@ -1262,12 +1280,9 @@ def synthetic_embedding_bag_backward(torch, np, dev,
     negative ones counting from its end and a few outside it (no
     gradient); gradients ``j / 1024`` in [-1, 1] and masks in {0, 0.5, 1},
     and no mask; f32 rows with f32 gradients, bf16 rows with f32 and with
-    bf16 gradients (the bf16 runs round every partial sum).  Bit-equal to
-    the plain version (run on the CPU copies: its one pass a position in a
-    run is 10,000 small launches on the card), two launches the same
-    bytes."""
-    from repro_torch.kernels import embedding_bag as bag_k
-
+    bf16 gradients (the bf16 runs round every partial sum).  Each launch
+    writes into a NaN-filled gradient, so a row the kernel skips shows
+    (:func:`backward_matches`)."""
     r = np.random.default_rng(21)
     vocab = 3000
     ok = True
@@ -1285,22 +1300,104 @@ def synthetic_embedding_bag_backward(torch, np, dev,
                 for row_dt, g_dt in ((torch.float32, torch.float32),
                                      (torch.bfloat16, torch.float32),
                                      (torch.bfloat16, torch.bfloat16)):
-                    gg = g_t.to(g_dt)
-                    a = bag_k.embedding_bag_backward_cuda(
-                        ids_t, m, gg, vocab, row_dtype=row_dt)
-                    again = bag_k.embedding_bag_backward_cuda(
-                        ids_t, m, gg, vocab, row_dtype=row_dt)
-                    want = bag_k.embedding_bag_backward_plain(
-                        ids_t.cpu(), None if m is None else m.cpu(),
-                        gg.cpu(), vocab, row_dtype=row_dt)
-                    same = (bits_equal(torch, a.cpu(), want)
-                            and bits_equal(torch, a, again))
-                    if not same:
-                        print(f"  embedding_bag_backward differs: {rows} "
-                              f"bags of {bag}, D = {d}, mask "
-                              f"{m is not None}, {row_dt} rows, {g_dt} "
-                              f"gradient")
-                    ok &= same
+                    ok &= backward_matches(
+                        torch, ids_t, m, g_t.to(g_dt), vocab, row_dt,
+                        f"{rows} bags of {bag}, D = {d}, mask "
+                        f"{m is not None}, {row_dt} rows, {g_dt} gradient")
+    return ok
+
+
+def backward_matches(torch, ids, mask, g, vocab, row_dt, label):
+    """One case of ``embedding_bag_backward`` on the card: launched into a
+    NaN-filled gradient through the wrapper's ``out``, bit-equal to the
+    plain version (run on the CPU copies: its one pass a position in a run
+    is 10,000 small launches on the card), rows no id hits +0.0 (not -0.0,
+    not NaN), and a second launch into a fresh gradient the same bytes."""
+    from repro_torch.kernels import embedding_bag as bag_k
+
+    out = torch.full((vocab, g.shape[1]), float("nan"), device=g.device)
+    a = bag_k.embedding_bag_backward_cuda(ids, mask, g, vocab,
+                                          row_dtype=row_dt, out=out)
+    again = bag_k.embedding_bag_backward_cuda(ids, mask, g, vocab,
+                                              row_dtype=row_dt)
+    want = bag_k.embedding_bag_backward_plain(
+        ids.cpu(), None if mask is None else mask.cpu(), g.cpu(), vocab,
+        row_dtype=row_dt)
+    keys = bag_k.sort_slots(ids.cpu(), vocab)[0]
+    untouched = ~torch.isin(torch.arange(vocab), keys)
+    same = (a is out and bits_equal(torch, a.cpu(), want)
+            and bits_equal(torch, a, again)
+            and not bool(a[untouched.to(a.device)].view(torch.int32).any()))
+    if not same:
+        print(f"  embedding_bag_backward differs: {label}")
+    return same
+
+
+def synthetic_embedding_bag_backward_fill(torch, np, dev):
+    """``embedding_bag_backward``'s fused zero fill: sparse touches (24,000
+    slots into 10^6 rows: long runs of rows no id hits), the first and last
+    rows untouched, a table of a prime number of rows (no multiple of any
+    tile), every row touched, no live id (every id outside the table), a
+    row hit 10,000 times at a tile's first row and another at the row
+    before (the last of the tile before: the tile from the launch's own
+    plan, ``cuda_backward_plan``), D = 17 and 50 (no 16-byte load), and a
+    gradient 4 and 8 bytes past 16-byte alignment; bf16 and f32 gradients
+    and rows, bags of 1 (and of 4 with a mask).  Each case as
+    :func:`backward_matches` holds it."""
+    from repro_torch.kernels import embedding_bag as bag_k
+
+    r = np.random.default_rng(23)
+    ok = True
+    dyad = lambda n, d: r.integers(  # noqa: E731
+        -1024, 1025, (n, d)).astype(np.float32) / 1024.0
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    cases.append(("sparse", r.integers(0, 10**6, (24_000, 1)), 10**6, 64,
+                  None, 0))
+    cases.append(("ends untouched", r.integers(1, 2999, (24_000, 1)), 3000,
+                  64, None, 0))
+    cases.append(("prime rows", r.integers(-100_003, 100_003, (20_000, 4)),
+                  100_003, 16, "mask", 0))
+    every = np.concatenate([r.permutation(3000),
+                            r.integers(0, 3000, 21_000)])[:, None]
+    cases.append(("every row", every, 3000, 64, None, 0))
+    dead = np.where(r.random((24_000, 1)) < 0.5, 3000 + 5, -3000 - 7)
+    cases.append(("no live id", dead, 3000, 64, None, 0))
+    for d in (17, 50):
+        cases.append((f"D = {d}", r.integers(-3000, 3000, (24_000, 1)), 3000,
+                      d, None, 0))
+    for shift in (4, 8):
+        cases.append((f"{shift} B past aligned",
+                      r.integers(0, 3000, (24_000, 1)), 3000, 64, None, shift))
+    for name, ids, vocab, d, m, shift in cases:
+        ids_t = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        mask = (torch.from_numpy(r.choice(np.float32([0.0, 0.5, 1.0]),
+                                          ids.shape)).to(dev)
+                if m else None)
+        g = torch.from_numpy(dyad(ids.shape[0], d)).to(dev)
+        for row_dt, g_dt in ((f32, f32), (bf, bf)):
+            gg = g.to(g_dt)
+            if shift:   # a view `shift` bytes into a 16-byte aligned buffer
+                k = shift // gg.element_size()
+                buf = torch.empty(gg.numel() + k, dtype=g_dt, device=dev)
+                buf[k:] = gg.reshape(-1)
+                gg = buf[k:].view(gg.shape)
+            ok &= backward_matches(torch, ids_t, mask, gg, vocab, row_dt,
+                                   f"{name}, D = {d}, {g_dt} gradient")
+    # hot rows at a tile's edges, from the plan the launch uses
+    vocab = 5000
+    for d, g_dt in ((64, bf), (16, bf), (50, f32)):
+        g = torch.from_numpy(dyad(24_000, d)).to(dev).to(g_dt)
+        rows = bag_k.cuda_backward_plan(g, vocab).rows_per_tile
+        edge = rows * max(1, 1500 // rows)
+        ids = r.integers(0, vocab, (24_000, 1))
+        hot = r.choice(ids.size, 20_000, replace=False)
+        ids.flat[hot[:10_000]] = edge
+        ids.flat[hot[10_000:]] = edge - 1
+        ids_t = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        ok &= backward_matches(torch, ids_t, None, g, vocab, bf,
+                               f"hot rows {edge - 1} and {edge}, tiles of "
+                               f"{rows}, D = {d}, {g_dt} gradient")
     return ok
 
 
@@ -1371,6 +1468,7 @@ SYNTHETIC_CHECKS = {
     "embedding_bag_d576": lambda torch, np, dev: synthetic_embedding_bag(
         torch, np, dev, widths=(576,), wide=(576,), shifted=576),
     "embedding_bag_backward": synthetic_embedding_bag_backward,
+    "embedding_bag_backward_fill": synthetic_embedding_bag_backward_fill,
     "randint": synthetic_randint,
     "simulate_walks": synthetic_simulate_walks,
 }
@@ -1427,18 +1525,13 @@ def bytes_and_ops(torch, name, args, kwargs):
         return (slot_bytes * ids.numel() + 4 * d * distinct
                 + out_bytes * ids.shape[0] * d), 2 * ids.numel() * d
     if name == "embedding_bag_backward":
-        from repro_torch.kernels.embedding_bag import sort_slots
-
+        # ids once (4 B a slot) and the mask, where there is one (4 B
+        # more), grad_out once, the whole f32 gradient written once (the
+        # function's output: autograd takes it dense)
         ids, mask, g = args
         d = g.shape[1]
-        keys, _ = sort_slots(ids, kwargs["vocab"])
-        # ids once (4 B a slot) and the mask, where there is one (4 B
-        # more), grad_out once, each touched row of the f32 gradient
-        # written once; the zero fill of the untouched rows is not counted
-        slot_bytes = 4 if mask is None else 8
-        touched = int(torch.unique(keys[keys < kwargs["vocab"]]).numel())
-        return (slot_bytes * ids.numel() + g.numel() * g.element_size()
-                + 4 * d * touched), 2 * ids.numel() * d
+        return (backward_input_bytes(ids, mask, g)
+                + 4 * d * kwargs["vocab"]), 2 * ids.numel() * d
     if name == "sharded_frontier_push":
         fv, fi, row_ptr, _ = args
         q, k = fv.shape
@@ -1457,6 +1550,25 @@ def bytes_and_ops(torch, name, args, kwargs):
     nbytes = 8 * sv.numel() + 8 * q * k + 8 * l * n_live + 8 * q * kwargs[
         "k_out"]
     return nbytes, 2 * l * n_live
+
+
+def backward_input_bytes(ids, mask, g):
+    """The bytes ``embedding_bag_backward`` must read: ids (4 B a slot),
+    the mask where there is one (4 B more) and ``grad_out``, once each."""
+    slot_bytes = 4 if mask is None else 8
+    return slot_bytes * ids.numel() + g.numel() * g.element_size()
+
+
+def backward_touched_bytes(torch, args, kwargs):
+    """PR 24's bound of ``embedding_bag_backward``: its inputs once and
+    only the gradient's touched rows written (the untouched rows' zeros not
+    counted), to hold the kernel against its earlier share."""
+    from repro_torch.kernels.embedding_bag import sort_slots
+
+    ids, mask, g = args
+    keys, _ = sort_slots(ids, kwargs["vocab"])
+    touched = int(torch.unique(keys[keys < kwargs["vocab"]]).numel())
+    return backward_input_bytes(ids, mask, g) + 4 * g.shape[1] * touched
 
 
 def combine_counts(torch, args):
@@ -1726,6 +1838,10 @@ def replay(torch, name, variant, args, kwargs):
         print(f"  {name}/{variant}: kernel {device_ms:.5f} ms a launch "
               f"({device_source}), bound {max(by_bytes, by_ops):.5f} ms: "
               f"{100 * max(by_bytes, by_ops) / device_ms:.1f}% of the bound")
+    extra = {}
+    if name == "embedding_bag_backward":
+        extra = backward_extras(torch, variant, args, kwargs, launches,
+                                device_ms)
     shape = {k: None if v is None else list(v.shape) for k, v in zip(
         ("a0", "a1", "a2", "a3"), args[:4])}
     return dict(
@@ -1734,8 +1850,39 @@ def replay(torch, name, variant, args, kwargs):
         plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=max(by_bytes, by_ops),
         bound_by="bytes" if by_bytes >= by_ops else "operations",
-        bytes=nbytes, shapes=shape,
+        bytes=nbytes, shapes=shape, **extra,
     )
+
+
+def backward_extras(torch, variant, args, kwargs, launches, device_ms):
+    """``embedding_bag_backward``'s replay beyond the common numbers: each
+    of its kernels' traced time a call (the pre-pass, the tiles), a memset
+    of the gradient's bytes (``Tensor.zero_``, CUDA events: the card's
+    store rate on them), and PR 24's bound (touched rows only) with the
+    kernel's share of it beside the share of the bound with the fill."""
+    ids, _, g = args
+    parts = {key: ms / max(n, 1) for key, ms, n in traced_kernels(
+        torch, launches, "embedding_bag_backward")}
+    sink = torch.empty((kwargs["vocab"], g.shape[1]), dtype=torch.float32,
+                       device=g.device)
+    memset_ms = cuda_ms(torch, sink.zero_, max_reps=20)
+    del sink
+    touched_ms = (backward_touched_bytes(torch, args, kwargs)
+                  / HBM_BYTES_PER_S * 1e3)
+    fill_ms = bytes_and_ops(torch, "embedding_bag_backward", args,
+                            kwargs)[0] / HBM_BYTES_PER_S * 1e3
+    print(f"  embedding_bag_backward/{variant}: {ids.numel()} slots, "
+          f"vocab {kwargs['vocab']}, D = {g.shape[1]}, {g.dtype} gradient; "
+          f"by kernel a call (torch.profiler): "
+          + "; ".join(f"{k[:60]} {v:.5f} ms" for k, v in parts.items())
+          + f"; a memset of the [vocab, D] f32 gradient {memset_ms:.5f} ms; "
+          f"bound with the fill {fill_ms:.5f} ms, touched rows only "
+          f"{touched_ms:.5f} ms"
+          + (f": {100 * fill_ms / device_ms:.1f}% and "
+             f"{100 * touched_ms / device_ms:.1f}% of the kernel's time"
+             if device_ms else ""))
+    return dict(bound_touched_ms=touched_ms, memset_ms=memset_ms,
+                kernel_parts_ms=parts)
 
 
 # -- phases 3c-3e: answer checks ---------------------------------------------
@@ -2467,12 +2614,18 @@ def train_card_vs_cpu(torch, np, dev, arch, *, reduced, overrides=None,
     return res
 
 
-def train_cell(torch, np, dev, arch, failures, captured):
+def train_cell(torch, np, dev, arch, failures):
     """One train cell of phase 3l at full width: ``TRAIN_PLAN``'s steps on
     one batch with CUDA events, one more traced by kernel (DLRM), the peak
     memory, the lookups' and their backward's launches against
     ``TRAIN_LOOKUPS``, and on DLRM the decay-only update of rows the batch
-    does not touch, bit for bit.  Returns the launch counts."""
+    does not touch, bit for bit.  Then, the cell's parameters freed, phase
+    2b's replay of ``embedding_bag_backward``'s last launch in the warm-up
+    step (the forward's first lookup: DLRM's and DCN-v2's fields, SASRec's
+    ``item_seq``, MIND's history, the LM's tokens), whose inputs wait on
+    the host meanwhile, so neither the timed steps nor the peak hold them.
+    Returns the launch counts, the replay's results and the timed steps'
+    milliseconds."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
@@ -2529,7 +2682,7 @@ def train_cell(torch, np, dev, arch, failures, captured):
     warm, reps = TRAIN_PLAN
     losses, ms, stated = [], [], 0
     for j in range(warm + reps):
-        ops.capture_first_launches(dlrm and j == 0)
+        ops.capture_first_launches(j == 0, last=True)
         ev0.record()
         params, state, metrics = bundle.step_fn(params, state, batch)
         ev1.record()
@@ -2538,10 +2691,14 @@ def train_cell(torch, np, dev, arch, failures, captured):
         losses.append(float(metrics["loss"]))
         if j >= warm:
             ms.append(ev0.elapsed_time(ev1))
-        if dlrm and j == 0:
-            captured[f"embedding_bag_backward/{arch}.{shape}"] = (
-                ops.captured_launches()["embedding_bag_backward/main"])
+        if j == 0:
+            args, kwargs = ops.captured_launches()[
+                "embedding_bag_backward/main"]
+            held = (tuple(None if x is None else x.cpu() for x in args),
+                    kwargs)
             ops.capture_first_launches(False)
+            del args
+        if dlrm and j == 0:
             # p - lr (0 + wd p), as the optimizer computes it
             lr = metrics["lr"]
             want = before - lr * (torch.zeros_like(before)
@@ -2591,7 +2748,15 @@ def train_cell(torch, np, dev, arch, failures, captured):
                             f"times, {stated} stated")
     del params, state, batch, metrics
     torch.cuda.empty_cache()
-    return counts
+    args, kwargs = held
+    del held
+    results = {}
+    replay_all(torch, {f"embedding_bag_backward/{arch}.{shape}": (
+        tuple(None if x is None else x.to(dev) for x in args), kwargs)},
+        results, failures)
+    del args
+    torch.cuda.empty_cache()
+    return counts, results["embedding_bag_backward"], ms.tolist()
 
 
 def train_crash_resume(torch, np, dev, failures):
@@ -2639,16 +2804,17 @@ def train_crash_resume(torch, np, dev, failures):
 
 
 def phase_train(torch, np, dev, failures):
-    """Phase 3l: every train cell at full width (``train_cell``), each
-    counted from zero; one step of each architecture card against CPU at
-    full widths (``train_card_vs_cpu``, the cuts of ``TRAIN_CHECK_*``);
-    ``launch/train.py``'s crash and resume (``train_crash_resume``); then
-    phase 2b's replay of the backward at DLRM's own ids and gradient.
+    """Phase 3l: every train cell at full width (``train_cell``, which
+    replays its backward as phase 2b, at the cell's own ids and gradient),
+    each counted from zero; one step of each architecture card against CPU
+    at full widths (``train_card_vs_cpu``, the cuts of ``TRAIN_CHECK_*``);
+    ``launch/train.py``'s crash and resume (``train_crash_resume``).
     Returns the launch counts by architecture and the replays' results."""
     print(f"3l training: {card_name_and_power_limit()}")
-    counts, captured = {}, {}
+    counts, replays = {}, []
     for arch in TRAIN_CELLS:
-        counts[arch] = train_cell(torch, np, dev, arch, failures, captured)
+        counts[arch], res, _ = train_cell(torch, np, dev, arch, failures)
+        replays += res
     for arch in TRAIN_CELLS:
         t1 = time.perf_counter()
         lm = arch == LM_ARCH
@@ -2674,9 +2840,7 @@ def phase_train(torch, np, dev, failures):
             failures.append(f"3l {arch}: the gradient gate does not see "
                             f"{blind}: {res}")
     train_crash_resume(torch, np, dev, failures)
-    results = {}
-    replay_all(torch, captured, results, failures)
-    return counts, results.get("embedding_bag_backward", [])
+    return counts, replays
 
 
 def check_small_train(torch, np, dev, arch):
@@ -3820,7 +3984,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # 3g's and 3k's embedding_bag launches were replayed there, before
-    # each table was freed, and 3l's embedding_bag_backward at its end
+    # each table was freed, and 3l's embedding_bag_backward after each cell
     results = {"embedding_bag": replays_g + replays_k,
                "embedding_bag_backward": replays_l}
     captured_f = {tag: v for tag, v in captured_f.items()
@@ -3914,7 +4078,9 @@ def main() -> int:
             variant=main["variant"],
             variants={x["variant"]: dict(
                 ms=x["ms"], device_ms=x["device_ms"], plain_ms=x["plain_ms"],
-                bound_ms=x["bound_ms"], library_ms=x["library_ms"])
+                bound_ms=x["bound_ms"], library_ms=x["library_ms"],
+                **{k: x[k] for k in ("bound_touched_ms", "memset_ms")
+                   if k in x})
                 for x in runs},
         ))
     print(f"chip_smoke total: {time.perf_counter() - run_t0:.3f} s")

@@ -26,7 +26,8 @@ bf16 updates into a bf16 table), widened to f32.  Ids in ``[-V, 0)`` count
 from the end; others outside ``[0, V)`` give no gradient (``jnp.take``'s
 fill mode drops them); rows no slot hits are zero.  Both sort the slots by
 id, stably, and sum each run of equal ids in slot order, so there are no
-atomics and two launches give the same bytes.
+atomics and two launches give the same bytes; the kernel writes every row
+of the gradient itself, the zeros included (:class:`BackwardPlan`).
 """
 
 from __future__ import annotations
@@ -50,7 +51,11 @@ PACKED_LANES = (4, 8, 16)   # D / 4 lanes of float4 a row (D = 16, 32, 64)
 
 _blocks_per_sm = {}  # (device, one-slot, mask, vec, lanes, dtypes) -> blocks
 BACKWARD_WARPS = 8   # warps a block of the backward (``kWarps``)
-BACKWARD_BLOCKS_PER_SM = 8
+BACKWARD_TILE_BYTES = 32768      # output bytes a tile at most
+BACKWARD_MIN_TILE_BYTES = 4096   # ... and at least, where rows allow
+BACKWARD_MAX_TILE_ROWS = 1024    # rows a tile (``kMaxTileRows``)
+BACKWARD_MAX_SLOTS = 2**31 - 64  # 32-bit positions (``kBatch`` past the last)
+_backward_blocks_per_sm = {}     # (device, bf16 grad, vec, passes) -> blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,12 +235,94 @@ def embedding_bag_backward_plain(ids, mask, grad_out, vocab: int, *,
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How ``csrc/embedding_bag_backward.cu`` covers a ``[vocab, d]``
+    gradient: ``vec`` gradient elements a load, ``lanes_per_row`` lanes a
+    run's row (lane ``l`` of a group at vectors ``l + j * lanes_per_row``,
+    ``j < passes``, in column blocks of ``passes * lanes_per_row``
+    vectors), tiles of ``rows_per_tile`` contiguous rows (``tiles`` of
+    them), one warp a tile with a grid stride over ``blocks *
+    BACKWARD_WARPS`` warps."""
+    vec: int
+    lanes_per_row: int
+    passes: int
+    rows_per_tile: int
+    tiles: int
+    blocks: int
+
+
+def backward_layout(d: int, elem_bytes: int, ptr: int):
+    """``(vec, lanes_per_row, passes)`` for rows of ``d`` gradient elements
+    of ``elem_bytes`` at address ``ptr``: the widest load of at most 16
+    bytes that divides the row and the pointer's alignment; then the fewest
+    lanes (a power of two) that cover the row's vectors in one load each,
+    or a whole warp in up to 4 loads a lane (column blocks past that).
+    Measured at SASRec's and MIND's train shapes, fewer lanes with more
+    loads each (2 or 4) were no faster overall (``PERF.md``)."""
+    vec = next(v for v in (8, 4, 2, 1)
+               if v * elem_bytes <= 16 and d % v == 0
+               and ptr % (v * elem_bytes) == 0)
+    nv = d // vec
+    lanes = build.next_pow2(nv) if nv <= 32 else 32
+    return vec, lanes, 1 if nv <= 32 else 4
+
+
+def backward_plan(vocab: int, d: int, layout, sms: int,
+                  blocks_per_sm: int) -> BackwardPlan:
+    """Tiles of ``BACKWARD_TILE_BYTES`` of f32 output (at most
+    ``BACKWARD_MAX_TILE_ROWS`` rows), halved down to
+    ``BACKWARD_MIN_TILE_BYTES`` while there would be fewer than two tiles a
+    resident warp, so the last tiles of a launch are short; the persistent
+    grid is the card's resident blocks, or fewer where the tiles are
+    fewer."""
+    vec, lanes, passes = layout
+    resident = sms * blocks_per_sm
+    rows = max(1, min(BACKWARD_MAX_TILE_ROWS, BACKWARD_TILE_BYTES // (4 * d)))
+    while (rows > 1 and -(-vocab // rows) < 2 * resident * BACKWARD_WARPS
+           and (rows // 2) * 4 * d >= BACKWARD_MIN_TILE_BYTES):
+        rows //= 2
+    tiles = -(-vocab // rows)
+    return BackwardPlan(vec, lanes, passes, rows, tiles,
+                        max(1, min(resident, -(-tiles // BACKWARD_WARPS))))
+
+
+def _backward_occupancy(lib, dev, *variant) -> int:
+    """Resident blocks an SM holds for ``variant`` (bf16 gradient, vec,
+    passes), asked of the card once."""
+    key = (dev.index, *variant)
+    if key not in _backward_blocks_per_sm:
+        fn = lib.embedding_bag_backward_occupancy
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        n = ctypes.c_int(0)
+        build.check_launch(fn(*variant, ctypes.addressof(n)),
+                           "embedding_bag_backward occupancy")
+        _backward_blocks_per_sm[key] = max(1, n.value)
+    return _backward_blocks_per_sm[key]
+
+
+def cuda_backward_plan(grad_out, vocab: int) -> BackwardPlan:
+    """The plan :func:`embedding_bag_backward_cuda` launches with for the
+    CUDA gradient ``grad_out [R, D]`` and a ``vocab``-row table."""
+    dev = grad_out.device
+    d = grad_out.shape[1]
+    lib = build.load("embedding_bag_backward")
+    layout = backward_layout(d, grad_out.element_size(), grad_out.data_ptr())
+    per_sm = _backward_occupancy(
+        lib, dev, int(grad_out.dtype == torch.bfloat16), layout[0], layout[2])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return backward_plan(vocab, d, layout, sms, per_sm)
+
+
 def embedding_bag_backward_cuda(ids, mask, grad_out, vocab: int, *,
-                                row_dtype=torch.float32):
+                                row_dtype=torch.float32, out=None):
     """Launch ``csrc/embedding_bag_backward.cu`` on the current stream (no
-    sync): the stable sort of the slots (``torch.sort``) and the zero fill
-    of the ``[vocab, D]`` f32 gradient first, then one warp a run of equal
-    ids, each touched row written once."""
+    sync): the stable sort of the slots (``torch.sort``), then the kernel,
+    which writes every element of the ``[vocab, D]`` f32 gradient once (its
+    pre-pass first finds each tile's first sorted position).  ``out`` (for
+    tests) is the gradient to write, a contiguous 16-byte aligned f32
+    ``[vocab, D]`` tensor; by default it is allocated and not filled."""
     dev = grad_out.device
     if ids.device != dev or (mask is not None and (
             mask.device != dev or mask.dtype != torch.float32
@@ -253,25 +340,41 @@ def embedding_bag_backward_cuda(ids, mask, grad_out, vocab: int, *,
             f"{list(ids.shape)}, {row_dtype}")
     rows, bag = ids.shape
     d = grad_out.shape[1]
-    out = torch.zeros((vocab, d), dtype=torch.float32, device=dev)
     slots = rows * bag
+    if out is not None and (
+            out.device != dev or out.dtype != torch.float32
+            or not out.is_contiguous() or tuple(out.shape) != (vocab, d)
+            or out.data_ptr() % 16 != 0):
+        raise ValueError(
+            f"embedding_bag_backward: out must be a contiguous, 16-byte "
+            f"aligned f32 [{vocab}, {d}] tensor on {dev}")
+    if (slots >= BACKWARD_MAX_SLOTS
+            or vocab > 2**31 - 1 - BACKWARD_MAX_TILE_ROWS):
+        raise ValueError(
+            f"embedding_bag_backward: {slots} slots and {vocab} rows; the "
+            f"kernel's positions and rows are 32-bit (fewer than "
+            f"{BACKWARD_MAX_SLOTS} slots)")
     if slots == 0 or vocab == 0 or d == 0:
-        return out
+        if out is None:
+            return torch.zeros((vocab, d), dtype=torch.float32, device=dev)
+        return out.zero_()
     key, order = sort_slots(ids, vocab)
     lib = build.load("embedding_bag_backward")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(sms * BACKWARD_BLOCKS_PER_SM,
-                        -(-slots // BACKWARD_WARPS)))
+    plan = cuda_backward_plan(grad_out, vocab)
+    starts = torch.empty(plan.tiles + 1, dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty((vocab, d), dtype=torch.float32, device=dev)
     fn = lib.embedding_bag_backward_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_longlong]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
+        ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     status = fn(
         key.data_ptr(), order.data_ptr(),
         None if mask is None else mask.data_ptr(), grad_out.data_ptr(),
         slots, bag, vocab, d, int(row_dtype == torch.bfloat16),
-        int(grad_out.dtype == torch.bfloat16), blocks, out.data_ptr(),
+        int(grad_out.dtype == torch.bfloat16),
+        plan.vec, plan.lanes_per_row, plan.passes, plan.rows_per_tile,
+        plan.blocks, starts.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(status, "embedding_bag_backward")

@@ -278,6 +278,41 @@ def test_embedding_bag_backward_launches_and_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("vocab,d", [(26_000_000, 64), (1_000_000, 50),
+                                     (49_152, 576), (5_000, 16)])
+def test_embedding_bag_backward_plan_on_card(cuda, vocab, d):
+    """The plan the wrapper launches with: a grid the card holds at once
+    (its own occupancy), tiles that cover the table, and a bf16 gradient
+    at a tile's edges written through a NaN-filled ``out`` as the plain
+    version writes it."""
+    from repro_torch.kernels import embedding_bag as bag_k
+
+    g = torch.zeros((8, d), dtype=torch.bfloat16, device=cuda)
+    plan = bag_k.cuda_backward_plan(g, vocab)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan.blocks <= sms * 8
+    assert (plan.tiles - 1) * plan.rows_per_tile < vocab
+    assert vocab <= plan.tiles * plan.rows_per_tile
+    if vocab > 10**5:
+        return
+    edge = plan.rows_per_tile
+    ids = torch.tensor([[edge - 1], [edge], [edge], [edge - 1], [vocab],
+                        [0], [vocab - 1], [edge]], dtype=torch.int32,
+                       device=cuda)
+    g = torch.arange(8 * d, dtype=torch.float32, device=cuda).reshape(
+        8, d).div_(64.0).to(torch.bfloat16)
+    out = torch.full((vocab, d), float("nan"), device=cuda)
+    got = bag_k.embedding_bag_backward_cuda(ids, None, g, vocab,
+                                            row_dtype=torch.bfloat16,
+                                            out=out)
+    want = bag_k.embedding_bag_backward_plain(ids.cpu(), None, g.cpu(),
+                                              vocab,
+                                              row_dtype=torch.bfloat16)
+    assert got is out
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_montecarlo_on_card_matches_the_cpu(cuda):
     """The Monte-Carlo path at rmat(14), card against the plain CPU path,
     bit for bit: the legacy build, the dense and sparse MCFP and MCEP
