@@ -43,7 +43,10 @@ Phases, each timed and printed:
    row touched, no live id, rows hit 10,000 times at a tile's first and
    last row, D = 17 and 50, gradients 4 and 8 bytes past alignment), each
    launched into a NaN-filled gradient, against the plain version bit for
-   bit, rows no id hits +0.0, and two launches the same bytes; and, plain
+   bit, rows no id hits +0.0, and two launches the same bytes; the GCN's
+   bag layout and both kernels at D = 1,433, 602, 100 and 16
+   (``embedding_bag_gcn``: zero-weight padding at each row's own id,
+   exact sums against float64); and, plain
    PyTorch on the card against the
    CPU, bit-equal: ``rng.randint`` (spans 1, 2, 3, 2**16 + 1 and 2**31 -
    1, one ``maxval`` per draw) and the dense walk engine
@@ -198,6 +201,27 @@ Phases, each timed and printed:
    own ids and gradient: the warm-up step's last backward launch (DLRM's
    and DCN-v2's fields, SASRec's ``item_seq``, MIND's history, the LM's
    tokens), whose inputs wait on the host meanwhile;
+3m. gcn-cora (arXiv:1609.02907) at full width through ``steps.build``
+   under ``DEFAULT_OPT``, the card's name and power limit printed first:
+   ``full_graph_sm`` (cora: 2,708 nodes, d_feat 1,433), ``minibatch_lg``
+   (1,024 seeds, fanout 15-10, 180,224 block nodes, d_feat 602),
+   ``ogb_products`` (2,449,029 nodes, 61,859,140 edges, d_feat 100) and
+   ``molecule`` (128 graphs of 30 nodes), nothing cut, each counted from
+   zero: the bag layouts' ms (``segment_bags``, CUDA events) and padded
+   share, one warm-up and 3 timed steps on one batch (ms, nodes/s,
+   edges/s, model TFLOP/s, peak memory), ``embedding_bag`` and its
+   backward launched ``GNN_LOOKUPS`` times a step, every loss finite and
+   the second below 1.5x the first, two steps from one state the same
+   bytes; one f32 step of each card against the plain path (loss 1e-5,
+   gradients ``TRAIN_CHECK_GRAD``): the CPU for three shapes,
+   ``ogb_products`` against the same step on the card through the
+   kernels' plain versions (``plain_kernels``: its plain step would take
+   the CPU minutes); ``ogb_products``' warm-up launches (layer 0 at D =
+   100, layer 1 at D = 16, the backward at D = 16 over 2,449,408 rows)
+   replayed as 2b, each also against its bound on the real edges alone;
+   then ``loss_ppr`` on 3b's index (``examples/gnn_ppr.py``'s path):
+   4,096 seeds through ``ppr_importance_sample`` (budget 32), 3 SGD steps
+   card against CPU within 1e-5, one launch of each kernel a step;
 2b. replay the inputs of each kernel's first launch on its path (and of
    ``ell_spmm``'s second, a batch's push of a spread-out frontier, and
    its ``dense`` variant, the last push of 3e's ``pi``, of
@@ -249,10 +273,9 @@ Phases, each timed and printed:
    1e-5 of their largest; one train step of each of the five train
    cells' reduced configs in f32, card against CPU (loss within 1e-5,
    gradients within 1e-5 of each leaf's norm, parameters within the
-   tests' rule); and the Monte-Carlo path, card against CPU,
-   bit-equal: the
-   legacy build of every fourth source, the dense and sparse MCFP and
-   MCEP estimates of 64 sources, ``mcfp``-mode answers at dispatch keys
+   tests' rule), and of gcn-cora's four shapes; and the Monte-Carlo
+   path, card against CPU, bit-equal: the legacy build of every fourth
+   source, the dense and sparse MCFP and MCEP estimates of 64 sources, ``mcfp``-mode answers at dispatch keys
    0-3, and ``randint``; and maintenance at ``rmat(14)``, bit-equal: the
    repair on the card against the CPU's and against the card's rebuild,
    on one device and on a stacked 2 x 2 mesh, and a checkpointed build
@@ -360,6 +383,21 @@ TRAIN_CHECK_ROWS = 256
 TRAIN_CHECK_LM = (1, 256)
 TRAIN_CKPT_VOCAB = 100_000
 TRAIN_CKPT_PLAN = (6, 2, 3)    # steps, a commit every 2, failure at step 3
+GNN_ARCH = "gcn-cora"           # phase 3m: the GCN's four train shapes
+GNN_CELLS = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+GNN_PATH = ("embedding_bag", "embedding_bag_backward")
+# (embedding_bag, embedding_bag_backward) launches a GCN train step makes:
+# one aggregation a layer (layer 0's table is the features, which take no
+# gradient), the molecules' per-graph readout with its backward, and
+# loss_ppr's one PPR aggregation
+GNN_LOOKUPS = {"gnn_full": (2, 1), "gnn_minibatch": (2, 1),
+               "gnn_batched": (3, 2), "ppr": (1, 1)}
+GNN_SEED = 0
+GNN_PLAN = (1, 3)              # warm-up, timed steps a shape (one batch)
+GNN_REPLAY = "ogb_products"    # its warm-up step's launches are replayed
+GNN_UNPADDED_WIDTH = 25        # ogb_products' mean in-degree is 25.3
+# loss_ppr on 3b's index: seeds, the PPR sampler's budget, SGD steps, lr
+GNN_PPR = (4096, 32, 3, 0.05)
 REC_SEED = 0                   # the recsys models' parameters (3g)
 ZOO = ("dcn-v2", "sasrec", "mind")
 # phase 3g's forwards a shape: (distinct batches, warm-up forwards, timed
@@ -1401,6 +1439,58 @@ def synthetic_embedding_bag_backward_fill(torch, np, dev):
     return ok
 
 
+def synthetic_gcn_bags(torch, np, dev, widths=(1433, 602, 100, 16)):
+    """The GCN's aggregation on the card (``models.gcn.segment_bags``, then
+    ``ops.embedding_bag`` and ``ops.embedding_bag_backward``) at the
+    widths its shapes give the kernel: d_feat 1,433 (cora, odd: one float
+    a load), 602 (float2), 100 and d_hidden 16 (float4).  3,000 rows, 2,000
+    of them destinations of 20,000 edges with duplicates, self loops and
+    masked (zero-weight) edges, the other 1,000 of in-degree 0; weights
+    ``j / 64`` and values ``j / 1024``, so every sum is exact: each launch
+    bit-equal to its plain version and the forward to the float64 segment
+    sum, every padding slot weight 0 at its own row, one launch a call."""
+    from repro_torch.kernels import embedding_bag as bag_k
+    from repro_torch.kernels import ops
+    from repro_torch.models import gcn
+
+    r = np.random.default_rng(17)
+    n, m = 3000, 20000
+    src = r.integers(0, n, m).astype(np.int32)
+    dst = r.integers(0, 2000, m).astype(np.int32)
+    src[:64], dst[:64] = 5, 5
+    w = (r.integers(0, 65, m) / 64.0).astype(np.float32)
+    w[r.random(m) < 0.1] = 0.0
+    ids, wb = gcn.segment_bags(*(torch.from_numpy(x).to(dev)
+                                 for x in (src, dst, w)), n)
+    counts = torch.from_numpy(np.bincount(dst, minlength=n)).to(dev)
+    pad = torch.arange(ids.shape[1], device=dev)[None, :] >= counts[:, None]
+    rows = torch.arange(n, device=dev, dtype=torch.int32)[:, None]
+    ok = bool((wb[pad] == 0).all()) and torch.equal(
+        ids[pad], rows.expand_as(ids)[pad])
+    for d in widths:
+        h = torch.from_numpy(r.integers(-1024, 1025, (n, d)).astype(
+            np.float32) / 1024.0).to(dev)
+        g = torch.from_numpy(r.integers(-1024, 1025, (n, d)).astype(
+            np.float32) / 1024.0).to(dev)
+        exact = np.zeros((n, d))
+        np.add.at(exact, dst, h.cpu().numpy()[src] * w[:, None])
+        ops.reset_launch_counts()
+        out = ops.embedding_bag(ids, wb, h)
+        grad = ops.embedding_bag_backward(ids, wb, g, n)
+        launched = ops.launch_counts()
+        same = (bits_equal(torch, out, bag_k.embedding_bag_plain(ids, wb, h))
+                and np.array_equal(out.cpu().numpy(), exact)
+                and bits_equal(torch, grad, bag_k.embedding_bag_backward_plain(
+                    ids, wb, g, n))
+                and launched["embedding_bag"] == 1
+                and launched["embedding_bag_backward"] == 1)
+        if not same:
+            print(f"  GCN bags differ or did not launch: D = {d}, "
+                  f"{json.dumps(launched)}")
+        ok &= same
+    return ok
+
+
 def synthetic_randint(torch, np, dev):
     """``rng.randint`` on the card against the CPU, bit-equal: spans 1, 2,
     3, 2**16 + 1 (the uint32 product wraps) and 2**31 - 1 from 0, a
@@ -1469,6 +1559,7 @@ SYNTHETIC_CHECKS = {
         torch, np, dev, widths=(576,), wide=(576,), shifted=576),
     "embedding_bag_backward": synthetic_embedding_bag_backward,
     "embedding_bag_backward_fill": synthetic_embedding_bag_backward_fill,
+    "embedding_bag_gcn": synthetic_gcn_bags,
     "randint": synthetic_randint,
     "simulate_walks": synthetic_simulate_walks,
 }
@@ -2533,12 +2624,30 @@ def dropped_slot(ops):
         ops.embedding_bag_backward = real
 
 
-def train_card_vs_cpu(torch, np, dev, arch, *, reduced, overrides=None,
-                      rows=None, seq=None, seed=3, controls=False):
-    """One train step of ``arch`` in f32 (``compute_dtype`` overridden) on
+@contextlib.contextmanager
+def plain_kernels(ops):
+    """Within the block every kernel wrapper takes its plain PyTorch
+    version, on the card's tensors too (the oracle of a step too large for
+    the CPU); ``embedding_bag``'s plain version holds ``[R, D]`` at a time,
+    its backward's a run position's slots."""
+    real = ops._route
+    ops._route = lambda name, tensor: False
+    try:
+        yield
+    finally:
+        ops._route = real
+
+
+def train_card_vs_cpu(torch, np, dev, arch, *, reduced, shape=None,
+                      overrides=None, rows=None, seq=None, seed=3,
+                      controls=False, plain_on_card=False):
+    """One train step of ``arch`` (its ``shape``, ``TRAIN_CELLS``' by
+    default) in f32 (``compute_dtype`` overridden) on
     the card and through the plain CPU path from the same parameters and
     batch (its first ``rows`` rows and ``seq`` positions where given),
-    under the bundle's own optimizer config.  Returns the loss's relative
+    under the bundle's own optimizer config; with ``plain_on_card`` the
+    second run is on the card too, through the kernels' plain versions
+    (``plain_kernels``).  Returns the loss's relative
     difference, the worst gradient leaf's ``||card - cpu|| / ||cpu||``,
     and the parameters' largest difference beyond the tests' rule (1e-5,
     or 2 lr where the CPU gradient is below 1e-6 of its leaf's largest:
@@ -2555,15 +2664,15 @@ def train_card_vs_cpu(torch, np, dev, arch, *, reduced, overrides=None,
     from repro_torch.training import train_loop
     from repro_torch.tree import tree_leaves, tree_map
 
-    shape = TRAIN_CELLS[arch]
+    shape = shape or TRAIN_CELLS[arch]
     over = dict(compute_dtype=torch.float32, **(overrides or {}))
     spec = get_arch(arch)
     base = spec.reduced if reduced else spec.config
-    loss = train_loss_fn(arch, dc.replace(base, **over))
     cpu = steps.build(arch, shape, reduced=reduced, device="cpu",
                       config_overrides=over)
     card = steps.build(arch, shape, reduced=reduced, device=dev,
                        config_overrides=over)
+    loss = cpu.loss_fn
     params = cpu.init_fn(seed)
     batch = cpu.make_batch(torch.Generator().manual_seed(seed + 1))
     if rows:
@@ -2585,15 +2694,20 @@ def train_card_vs_cpu(torch, np, dev, arch, *, reduced, overrides=None,
             del grads
     runs = []
     on_card = tree_map(lambda x: x.to(dev, copy=True), params)  # the step
-    for bundle, p, b in ((card, on_card, tree_to(batch, dev)),  # is in place
-                         (cpu, params, batch)):
-        value, _, grads = train_loop.value_and_grad(loss)(p, b)
-        state = train_loop.init_state(bundle.opt_cfg, p)
-        p, state, metrics = bundle.step_fn(p, state, b)
+    second = (cpu, params, batch, contextlib.nullcontext())      # is in place
+    if plain_on_card:
+        second = (card, tree_map(lambda x: x.to(dev, copy=True), params),
+                  tree_to(batch, dev), plain_kernels(ops))
+    for bundle, p, b, route in ((card, on_card, tree_to(batch, dev),
+                                 contextlib.nullcontext()), second):
+        with route:
+            value, _, grads = train_loop.value_and_grad(loss)(p, b)
+            state = train_loop.init_state(bundle.opt_cfg, p)
+            p, state, metrics = bundle.step_fn(p, state, b)
         runs.append((float(value), [g.cpu() for g in tree_leaves(grads)],
                      [x.cpu() for x in tree_leaves(p)],
                      float(metrics["lr"])))
-        del grads, p, state
+        del grads, p, state, b
     (l_card, g_card, p_card, _), (l_cpu, g_cpu, p_cpu, lr) = runs
 
     def grad_rel(gs):
@@ -2841,6 +2955,366 @@ def phase_train(torch, np, dev, failures):
                             f"{blind}: {res}")
     train_crash_resume(torch, np, dev, failures)
     return counts, replays
+
+
+@contextlib.contextmanager
+def every_launch(ops):
+    """Within the block, each kernel launch's ``(name, args, kwargs)`` in
+    order (a phase 2b replay of launches that share a kernel and a
+    variant: the GCN's two layers)."""
+    real, seen = ops._launched, []
+
+    def record(name, args, kwargs, variant="main"):
+        seen.append((name, args, kwargs))
+        real(name, args, kwargs, variant)
+
+    ops._launched = record
+    try:
+        yield seen
+    finally:
+        ops._launched = real
+
+
+def gnn_layouts(torch, shape, batch):
+    """The bag layouts a GCN step builds (``segment_bags``: an edge set's
+    destination rows, or the molecules' graphs), each timed alone with CUDA
+    events: ``[dict(label, ms, rows, width, real, share)]``, ``real`` the
+    slots of edges whose mask is not 0, ``share`` the padded slots' share
+    of the layout."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gcn
+
+    x = get_arch(GNN_ARCH).shape(shape).extra
+    kind = get_arch(GNN_ARCH).shape(shape).kind
+    if kind == "gnn_minibatch":
+        seeds = x["batch_nodes"]
+        n1 = seeds * (1 + x["fanout"][0])
+        sets = [("e2", "e2_src", "e2_dst", "e2_mask", n1),
+                ("e1", "e1_src", "e1_dst", "e1_mask", seeds)]
+    else:
+        sets = [("edges", "edge_src", "edge_dst", "edge_mask",
+                 batch["features"].shape[0])]
+    out = []
+    for label, s_key, d_key, m_key, n in sets:
+        args = (batch[s_key], batch[d_key], batch[m_key], n)
+        real = int((batch[m_key] != 0).sum())
+        out.append((label, lambda a=args: gcn.segment_bags(*a), n, real))
+    if kind == "gnn_batched":
+        gid = batch["graph_ids"]
+        nodes = torch.arange(gid.numel(), device=gid.device)
+        n_graphs = x["batch"]
+        out.append(("readout", lambda: gcn.segment_bags(
+            nodes, gid, None, n_graphs, n_src=gid.numel()), n_graphs,
+            gid.numel()))
+    res = []
+    for label, fn, rows, real in out:
+        width = fn()[0].shape[1]
+        ms = cuda_ms(torch, fn, budget_ms=100.0, max_reps=5)
+        res.append(dict(label=label, ms=ms, rows=rows, width=width,
+                        real=real, share=1.0 - real / (rows * width)))
+    return res
+
+
+def unpadded_launch_ms(torch, name, args, kwargs):
+    """A padded GCN launch's live slots alone (weight not 0, in slot
+    order), cut to bags of ``GNN_UNPADDED_WIDTH`` (about the mean
+    in-degree at ogb_products) with no padding, through the same wrapper
+    (CUDA events, back to back): what the layout's padding costs.
+    Returns ``(ms, slots)``."""
+    from repro_torch.kernels import embedding_bag as bag_k
+
+    ids, w, table = args
+    live = w != 0
+    k = int(live.sum()) // GNN_UNPADDED_WIDTH * GNN_UNPADDED_WIDTH
+    ids = ids[live][:k].reshape(-1, GNN_UNPADDED_WIDTH).contiguous()
+    w = w[live][:k].reshape(-1, GNN_UNPADDED_WIDTH).contiguous()
+    if name == "embedding_bag":
+        ms = cuda_ms(torch, lambda: bag_k.embedding_bag_cuda(
+            ids, w, table, **kwargs), max_reps=10)
+    else:
+        rows = torch.arange(ids.shape[0], device=ids.device)
+        g = table[rows % table.shape[0]]
+        ms = cuda_ms(torch, lambda: bag_k.embedding_bag_backward_cuda(
+            ids, w, g, **kwargs), max_reps=10)
+    return ms, ids.numel()
+
+
+def gnn_step_twice(torch, bundle, params, batch):
+    """Two train steps from copies of the same parameters and a fresh
+    optimizer state on the same batch give the same bytes (parameters,
+    moments, loss and gradient norm)."""
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_map
+
+    outs = []
+    for _ in range(2):
+        p = tree_map(lambda t: t.clone(), params)
+        state = train_loop.init_state(bundle.opt_cfg, p)
+        p, state, metrics = bundle.step_fn(p, state, batch)
+        outs.append((p, state.mu, state.nu, metrics["loss"],
+                     metrics["grad_norm"]))
+    torch.cuda.synchronize()
+    return tree_bits_equal(torch, outs[0], outs[1])
+
+
+def gnn_cell(torch, np, dev, shape, results, failures):
+    """One gcn-cora shape of phase 3m at full width through
+    ``steps.build``: the bag layouts' cost and padding, ``GNN_PLAN``'s
+    steps on one batch (CUDA events), nodes and edges a second, model
+    TFLOP/s, peak memory, the launches against ``GNN_LOOKUPS``, the losses
+    (finite, the second below 1.5x the first) and two steps from the same
+    state the same bytes.  At ``GNN_REPLAY`` the warm-up step's launches
+    (layer 0's and layer 1's ``embedding_bag``, layer 1's backward) wait on
+    the host and are replayed as phase 2b once the cell is freed, each
+    printed beside its bound on the real edges alone.  Returns the launch
+    counts of the counted steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_leaves
+
+    kind = get_arch(GNN_ARCH).shape(shape).kind
+    fwd, bwd = GNN_LOOKUPS[kind]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    bundle = steps.build(GNN_ARCH, shape, device=dev)
+    params = bundle.init_fn(GNN_SEED)
+    state = train_loop.init_state(bundle.opt_cfg, params)
+    batch = bundle.make_batch(
+        torch.Generator(device=dev).manual_seed(GNN_SEED + 1))
+    torch.cuda.synchronize()
+    edges = int(sum(int((batch[k] != 0).sum()) for k in batch
+                    if k.endswith("mask") and k != "label_mask"))
+    nodes = (int(batch["label_mask"].sum()) if kind == "gnn_full"
+             else batch.get("features", batch.get("feats")).shape[0])
+    print(f"  {shape} ({kind}): "
+          + ", ".join(f"{k} {list(v[0])}" for k, v in
+                      bundle.batch_spec.items())
+          + f"; {nodes} nodes, {edges} edges (mask 1); "
+          f"{sum(p.numel() for p in tree_leaves(params))} parameters; "
+          f"made in {time.perf_counter() - t1:.3f} s")
+    for lay in gnn_layouts(torch, shape, batch):
+        print(f"  {shape} bag layout {lay['label']}: {lay['ms']:.4f} ms "
+              f"(CUDA events), [{lay['rows']}, {lay['width']}] = "
+              f"{lay['rows'] * lay['width']} slots for {lay['real']} real "
+              f"edges ({lay['rows'] * lay['width'] / max(lay['real'], 1):.3f}"
+              f"x), padded share {100 * lay['share']:.2f}%")
+    ops.reset_launch_counts()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    warm, reps = GNN_PLAN
+    losses, ms, held = [], [], []
+    for j in range(warm + reps):
+        rec = (every_launch(ops) if j == 0 and shape == GNN_REPLAY
+               else contextlib.nullcontext([]))
+        with rec as seen:
+            ev0.record()
+            params, state, metrics = bundle.step_fn(params, state, batch)
+            ev1.record()
+            ev1.synchronize()
+        held = held or [(name, tuple(None if t is None else t.detach().cpu()
+                                     for t in args), kwargs)
+                        for name, args, kwargs in seen]
+        del seen
+        losses.append(float(metrics["loss"]))
+        if j >= warm:
+            ms.append(ev0.elapsed_time(ev1))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    ms = np.array(ms)
+    sec = np.median(ms) / 1e3
+    print(f"  {shape}: losses {', '.join(f'{v:.6f}' for v in losses)}; "
+          f"{reps} timed steps {', '.join(f'{v:.3f}' for v in ms)} ms (p50 "
+          f"{np.percentile(ms, 50):.3f}); {nodes / sec:.1f} nodes/s, "
+          f"{edges / sec:.1f} edges/s; model "
+          f"{bundle.model_flops_per_step / sec / 1e12:.4f} TFLOP/s; peak "
+          f"device memory {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB "
+          f"above the {base / 1e9:.2f} GB held before)")
+    steps_run = warm + reps
+    print(f"  {shape} launches: {json.dumps(counts)} ({fwd} embedding_bag "
+          f"and {bwd} embedding_bag_backward a step stated, {steps_run} "
+          f"steps)")
+    for name, per_step in zip(GNN_PATH, (fwd, bwd)):
+        if counts[name] != per_step * steps_run:
+            failures.append(f"3m {shape}: {name} launched {counts[name]} "
+                            f"times, {per_step * steps_run} stated")
+    if not all(np.isfinite(losses)):
+        failures.append(f"3m {shape}: a loss is not finite: {losses}")
+    if not losses[1] < 1.5 * losses[0]:
+        failures.append(f"3m {shape}: second step's loss {losses[1]} not "
+                        f"below 1.5x the first's {losses[0]}")
+    same = gnn_step_twice(torch, bundle, params, batch)
+    print(f"  {shape}: two steps from the same parameters and batch give "
+          f"the same bytes: {same}")
+    if not same:
+        failures.append(f"3m {shape}: two steps from one state differ")
+    real_slots = int((batch["edge_mask"] != 0).sum()) if held else 0
+    del params, state, batch, metrics
+    torch.cuda.empty_cache()
+    layer = 0
+    for name, args, kwargs in held:
+        variant = f"gcn.{shape}" + (f".layer{layer}"
+                                    if name == "embedding_bag" else "")
+        layer += name == "embedding_bag"
+        args = tuple(None if t is None else t.to(dev) for t in args)
+        before = len(results.get(name, []))
+        replay_all(torch, {f"{name}/{variant}": (args, kwargs)}, results,
+                   failures)
+        res = results[name][before]
+        # the same bound with only the real edges' slots (4 B of id and 4
+        # of weight each) in place of the padded layout's
+        real_bytes = res["bytes"] - 8 * (args[0].numel() - real_slots)
+        real_ms = real_bytes / HBM_BYTES_PER_S * 1e3
+        kernel_ms = res["device_ms"] or res["ms"]
+        unpadded_ms, unpadded_slots = unpadded_launch_ms(torch, name, args,
+                                                         kwargs)
+        print(f"  {name}/{variant}: D = {args[2].shape[1]}, "
+              f"{args[0].numel()} slots ({real_slots} real); kernel "
+              f"{kernel_ms:.5f} ms, bound {res['bound_ms']:.5f} ms as "
+              f"launched ({100 * res['bound_ms'] / kernel_ms:.1f}%), "
+              f"{real_ms:.5f} ms on the real edges "
+              f"({100 * real_ms / kernel_ms:.1f}%); plain "
+              f"{res['plain_ms']:.3f} ms, library {res['library_ms']} ms; "
+              f"the wrapper call {res['ms']:.5f} ms against "
+              f"{unpadded_ms:.5f} ms for the same edges unpadded "
+              f"({unpadded_slots} slots in bags of {GNN_UNPADDED_WIDTH}): "
+              f"padding {100 * (1 - unpadded_ms / res['ms']):.1f}% of the "
+              f"call")
+        del args
+    torch.cuda.empty_cache()
+    return counts
+
+
+def gnn_ppr(torch, np, dev, index, failures):
+    """``loss_ppr`` on the path of ``examples/gnn_ppr.py`` over 3b's index:
+    ``GNN_PPR``'s seeds (distinct, from a numpy seed) through
+    ``sampler.ppr_importance_sample`` (the index rows read to the host),
+    their neighbours' random features (the MLP runs on the distinct
+    neighbours only), ogb_products' widths, then SGD steps on the card and
+    through the plain CPU path from the same parameters: the losses
+    within 1e-5 relative, every parameter leaf within 1e-5 of its norm,
+    and one ``embedding_bag`` and one backward launch a step.  Returns the
+    card's launch counts."""
+    import functools
+
+    from repro_torch.configs import get_arch
+    from repro_torch.graphs import sampler
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import gcn
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import sgd_update
+    from repro_torch.tree import tree_leaves
+
+    n_seeds, budget, n_steps, lr = GNN_PPR
+    spec = get_arch(GNN_ARCH)
+    cfg = steps._gnn_cfg(spec.config, spec.shape("ogb_products"))
+    t1 = time.perf_counter()
+    r = np.random.default_rng(GNN_SEED)
+    seeds = torch.from_numpy(r.choice(index.n, n_seeds, replace=False)).to(
+        dev)
+    nbr, w = sampler.ppr_importance_sample(
+        index.values[seeds].cpu().numpy(), index.indices[seeds].cpu().numpy(),
+        np.arange(n_seeds), budget)
+    uniq, pos = np.unique(nbr, return_inverse=True)
+    gen = torch.Generator().manual_seed(GNN_SEED + 2)
+    batch = dict(
+        feats=torch.randn((len(uniq), cfg.d_feat), generator=gen),
+        ppr_vals=torch.from_numpy(w),
+        ppr_idx=torch.from_numpy(pos.reshape(nbr.shape).astype(np.int32)),
+        labels=torch.randint(0, cfg.n_classes, (n_seeds,), generator=gen,
+                             dtype=torch.int32))
+    print(f"  ppr: {n_seeds} seeds of rmat({MAIN_N_LOG2})'s index (l = "
+          f"{index.l}), budget {budget}: {len(uniq)} distinct neighbours, "
+          f"sampled in {time.perf_counter() - t1:.3f} s; d_feat {cfg.d_feat}"
+          f", {cfg.n_classes} classes, {n_steps} SGD steps at lr {lr}")
+    loss = functools.partial(gcn.loss_ppr, cfg)
+    params = gcn.init(cfg, GNN_SEED, device="cpu")
+    runs = {}
+    for where in (dev, "cpu"):
+        p, b = tree_to(params, where), tree_to(batch, where)
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        losses = []
+        for _ in range(n_steps):
+            value, _, grads = train_loop.value_and_grad(loss)(p, b)
+            p = sgd_update(p, grads, lr)
+            losses.append(float(value))
+        seconds = time.perf_counter() - t1
+        runs[where] = (losses, [t.cpu() for t in tree_leaves(p)],
+                       ops.launch_counts(), seconds)
+    (l_card, p_card, counts, s_card), (l_cpu, p_cpu, _, s_cpu) = (
+        runs[dev], runs["cpu"])
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(l_card, l_cpu))
+    param_rel = max(float((a - b).norm()) / max(float(b.norm()), 1e-30)
+                    for a, b in zip(p_card, p_cpu))
+    print(f"  ppr: losses card {', '.join(f'{v:.6f}' for v in l_card)} "
+          f"({s_card:.3f} s), CPU {', '.join(f'{v:.6f}' for v in l_cpu)} "
+          f"({s_cpu:.3f} s); worst loss {loss_rel:.3e} relative, worst "
+          f"parameter leaf {param_rel:.3e} of its norm (limits 1e-5); "
+          f"launches {json.dumps(counts)}")
+    if not (loss_rel <= 1e-5 and param_rel <= 1e-5
+            and all(np.isfinite(l_card))):
+        failures.append(f"3m ppr card vs CPU: loss {loss_rel}, parameters "
+                        f"{param_rel}")
+    fwd, bwd = GNN_LOOKUPS["ppr"]
+    for name, per_step in zip(GNN_PATH, (fwd, bwd)):
+        if counts[name] != per_step * n_steps:
+            failures.append(f"3m ppr: {name} launched {counts[name]} times, "
+                            f"{per_step * n_steps} stated")
+    return counts
+
+
+def phase_gnn(torch, np, dev, index, results, failures):
+    """Phase 3m: gcn-cora's four shapes at full width (``gnn_cell``, each
+    counted from zero; ``GNN_REPLAY``'s launches replayed into
+    ``results``), one f32 step of each card against the plain path
+    (``train_card_vs_cpu``: full_graph_sm, minibatch_lg and molecule
+    against the CPU; ogb_products, whose plain step is too large for the
+    CPU's time, against the same step on the card through the kernels'
+    plain versions), and ``loss_ppr`` on 3b's index (``gnn_ppr``).
+    Returns the launch counts by shape, and ``ppr``'s."""
+    print(f"3m gcn-cora: {card_name_and_power_limit()}")
+    counts = {}
+    for shape in GNN_CELLS:
+        t1 = time.perf_counter()
+        counts[shape] = gnn_cell(torch, np, dev, shape, results, failures)
+        print(f"  {shape}: {time.perf_counter() - t1:.3f} s")
+    for shape in GNN_CELLS:
+        t1 = time.perf_counter()
+        plain_on_card = shape == GNN_REPLAY
+        res = train_card_vs_cpu(torch, np, dev, GNN_ARCH, reduced=False,
+                                shape=shape, plain_on_card=plain_on_card)
+        print(f"  {shape} full width f32, one step card vs "
+              + ("the plain versions on the card" if plain_on_card
+                 else "CPU")
+              + f": {json.dumps(res)} (limits: loss 1e-5, gradients "
+              f"{TRAIN_CHECK_GRAD} of each leaf's norm, parameters 0 beyond "
+              f"the rule), {time.perf_counter() - t1:.3f} s")
+        if not (res["loss_rel"] <= 1e-5
+                and res["grad_rel"] <= TRAIN_CHECK_GRAD
+                and res["param_beyond"] == 0.0):
+            failures.append(f"3m {shape} card vs reference: {res}")
+    t1 = time.perf_counter()
+    counts["ppr"] = gnn_ppr(torch, np, dev, index, failures)
+    print(f"  ppr: {time.perf_counter() - t1:.3f} s")
+    return counts
+
+
+def check_small_gnn(torch, np, dev, shape):
+    """One train step of gcn-cora's reduced ``shape`` in f32, card against
+    the plain CPU path (``train_card_vs_cpu``): loss within 1e-5,
+    gradients within 1e-5 of each leaf's norm, parameters within the
+    rule."""
+    res = train_card_vs_cpu(torch, np, dev, GNN_ARCH, reduced=True,
+                            shape=shape)
+    return (res["loss_rel"] <= 1e-5 and res["grad_rel"] <= 1e-5
+            and res["param_beyond"] == 0.0), res
 
 
 def check_small_train(torch, np, dev, arch):
@@ -3596,6 +4070,7 @@ def main() -> int:
     from repro_torch.serving.batching import BatchingConfig
     from repro_torch.serving.pipeline import PipelineConfig
 
+    print(card_name_and_power_limit(), flush=True)
     run_t0 = time.perf_counter()
     dev = "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3983,10 +4458,17 @@ def main() -> int:
     phase("3l training at full width", t0)
 
     t0 = time.perf_counter()
+    replays_m = {}
+    counts_m = phase_gnn(torch, np, dev, index, replays_m, failures)
+    phase("3m gcn-cora at full width", t0)
+
+    t0 = time.perf_counter()
     # 3g's and 3k's embedding_bag launches were replayed there, before
     # each table was freed, and 3l's embedding_bag_backward after each cell
-    results = {"embedding_bag": replays_g + replays_k,
-               "embedding_bag_backward": replays_l}
+    results = {"embedding_bag": replays_g + replays_k
+               + replays_m["embedding_bag"],
+               "embedding_bag_backward": replays_l
+               + replays_m["embedding_bag_backward"]}
     captured_f = {tag: v for tag, v in captured_f.items()
                   if tag.startswith("sharded_frontier_push/")}
     captured.update(captured_e)
@@ -4026,6 +4508,12 @@ def main() -> int:
               f"vs CPU: {json.dumps(res)}")
         if not ok:
             failures.append(f"small {arch} train check")
+    for shape in GNN_CELLS:
+        ok, res = check_small_gnn(torch, np, dev, shape)
+        print(f"small reference, {GNN_ARCH} {shape} reduced in f32: one "
+              f"train step card vs CPU: {json.dumps(res)}")
+        if not ok:
+            failures.append(f"small {GNN_ARCH} {shape} train check")
     mc_equal = check_small_montecarlo(torch, np, dev)
     print("small reference, monte-carlo path, card vs CPU bit-equal:",
           json.dumps(mc_equal))
@@ -4053,7 +4541,9 @@ def main() -> int:
              "maintenance (3i)": (MAINT_PATH, counts_i),
              f"{LM_ARCH} (3k)": (LM_PATH, counts_k),
              **{f"train {arch} (3l)": (TRAIN_PATH, counts_l[arch])
-                for arch in TRAIN_CELLS}}
+                for arch in TRAIN_CELLS},
+             **{f"{GNN_ARCH} {shape} (3m)": (GNN_PATH, c)
+                for shape, c in counts_m.items()}}
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         runs = results.get(name)

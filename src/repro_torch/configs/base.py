@@ -18,6 +18,7 @@ class ShapeSpec:
 
     kind:
       lm_train | lm_prefill | lm_decode          (LM family)
+      gnn_full | gnn_minibatch | gnn_batched      (GNN family)
       rec_train | rec_serve | rec_retrieval       (RecSys family)
     """
 
@@ -33,8 +34,8 @@ class ArchSpec:
     """An architecture entry in the registry."""
 
     id: str
-    family: str                  # lm | recsys
-    model_kind: str              # transformer | dcn | dlrm | sasrec | mind
+    family: str                  # lm | gnn | recsys
+    model_kind: str        # transformer | gcn | dcn | dlrm | sasrec | mind
     config: Any                  # model config, full size
     reduced: Any                 # reduced smoke config
     shapes: Tuple[ShapeSpec, ...]
@@ -54,6 +55,18 @@ LM_SHAPES: Tuple[ShapeSpec, ...] = (
     ShapeSpec("decode_32k", "lm_decode", seq_len=32768, global_batch=128),
     # long-context decode: the serve step is O(S) per token
     ShapeSpec("long_500k", "lm_decode", seq_len=524288, global_batch=1),
+)
+
+GNN_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("full_graph_sm", "gnn_full", extra=dict(
+        n_nodes=2708, n_edges=10556, d_feat=1433, n_classes=7)),
+    ShapeSpec("minibatch_lg", "gnn_minibatch", extra=dict(
+        n_nodes=232965, n_edges=114615892, batch_nodes=1024,
+        fanout=(15, 10), d_feat=602, n_classes=41)),
+    ShapeSpec("ogb_products", "gnn_full", extra=dict(
+        n_nodes=2449029, n_edges=61859140, d_feat=100, n_classes=47)),
+    ShapeSpec("molecule", "gnn_batched", extra=dict(
+        n_nodes=30, n_edges=64, batch=128, d_feat=32, n_classes=2)),
 )
 
 REC_SHAPES: Tuple[ShapeSpec, ...] = (

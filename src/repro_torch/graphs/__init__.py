@@ -1,1 +1,1 @@
-"""Synthetic graph generators."""
+"""Synthetic graph generators, the neighbour samplers and the partitioner."""

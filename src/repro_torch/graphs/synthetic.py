@@ -90,3 +90,26 @@ def bipartite_recsys(n_users: int, n_items: int, avg_deg: float = 8.0,
     src = np.concatenate([users, items])
     dst = np.concatenate([items, users])
     return Graph.from_edges(src, dst, n=n_users + n_items, device=device)
+
+
+def batched_molecules(n_graphs: int, nodes_per_graph: int,
+                      edges_per_graph: int, seed: int = 0,
+                      device="cuda") -> Graph:
+    """A block-diagonal union of small random molecule-like graphs: each a
+    ring plus random chords, self loops dropped, symmetrized."""
+    rng = np.random.default_rng(seed)
+    srcs, dsts = [], []
+    for g in range(n_graphs):
+        off = g * nodes_per_graph
+        ring = np.arange(nodes_per_graph)
+        s = np.concatenate(
+            [ring, rng.integers(0, nodes_per_graph, edges_per_graph)])
+        d = np.concatenate(
+            [(ring + 1) % nodes_per_graph,
+             rng.integers(0, nodes_per_graph, edges_per_graph)])
+        keep = s != d
+        s, d = s[keep], d[keep]
+        srcs.append(np.concatenate([s, d]) + off)
+        dsts.append(np.concatenate([d, s]) + off)
+    return Graph.from_edges(np.concatenate(srcs), np.concatenate(dsts),
+                            n=n_graphs * nodes_per_graph, device=device)

@@ -112,13 +112,15 @@ def embedding_bag_plain(ids, mask, table, *, row_dtype=torch.float32,
                         out_dtype=torch.float32):
     """The bag sum of ``ids int[R, bag]`` (``bag >= 1``) weighted by ``mask
     f32[R, bag]`` (``None``: weight one) over ``table [V, D]``: ``[R, D]``
-    of ``out_dtype``, summed in bag order as the kernel sums."""
-    rows = gather_rows(table, ids).to(row_dtype).to(torch.float32)
-    if mask is not None:
-        rows = rows * mask.to(torch.float32)[..., None]
-    out = rows[:, 0]
-    for i in range(1, ids.shape[1]):
-        out = out + rows[:, i]
+    of ``out_dtype``, summed in bag order as the kernel sums; one slot
+    position gathered at a time, so it holds ``[R, D]``, never ``[R, bag,
+    D]``."""
+    out = None
+    for i in range(ids.shape[1]):
+        row = gather_rows(table, ids[:, i]).to(row_dtype).to(torch.float32)
+        if mask is not None:
+            row = row * mask[:, i].to(torch.float32)[:, None]
+        out = row if out is None else out + row
     return out.to(out_dtype)
 
 

@@ -1,13 +1,17 @@
 """Step factory: (arch, shape) -> init / step callables + batch specs.
 
 The counterpart of the reference's ``launch/steps.py`` for what the port
-holds, every cell of ``smollm-135m`` and of DLRM RM2, DCN-v2, SASRec and
-MIND:
+holds, every cell of ``smollm-135m``, ``gcn-cora`` and DLRM RM2, DCN-v2,
+SASRec and MIND:
 
 * training (``kind == "train"``): ``lm_train`` (``train_4k``, B = 256, S =
-  4,096) and ``rec_train`` (``train_batch``, B = 65,536); ``step_fn(params,
-  opt_state, batch) -> (params, opt_state, metrics)`` is
-  ``training.train_loop.make_train_step`` of the model's ``loss_fn`` under
+  4,096), ``rec_train`` (``train_batch``, B = 65,536) and the GCN's
+  ``gnn_full`` (``full_graph_sm``, cora's 2,708 nodes; ``ogb_products``,
+  2,449,029 nodes and 61,859,140 edges), ``gnn_minibatch``
+  (``minibatch_lg``: 1,024 seeds, fanout 15-10) and ``gnn_batched``
+  (``molecule``: 128 graphs of 30 nodes); ``step_fn(params, opt_state,
+  batch) -> (params, opt_state, metrics)`` is
+  ``training.train_loop.make_train_step`` of the model's loss under
   :attr:`StepBundle.opt_cfg` (``DEFAULT_OPT``, bf16 moments, at full size;
   ``SMOKE_OPT`` reduced), and updates the parameters and moments in place;
 * ``lm_prefill`` (``prefill_32k``, the next-token logits of a ``[B, S]``
@@ -30,6 +34,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.device import resolve_device
+from repro_torch.models import gcn as gcn_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.recsys import dcn, dlrm, mind, sasrec
 from repro_torch.training import train_loop
@@ -60,6 +65,8 @@ class StepBundle:
     cache_spec: Optional[Dict[str, TensorSpec]] = None
     make_cache: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
     opt_cfg: Optional[AdamWConfig] = None   # the config step_fn uses (train)
+    # train: the ``loss(params, batch)`` that step_fn trains
+    loss_fn: Optional[Callable[[Any, Any], Any]] = None
 
 
 DEFAULT_OPT = AdamWConfig(moment_dtype=torch.bfloat16)
@@ -102,9 +109,9 @@ def _lm_bundle(arch: ArchSpec, shape: ShapeSpec, cfg: tfm.TransformerConfig,
                 opt_cfg, mu_dtype=torch.float8_e4m3fn,
                 nu_dtype=torch.bfloat16)
             accum = torch.bfloat16
-        step = train_loop.make_train_step(
-            functools.partial(tfm.loss_fn, cfg), opt_cfg, microbatches=mb,
-            accum_dtype=accum)
+        loss = functools.partial(tfm.loss_fn, cfg)
+        step = train_loop.make_train_step(loss, opt_cfg, microbatches=mb,
+                                          accum_dtype=accum)
 
         def make_batch(gen: torch.Generator):
             toks = torch.randint(0, cfg.vocab, (b, s), generator=gen,
@@ -117,7 +124,7 @@ def _lm_bundle(arch: ArchSpec, shape: ShapeSpec, cfg: tfm.TransformerConfig,
         return StepBundle(
             arch.id, shape.name, "train", init_fn, step, spec, make_batch,
             model_flops_per_step=6.0 * n_params_active * b * s,  # fwd+bwd
-            opt_cfg=opt_cfg)
+            opt_cfg=opt_cfg, loss_fn=loss)
 
     def tokens(rows: int, cols: int):
         def make_batch(gen: torch.Generator):
@@ -167,6 +174,152 @@ def _lm_bundle(arch: ArchSpec, shape: ShapeSpec, cfg: tfm.TransformerConfig,
         dict(tokens=((b, 1), I32)), tokens(b, 1),
         model_flops_per_step=2.0 * n_params_active * b,  # a token a row
         cache_spec=cache_spec, make_cache=make_cache)
+
+
+# ---------------------------------------------------------------------------
+# GNN family
+# ---------------------------------------------------------------------------
+
+def _gnn_cfg(template, shape: ShapeSpec) -> gcn_mod.GCNConfig:
+    x = shape.extra
+    return gcn_mod.GCNConfig(
+        n_layers=template.n_layers, d_feat=x["d_feat"],
+        d_hidden=template.d_hidden, n_classes=x["n_classes"],
+        aggregator="sym" if shape.kind == "gnn_full" else "mean",
+        readout="mean" if shape.kind == "gnn_batched" else None,
+        compute_dtype=template.compute_dtype,
+    )
+
+
+def _reduce_gnn_shape(shape: ShapeSpec) -> ShapeSpec:
+    x = dict(shape.extra)
+    if shape.kind == "gnn_full":
+        x.update(n_nodes=120, n_edges=480, d_feat=32, n_classes=7)
+    elif shape.kind == "gnn_minibatch":
+        x.update(n_nodes=500, n_edges=4000, batch_nodes=8, fanout=(3, 2),
+                 d_feat=16, n_classes=5)
+    else:  # batched molecules
+        x.update(n_nodes=10, n_edges=16, batch=8, d_feat=8, n_classes=2)
+    return dataclasses.replace(shape, extra=x)
+
+
+def _gnn_full_flops(cfg: gcn_mod.GCNConfig, n: int, m: int) -> float:
+    """A gather-mac of ``2 m d`` a layer plus the dense ``2 n d_in
+    d_out``, x3 for the forward and the backward."""
+    dims = cfg.dims()
+    return 3.0 * sum(2.0 * m * dims[i] + 2.0 * n * dims[i] * dims[i + 1]
+                     for i in range(cfg.n_layers))
+
+
+def _gnn_bundle(arch: ArchSpec, shape: ShapeSpec, template,
+                opt_cfg: AdamWConfig, device: torch.device) -> StepBundle:
+    """The reference's three GNN train bundles: its batch keys, shapes,
+    dtypes and distributions (drawn from a ``torch.Generator``), its
+    512-multiple padding and masks, and its model FLOPs."""
+    cfg = _gnn_cfg(template, shape)
+    x = shape.extra
+
+    def init_fn(seed: int):
+        return gcn_mod.init(cfg, seed, device=device)
+
+    def draw(gen: torch.Generator):
+        g = gen.device
+        ints = lambda lo, hi, size: torch.randint(  # noqa: E731
+            lo, hi, size, generator=gen, dtype=I32, device=g)
+        normal = lambda size: torch.randn(  # noqa: E731
+            size, generator=gen, dtype=F32, device=g)
+        return g, ints, normal
+
+    def bundle(spec, loss, make_batch, flops):
+        return StepBundle(arch.id, shape.name, "train", init_fn,
+                          train_loop.make_train_step(loss, opt_cfg), spec,
+                          make_batch, model_flops_per_step=flops,
+                          opt_cfg=opt_cfg, loss_fn=loss)
+
+    if shape.kind == "gnn_full":
+        # n and m padded to 512-multiples (the reference's input shardings
+        # need them); the masks keep the math exact on the padding
+        n = ((x["n_nodes"] + 511) // 512) * 512
+        m = ((x["n_edges"] + 511) // 512) * 512
+        n_real, m_real = x["n_nodes"], x["n_edges"]
+        spec = dict(features=((n, cfg.d_feat), F32), edge_src=((m,), I32),
+                    edge_dst=((m,), I32), edge_mask=((m,), F32),
+                    labels=((n,), I32), label_mask=((n,), F32))
+
+        def make_batch(gen: torch.Generator):
+            g, ints, normal = draw(gen)
+            out = dict(
+                features=normal((n, cfg.d_feat)),
+                edge_src=ints(0, n_real, (m,)),
+                edge_dst=ints(0, n_real, (m,)),
+                edge_mask=(torch.arange(m, device=g) < m_real).to(F32),
+                labels=ints(0, cfg.n_classes, (n,)),
+                label_mask=(torch.arange(n, device=g) < n_real).to(F32))
+            return {k: v.to(device) for k, v in out.items()}
+
+        return bundle(spec, functools.partial(gcn_mod.loss_full, cfg),
+                      make_batch, _gnn_full_flops(cfg, n, m))
+
+    if shape.kind == "gnn_minibatch":
+        seeds = x["batch_nodes"]
+        f1, f2 = x["fanout"]
+        n1 = seeds + seeds * f1                 # block-1 node set
+        n2 = n1 + n1 * f2                       # block-2 node set
+        e1, e2 = seeds * f1, n1 * f2
+        spec = dict(feats=((n2, cfg.d_feat), F32), e2_src=((e2,), I32),
+                    e2_dst=((e2,), I32), e2_mask=((e2,), F32),
+                    e1_src=((e1,), I32), e1_dst=((e1,), I32),
+                    e1_mask=((e1,), F32), labels=((seeds,), I32))
+
+        def loss(params, batch):
+            return gcn_mod.loss_sampled(cfg, params, dict(
+                block_feats=[None, batch["feats"]],
+                block_edges=[
+                    dict(edge_src=batch["e1_src"], edge_dst=batch["e1_dst"],
+                         edge_mask=batch["e1_mask"], n_dst=seeds),
+                    dict(edge_src=batch["e2_src"], edge_dst=batch["e2_dst"],
+                         edge_mask=batch["e2_mask"], n_dst=n1)],
+                labels=batch["labels"]))
+
+        def make_batch(gen: torch.Generator):
+            g, ints, normal = draw(gen)
+            out = dict(
+                feats=normal((n2, cfg.d_feat)),
+                e2_src=ints(0, n2, (e2,)), e2_dst=ints(0, n1, (e2,)),
+                e2_mask=torch.ones((e2,), dtype=F32, device=g),
+                e1_src=ints(0, n1, (e1,)), e1_dst=ints(0, seeds, (e1,)),
+                e1_mask=torch.ones((e1,), dtype=F32, device=g),
+                labels=ints(0, cfg.n_classes, (seeds,)))
+            return {k: v.to(device) for k, v in out.items()}
+
+        flops = 3.0 * (2.0 * e2 * cfg.d_feat
+                       + 2.0 * n1 * cfg.d_feat * cfg.d_hidden
+                       + 2.0 * e1 * cfg.d_hidden
+                       + 2.0 * seeds * cfg.d_hidden * cfg.n_classes)
+        return bundle(spec, loss, make_batch, flops)
+
+    # batched molecules: block-diagonal edges, each graph's own offsets
+    bsz, npg, epg = x["batch"], x["n_nodes"], x["n_edges"]
+    n, m = bsz * npg, bsz * epg * 2
+    spec = dict(features=((n, cfg.d_feat), F32), edge_src=((m,), I32),
+                edge_dst=((m,), I32), edge_mask=((m,), F32),
+                graph_ids=((n,), I32), graph_labels=((bsz,), I32))
+
+    def make_batch(gen: torch.Generator):
+        g, ints, normal = draw(gen)
+        graphs = torch.arange(bsz, dtype=I32, device=g)
+        edge_off = torch.repeat_interleave(graphs * npg, 2 * epg)
+        out = dict(
+            edge_src=ints(0, npg, (m,)) + edge_off,
+            edge_dst=ints(0, npg, (m,)) + edge_off,
+            features=normal((n, cfg.d_feat)),
+            edge_mask=torch.ones((m,), dtype=F32, device=g),
+            graph_ids=torch.repeat_interleave(graphs, npg),
+            graph_labels=ints(0, cfg.n_classes, (bsz,)))
+        return {k: v.to(device) for k, v in out.items()}
+
+    return bundle(spec, functools.partial(gcn_mod.loss_full, cfg),
+                  make_batch, _gnn_full_flops(cfg, n, m))
 
 
 # ---------------------------------------------------------------------------
@@ -277,14 +430,14 @@ def _rec_bundle(arch: ArchSpec, shape: ShapeSpec, cfg, opt_cfg: AdamWConfig,
 
     b = shape.global_batch
     if shape.kind == "rec_train":
-        step = train_loop.make_train_step(
-            functools.partial(mod.loss_fn, cfg), opt_cfg)
+        loss = functools.partial(mod.loss_fn, cfg)
         return StepBundle(
-            arch.id, shape.name, "train", init_fn, step,
+            arch.id, shape.name, "train", init_fn,
+            train_loop.make_train_step(loss, opt_cfg),
             _rec_batch_spec(kind_model, cfg, b, with_label=True),
             _rec_make_batch(kind_model, cfg, b, device, with_label=True),
             model_flops_per_step=3.0 * _rec_dense_flops(kind_model, cfg, b),
-            opt_cfg=opt_cfg)
+            opt_cfg=opt_cfg, loss_fn=loss)
     if shape.kind == "rec_serve":
         def serve(params, batch):
             if kind_model in ("dcn", "dlrm"):
@@ -326,6 +479,15 @@ def _rec_bundle(arch: ArchSpec, shape: ShapeSpec, cfg, opt_cfg: AdamWConfig,
                       make_batch, model_flops_per_step=flops)
 
 
+def reduce_shape(arch: ArchSpec, shape: ShapeSpec) -> ShapeSpec:
+    """The reduced (CPU smoke) size of ``shape``."""
+    if arch.family == "lm":
+        return _reduce_lm_shape(shape)
+    if arch.family == "gnn":
+        return _reduce_gnn_shape(shape)
+    return _reduce_rec_shape(shape)
+
+
 def build(arch: Union[str, ArchSpec], shape_name: str, *,
           reduced: bool = False, device="cuda",
           opt_cfg: Optional[AdamWConfig] = None,
@@ -341,12 +503,13 @@ def build(arch: Union[str, ArchSpec], shape_name: str, *,
         arch = get_arch(arch)
     shape = arch.shape(shape_name)
     cfg = arch.reduced if reduced else arch.config
-    lm = arch.family == "lm"
     if reduced:
-        shape = (_reduce_lm_shape if lm else _reduce_rec_shape)(shape)
+        shape = reduce_shape(arch, shape)
     if config_overrides:
         cfg = dataclasses.replace(cfg, **config_overrides)
     opt = opt_cfg or (SMOKE_OPT if reduced else DEFAULT_OPT)
-    if lm:
+    if arch.family == "lm":
         return _lm_bundle(arch, shape, cfg, opt, dev)
+    if arch.family == "gnn":
+        return _gnn_bundle(arch, shape, cfg, opt, dev)
     return _rec_bundle(arch, shape, cfg, opt, dev)

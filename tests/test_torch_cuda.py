@@ -256,6 +256,53 @@ def test_train_step_launches_the_backward_as_stated(cuda, arch):
     assert counts["embedding_bag"] == counts["embedding_bag_backward"] == n
 
 
+def _gcn_reduced(cuda, shape):
+    from repro_torch.launch import steps
+    from repro_torch.training import train_loop
+
+    bundle = steps.build(chip_smoke.GNN_ARCH, shape, reduced=True,
+                         device=cuda)
+    params = bundle.init_fn(0)
+    batch = bundle.make_batch(torch.Generator(device=cuda).manual_seed(1))
+    return bundle, params, train_loop.init_state(bundle.opt_cfg, params), \
+        batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", chip_smoke.GNN_CELLS)
+def test_gcn_step_on_card_matches_the_cpu(cuda, shape):
+    """One reduced gcn-cora step in f32, card against the plain CPU path:
+    every aggregation on ``embedding_bag``, its gradient on the backward
+    kernel."""
+    ok, res = chip_smoke.check_small_gnn(torch, np, cuda, shape)
+    assert ok, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", chip_smoke.GNN_CELLS)
+def test_gcn_step_twice_gives_the_same_bytes(cuda, shape):
+    """No float atomics on the path: two steps from one state agree."""
+    bundle, params, _, batch = _gcn_reduced(cuda, shape)
+    assert chip_smoke.gnn_step_twice(torch, bundle, params, batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", chip_smoke.GNN_CELLS)
+def test_gcn_step_launches_as_stated(cuda, shape):
+    """A reduced gcn-cora step launches ``GNN_LOOKUPS`` aggregations and
+    backward launches."""
+    from repro_torch.configs import get_arch
+
+    bundle, params, state, batch = _gcn_reduced(cuda, shape)
+    tops.reset_launch_counts()
+    bundle.step_fn(params, state, batch)
+    torch.cuda.synchronize()
+    counts = tops.launch_counts()
+    kind = get_arch(chip_smoke.GNN_ARCH).shape(shape).kind
+    assert (counts["embedding_bag"], counts["embedding_bag_backward"]) == \
+        chip_smoke.GNN_LOOKUPS[kind]
+
+
 @pytest.mark.cuda
 def test_embedding_bag_backward_launches_and_matches_plain(cuda):
     """The wrapper routes a CUDA gradient to the kernel (one launch), which

@@ -27,6 +27,7 @@ from repro_torch.core.query import BatchQueryEngine
 from repro_torch.core.updates import build_maintainable_index
 from repro_torch.graphs import synthetic as tsyn
 from repro_torch.launch import serve, steps
+from repro_torch.models import gcn as tgcn
 from repro_torch.models.recsys import dlrm as tdlrm
 from repro_torch.serving import PPRService
 
@@ -102,6 +103,13 @@ def test_default_device_entry_points_raise_without_gpu(no_gpu, tmp_path):
             steps._REC_MODS[spec.model_kind].init(spec.reduced, 0)
     with pytest.raises(RuntimeError, match="cuda"):
         convert.recsys_params_from_arrays({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="cuda"):
+        steps.build("gcn-cora", "full_graph_sm", reduced=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tgcn.init(steps._gnn_cfg(get_arch("gcn-cora").reduced,
+                                 get_arch("gcn-cora").shape("molecule")), 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tsyn.batched_molecules(2, 3, 2)
 
 
 def test_serve_cli_runs_on_cpu(capsys):

@@ -527,8 +527,9 @@ def test_configs_match_reference(arch):
 
 def test_all_cells_are_the_references_for_the_ported_archs():
     ids = tconfigs.all_arch_ids()
-    assert sorted(ids) == sorted(ZOO + ("dlrm-rm2", "smollm-135m"))
+    assert sorted(ids) == sorted(ZOO + ("dlrm-rm2", "smollm-135m",
+                                        "gcn-cora"))
     assert set(ids) <= set(jconfigs.all_arch_ids())
     assert tconfigs.all_cells() == [c for c in jconfigs.all_cells()
                                     if c[0] in ids]
-    assert len(tconfigs.all_cells()) == 20
+    assert len(tconfigs.all_cells()) == 24

@@ -1,7 +1,7 @@
 """Helpers of the train-step parity tests (``tests/test_torch_train_steps.py``,
-``tests/test_torch_training.py``): run the port's and the JAX package's
-train steps side by side from the same parameters and batches and hold
-them to the rules those tests state."""
+``tests/test_torch_training.py``, ``tests/test_torch_gcn.py``): run the
+port's and the JAX package's train steps side by side from the same
+parameters and batches and hold them to the rules those tests state."""
 
 import contextlib
 import dataclasses
@@ -16,6 +16,8 @@ import torch
 from repro.configs import get_arch as jget_arch
 from repro.distributed import compression as jcomp
 from repro.launch import steps as jsteps
+from repro.models import gcn as jgcn
+from repro.models import layers as jlayers
 from repro.models import transformer as jtfm
 from repro.models.recsys import dcn as jdcn
 from repro.models.recsys import dlrm as jdlrm
@@ -44,6 +46,9 @@ LOSSES = {"dlrm-rm2": (jdlrm.loss_fn, tdlrm.loss_fn),
           "sasrec": (jsasrec.loss_fn, tsasrec.loss_fn),
           "mind": (jmind.loss_fn, tmind.loss_fn),
           "smollm-135m": (jtfm.loss_fn, ttfm.loss_fn)}
+# gcn-cora's cells: each shape assembles its own config, and the
+# minibatch bundle's loss is a closure over the batch's block keys
+GNN_CELLS = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 STEPS = 3
 
@@ -77,15 +82,48 @@ def _configs(arch, overrides):
     return jcfg, tcfg
 
 
-def run_against_reference(arch, *, overrides=None, microbatches=1,
-                          compress=None, eager=False, tol=1e-5, seed=0):
+def gnn_losses(shape_name):
+    """``(jloss, tloss)`` of gcn-cora's reduced ``shape_name`` cell: the
+    loss each package's bundle trains (the reference's minibatch loss is a
+    closure of its ``_gnn_bundle``, written out here; the port's bundle
+    names its loss)."""
+    jarch = jget_arch("gcn-cora")
+    jshape = jsteps.reduce_shape(jarch, jarch.shape(shape_name))
+    jcfg = jsteps._gnn_cfg(jarch.reduced, jshape, True)
+    tloss = steps.build("gcn-cora", shape_name, reduced=True,
+                        device="cpu").loss_fn
+    if jshape.kind != "gnn_minibatch":
+        return functools.partial(jgcn.loss_full, jcfg), tloss
+    seeds = jshape.extra["batch_nodes"]
+    n1 = seeds * (1 + jshape.extra["fanout"][0])
+
+    def jloss(p, b):
+        blocks = [dict(edge_src=b["e1_src"], edge_dst=b["e1_dst"],
+                       edge_mask=b["e1_mask"], n_dst=seeds),
+                  dict(edge_src=b["e2_src"], edge_dst=b["e2_dst"],
+                       edge_mask=b["e2_mask"], n_dst=n1)]
+        logits = jgcn.forward_sampled(jcfg, p, [None, b["feats"]], blocks)
+        return jlayers.softmax_cross_entropy(logits, b["labels"])
+
+    return jloss, tloss
+
+
+def run_against_reference(arch, *, shape=None, overrides=None,
+                          microbatches=1, compress=None, eager=False,
+                          tol=1e-5, seed=0):
     """3 train steps of ``arch``'s reduced config on both sides, held
-    to the rules of ``tests/test_torch_train_steps.py``."""
-    jcfg, tcfg = _configs(arch, overrides)
-    jloss_fn, tloss_fn = LOSSES[arch]
-    jloss = functools.partial(jloss_fn, jcfg)
-    tloss = functools.partial(tloss_fn, tcfg)
+    to the rules of ``tests/test_torch_train_steps.py``.  ``shape`` names
+    the cell of an arch with several (gcn-cora), whose steps are its two
+    bundles' own ``step_fn``."""
+    shape = shape or CELLS[arch]
     opt_j, opt_t = jsteps.SMOKE_OPT, steps.SMOKE_OPT
+    if arch == "gcn-cora":
+        jloss, tloss = gnn_losses(shape)
+    else:
+        jcfg, tcfg = _configs(arch, overrides)
+        jloss_fn, tloss_fn = LOSSES[arch]
+        jloss = functools.partial(jloss_fn, jcfg)
+        tloss = functools.partial(tloss_fn, tcfg)
     jtransform = ttransform = None
     if compress:
         ccfg_j = jcomp.CompressionConfig(method=compress)
@@ -98,7 +136,10 @@ def run_against_reference(arch, *, overrides=None, microbatches=1,
                                 grad_transform=jtransform)
     tstep = ttl.make_train_step(tloss, opt_t, microbatches=microbatches,
                                 grad_transform=ttransform)
-    bundle = jsteps.build(jget_arch(arch), CELLS[arch], reduced=True)
+    bundle = jsteps.build(jget_arch(arch), shape, reduced=True)
+    if arch == "gcn-cora":
+        jstep = bundle.step_fn
+        tstep = steps.build(arch, shape, reduced=True, device="cpu").step_fn
     jparams = bundle.init_fn(jax.random.PRNGKey(seed))
     if not eager:
         jstep = jax.jit(jstep)
