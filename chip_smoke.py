@@ -222,6 +222,15 @@ Phases, each timed and printed:
    then ``loss_ppr`` on 3b's index (``examples/gnn_ppr.py``'s path):
    4,096 seeds through ``ppr_importance_sample`` (budget 32), 3 SGD steps
    card against CPU within 1e-5, one launch of each kernel a step;
+3n. the contract auditor (``repro_torch.analysis``) on the card, every
+   rule of its catalog: ``dense-state-bound`` and ``no-replicated-index``
+   on the CUDA path, ``retrace-guard`` on the engine's real captures,
+   ``hbm-residency`` over the four kernels' sources and, on rmat(12) and
+   on 3b's graph and index, each kernel's static shared bytes (read from
+   the built library) plus its planners' dynamic bytes at the main path's
+   shapes, the same on both graphs and within the opt-in limit, and the
+   operands the caller's own storage; every rule PASS with a target
+   audited, none SKIP, no unsuppressed finding, and the phase's seconds;
 2b. replay the inputs of each kernel's first launch on its path (and of
    ``ell_spmm``'s second, a batch's push of a spread-out frontier, and
    its ``dense`` variant, the last push of 3e's ``pi``, of
@@ -3306,6 +3315,33 @@ def phase_gnn(torch, np, dev, index, results, failures):
     return counts
 
 
+# -- phase 3n: the contract auditor --------------------------------------------
+
+def contract_audit_failures(results, rule_ids):
+    """What keeps a run of the auditor from passing on the card: a rule of
+    ``rule_ids`` missing, not PASS (a finding, or a SKIP), or with no
+    target audited."""
+    got = {r.rule: r for r in results}
+    bad = [f"{rule} not run" for rule in rule_ids if rule not in got]
+    bad += [f"{r.rule} {r.status} ({len(r.audited)} audited, "
+            f"{len(r.unsuppressed)} findings, skipped {r.skipped})"
+            for r in results if r.status != "PASS" or not r.audited]
+    return bad
+
+
+def phase_contract_auditor(torch, dev, g, index, failures):
+    """Phase 3n: every rule of ``repro_torch.analysis`` on the card, with
+    3b's rmat(20) graph and index as hbm-residency's main graph; prints
+    the report, whose notes hold each kernel's shared bytes a block."""
+    from repro_torch.analysis import report, rules
+
+    results = rules.run_rules(device=dev, main_graph=(g, index))
+    torch.cuda.synchronize()
+    print(report.render_text(results))
+    failures += [f"3n contract auditor: {x}"
+                 for x in contract_audit_failures(results, rules.RULES)]
+
+
 def check_small_gnn(torch, np, dev, shape):
     """One train step of gcn-cora's reduced ``shape`` in f32, card against
     the plain CPU path (``train_card_vs_cpu``): loss within 1e-5,
@@ -4461,6 +4497,10 @@ def main() -> int:
     replays_m = {}
     counts_m = phase_gnn(torch, np, dev, index, replays_m, failures)
     phase("3m gcn-cora at full width", t0)
+
+    t0 = time.perf_counter()
+    phase_contract_auditor(torch, dev, g, index, failures)
+    phase("3n contract auditor", t0)
 
     t0 = time.perf_counter()
     # 3g's and 3k's embedding_bag launches were replayed there, before

@@ -551,10 +551,13 @@ def make_sparse_index_build_step(
 ):
     """The whole offline index build on the mesh.
 
-    Returns ``fn(row_ptr, col_idx, out_deg, key) -> (values f32[rows, l],
-    indices int32[rows, l], kept f32[rows], dropped f32[rows])``, rows in
-    shard order (``P(model, None)``): each model shard sweeps the source
-    chunks ``[chunk_start, chunk_start + chunk_count)`` of its own vertex
+    Returns ``fn(row_ptr, col_idx, out_deg, key) -> (values f32[ep, rows,
+    l], indices int32[ep, rows, l], kept f32[ep, rows], dropped f32[ep,
+    rows])``, each stacked on the model shard axis (the mesh's per-shard
+    layout; the reference's ``P(model, None)`` rows in shard order are its
+    reshape to ``[ep * rows, ...]``), so no array of the step covers the
+    whole ``[n, L]`` index: each model shard sweeps the source chunks
+    ``[chunk_start, chunk_start + chunk_count)`` of its own vertex
     interval.  Each chunk is ``index.sparse_chunk_estimates`` with
     ``r_splits = n_data``: each data replica runs ``r / n_data`` walks
     (respawn mode when ``respawn``) under ``fold_in(chunk_key, s)`` (the
@@ -566,8 +569,8 @@ def make_sparse_index_build_step(
     gather is that merge's concatenation.  Requires ``n_shard`` a multiple
     of ``source_batch`` and ``r`` of the replica count.  ``touch_bits > 0``
     appends a fifth output, the rows' walks-through Bloom filters
-    ``bool[rows, touch_bits]`` OR-merged over the replicas, pad rows all
-    False.
+    ``bool[ep, rows, touch_bits]`` OR-merged over the replicas, pad rows
+    all False.
     """
     ns = cfg.n_shard
     n_split = mesh.data
@@ -590,14 +593,14 @@ def make_sparse_index_build_step(
     def fn(row_ptr, col_idx, out_deg, key):
         g = _walk_graph(row_ptr, col_idx, out_deg)
         dev = g.device
-        values = torch.empty((cfg.ep * rows_out, l), dtype=torch.float32,
+        values = torch.empty((cfg.ep, rows_out, l), dtype=torch.float32,
                              device=dev)
-        indices = torch.empty((cfg.ep * rows_out, l), dtype=torch.int32,
+        indices = torch.empty((cfg.ep, rows_out, l), dtype=torch.int32,
                               device=dev)
-        kept_all = torch.empty((cfg.ep * rows_out,), dtype=torch.float32,
+        kept_all = torch.empty((cfg.ep, rows_out), dtype=torch.float32,
                                device=dev)
         dropped_all = torch.empty_like(kept_all)
-        touch_all = (torch.empty((cfg.ep * rows_out, touch_bits),
+        touch_all = (torch.empty((cfg.ep, rows_out, touch_bits),
                                  dtype=torch.bool, device=dev)
                      if touch_bits else None)
         for me in range(cfg.ep):
@@ -613,8 +616,8 @@ def make_sparse_index_build_step(
                 vals, idxs, kept, dropped_est = est[:4]
                 # pad vertices walked in place: no phantom mass in the index
                 real = (sources < real_n)
-                o = me * rows_out + (j - chunk_start) * source_batch
-                out = slice(o, o + source_batch)
+                o = (j - chunk_start) * source_batch
+                out = (me, slice(o, o + source_batch))
                 values[out] = torch.where(real[:, None], vals, 0.0)
                 indices[out] = torch.where(real[:, None], idxs, 0)
                 kept_all[out] = torch.where(real, kept, 0.0)
@@ -626,3 +629,37 @@ def make_sparse_index_build_step(
         return values, indices, kept_all, dropped_all
 
     return fn
+
+
+# ---------------------------------------------------------------------------
+# Contract-auditor entry point (repro_torch.analysis): the sharded build's
+# step on a 2 x 2 mesh stacked on one device returns its rows stacked per
+# model shard, and no array of its run covers the full [n, L] index — the
+# index stays model-sharded, never replicated.  The graph and shapes are
+# the reference's; a stacked mesh needs no forced device split.
+# ---------------------------------------------------------------------------
+
+from repro_torch.analysis.registry import register_entry_point as _register_ep
+
+
+def _contract_spec_sharded_build_step(device):
+    from repro_torch.analysis.trace import record
+    from repro_torch.distributed import ShardMesh
+    from repro_torch.graphs import synthetic
+
+    mesh = ShardMesh(data=2, model=2, device=device)
+    g = synthetic.erdos_renyi(64, 4.0, seed=21, device=device)
+    cfg = DistConfig(n=64, ep=2)
+    l = 16
+    step = make_sparse_index_build_step(
+        cfg, mesh, r=64, l=l, sketch_l=48, real_n=64, source_batch=16,
+    )
+    out, records = record(step, g.row_ptr, g.col_idx, g.out_deg,
+                          rng.prng_key(3))
+    return dict(records=records, outputs=[tuple(o.shape) for o in out],
+                n=cfg.n, l=l, shards=cfg.ep)
+
+
+_register_ep("sparse-index-build-step", "no-replicated-index",
+             "src/repro_torch/core/distributed_engine.py",
+             _contract_spec_sharded_build_step)

@@ -135,6 +135,7 @@ class BatchQueryEngine:
             + math.log(max(cfg.max_seeds, 1))
         )
         if log_support >= math.log(max(n, 1)):
+            # contract: allow(host-sync): n is the graph's Python int
             support = float(n)
         else:
             support = math.exp(log_support)
@@ -451,7 +452,9 @@ class BatchQueryEngine:
             v, ix = self.query_topk(sources[i:i + step],
                                     key=rng.fold_in(self._base_key, i),
                                     weights=w_chunk)
+            # contract: allow(host-sync): offline runner returns host arrays
             vals[i:i + len(v)] = v.cpu().numpy()
+            # contract: allow(host-sync): offline runner returns host arrays
             idxs[i:i + len(v)] = ix.cpu().numpy()
         elapsed = time.perf_counter() - start
         return dict(
@@ -459,3 +462,82 @@ class BatchQueryEngine:
             queries=len(sources), qps=len(sources) / max(elapsed, 1e-9),
             mode=self.config.mode, top_k=k,
         )
+
+
+# ---------------------------------------------------------------------------
+# Contract-auditor entry points (repro_torch.analysis).
+#
+# dense-state-bound: the sparse query path must hold Q x K state, never an
+# f32[Q, n] dense frontier (the scatter combine is budget-gated separately,
+# so the audit pins the sparse combine path).  The widest legal f32
+# intermediate is the combine candidate row (~K*L wide) plus the push
+# gather area (~K*degree_cap), far under the dense floor Q*n.
+#
+# retrace-guard: the captured serving dispatch must hold exactly one CUDA
+# graph per bucketed pad width — a dtype or input-spelling wobble in the
+# dispatch path (an int64 tensor, a python-int seed list, an np.int32
+# array) would silently double capture time and graph-pool memory.
+# ---------------------------------------------------------------------------
+
+from repro_torch.analysis.registry import register_entry_point as _register_ep
+
+
+def _random_index(n: int, l: int, seed: int, device) -> PPRIndex:
+    r = np.random.default_rng(seed)
+    return PPRIndex(
+        values=torch.as_tensor(r.random((n, l)), dtype=torch.float32,
+                               device=device),
+        indices=torch.as_tensor(r.integers(0, n, (n, l)), dtype=torch.int32,
+                                device=device),
+        l=l, n=n)
+
+
+def _contract_spec_sparse_query(device):
+    from repro_torch.analysis.trace import record
+    from repro_torch.graphs import synthetic
+
+    n, q, l = 1 << 14, 8, 16
+    g = synthetic.erdos_renyi(n, 3.0, seed=7, device=device)
+    engine = BatchQueryEngine(g, _random_index(n, l, 0, g.device), QueryConfig(
+        mode="powerwalk", t_iterations=2, top_k=32, frontier_k=128,
+        frontier_path="sparse", combine_path="sparse",
+    ), device=device)
+    cap = engine.degree_cap()   # primed outside the run (a host read)
+    k = engine.frontier_k
+    sources = torch.arange(q, dtype=torch.int32, device=engine.device)
+    _, records = record(engine.query_topk_async, sources)
+    budget = q * (k * (cap + l + 8) + 1024)
+    return dict(records=records, budget=budget, floor=q * n)
+
+
+def _retrace_spec_fused_topk(device):
+    from repro_torch.graphs import synthetic
+    from repro_torch.serving.batching import BatchingConfig
+
+    n, l = 256, 8
+    g = synthetic.erdos_renyi(n, 4.0, seed=3, device=device)
+    engine = BatchQueryEngine(
+        g, _random_index(n, l, 1, g.device),
+        QueryConfig(mode="powerwalk", t_iterations=1, top_k=8),
+        device=device)
+    widths = BatchingConfig(max_batch=64).padded_shapes()
+
+    def call(width: int, variant: int) -> None:
+        # three spellings of the same batch a production dispatcher might
+        # produce; all must land in one captured graph per width
+        if variant == 0:
+            srcs = np.zeros(width, np.int32)
+        elif variant == 1:
+            srcs = torch.zeros(width, dtype=torch.int64, device=engine.device)
+        else:
+            srcs = [0] * width
+        engine.query_topk_async(srcs, key=engine.dispatch_key(0))
+
+    return dict(cache=engine.graphs, widths=widths, variants=3, call=call,
+                captures=engine.device.type == "cuda")
+
+
+_register_ep("sparse-query-path", "dense-state-bound",
+             "src/repro_torch/core/query.py", _contract_spec_sparse_query)
+_register_ep("fused-topk-serving", "retrace-guard",
+             "src/repro_torch/core/query.py", _retrace_spec_fused_topk)

@@ -64,6 +64,7 @@ def host_step_key_words(key, steps: int, fold: Optional[int] = None
     t))`` (``fold`` folded into the step key first when given: a data
     shard's index), then ``randint``'s own split of ``k_move``, stacked as
     ``(k_term, k_move halves)``."""
+    # contract: allow(host-sync): keys live on the host; no device wait
     step = rng.fold_in(rng.key_data(key).cpu(), torch.arange(steps))
     if fold is not None:
         step = rng.fold_in(step, fold)
@@ -606,8 +607,11 @@ class BuildLedger:
         if self.empty:
             z = np.zeros(0, np.float32)
             return z, z
-        return (self._flat(self._kept).cpu().numpy(),
-                self._flat(self._dropped).cpu().numpy())
+        # contract: allow(host-sync): checkpoint commit writes it to disk
+        kept = self._flat(self._kept).cpu().numpy()
+        # contract: allow(host-sync): checkpoint commit writes it to disk
+        dropped = self._flat(self._dropped).cpu().numpy()
+        return kept, dropped
 
     @classmethod
     def restore(cls, kept, dropped, device="cpu") -> "BuildLedger":
@@ -622,6 +626,7 @@ class BuildLedger:
         entry stream, one host sync."""
         if self.empty:
             return 0.0, 0.0
+        # contract: allow(host-sync): one read of the totals after the build
         kept, dropped = torch.stack([self._flat(self._kept).sum(),
                                      self._flat(self._dropped).sum()]).tolist()
         return kept, dropped

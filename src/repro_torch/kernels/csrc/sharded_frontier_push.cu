@@ -288,6 +288,26 @@ extern "C" int sharded_frontier_push_launch(
 
 constexpr int kGatherBytes = wr::kTileBytes + 4 * wr::kSlotWords;
 
+// The wide path's dynamic shared memory, by tile parameter: a gather
+// block's tile and the row's slot offsets where they fit, a select round's
+// keys (a merge pass takes wr::kMergeBytes).
+inline int wide_gather_smem(int k) {
+  return wr::kTileBytes + 4 * (k + 1 <= wr::kSlotWords ? k + 1 : 0);
+}
+inline int wide_select_smem(int wire_k) {
+  return wr::select_words(wire_k) * 8;
+}
+
+// The bytes the wide launches take at (k, wire_k): gather, merge pass and
+// select, in that order (the contract audit reads them: one source for
+// the sizes).
+extern "C" void sharded_frontier_push_wide_smem(int k, int wire_k,
+                                                int* bytes) {
+  bytes[0] = wide_gather_smem(k);
+  bytes[1] = wr::kMergeBytes;
+  bytes[2] = wide_select_smem(wire_k);
+}
+
 static int allow_wide_smem() {
   static int err = -1;  // once per process
   if (err < 0) {
@@ -323,10 +343,8 @@ extern "C" int sharded_frontier_push_wide_launch(
   wr::tile_map_kernel<<<n_wide, 256, 0, s>>>(wide, cnt, off, rows);
   unsigned long long* cur = (unsigned long long*)keys_a;
   unsigned long long* nxt = (unsigned long long*)keys_b;
-  const int gather_bytes =
-      wr::kTileBytes + 4 * (k + 1 <= wr::kSlotWords ? k + 1 : 0);
   sharded_wide_gather_kernel<<<(unsigned)(total / wr::kTileKeys),
-                               wr::kThreads, gather_bytes, s>>>(
+                               wr::kThreads, wide_gather_smem(k), s>>>(
       (const float*)fv, (const int*)fi, k, (const int*)row_ptr,
       (const int*)col_idx, omc, cnt, off, (const int*)slot_off, rows,
       (float*)g_cv, cur);
@@ -342,7 +360,7 @@ extern "C" int sharded_frontier_push_wide_launch(
       cur, (const float*)g_cv, nxt, rows, off, cnt, total,
       (unsigned)n_shard);
   sharded_wide_select_kernel<<<dim3(n_wide, ep), wr::kThreads,
-                               wr::select_words(wire_k) * 8, s>>>(
+                               wide_select_smem(wire_k), s>>>(
       wide, cnt, off, cur, nxt, ep, n_shard, wire_k, (float*)out_v,
       (int*)out_i);
   return (int)cudaGetLastError();

@@ -296,3 +296,102 @@ def sharded_frontier_push_cuda(
     )
     build.check_launch(status, "sharded_frontier_push")
     return out_v, out_i
+
+
+# ---------------------------------------------------------------------------
+# Contract-auditor entry points (repro_torch.analysis): register both push
+# kernels under the hbm-residency rule.  The builders are lazy — they
+# construct tiny synthetic fixtures only when `python -m
+# repro_torch.analysis` runs the rule — and draw the reference's fixtures.
+# ---------------------------------------------------------------------------
+
+from repro_torch.analysis.registry import register_entry_point as _register_ep
+
+
+def _contract_spec_frontier_push(device):
+    import functools
+
+    import numpy as np
+
+    from repro_torch.core import verd as verd_mod
+    from repro_torch.graphs import synthetic
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+    n, q, k, k_out = 2048, 16, 8, 16
+    g = synthetic.erdos_renyi(n, 6.0, seed=7, device=device)
+    cap = verd_mod.resolve_degree_cap(g)
+    dev = g.device
+    srcs = torch.as_tensor(rng.integers(0, n, q), dtype=torch.int32,
+                           device=dev)
+    fv = torch.as_tensor(rng.random((q, k)), dtype=torch.float32, device=dev)
+    fi = torch.as_tensor(rng.integers(0, n, (q, k)), dtype=torch.int32,
+                         device=dev)
+    # the one-shot push: one chunk of every slot, the dangling mass after it
+    run_v = torch.zeros((q, 1), dtype=torch.float32, device=dev)
+    return dict(
+        kernel="frontier_push",
+        fn=functools.partial(
+            ops.frontier_push, c=0.15, degree_cap=cap, hub_split_degree=0,
+            slots=k, k_out=k_out, run_first=False),
+        args=(fv, fi, run_v, srcs[:, None], g.row_ptr, g.out_deg, g.col_idx),
+        operands={"col_idx": 6},
+        hbm_shapes=[(g.m,)],
+        dynamic_smem=lambda lib, args, kwargs: {"frontier_push_kernel": 0},
+    )
+
+
+def _sharded_dynamic_smem(lib, args, kwargs):
+    """The wide path's planned bytes at the launch's (k, wire_k), from the
+    library's own planner."""
+    import ctypes
+
+    fn = lib.sharded_frontier_push_wide_smem
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = None
+    sizes = (ctypes.c_int * 3)()
+    fn(args[0].shape[1], kwargs["wire_k"], ctypes.addressof(sizes))
+    return dict(zip(("sharded_wide_gather_kernel", "merge_pass_kernel",
+                     "sharded_wide_select_kernel"), sizes))
+
+
+def _contract_spec_sharded_push(device):
+    import functools
+
+    import numpy as np
+
+    from repro_torch.core import verd as verd_mod
+    from repro_torch.core.distributed_engine import (DistConfig,
+                                                     build_sharded_graph)
+    from repro_torch.graphs import synthetic
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+    n, q, k, wire_k = 2048, 16, 8, 8
+    g = synthetic.erdos_renyi(n, 6.0, seed=7, device=device)
+    cap = verd_mod.resolve_degree_cap(g)
+    cfg = DistConfig(n=n, ep=2, degree_cap=cap)
+    slabs = build_sharded_graph(g, cfg, device=g.device)
+    ns = cfg.n_shard
+    fv = torch.as_tensor(rng.random((q, k)), dtype=torch.float32,
+                         device=g.device)
+    fi = torch.as_tensor(np.clip(rng.integers(0, n, (q, k)), 0, ns - 1),
+                         dtype=torch.int32, device=g.device)
+    return dict(
+        kernel="sharded_frontier_push",
+        fn=functools.partial(
+            ops.sharded_frontier_push, c=0.15, degree_cap=cap, ep=2,
+            n_shard=ns, wire_k=wire_k),
+        args=(fv, fi, slabs.row_ptr[0], slabs.col_idx[0]),
+        operands={"col_idx": 3},
+        hbm_shapes=[(slabs.col_idx.shape[1],)],
+        dynamic_smem=_sharded_dynamic_smem,
+    )
+
+
+_register_ep("frontier-push", "hbm-residency",
+             "src/repro_torch/kernels/frontier_push.py",
+             _contract_spec_frontier_push)
+_register_ep("sharded-frontier-push", "hbm-residency",
+             "src/repro_torch/kernels/frontier_push.py",
+             _contract_spec_sharded_push)

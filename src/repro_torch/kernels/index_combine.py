@@ -362,3 +362,58 @@ def launch_sparse(lib, plan: CombinePlan, sv, si, fv, fi, vals, idx,
                 g_p, out_v.data_ptr(), out_i.data_ptr(), stream)
     build.check_launch(status, "index_combine_sparse")
     return out_v, out_i
+
+
+# ---------------------------------------------------------------------------
+# Contract-auditor entry point (repro_torch.analysis): the sparse combine's
+# two [n, L] index arrays reach the kernel as the index's own global
+# memory, only gathered from (hbm-residency).
+# ---------------------------------------------------------------------------
+
+from repro_torch.analysis.registry import register_entry_point as _register_ep
+
+
+def _combine_dynamic_smem(lib, args, kwargs):
+    """A hash block's planned bytes at the launch's shapes (the sort path
+    takes none), from the library's own planner."""
+    sv, _, fv, _, vals, _ = args
+    plan = combine_plan(sv.shape[1], fv.shape[1], vals.shape[1],
+                        kwargs["k_out"], kernel_hash_smem(lib))
+    return ({"index_combine_hash_kernel": plan.smem}
+            if plan.path == "hash" else {})
+
+
+def _contract_spec_index_combine(device):
+    import functools
+
+    import numpy as np
+
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    n, l, q, k, s_w, k_out = 600, 16, 16, 8, 8, 16
+
+    def t(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    vals = t(rng.random((n, l)), torch.float32)
+    idx = t(rng.integers(0, n, (n, l)), torch.int32)
+    sv = t(rng.random((q, s_w)), torch.float32)
+    si = t(rng.integers(0, n, (q, s_w)), torch.int32)
+    fv = t(rng.random((q, k)), torch.float32)
+    fi = t(rng.integers(0, n, (q, k)), torch.int32)
+    return dict(
+        kernel="index_combine_sparse",
+        fn=functools.partial(ops.index_combine_sparse, k_out=k_out),
+        args=(sv, si, fv, fi, vals, idx),
+        operands={"vals": 4, "idx": 5},
+        hbm_shapes=[(n, l)],
+        dynamic_smem=_combine_dynamic_smem,
+    )
+
+
+_register_ep("index-combine-sparse", "hbm-residency",
+             "src/repro_torch/kernels/index_combine.py",
+             _contract_spec_index_combine)

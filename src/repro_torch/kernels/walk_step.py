@@ -83,3 +83,39 @@ def walk_step_cuda(cursors, sources, u, row_ptr, out_deg, col_idx):
     )
     build.check_launch(status, "walk_step")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Contract-auditor entry point (repro_torch.analysis): col_idx reaches the
+# kernel as the graph's own global memory, only gathered from, and no
+# block's shared memory depends on the graph (hbm-residency).
+# ---------------------------------------------------------------------------
+
+from repro_torch.analysis.registry import register_entry_point as _register_ep
+
+
+def _contract_spec_walk_step(device):
+    import numpy as np
+
+    from repro_torch.graphs import synthetic
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+    n, w = 4096, 256
+    g = synthetic.erdos_renyi(n, 5.0, seed=13, device=device)
+    cur = torch.as_tensor(rng.integers(0, n, w), dtype=torch.int32,
+                          device=g.device)
+    src = torch.as_tensor(rng.integers(0, n, w), dtype=torch.int32,
+                          device=g.device)
+    u = torch.as_tensor(rng.random(w), dtype=torch.float32, device=g.device)
+    return dict(
+        kernel="walk_step", fn=ops.walk_step,
+        args=(cur, src, u, g.row_ptr, g.out_deg, g.col_idx),
+        operands={"col_idx": 5},
+        hbm_shapes=[(g.m,)],
+        dynamic_smem=lambda lib, args, kwargs: {"walk_step_kernel": 0},
+    )
+
+
+_register_ep("walk-step", "hbm-residency",
+             "src/repro_torch/kernels/walk_step.py", _contract_spec_walk_step)

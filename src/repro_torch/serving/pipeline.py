@@ -85,6 +85,7 @@ class PendingBatch:
 
     def wait(self) -> None:
         if self.event is not None:
+            # contract: allow(host-sync): blocking harvest: drain, full queue
             self.event.synchronize()
 
 
@@ -231,6 +232,7 @@ class ServingPipeline:
         if self.cfg.dispatch == "legacy":
             vals, idx = engine.query_topk(verts, weights=weights)
             if vals.is_cuda:
+                # contract: allow(host-sync): legacy dispatch is synchronous
                 torch.cuda.synchronize(vals.device)
         else:
             key = engine.dispatch_key(self._seq) if engine.uses_key else None
@@ -309,7 +311,9 @@ class ServingPipeline:
     def _complete(self, ticket: PendingBatch) -> CompletedBatch:
         # the ticket's event has completed: its host buffers are filled
         n_real = len(ticket.requests)
+        # contract: allow(host-sync): harvest after the event: host values
         vals = ticket.values[:n_real].numpy().copy()
+        # contract: allow(host-sync): harvest after the event: host indices
         idx = ticket.indices[:n_real].numpy().copy()
         self.stats["harvested"] += 1
         if ticket.ringed:  # copied out: the pair serves the next dispatch

@@ -514,3 +514,46 @@ def test_captured_query_on_card(cuda, check):
     kernels on each replay; and a service through graphs that answers,
     after ``apply_updates``, like a fresh service on the new index."""
     assert chip_smoke.CAPTURE_CHECKS[check](torch, np, cuda)
+
+
+# -- the contract auditor's card half (chip_smoke phase 3n) ------------------
+
+@pytest.fixture(scope="module")
+def audit_main_graph():
+    """rmat(14) and an index of L = 64: hbm-residency's main graph here
+    (phase 3n passes 3b's rmat(20))."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch import rng
+    from repro_torch.core.index import build_index
+
+    g = tsyn.rmat(14, avg_deg=10.0, seed=0, device="cuda")
+    index, _ = build_index(g, r=4, l=64, key=rng.prng_key(0),
+                           source_batch=4096, device="cuda")
+    return g, index
+
+
+@pytest.mark.cuda
+def test_contract_auditor_passes_on_card(cuda, audit_main_graph):
+    """Every rule PASS with a target audited and none SKIP: the traced
+    rules on the CUDA path, retrace-guard on real captures, hbm-residency
+    on the built libraries and the launches' operands."""
+    from repro_torch.analysis import rules
+
+    results = rules.run_rules(device="cuda", main_graph=audit_main_graph)
+    assert chip_smoke.contract_audit_failures(results, rules.RULES) == []
+    assert [r.rule for r in results] == list(rules.RULES)
+
+
+@pytest.mark.cuda
+def test_static_shared_bytes_read_from_the_libraries(cuda):
+    """cuobjdump reads each kernel's static shared memory: the shared-
+    memory folds hold pw::Smem (32 KB of keys), walk_step none."""
+    from repro_torch.analysis import trace
+    from repro_torch.kernels import build
+
+    build.build(["walk_step", "frontier_push"])
+    walk = trace.static_smem_bytes(build.library_path("walk_step"))
+    push = trace.static_smem_bytes(build.library_path("frontier_push"))
+    assert walk == {"walk_step_kernel": 0}
+    assert push["frontier_push_kernel"] >= 32 * 1024

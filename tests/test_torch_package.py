@@ -19,6 +19,7 @@ from repro.configs import dlrm_rm2 as jdlrm_cfg
 from repro.graphs import synthetic as jsyn
 from repro.models.recsys import dlrm as jdlrm
 from repro_torch import convert, rng
+from repro_torch.analysis import __main__ as analysis_cli
 from repro_torch.configs import dlrm_rm2 as tdlrm_cfg
 from repro_torch.configs import get_arch
 from repro_torch.core import index as tindex
@@ -110,6 +111,8 @@ def test_default_device_entry_points_raise_without_gpu(no_gpu, tmp_path):
                                  get_arch("gcn-cora").shape("molecule")), 0)
     with pytest.raises(RuntimeError, match="cuda"):
         tsyn.batched_molecules(2, 3, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        analysis_cli.main([])
 
 
 def test_serve_cli_runs_on_cpu(capsys):
