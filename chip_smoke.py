@@ -231,6 +231,16 @@ Phases, each timed and printed:
    shapes, the same on both graphs and within the opt-in limit, and the
    operands the caller's own storage; every rule PASS with a target
    audited, none SKIP, no unsuppressed finding, and the phase's seconds;
+3o. the dry-run (``repro_torch.launch.dryrun``) on meta on the card's
+   host: every registry cell at its published size on one card and the
+   four PPR engine cells on the ``pod`` (16 x 16) and ``multipod``
+   (32 x 16) meshes, against ``Hardware.from_device()``, with its seconds
+   and its report; every record ``ok`` and every cell an earlier phase ran
+   uncut predicted to fit (gated); then each cell that 3g, 3k, 3l and 3m
+   ran, traced again as run (its batch, f32 parameters), its predicted
+   peak beside the measured ``max_memory_allocated`` above the phase's
+   base and its roofline time beside the measured p50 ms (printed, not
+   gated);
 2b. replay the inputs of each kernel's first launch on its path (and of
    ``ell_spmm``'s second, a batch's push of a spread-out frontier, and
    its ``dense`` variant, the last push of 3e's ``pi``, of
@@ -451,6 +461,16 @@ UPD_SEED = 5                   # the bench's seed: edge pool and key
 UPD_REQUESTS = 4096
 LOADGEN_REQUESTS = 16384       # phase 3j: each open-loop run and the stream
 LOADGEN_SEED = 3
+# phase 3o: each cell 3g, 3k, 3l and 3m ran, (arch, shape) -> its batch,
+# p50 ms and peak device memory (what its run allocated over what was held
+# before it, plus the arguments it held then), set beside the dry-run's
+# prediction for the same batch
+MEASURED = {}
+
+
+def measured(arch, shape, batch, ms, peak_above):
+    MEASURED[(arch, shape)] = dict(batch=int(batch), ms=float(ms),
+                                   peak=int(peak_above))
 
 
 def card_name_and_power_limit():
@@ -2206,7 +2226,12 @@ def phase_recsys(torch, np, dev, arch, plan, profiled, failures):
 
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
+    model_peak = torch.cuda.max_memory_allocated()
     for name, (n_batches, warm, reps) in plan.items():
+        # each shape's own peak, its batches included, for phase 3o
+        torch.cuda.synchronize()
+        shape_base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         b = bundles[name]
         kind = spec.shape(name).kind
         per_forward = ZOO_LOOKUPS[(arch, kind)]
@@ -2238,6 +2263,11 @@ def phase_recsys(torch, np, dev, arch, plan, profiled, failures):
             failures.append(f"{arch} {name}: output shape "
                             f"{tuple(out.shape)}, want {want_shape}")
         ms = np.array(ms)
+        shape_peak = torch.cuda.max_memory_allocated()
+        model_peak = max(model_peak, shape_peak)
+        measured(arch, name, spec.shape(name).global_batch,
+                 np.percentile(ms, 50),
+                 shape_peak - shape_base + tree_bytes(params))
         tflops = b.model_flops_per_step / (np.median(ms) / 1e3) / 1e12
         print(f"  {name}: {reps} forwards of {examples}: p50 "
               f"{np.percentile(ms, 50):.4f} ms, p99 "
@@ -2267,7 +2297,7 @@ def phase_recsys(torch, np, dev, arch, plan, profiled, failures):
         else:
             p99_batch = batches[0]
     del out
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(model_peak, torch.cuda.max_memory_allocated())
     print(f"  peak device memory in 3g ({arch}): {peak / 1e9:.2f} GB "
           f"({(peak - base) / 1e9:.2f} GB above the {base / 1e9:.2f} GB "
           f"held before it)")
@@ -2453,6 +2483,8 @@ def phase_lm(torch, np, dev, failures):
         failures.append(f"3k prefill: logits {tuple(out.shape)}")
     ms = np.array(ms)
     sec = np.median(ms) / 1e3
+    measured(LM_ARCH, "prefill_32k", b, np.percentile(ms, 50),
+             torch.cuda.max_memory_allocated() - base)
     print(f"  prefill_32k: {reps} forwards of [{b}, {s}]: "
           f"{', '.join(f'{x:.1f}' for x in ms)} ms; "
           f"{b * s / sec:.1f} tokens/s; model {flops / 1e12:.3f} TFLOP "
@@ -2475,6 +2507,8 @@ def phase_lm(torch, np, dev, failures):
         (b_ref, _), _ = dec.batch_spec["tokens"]
         b = LM_BATCH[shape]
         s = dec.cache_spec["k"][0][2]
+        torch.cuda.synchronize()
+        shape_base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
         cache = fill_cache(dec.make_cache(b), gen)
@@ -2519,6 +2553,8 @@ def phase_lm(torch, np, dev, failures):
             failures.append(f"3k {shape}: length "
                             f"{int(state['cache']['length'])}, want {s - 1}")
         p50 = np.percentile(ms, 50)
+        measured(LM_ARCH, shape, b, p50, torch.cuda.max_memory_allocated()
+                 - shape_base + tree_bytes(params))
         print(f"  {shape}: {reps} steps: p50 {p50:.3f} ms, p99 "
               f"{np.percentile(ms, 99):.3f} ms, mean {ms.mean():.3f} ms; "
               f"{b / (ms.mean() / 1e3):.1f} tokens/s; the cache read at "
@@ -2835,6 +2871,8 @@ def train_cell(torch, np, dev, arch, failures):
     peak = torch.cuda.max_memory_allocated()
     ms = np.array(ms)
     sec = np.median(ms) / 1e3
+    measured(arch, shape, b if lm else examples, np.percentile(ms, 50),
+             peak - base)
     print(f"  {arch}: losses {', '.join(f'{x:.6f}' for x in losses)}; "
           f"{reps} timed steps {', '.join(f'{x:.3f}' for x in ms)} ms "
           f"(p50 {np.percentile(ms, 50):.3f}); "
@@ -3117,6 +3155,11 @@ def gnn_cell(torch, np, dev, shape, results, failures):
     warm, reps = GNN_PLAN
     losses, ms, held = [], [], []
     for j in range(warm + reps):
+        if j == warm:  # phase 3o's peak: the timed steps', none recorded
+            torch.cuda.synchronize()
+            pre_peak = torch.cuda.max_memory_allocated()
+            step_base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         rec = (every_launch(ops) if j == 0 and shape == GNN_REPLAY
                else contextlib.nullcontext([]))
         with rec as seen:
@@ -3132,10 +3175,15 @@ def gnn_cell(torch, np, dev, shape, results, failures):
         if j >= warm:
             ms.append(ev0.elapsed_time(ev1))
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
+    step_peak = torch.cuda.max_memory_allocated()
+    peak = max(pre_peak, step_peak)
     counts = ops.launch_counts()
     ms = np.array(ms)
     sec = np.median(ms) / 1e3
+    measured(GNN_ARCH, shape, 0, np.percentile(ms, 50),
+             step_peak - step_base + sum(
+                 t.numel() * t.element_size()
+                 for t in tree_leaves((params, state, batch))))
     print(f"  {shape}: losses {', '.join(f'{v:.6f}' for v in losses)}; "
           f"{reps} timed steps {', '.join(f'{v:.3f}' for v in ms)} ms (p50 "
           f"{np.percentile(ms, 50):.3f}); {nodes / sec:.1f} nodes/s, "
@@ -3340,6 +3388,72 @@ def phase_contract_auditor(torch, dev, g, index, failures):
     print(report.render_text(results))
     failures += [f"3n contract auditor: {x}"
                  for x in contract_audit_failures(results, rules.RULES)]
+
+
+# -- phase 3o: the dry-run and the roofline ------------------------------------
+
+def phase_dryrun(torch, failures):
+    """Phase 3o: the whole dry-run on meta (nothing allocated on the card)
+    against ``Hardware.from_device()``: every registry cell on one card
+    and the PPR engine cells on both production meshes, its seconds and
+    its report.  Gates: every record ``ok``; every cell an earlier phase
+    ran at its published batch (``MEASURED``) predicted to fit.  Then each
+    measured cell traced again as it ran (its batch, the f32 parameters
+    the phases hold), its peak and roofline time beside the measurement."""
+    from repro_torch.configs import all_cells, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.roofline import analysis as roof
+    from repro_torch.roofline import report
+
+    hw = roof.Hardware.from_device()
+    print(f"3o: {card_name_and_power_limit()}; the roofline's rates are the "
+          f"datasheet's at {hw.power_limit_w:.0f} W: "
+          f"{hw.peak_flops_tensor / 1e12:.1f} TFLOP/s bf16 tensor cores, "
+          f"{hw.peak_flops_other / 1e12:.1f} f32, "
+          f"{hw.hbm_bw / 1e12:.2f} TB/s HBM, {hw.link_bw / 1e9:.0f} GB/s "
+          f"NVLink a direction; capacity {hw.hbm_bytes / 1e9:.2f} GB "
+          f"(total_memory)")
+    out_dir = tempfile.mkdtemp(prefix="dryrun-")
+    t1 = time.perf_counter()
+    recs = [dryrun.run_cell(a, s, out_dir, "card", hw=hw)
+            for a, s in all_cells()]
+    t_cells = time.perf_counter() - t1
+    for tag, multi in (("pod", False), ("multipod", True)):
+        mesh = make_production_mesh(multi_pod=multi)
+        recs += [dryrun.run_ppr_cell(name, mesh, out_dir, tag, hw=hw)
+                 for name in dryrun.PPR_CELLS]
+    print(f"3o: {len(recs)} records in {time.perf_counter() - t1:.3f} s "
+          f"(the {len(all_cells())} model cells {t_cells:.3f} s)")
+    print(report.render(report.load(out_dir)))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    failures += [f"3o: {r['arch']} {r['shape']} {r['mesh_tag']}: "
+                 f"{r['error'][:120]}" for r in recs if not r.get("ok")]
+    fits = {(r["arch"], r["shape"]): r.get("hbm_fits") for r in recs
+            if r.get("mesh_tag") == "card"}
+    for (arch, shape), m in sorted(MEASURED.items()):
+        uncut = m["batch"] == get_arch(arch).shape(shape).global_batch
+        if uncut and not fits.get((arch, shape)):
+            failures.append(f"3o: {arch} {shape} ran uncut in its phase but "
+                            "is predicted not to fit")
+        try:
+            cost, ctx = dryrun.trace_cell(arch, shape, batch=m["batch"] or
+                                          None, serve_dtype=None)
+        except Exception as e:  # noqa: BLE001 - printed, not gated
+            print(f"3o as run: {arch} {shape}: {type(e).__name__}: {e}")
+            continue
+        terms = roof.roofline_from_counts(
+            cost, hw=hw, model_flops_total=ctx["model_flops"])
+        used = roof.fit_check(terms, hw)[1]
+        bound = max(terms.compute_s, terms.memory_s, terms.collective_s)
+        print(f"3o as run: {arch} {shape} B = {ctx['global_batch']}"
+              f"{'' if uncut else ' (cut)'}: peak predicted "
+              f"{used / 1e9:.2f} GB, measured {m['peak'] / 1e9:.2f} GB "
+              f"(max_memory_allocated over its run above what was held "
+              f"before, plus its arguments); roofline "
+              f"{bound * 1e3:.3f} ms ({terms.dominant}: compute "
+              f"{terms.compute_s * 1e3:.3f}, memory "
+              f"{terms.memory_s * 1e3:.3f}), measured p50 {m['ms']:.3f} ms")
 
 
 def check_small_gnn(torch, np, dev, shape):
@@ -4501,6 +4615,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_contract_auditor(torch, dev, g, index, failures)
     phase("3n contract auditor", t0)
+
+    t0 = time.perf_counter()
+    phase_dryrun(torch, failures)
+    phase("3o dry-run and roofline", t0)
 
     t0 = time.perf_counter()
     # 3g's and 3k's embedding_bag launches were replayed there, before

@@ -137,6 +137,20 @@ class ShardedGraph:
     edge_w: torch.Tensor
     dangling: torch.Tensor
 
+    @staticmethod
+    def specs(cfg: DistConfig, m_shard: int, device="meta") -> "ShardedGraph":
+        """The four slabs as empty tensors of their shapes and dtypes (the
+        reference's ``ShapeDtypeStruct`` specs): on ``meta`` for a
+        dry-run, which allocates nothing."""
+        dev = resolve_device(device)
+        m_w = m_shard if cfg.exchange == "dense" else 1
+        empty = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+        return ShardedGraph(
+            row_ptr=empty((cfg.ep, cfg.n_shard + 1), torch.int32),
+            col_idx=empty((cfg.ep, m_shard), torch.int32),
+            edge_w=empty((cfg.ep, m_w), torch.float32),
+            dangling=empty((cfg.ep, cfg.n_shard), torch.float32))
+
 
 def build_sharded_graph(graph: Graph, cfg: DistConfig,
                         device="cuda") -> ShardedGraph:
@@ -255,8 +269,10 @@ def _make_verd_tile_step_dense(cfg: DistConfig, mesh):
     """Dense slab exchange: ``O(Q x N)`` wire bytes per iteration."""
     ep, ns, c = cfg.ep, cfg.n_shard, cfg.c
 
-    def wire(x):
-        return x.to(cfg.wire_dtype).to(torch.float32)
+    def wire_a2a(x):
+        # the cast goes before the exchange, as the reference's does: the
+        # wire carries wire_dtype
+        return mesh.all_to_all(x.to(cfg.wire_dtype)).to(torch.float32)
 
     def step(slabs: ShardedGraph, sources, index_vals, index_idx):
         dev = mesh.device
@@ -280,8 +296,7 @@ def _make_verd_tile_step_dense(cfg: DistConfig, mesh):
                 # top-k per (query, owner bucket)
                 buckets = [frontier_mod.topk_dense(x, cfg.compress_k)
                            for x in contrib]
-                vals = wire(mesh.all_to_all(torch.stack(
-                    [b[0] for b in buckets])))
+                vals = wire_a2a(torch.stack([b[0] for b in buckets]))
                 idx = mesh.all_to_all(torch.stack([b[1] for b in buckets]))
                 new_f = []
                 for e in range(ep):
@@ -291,7 +306,7 @@ def _make_verd_tile_step_dense(cfg: DistConfig, mesh):
                         (qi.reshape(-1), idx[e].reshape(-1).long()),
                         vals[e].reshape(-1), accumulate=True))
             else:
-                recv = wire(mesh.all_to_all(torch.stack(contrib)))
+                recv = wire_a2a(torch.stack(contrib))
                 new_f = [recv[e].sum(dim=1) for e in range(ep)]
             f = [(1.0 - c) * new_f[e] + (1.0 - c) * dm[:, None] * onehot[e]
                  for e in range(ep)]
@@ -309,7 +324,7 @@ def _make_verd_tile_step_dense(cfg: DistConfig, mesh):
                 fw = f[e][:, v0:v0 + v_chunk, None] * iv[None, :, :]
                 acc.index_add_(1, ii.reshape(-1).long(), fw.reshape(qt, -1))
             contrib.append(acc.reshape(qt, ep, ns))
-        recv = wire(mesh.all_to_all(torch.stack(contrib)))
+        recv = wire_a2a(torch.stack(contrib))
         k = min(cfg.top_k, ns)
         lv, gi = [], []
         for e in range(ep):
@@ -341,8 +356,8 @@ def _make_verd_tile_step_sparse(cfg: DistConfig, mesh):
     kw = cfg.resolved_wire_k
     kc = cfg.resolved_combine_wire_k
 
-    def wire(x):
-        return x.to(cfg.wire_dtype).to(torch.float32)
+    def wire_a2a(x):
+        return mesh.all_to_all(x.to(cfg.wire_dtype)).to(torch.float32)
 
     def step(slabs: ShardedGraph, sources, index_vals, index_idx):
         dev = mesh.device
@@ -364,7 +379,7 @@ def _make_verd_tile_step_sparse(cfg: DistConfig, mesh):
                 fv[e], fi[e], slabs.row_ptr[e], slabs.col_idx[e], c=c,
                 degree_cap=cfg.degree_cap, ep=ep, n_shard=ns, wire_k=kw,
                 hub_split_degree=cfg.hub_split_degree) for e in range(ep)]
-            bv = wire(mesh.all_to_all(torch.stack([p[0] for p in pushed])))
+            bv = wire_a2a(torch.stack([p[0] for p in pushed]))
             bi = mesh.all_to_all(torch.stack([p[1] for p in pushed]))
             for e in range(ep):
                 cand_v = torch.cat([bv[e].reshape(qt, -1),
@@ -384,7 +399,7 @@ def _make_verd_tile_step_sparse(cfg: DistConfig, mesh):
             contrib = (fv[e][..., None] * iv).reshape(qt, -1)
             buckets.append(frontier_mod.bucket_by_owner(
                 contrib, ii.reshape(qt, -1), ep, ns, kc))
-        cv = wire(mesh.all_to_all(torch.stack([b[0] for b in buckets])))
+        cv = wire_a2a(torch.stack([b[0] for b in buckets]))
         ci = mesh.all_to_all(torch.stack([b[1] for b in buckets]))
 
         # local entries: accumulated s + received combine partials (both

@@ -10,7 +10,9 @@ def resolve_device(device="cuda") -> torch.device:
 
     The entry points default to ``"cuda"`` so a missing card is an error,
     never a silent fall back to the CPU: the plain PyTorch paths run only
-    when the caller asks for ``device="cpu"``.
+    when the caller asks for ``device="cpu"``.  ``"meta"`` is admitted as
+    a device that computes nothing: its tensors carry shapes and dtypes
+    only, which is what the dry-run (``launch/dryrun.py``) traces.
     """
     d = torch.device(device)
     if d.type == "cuda" and not torch.cuda.is_available():
@@ -18,6 +20,16 @@ def resolve_device(device="cuda") -> torch.device:
             "device 'cuda' requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch path"
         )
-    if d.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    if d.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r} (cuda, cpu or meta)")
     return d
+
+
+def seeded_generator(device: torch.device, seed: int) -> torch.Generator:
+    """A generator seeded with ``seed`` for draws on ``device``.  The meta
+    device has no generator of its own and draws nothing, so its draws take
+    a CPU generator; a caller that makes tensors on ``gen.device`` makes
+    them on the CPU then, unless the dry-run's factory mode sends them to
+    meta (``launch/dryrun.py``)."""
+    dev = "cpu" if device.type == "meta" else device
+    return torch.Generator(device=dev).manual_seed(seed)

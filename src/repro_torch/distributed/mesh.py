@@ -6,6 +6,18 @@ leading stacked shard axis, the engine runs each shard's body in a loop
 over that axis, and each collective it uses is one tensor op on the axis.
 The collectives are methods, so that a mesh over ``torch.distributed``
 process groups (one shard per rank) can take this one's place.
+
+Under a ``roofline.cost.CostCounter`` each collective charges its wire
+bytes under the reference's kind (``all-to-all``, ``all-reduce``,
+``all-gather``), summed over the ``S`` stacked shards it joins, in place of
+its tensor op: each shard receives its output block of an ``all_to_all``
+and the whole output of a ``psum`` or a tiled ``all_gather``.  Every shard
+of a stacked mesh runs the same shapes, so a per-device figure of a
+stacked step is its total divided by the shards the step stacks: the mesh
+size where every ``(data, model)`` shard runs (the walk counts), the
+``model`` size where the data replicas repeat one tile (the VERD tile,
+whose sources every replica shares, as the reference's replicated ``P()``
+input).
 """
 
 from __future__ import annotations
@@ -16,11 +28,13 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.roofline import cost
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardMesh:
-    """``data x model`` shards on ``device`` (default ``"cuda"``)."""
+    """``data x model`` shards on ``device`` (default ``"cuda"``; ``"meta"``
+    for a dry-run, which computes nothing)."""
 
     data: int = 1
     model: int = 1
@@ -46,13 +60,24 @@ class ShardMesh:
         per-shard ``[Q, S, ...]`` blocks stacked as ``[S, Q, S, ...]``:
         shard ``r`` receives from shard ``s`` the block ``s`` addressed to
         ``r``, i.e. ``out[r, :, s] = x[s, :, r]``."""
-        return x.transpose(0, 2).contiguous()
+        with cost.uncharged():
+            out = x.transpose(0, 2).contiguous()
+        cost.charge_collective("all-to-all", cost.tensor_bytes(out))
+        return out
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of the stacked per-shard values ``[S, ...]``."""
-        return x.sum(dim=0)
+        with cost.uncharged():
+            out = x.sum(dim=0)
+        cost.charge_collective("all-reduce",
+                               x.shape[0] * cost.tensor_bytes(out))
+        return out
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """``all_gather(axis=1, tiled=True)`` of per-shard ``[Q, k]``
         stacked as ``[S, Q, k]``: ``[Q, S * k]`` in shard order."""
-        return x.transpose(0, 1).reshape(x.shape[1], -1)
+        with cost.uncharged():
+            out = x.transpose(0, 1).reshape(x.shape[1], -1)
+        cost.charge_collective("all-gather",
+                               x.shape[0] * cost.tensor_bytes(out))
+        return out

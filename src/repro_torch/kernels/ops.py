@@ -2,7 +2,13 @@
 
 A CUDA tensor goes to the hand-written kernel (or the wrapper raises); a
 CPU tensor goes to the plain PyTorch version.  There is no fallback from
-one to the other.  Each wrapper adds one to its launch count where it
+one to the other.  A meta tensor under an active
+``roofline.cost.CostCounter`` (the dry-run) computes nothing on any path:
+the wrapper returns empty meta outputs of its plain version's shapes and
+dtypes and charges the counter the reference's rule for a custom call,
+its operands and outputs once and no FLOPs.  That charge is no bound of
+the kernel (it counts the whole CSR or table a gather reads in part), and
+it counts no launch.  A meta tensor with no counter is refused.  Each wrapper adds one to its launch count where it
 launches its kernel and nowhere else (:func:`launch_counts`, the
 counterpart of ``repro.kernels.ops.kernel_invocations``), so a run can
 show that its main path went through the kernels.
@@ -40,6 +46,7 @@ from repro_torch.kernels import embedding_bag as _bag
 from repro_torch.kernels import frontier_push as _push
 from repro_torch.kernels import index_combine as _comb
 from repro_torch.kernels import walk_step as _walk
+from repro_torch.roofline import cost as _cost
 
 KERNELS = ("walk_step", "frontier_push", "index_combine_sparse", "ell_spmm",
            "index_combine", "sharded_frontier_push", "embedding_bag",
@@ -104,14 +111,26 @@ def _launched(name: str, args: tuple, kwargs: dict,
         _captured[tag] = (args, kwargs)
 
 
-def _route(name: str, tensor: torch.Tensor) -> bool:
-    """True for the CUDA kernel, False for the plain version; raises on
-    any other device."""
+def _route(name: str, tensor: torch.Tensor) -> str:
+    """``"cuda"`` for the kernel, ``"cpu"`` for the plain version,
+    ``"meta"`` for a dry-run's charge (under an active cost counter only);
+    raises on any other device."""
     if tensor.is_cuda:
-        return True
+        return "cuda"
     if tensor.device.type == "cpu":
-        return False
+        return "cpu"
+    if tensor.device.type == "meta" and _cost.active() is not None:
+        return "meta"
     raise ValueError(f"{name}: unsupported device {tensor.device}")
+
+
+def _charged(inputs, *outputs):
+    """The meta branch: empty meta outputs ``(shape, dtype)``, the
+    operands and outputs charged once to the active counter."""
+    out = tuple(torch.empty(shape, dtype=dt, device="meta")
+                for shape, dt in outputs)
+    _cost.charge_custom(inputs, out)
+    return out if len(out) > 1 else out[0]
 
 
 def walk_step(cursors, sources, u, row_ptr, out_deg, col_idx):
@@ -122,9 +141,13 @@ def walk_step(cursors, sources, u, row_ptr, out_deg, col_idx):
         sources = sources.reshape(cursors.shape[:-1])
     if col_idx.shape[0] == 0:  # edgeless graph: every walk jumps home
         return _walk.walk_sources(cursors, sources).clone()
-    if not _route("walk_step", cursors):
+    route = _route("walk_step", cursors)
+    if route == "cpu":
         return _walk.walk_step_plain(
             cursors, sources, u, row_ptr, out_deg, col_idx)
+    if route == "meta":
+        return _charged((cursors, sources, u, row_ptr, out_deg, col_idx),
+                        (cursors.shape, torch.int32))
     args = (cursors.contiguous(), sources.contiguous(), u.contiguous(),
             row_ptr, out_deg, col_idx)
     out = _walk.walk_step_cuda(*args)
@@ -143,9 +166,14 @@ def frontier_push(
     kwargs = dict(c=c, degree_cap=degree_cap,
                   hub_split_degree=hub_split_degree, slots=slots,
                   k_out=k_out, run_first=run_first, sorted_view=sorted_view)
-    if not _route("frontier_push", fv):
+    route = _route("frontier_push", fv)
+    if route == "cpu":
         return _push.frontier_push_plain(
             fv, fi, run_v, run_i, row_ptr, out_deg, col_idx, **kwargs)
+    if route == "meta":
+        q = fv.shape[0]
+        return _charged((fv, fi, run_v, run_i, row_ptr, out_deg, col_idx),
+                        ((q, k_out), torch.float32), ((q, k_out), torch.int32))
     args = (fv.contiguous(), fi.contiguous(), run_v.contiguous(),
             run_i.contiguous(), row_ptr, out_deg, col_idx)
     out = _push.frontier_push_cuda(*args, **kwargs)
@@ -156,9 +184,14 @@ def frontier_push(
 
 def index_combine_sparse(sv, si, fv, fi, vals, idx, *, k_out: int):
     """Sparse ``s + f @ P_hat`` compacted to ``k_out`` (arrays form)."""
-    if not _route("index_combine_sparse", fv):
+    route = _route("index_combine_sparse", fv)
+    if route == "cpu":
         return _comb.index_combine_sparse_plain(
             sv, si, fv, fi, vals, idx, k_out=k_out)
+    if route == "meta":
+        q = fv.shape[0]
+        return _charged((sv, si, fv, fi, vals, idx),
+                        ((q, k_out), torch.float32), ((q, k_out), torch.int32))
     args = (sv.contiguous(), si.contiguous(), fv.contiguous(),
             fi.contiguous(), vals, idx)
     out = _comb.index_combine_sparse_cuda(*args, k_out=k_out)
@@ -172,8 +205,12 @@ def ell_push(frontier, ell):
     args = (frontier.to(torch.float32).contiguous(), ell.nbr, ell.weight,
             ell.row2vertex, ell.vertex_rows)
     kwargs = dict(rows_used=ell.rows_used)
-    if not _route("ell_spmm", frontier):
+    route = _route("ell_spmm", frontier)
+    if route == "cpu":
         return _ell.ell_spmm_plain(*args, **kwargs)
+    if route == "meta":
+        return _charged(args, ((frontier.shape[0],
+                                ell.vertex_rows.shape[0] - 1), torch.float32))
     variant = "first" if _launches["ell_spmm"] == 0 else "later"
     out = _ell.ell_spmm_cuda(*args, **kwargs)
     _launched("ell_spmm", args, kwargs, variant)
@@ -190,8 +227,11 @@ def index_combine(s, f, vals, idx, columns=None):
         raise ValueError(f"index_combine: index has {vals.shape[0]} rows "
                          f"< {nv} frontier columns")
     args = (s.contiguous(), f.contiguous(), vals[:nv], idx[:nv])
-    if not _route("index_combine", f):
+    route = _route("index_combine", f)
+    if route == "cpu":
         return _comb.index_combine_plain(*args)
+    if route == "meta":
+        return _charged(args, (s.shape, torch.float32))
     kwargs = dict(columns=columns)
     out = _comb.index_combine_cuda(*args, **kwargs)
     _launched("index_combine", args, kwargs)
@@ -207,9 +247,14 @@ def sharded_frontier_push(
     wire_k])`` with owner-local indices."""
     kwargs = dict(c=c, degree_cap=degree_cap, ep=ep, n_shard=n_shard,
                   wire_k=wire_k, hub_split_degree=hub_split_degree)
-    if not _route("sharded_frontier_push", fv):
+    route = _route("sharded_frontier_push", fv)
+    if route == "cpu":
         return _push.sharded_frontier_push_plain(
             fv, fi, row_ptr, col_idx, **kwargs)
+    if route == "meta":   # static outputs: no host read of the totals
+        shape = (fv.shape[0], ep, wire_k)
+        return _charged((fv, fi, row_ptr, col_idx),
+                        (shape, torch.float32), (shape, torch.int32))
     args = (fv.contiguous(), fi.contiguous(), row_ptr.contiguous(),
             col_idx.contiguous())
     n = _launches["sharded_frontier_push"]
@@ -221,8 +266,12 @@ def sharded_frontier_push(
 
 def _embedding_bag_forward(ids, mask, table, row_dtype, out_dtype):
     kwargs = dict(row_dtype=row_dtype, out_dtype=out_dtype)
-    if not _route("embedding_bag", ids):
+    route = _route("embedding_bag", ids)
+    if route == "cpu":
         return _bag.embedding_bag_plain(ids, mask, table, **kwargs)
+    if route == "meta":
+        return _charged((ids, mask, table),
+                        ((ids.shape[0], table.shape[1]), out_dtype))
     args = (ids.to(torch.int32).contiguous(),
             None if mask is None else mask.to(torch.float32).contiguous(),
             table.contiguous())
@@ -237,9 +286,13 @@ def embedding_bag_backward(ids, mask, grad_out, vocab: int, *,
     to its table, for ``grad_out [R, D]`` (see ``kernels/embedding_bag.py``:
     each run of equal ids summed in slot order, no atomics)."""
     kwargs = dict(vocab=int(vocab), row_dtype=row_dtype)
-    if not _route("embedding_bag_backward", grad_out):
+    route = _route("embedding_bag_backward", grad_out)
+    if route == "cpu":
         return _bag.embedding_bag_backward_plain(ids, mask, grad_out,
                                                  **kwargs)
+    if route == "meta":   # never reaches the plain version's host read
+        return _charged((ids, mask, grad_out),
+                        ((int(vocab), grad_out.shape[1]), torch.float32))
     args = (ids.contiguous(),
             None if mask is None else mask.to(torch.float32).contiguous(),
             grad_out.contiguous())

@@ -19,19 +19,24 @@ reference's ``segment_sum`` adds them), so no ``[m, d]`` message tensor is
 formed, and the gradient with respect to the gathered table is the
 ``embedding_bag_backward`` kernel, which sums each row's slots in order:
 no float atomics, so a step gives the same bytes twice.  Degrees are
-integer counts (exact in any order).  The reference's unused
+integer counts (exact in any order), summed by a scatter-add, which
+unlike ``bincount`` reads nothing on the host to size its output.  On the
+meta device (the dry-run) a bag layout has no data to read its width
+from: :func:`host_twins` gives each destination array its host copy,
+whose widest in-degree is the width the step would read.  The reference's unused
 ``_propagate`` and its config's ``dropout`` and ``param_dtype`` (the
 parameters are f32) are not carried.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -58,10 +63,36 @@ class GCNConfig:
 def init(cfg: GCNConfig, seed: int = 0, *, device="cuda") -> Dict[str, Any]:
     """``layer_i``: ``{w [d_in, d_out], b}`` of ``layers.dense_init``, f32,
     drawn from ``seed`` on ``device``."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = seeded_generator(resolve_device(device), seed)
     dims = cfg.dims()
     return {f"layer_{i}": L.dense_init(gen, dims[i], dims[i + 1], bias=True)
             for i in range(len(dims) - 1)}
+
+
+# the dry-run's host copies of meta destination arrays: id -> CPU tensor
+_twins: Dict[int, torch.Tensor] = {}
+
+
+@contextlib.contextmanager
+def host_twins(pairs) -> Iterator[None]:
+    """Inside, each meta destination array of ``pairs`` (``(meta, cpu)``)
+    lays out its bags at the width of its host copy (the dry-run's)."""
+    keys = []
+    for meta, cpu in pairs:
+        _twins[id(meta)] = cpu
+        keys.append(id(meta))
+    try:
+        yield
+    finally:
+        for k in keys:
+            _twins.pop(k, None)
+
+
+def _bin_counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``int64[n]``: the occurrences of each value of ``idx`` (all in
+    ``[0, n)``)."""
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
 
 
 def edge_counts(index: torch.Tensor, mask: Optional[torch.Tensor],
@@ -73,7 +104,7 @@ def edge_counts(index: torch.Tensor, mask: Optional[torch.Tensor],
     if mask is not None:
         idx = torch.where(mask != 0, idx, n)
     idx = torch.where((idx >= 0) & (idx < n), idx, n)
-    return torch.bincount(idx, minlength=n + 1)[:n].to(torch.float32)
+    return _bin_counts(idx, n + 1)[:n].to(torch.float32)
 
 
 def segment_bags(edge_src: torch.Tensor, edge_dst: torch.Tensor,
@@ -95,10 +126,20 @@ def segment_bags(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     n_src = n if n_src is None else n_src
     dst, order = torch.sort(edge_dst.to(torch.int32), stable=True)
     dst = dst.long()
-    counts = torch.bincount(dst, minlength=n)
-    if counts.numel() != n:
-        raise ValueError(f"segment_bags: a destination lies outside [0, {n})")
-    width = max(int(counts.max()), 1) if n else 1   # reads the host
+    if dev.type == "meta":    # no data: the width of the host copy
+        twin = _twins.get(id(edge_dst))
+        if twin is None:
+            raise ValueError("segment_bags on meta needs the destination "
+                             "array's host copy (gcn.host_twins)")
+        counts = _bin_counts(dst, n)
+        width = max(int(torch.bincount(twin.long(), minlength=n).max()), 1) \
+            if n else 1
+    else:
+        counts = torch.bincount(dst, minlength=n)
+        if counts.numel() != n:
+            raise ValueError(
+                f"segment_bags: a destination lies outside [0, {n})")
+        width = max(int(counts.max()), 1) if n else 1   # reads the host
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(m, device=dev) - starts[dst]
     ids = (torch.arange(n, device=dev) % max(n_src, 1)).to(

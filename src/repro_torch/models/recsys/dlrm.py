@@ -12,7 +12,7 @@ from typing import Any, Dict, Sequence
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.models import layers as L
 from repro_torch.models.recsys import embedding as E
 
@@ -55,7 +55,7 @@ class DLRMConfig:
 def init(cfg: DLRMConfig, seed: int = 0, *, device="cuda") -> Dict[str, Any]:
     """Random f32 parameters from ``seed``, made on ``device`` (the table
     is ``n_sparse * vocab_per_field`` rows: 6.66 GB at full width)."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = seeded_generator(resolve_device(device), seed)
     return {
         "embedding": E.init(cfg.embedding, gen),
         "bot": L.mlp_init(gen, list(cfg.bot_mlp)),

@@ -13,7 +13,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.models import layers as L
 from repro_torch.models.recsys import embedding as E
 
@@ -36,7 +36,7 @@ class MINDConfig:
 
 def init(cfg: MINDConfig, seed: int = 0, *, device="cuda") -> Dict[str, Any]:
     """Random f32 parameters from ``seed``, made on ``device``."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = seeded_generator(resolve_device(device), seed)
     d = cfg.embed_dim
     return {
         "item_embed": L.embedding_init(gen, cfg.n_items, d),

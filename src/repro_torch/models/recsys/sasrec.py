@@ -13,7 +13,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.models import layers as L
 from repro_torch.models.attention import chunked_attention
 from repro_torch.models.recsys import embedding as E
@@ -41,7 +41,7 @@ def init(cfg: SASRecConfig, seed: int = 0, *,
          device="cuda") -> Dict[str, Any]:
     """Random f32 parameters from ``seed``, made on ``device``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = seeded_generator(dev, seed)
     d = cfg.embed_dim
     p: Dict[str, Any] = {
         "item_embed": L.embedding_init(gen, cfg.n_items, d),

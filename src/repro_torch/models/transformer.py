@@ -44,7 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.models import layers as L
 from repro_torch.models.attention import chunked_attention, decode_attention
 
@@ -131,7 +131,7 @@ def init(cfg: TransformerConfig, seed: int = 0, *,
     reference's tree (layers stacked on a leading ``n_layers`` axis)."""
     _no_moe(cfg, "init")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = seeded_generator(dev, seed)
     n, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
     qkv = dict(bias=cfg.qkv_bias)
 
