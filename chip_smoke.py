@@ -368,8 +368,9 @@ ZOO_LOOKUPS = {("dlrm-rm2", "rec_serve"): 1, ("dlrm-rm2", "rec_retrieval"): 1,
                ("mind", "rec_serve"): 1, ("mind", "rec_retrieval"): 2}
 # embedding_bag launches an LM step makes: one token lookup a prefill
 # forward and one a decode step (phase 3k)
-LM_LOOKUPS = {("smollm-135m", "lm_prefill"): 1,
-              ("smollm-135m", "lm_decode"): 1}
+LM_LOOKUPS = {(arch, kind): 1 for arch in (
+    "smollm-135m", "qwen1.5-32b", "command-r-plus-104b", "dbrx-132b",
+    "grok-1-314b") for kind in ("lm_prefill", "lm_decode")}
 # embedding_bag launches a train step makes, each with one launch of its
 # backward (phase 3l): the lookups of the forward above, and SASRec's
 # positives and negatives, MIND's target and negatives in the loss
@@ -438,6 +439,25 @@ LM_BATCH = {"prefill_32k": 1, "decode_32k": 64, "long_500k": 1}
 LM_PREFILL_PLAN = (1, 2)       # warm-up, timed forwards
 LM_DECODE_PLAN = (2, 16)       # warm-up, timed steps
 LM_CHECK = (2, 64, 4)          # card vs CPU at full width: B, S, decode steps
+# phase 3p: the four large LMs at full width with the depth cut, so that
+# one card holds each (f32 parameters: 14.6, 37.7, 31.0 and 45.8 GB)
+BIG_LMS = {"qwen1.5-32b": 4, "command-r-plus-104b": 2, "dbrx-132b": 2,
+           "grok-1-314b": 2}           # arch -> layers run
+BIG_SEED = 0
+BIG_PREFILL = (1, 4096)        # B, S: cut from the reference's 32 x 32,768
+BIG_PREFILL_PLAN = (1, 3)      # warm-up, timed forwards
+# decode: (B, cache length), cut from 128 x 32,768 and 1 x 524,288; each
+# in the cache its published shape takes (int8 where the bf16 cache would
+# pass 0.5 TB)
+BIG_DECODE = {"decode_32k": (8, 4096), "long_500k": (1, 16384)}
+BIG_DECODE_PLAN = (2, 8)       # warm-up, timed steps
+BIG_MOE_TOKENS = 32            # the full-width MoE layer, card vs CPU (f32)
+BIG_MOE_GATE = 1e-4            # of max(1, max |y|), phase 3k's gate
+BIG_DECODE_CHECK = (2, 6, 8)   # decode vs forward: B, S, cache length
+BIG_SHARDMAP_MESH = (2, 2)
+BIG_SHARDMAP_PREFILL = (2, 16)  # the expert-parallel forward's [B, S]
+BIG_SHARDMAP_DECODE = 3        # its decode steps at B = 2 and at B = 1
+BIG_REPLAY = "command-r-plus-104b"   # its prefill lookup is replayed (2b)
 DIST_EP = 4                    # model shards of phase 3f's tile step
 DIST_DATA = 2                  # data replicas of phase 3f's build
 MC_PATH = ("walk_step",)       # the sparse estimators of phase 3h
@@ -455,7 +475,7 @@ CKPT_CRASH_CHUNK = 160         # of 256: the resume starts at step 128
 CKPT_REQUESTS = 1024           # requests to the checkpoint-booted service
 UPD_R, UPD_L, UPD_C, UPD_MAX_STEPS = 16, 32, 0.25, 64  # bench_updates.py:41
 UPD_SOURCE_BATCH = 1024        # 1,024 chunks at n = 2^20 (the bench: 8)
-UPD_BATCHES = 4                # live edge batches of 3i(b)
+UPD_BATCHES = 2                # live edge batches of 3i(b) (the bench: 8)
 UPD_EDGES = 4                  # fresh edges a batch, the previous 4 deleted
 UPD_SEED = 5                   # the bench's seed: edge pool and key
 UPD_REQUESTS = 4096
@@ -1283,7 +1303,8 @@ def same_bits_or_nan(torch, a, b):
 
 
 def synthetic_embedding_bag(torch, np, dev, widths=(16, 17, 32, 48, 64, 128),
-                            wide=(17, 64, 128), shifted=64):
+                            wide=(17, 64, 128), shifted=64,
+                            rows_list=(1, 31, 33, 1000, 70001), vocab=5000):
     """Bags of 1 and 32 slots over tables of D = ``widths``: 16, 32, 64
     (rows packed several to a warp instruction), 48, 128 (a warp across a
     row) and 17 (one float a lane), for 1, 31, 33, 1,000 and 70,001 bags
@@ -1294,7 +1315,10 @@ def synthetic_embedding_bag(torch, np, dev, widths=(16, 17, 32, 48, 64, 128),
     float2 loads at D = 64).  ``SYNTHETIC_CHECKS`` also runs it at D = 50
     alone (SASRec's width: float2 loads, a warp across a row; float loads
     4 bytes past alignment) and at D = 576 alone (smollm-135m's width:
-    4.5 passes of a warp's 128 columns a row).  Values ``j / 1024``
+    4.5 passes of a warp's 128 columns a row), and at the large LMs'
+    widths D = 5,120, 6,144 and 12,288 up to 1,000 bags
+    (``embedding_bag_large_lm``: 40, 48 and 96 passes a row; the
+    1,000,003-bag case would write 49 GB).  Values ``j / 1024``
     with |x| <= 1 and masks in {0, 0.5, 1}, so every f32 sum is exact, and
     no mask (every weight one, against the plain version with no mask);
     ids from the whole table, negative ones counting from its end, and a
@@ -1304,8 +1328,7 @@ def synthetic_embedding_bag(torch, np, dev, widths=(16, 17, 32, 48, 64, 128),
     from repro_torch.kernels import embedding_bag as bag_k
 
     r = np.random.default_rng(13)
-    vocab = 5000
-    cases = [(rows, d, bag, 0) for rows in (1, 31, 33, 1000, 70001)
+    cases = [(rows, d, bag, 0) for rows in rows_list
              for d in widths for bag in (1, 32)]
     cases += [(1000003, d, 1, 0) for d in wide]
     cases += [(1000, shifted, bag, shift) for shift in (1, 2)
@@ -1336,6 +1359,49 @@ def synthetic_embedding_bag(torch, np, dev, widths=(16, 17, 32, 48, 64, 128),
                           f"D = {d}, table {4 * shift} B past aligned, mask "
                           f"{m is not None}, {row_dt} rows to {out_dt}")
                 ok &= same
+    return ok
+
+
+def synthetic_embedding_bag_far_rows(torch, np, dev, d=12288,
+                                     vocab=175_000):
+    """``embedding_bag`` over a ``[175,000, 12,288]`` table (8.6 GB, made on
+    the card): its last rows start past element 2**31, as
+    command-r-plus-104b's ``[256,000, 12,288]`` table's do from row
+    174,763, so their offsets need 64 bits.  4,096 one-slot bags, half of
+    them from the table's last 1,000 rows, and 64 bags of 8 with a mask;
+    f32 and bf16 contracts, bit-equal to the plain version."""
+    from repro_torch.kernels import embedding_bag as bag_k
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    table = torch.empty((vocab, d), dtype=torch.float32, device=dev)
+    for i in range(0, vocab, 25_000):               # j / 1024, |x| <= 1
+        part = table[i:i + 25_000]
+        part.copy_(torch.randint(-1024, 1025, part.shape, generator=gen,
+                                 device=dev, dtype=torch.int32))
+        part.div_(1024.0)
+    assert vocab * d > 2**31
+    ids = torch.randint(0, vocab, (4096, 1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids[::2] = torch.randint(vocab - 1000, vocab, (2048, 1), generator=gen,
+                             device=dev, dtype=torch.int32)
+    ids[1, 0] = -1                                     # the last row
+    multi = torch.randint(vocab - 1000, vocab, (64, 8), generator=gen,
+                          device=dev, dtype=torch.int32)
+    mask = torch.randint(0, 3, (64, 8), generator=gen, device=dev).float() / 2
+    ok = True
+    for i, m in ((ids, None), (multi, mask)):
+        for row_dt, out_dt in ((torch.float32, torch.float32),
+                               (torch.bfloat16, torch.bfloat16)):
+            kw = dict(row_dtype=row_dt, out_dtype=out_dt)
+            a = bag_k.embedding_bag_cuda(i, m, table, **kw)
+            same = same_bits_or_nan(
+                torch, a, bag_k.embedding_bag_plain(i, m, table, **kw))
+            if not same:
+                print(f"  embedding_bag differs past element 2**31: bags of "
+                      f"{i.shape[1]}, {row_dt} rows to {out_dt}")
+            ok &= same
+    del table
+    torch.cuda.empty_cache()
     return ok
 
 
@@ -1586,6 +1652,10 @@ SYNTHETIC_CHECKS = {
         torch, np, dev, widths=(50,), wide=(50,), shifted=50),
     "embedding_bag_d576": lambda torch, np, dev: synthetic_embedding_bag(
         torch, np, dev, widths=(576,), wide=(576,), shifted=576),
+    "embedding_bag_large_lm": lambda torch, np, dev: synthetic_embedding_bag(
+        torch, np, dev, widths=(5120, 6144, 12288), wide=(), shifted=6144,
+        rows_list=(1, 31, 33, 1000), vocab=1000),
+    "embedding_bag_far_rows": synthetic_embedding_bag_far_rows,
     "embedding_bag_backward": synthetic_embedding_bag_backward,
     "embedding_bag_backward_fill": synthetic_embedding_bag_backward_fill,
     "embedding_bag_gcn": synthetic_gcn_bags,
@@ -2355,12 +2425,18 @@ def print_split(label, wall_ms, device_ms, split, top=8):
 
 
 def fill_cache(cache, gen):
-    """``cache``'s K and V filled with ``N(0, 1)`` from ``gen``, a layer at
-    a time (no f32 copy of the whole cache); no view of them outlives the
-    call."""
+    """``cache``'s K and V filled from ``gen``, a layer at a time (no f32
+    copy of the whole cache): ``N(0, 1)`` in a bf16 or f32 cache; int8
+    values in [-127, 127] with bf16 scales of ``U(0.005, 0.02)`` in an
+    int8 one (``kv_quant``).  No view of them outlives the call."""
     for name in ("k", "v"):
         for i in range(cache[name].shape[0]):
-            cache[name][i].normal_(generator=gen)
+            if cache[name].is_floating_point():
+                cache[name][i].normal_(generator=gen)
+            else:
+                cache[name][i].random_(-127, 128, generator=gen)
+                cache[f"{name}_scale"][i].uniform_(0.005, 0.02,
+                                                   generator=gen)
     return cache
 
 
@@ -2408,6 +2484,74 @@ def check_small_lm(torch, np, dev, steps_n=8):
                 return float("inf")
             worst = max(worst, float((got - want).abs().max())
                         / max(float(want.abs().max()), 1e-30))
+    return worst
+
+
+def check_small_moe(torch, np, dev, steps_n=4):
+    """The large LMs' reduced configs in f32 on the card and through the
+    plain CPU path from the same parameters: ``prefill_32k``'s logits and
+    ``steps_n`` ``decode_32k`` steps from empty caches (the int8 cache
+    too); for the MoE archs also ``_moe_ffn`` of layer 0 on 64 tokens
+    (routing, drops and queue places equal; capacity 1.0, so slots drop)
+    and ``_moe_ffn_shardmap`` on a stacked 2 x 2 mesh against the CPU's.
+    Returns the worst ``max |card - cpu| / max |cpu|`` (inf on a routing
+    difference)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import ShardMesh
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+
+    worst = 0.0
+
+    def rel(got, want):
+        got = got.cpu()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            return float("inf")
+        return float((got - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+
+    for arch in BIG_LMS:
+        pre_cpu = steps.build(arch, "prefill_32k", reduced=True, device="cpu")
+        pre_card = steps.build(arch, "prefill_32k", reduced=True, device=dev)
+        params = pre_cpu.init_fn(3)
+        on_card = tree_to(params, dev)
+        batch = pre_cpu.make_batch(torch.Generator().manual_seed(4))
+        worst = max(worst, rel(pre_card.step_fn(on_card, tree_to(batch, dev)),
+                               pre_cpu.step_fn(params, batch)))
+        for quant in (False, True):
+            over = dict(kv_quant=quant)
+            dec_cpu = steps.build(arch, "decode_32k", reduced=True,
+                                  device="cpu", config_overrides=over)
+            dec_card = steps.build(arch, "decode_32k", reduced=True,
+                                   device=dev, config_overrides=over)
+            c_cpu, c_card = dec_cpu.make_cache(), dec_card.make_cache()
+            gen = torch.Generator().manual_seed(5)
+            for _ in range(steps_n):
+                tok = dec_cpu.make_batch(gen)
+                want, c_cpu = dec_cpu.step_fn(params, c_cpu, tok)
+                got, c_card = dec_card.step_fn(on_card, c_card,
+                                               tree_to(tok, dev))
+                worst = max(worst, rel(got, want))
+        cfg = get_arch(arch).reduced
+        if not cfg.moe:
+            continue
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=1.0))
+        x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+            (64, cfg.d_model)).astype(np.float32))
+        lay_cpu, lay_card = moe_layer(params), moe_layer(on_card)
+        r_cpu = tfm._moe_route(cfg.moe, lay_cpu["router"]["w"], x)
+        r_card = tfm._moe_route(cfg.moe, lay_card["router"]["w"], x.to(dev))
+        if not all(torch.equal(getattr(r_card, n).cpu(), getattr(r_cpu, n))
+                   for n in ("top_e", "se", "stok", "pos", "keep")):
+            return float("inf")
+        worst = max(worst, rel(tfm._moe_ffn(cfg, lay_card, x.to(dev))[0],
+                               tfm._moe_ffn(cfg, lay_cpu, x)[0]))
+        want, _ = tfm._moe_ffn_shardmap(cfg, lay_cpu, x,
+                                        ShardMesh(2, 2, device="cpu"))
+        got, _ = tfm._moe_ffn_shardmap(cfg, lay_card, x.to(dev),
+                                       ShardMesh(2, 2, device=dev))
+        worst = max(worst, rel(got, want))
     return worst
 
 
@@ -2613,6 +2757,344 @@ def phase_lm(torch, np, dev, failures):
     del params, captured
     torch.cuda.empty_cache()
     return counts, results.get("embedding_bag", [])
+
+
+# -- phase 3p: the four large LMs at full width ---------------------------------
+
+def moe_layer(params, i=0):
+    """Layer ``i``'s MoE parameters (router and expert stacks), views."""
+    lay = params["layers"]
+    return {"router": {"w": lay["router"]["w"][i]},
+            **{n: lay[n][i] for n in ("w_gate", "w_up", "w_down")}}
+
+
+def lm_prefill_flops(cfg, b, s):
+    """The FLOPs a ``serve_prefill`` of ``[b, s]`` runs: each layer's
+    projections and FFN over the ``b s`` tokens (a MoE's router, and its
+    expert products over every queue's ``cap`` slots, the empty ones
+    too), the plain attention's QK and PV over every chunk (the masked
+    ones too), and the head at the last position only; the embedding is a
+    lookup.  Returns ``(total, attention)``."""
+    t, d, hd = b * s, cfg.d_model, cfg.hd
+    proj = 2.0 * t * d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    attn = 4.0 * b * cfg.n_heads * s * s * hd
+    if cfg.moe:
+        m = cfg.moe
+        e_virt = m.n_experts * m.ep_split
+        cap = max(int(t * m.top_k * m.ep_split * m.capacity_factor / e_virt), 1)
+        ffn = (6.0 * e_virt * cap * d * (cfg.d_ff // m.ep_split)
+               + 2.0 * t * d * m.n_experts)
+    else:
+        ffn = 6.0 * t * d * cfg.d_ff
+    return (cfg.n_layers * (proj + attn + ffn) + 2.0 * b * d * cfg.vocab,
+            cfg.n_layers * attn)
+
+
+def big_moe_card_vs_cpu(torch, np, cfg, layer, label, failures):
+    """``_moe_ffn`` of one full-width layer in f32 on ``BIG_MOE_TOKENS``
+    tokens, on the card and through the CPU from the same parameters:
+    routing, kept slots and queue places equal, outputs within
+    ``BIG_MOE_GATE`` of max(1, max |y|)."""
+    from repro_torch.models import transformer as tfm
+
+    t1 = time.perf_counter()
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    x = torch.from_numpy(np.random.default_rng(BIG_SEED + 7).standard_normal(
+        (BIG_MOE_TOKENS, cfg.d_model)).astype(np.float32))
+    host = tree_to(layer, "cpu")
+    outs, routes = [], []
+    for p, xx in ((layer, x.to(layer["w_gate"].device)), (host, x)):
+        routes.append(tfm._moe_route(f32.moe, p["router"]["w"], xx))
+        outs.append(tfm._moe_ffn(f32, p, xx))
+    same_route = all(torch.equal(getattr(routes[0], n).cpu(),
+                                 getattr(routes[1], n))
+                     for n in ("top_e", "se", "stok", "pos", "keep"))
+    y_card, y_cpu = outs[0][0].cpu(), outs[1][0]
+    err = float((y_card - y_cpu).abs().max())
+    limit = BIG_MOE_GATE * max(1.0, float(y_cpu.abs().max()))
+    aux_err = abs(float(outs[0][1]) - float(outs[1][1]))
+    dropped = int((~routes[1].keep).sum())
+    e = cfg.moe.n_experts * cfg.moe.ep_split
+    flops = 2.0 * e * routes[1].cap * cfg.d_model * (cfg.d_ff
+                                                     // cfg.moe.ep_split) * 3
+    print(f"  {label}: _moe_ffn of one full-width layer in f32, "
+          f"{BIG_MOE_TOKENS} tokens ({e} experts, capacity {routes[1].cap}, "
+          f"{dropped} slots dropped, {flops / 1e9:.1f} GFLOP of expert "
+          f"products), card vs CPU: routing and drops equal {same_route}; "
+          f"max |y| difference {err:.3e} (limit {limit:.3e}); aux "
+          f"difference {aux_err:.3e}; {time.perf_counter() - t1:.3f} s")
+    if not same_route or not err <= limit or not aux_err <= 1e-6 * max(
+            1.0, abs(float(outs[1][1]))):
+        failures.append(f"3p {label}: MoE card vs CPU")
+    del host
+
+
+def big_decode_vs_forward(torch, np, dev, arch, cfg, params, failures):
+    """The reference's ``test_moe_decode_matches_forward`` at full width:
+    f32, ``capacity_factor`` 4.0 (no token drops), ``BIG_DECODE_CHECK``'s
+    rows, positions and cache; token by token decode against the forward's
+    logits at every position, within 5e-3 (relative and absolute)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tfm
+
+    t1 = time.perf_counter()
+    b, s, max_seq = BIG_DECODE_CHECK
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32, moe=(
+        dataclasses.replace(cfg.moe, capacity_factor=4.0)), kv_quant=False)
+    toks = torch.randint(0, cfg.vocab, (b, s), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(9)).to(dev)
+    h, _ = tfm.forward(f32, params, toks)
+    full = L.dense_apply(params["lm_head"], h)
+    cache = tfm.init_cache(f32, b, max_seq, torch.float32, device=dev)
+    outs = []
+    for t in range(s):
+        logits, cache = tfm.decode_step(f32, params, cache, toks[:, t:t + 1])
+        outs.append(logits[:, 0])
+    got = torch.stack(outs, dim=1)
+    err = float(((got - full).abs() - 5e-3 * full.abs()).max())
+    print(f"  {arch}: decode vs forward at full width in f32, capacity 4.0, "
+          f"[{b}, {s}]: max(|decode - forward| - 5e-3 |forward|) {err:.3e} "
+          f"(limit 5e-3), max |logit| {float(full.abs().max()):.3e}; "
+          f"{time.perf_counter() - t1:.3f} s")
+    if not err <= 5e-3:
+        failures.append(f"3p {arch}: decode differs from the forward")
+
+
+def big_shardmap(torch, cfg, params, failures):
+    """The expert-parallel path through the model's entry points:
+    ``forward`` and ``decode_step`` with ``mesh=`` a stacked
+    ``BIG_SHARDMAP_MESH`` ``ShardMesh`` (``_moe_ffn_shardmap`` in the
+    layer) against the same calls without it (``_moe_ffn``), on a
+    one-layer full-width model in f32 at a capacity where nothing drops
+    (``capacity_factor`` = experts / top_k, so a data shard's capacity is
+    its token count): the forward's hidden states on ``BIG_SHARDMAP_PREFILL``
+    tokens, then ``BIG_SHARDMAP_DECODE``'s steps from an empty cache at
+    B = 2 (one token a data shard) and B = 1 (replicated), each within
+    1e-5 of its largest value."""
+    from repro_torch.distributed import ShardMesh
+    from repro_torch.models import transformer as tfm
+
+    t1 = time.perf_counter()
+    moe = cfg.moe
+    f32 = dataclasses.replace(cfg, n_layers=1, compute_dtype=torch.float32,
+                              kv_quant=False, moe=dataclasses.replace(
+                                  moe, capacity_factor=moe.n_experts
+                                  / moe.top_k))
+    dev = params["lm_head"]["w"].device
+    mesh = ShardMesh(*BIG_SHARDMAP_MESH, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    toks = torch.randint(0, cfg.vocab, BIG_SHARDMAP_PREFILL, generator=gen,
+                         dtype=torch.int32, device=dev)
+    want, _ = tfm.forward(f32, params, toks)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got, _ = tfm.forward(f32, params, toks, mesh=mesh)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    errs = [float((got - want).abs().max()) / float(want.abs().max())]
+    for b in (2, 1):
+        steps = torch.randint(0, cfg.vocab, (BIG_SHARDMAP_DECODE, b, 1),
+                              generator=gen, dtype=torch.int32, device=dev)
+        caches = [tfm.init_cache(f32, b, BIG_SHARDMAP_DECODE, torch.float32,
+                                 device=dev) for _ in range(2)]
+        for j in range(BIG_SHARDMAP_DECODE):
+            want, caches[0] = tfm.decode_step(f32, params, caches[0], steps[j])
+            got, caches[1] = tfm.decode_step(f32, params, caches[1], steps[j],
+                                             mesh=mesh)
+            errs.append(float((got - want).abs().max())
+                        / float(want.abs().max()))
+    torch.cuda.synchronize()
+    print(f"  expert-parallel path on a {mesh.data} x {mesh.model} stacked "
+          f"ShardMesh through forward(mesh=) and decode_step(mesh=) against "
+          f"the same calls without a mesh (one full-width layer of dbrx, "
+          f"f32, nothing dropped): forward on {list(BIG_SHARDMAP_PREFILL)} "
+          f"tokens, then {BIG_SHARDMAP_DECODE} decode steps at B = 2 and "
+          f"B = 1: largest difference {max(errs):.3e} of the largest value "
+          f"(limit 1e-5; the forward's {errs[0]:.3e}); the mesh forward's "
+          f"peak {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the "
+          f"model); {time.perf_counter() - t1:.3f} s")
+    if not max(errs) <= 1e-5:
+        failures.append("3p: the expert-parallel forward or decode differs")
+
+
+def big_lm(torch, np, dev, arch, n_layers, replays, failures):
+    """One large LM of phase 3p at full width with ``n_layers`` layers:
+    prefill and the two decode shapes through ``steps.build``, timed; the
+    MoE checks (card vs CPU, decode vs forward) on its own parameters; for
+    ``BIG_REPLAY``, its prefill lookup replayed (2b, into ``replays``)
+    before its table is freed; for dbrx, once the model is freed, the
+    expert-parallel check on a one-layer copy of it.  The launch counters
+    are zeroed just before the prefill and read just after the last decode
+    step, so the checks do not count.  Returns ``(the launch counts of
+    those runs, embedding_bag launches stated, outputs finite)``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_map
+
+    spec = get_arch(arch)
+    cfg = dataclasses.replace(spec.config, n_layers=n_layers)
+    stated, finite = 0, []
+    t1 = time.perf_counter()
+    prefill = steps.build(arch, "prefill_32k", device=dev,
+                          config_overrides=dict(n_layers=n_layers))
+    params = prefill.init_fn(BIG_SEED)
+    torch.cuda.synchronize()
+    n_active = cfg.active_param_count()
+    moe = (f"; MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+           f"ep_split {cfg.moe.ep_split}, capacity factor "
+           f"{cfg.moe.capacity_factor}" if cfg.moe else "")
+    print(f"  {arch} ({spec.source}): {n_layers} of {spec.config.n_layers} "
+          f"layers at full width: d {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV heads, ff {cfg.d_ff}, vocab {cfg.vocab}{moe}; "
+          f"{cfg.param_count()} parameters ({n_active} active a token), "
+          f"{tree_bytes(params) / 1e9:.3f} GB in f32, made in "
+          f"{time.perf_counter() - t1:.3f} s; compute bf16")
+    gen = torch.Generator(device=dev).manual_seed(BIG_SEED + 1)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    captured = {}
+
+    # -- prefill ---------------------------------------------------------
+    b, s = BIG_PREFILL
+    (b_ref, s_ref), _ = prefill.batch_spec["tokens"]
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     dtype=torch.int32, device=dev)}
+    warm, reps = BIG_PREFILL_PLAN
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms, outs = [], []
+    ops.reset_launch_counts()
+    for j in range(warm + reps):
+        ops.capture_first_launches(j == 0 and arch == BIG_REPLAY)
+        ev0.record()
+        out = prefill.step_fn(params, batch)
+        ev1.record()
+        ev1.synchronize()
+        if j == 0 and arch == BIG_REPLAY:
+            captured[f"embedding_bag/{arch}.prefill_32k"] = (
+                ops.captured_launches()["embedding_bag/main"])
+            ops.capture_first_launches(False)
+        stated += 1
+        finite.append(bool(torch.isfinite(out).all()))
+        outs.append(out)
+        if j >= warm:
+            ms.append(ev0.elapsed_time(ev1))
+    if tuple(out.shape) != (b, 1, cfg.vocab):
+        failures.append(f"3p {arch} prefill: logits {tuple(out.shape)}")
+    same = all(torch.equal(o.view(torch.int16), outs[0].view(torch.int16))
+               for o in outs[1:])
+    if not same:
+        failures.append(f"3p {arch}: two prefills differ")
+    ms = np.array(ms)
+    p50 = np.percentile(ms, 50)
+    nominal = 2.0 * n_active * b * s
+    flops, attn = lm_prefill_flops(cfg, b, s)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {arch} prefill_32k: [{b}, {s}], cut from the reference's "
+          f"[{b_ref}, {s_ref}]; {reps} forwards: p50 {p50:.3f} ms, p99 "
+          f"{np.percentile(ms, 99):.3f} ms; {b * s / (p50 / 1e3):.1f} "
+          f"tokens/s; executed {flops / 1e12:.3f} TFLOP (of them the plain "
+          f"f32 attention's {attn / 1e12:.3f}; the head at the last "
+          f"position, a MoE's empty slots counted), "
+          f"{flops / (p50 / 1e3) / 1e12:.2f} TFLOP/s; nominal 2 N_active B S "
+          f"{nominal / 1e12:.3f} TFLOP; peak device memory "
+          f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the "
+          f"parameters); {warm + reps} prefills the same bytes: {same}")
+    del out, outs, batch
+
+    # -- decode ----------------------------------------------------------
+    warm, reps = BIG_DECODE_PLAN
+    for shape, (b, s) in BIG_DECODE.items():
+        published = steps.build(arch, shape, device="meta")
+        quant = "k_scale" in published.cache_spec
+        (b_ref, _), _ = published.batch_spec["tokens"]
+        s_ref = published.cache_spec["k"][0][2]
+        dec = steps.build(arch, shape, device=dev, config_overrides=dict(
+            n_layers=n_layers, kv_quant=quant))
+        ccfg = dataclasses.replace(cfg, kv_quant=quant)
+        cache = fill_cache(tfm.init_cache(ccfg, b, s, torch.bfloat16,
+                                          device=dev), gen)
+        n_steps = warm + reps
+        cache["length"].fill_(s - 1 - n_steps)
+        toks = torch.randint(0, cfg.vocab, (n_steps, b, 1), generator=gen,
+                             dtype=torch.int32, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for j in range(n_steps):
+            ev0.record()
+            logits, cache = dec.step_fn(params, cache, {"tokens": toks[j]})
+            ev1.record()
+            ev1.synchronize()
+            stated += 1
+            finite.append(bool(torch.isfinite(logits).all()))
+            if j >= warm:
+                ms.append(ev0.elapsed_time(ev1))
+        if tuple(logits.shape) != (b, 1, cfg.vocab) or int(
+                cache["length"]) != s - 1:
+            failures.append(f"3p {arch} {shape}: logits "
+                            f"{tuple(logits.shape)}, length "
+                            f"{int(cache['length'])}")
+        ms = np.array(ms)
+        p50 = np.percentile(ms, 50)
+        cache_gb = sum(t.numel() * t.element_size()
+                       for n, t in cache.items() if n != "length") / 1e9
+        print(f"  {arch} {shape}: B = {b}, cache {s} tokens ({cache['k'].dtype}"
+              f", the published shape's; {cache_gb:.2f} GB), cut from "
+              f"{b_ref} x {s_ref}; {reps} steps: p50 {p50:.3f} ms, p99 "
+              f"{np.percentile(ms, 99):.3f} ms; {b / (p50 / 1e3):.1f} "
+              f"tokens/s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del cache, logits, toks
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+
+    # -- the MoE checks --------------------------------------------------
+    one = None
+    if cfg.moe:
+        big_moe_card_vs_cpu(torch, np, cfg, moe_layer(params), arch,
+                            failures)
+        if arch == "dbrx-132b":
+            big_decode_vs_forward(torch, np, dev, arch, cfg, params,
+                                  failures)
+            one = {**params, "layers": tree_map(lambda t: t[:1].clone(),
+                                                params["layers"])}
+    replay_all(torch, captured, replays, failures)
+    del params, captured
+    torch.cuda.empty_cache()
+    if one is not None:
+        big_shardmap(torch, spec.config, one, failures)
+        del one
+        torch.cuda.empty_cache()
+    return counts, stated, finite
+
+
+def phase_big_lms(torch, np, dev, failures):
+    """Phase 3p: ``BIG_LMS`` at full width, each with its depth cut, in
+    bf16 through ``steps.build``, one after another (each freed before the
+    next), the launch counts of each one's prefill and decode runs added
+    up.  Returns the launch counts and the prefill lookup's replay results
+    (2b)."""
+    print(f"3p: {card_name_and_power_limit()}")
+    counts, stated, finite, replays = {}, 0, [], {}
+    for arch, n_layers in BIG_LMS.items():
+        t1 = time.perf_counter()
+        cts, st, fin = big_lm(torch, np, dev, arch, n_layers, replays,
+                              failures)
+        counts = {k: counts.get(k, 0) + v for k, v in cts.items()}
+        stated += st
+        finite += fin
+        print(f"  {arch}: {time.perf_counter() - t1:.3f} s")
+    print(f"  3p path launches: {json.dumps(counts)} ({stated} embedding_bag "
+          f"launches stated: one a forward or step)")
+    if counts["embedding_bag"] != stated:
+        failures.append(f"3p: embedding_bag launched "
+                        f"{counts['embedding_bag']} times, {stated} stated")
+    if not all(finite):
+        failures.append(f"3p: {finite.count(False)} outputs not finite")
+    return counts, replays.get("embedding_bag", [])
 
 
 # -- phase 3l: training ---------------------------------------------------------
@@ -3399,7 +3881,10 @@ def phase_dryrun(torch, failures):
     its report.  Gates: every record ``ok``; every cell an earlier phase
     ran at its published batch (``MEASURED``) predicted to fit.  Then each
     measured cell traced again as it ran (its batch, the f32 parameters
-    the phases hold), its peak and roofline time beside the measurement."""
+    the phases hold), its peak and roofline time beside the measurement.
+    Every trace runs in one pool of ``min(8, cores)`` spawned processes,
+    the slowest cells first: the large LMs' ``train_4k`` take 30–110 s
+    each (printed), where the other 36 model cells take 0–15 s."""
     from repro_torch.configs import all_cells, get_arch
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
@@ -3416,32 +3901,54 @@ def phase_dryrun(torch, failures):
           f"(total_memory)")
     out_dir = tempfile.mkdtemp(prefix="dryrun-")
     t1 = time.perf_counter()
-    recs = [dryrun.run_cell(a, s, out_dir, "card", hw=hw)
-            for a, s in all_cells()]
-    t_cells = time.perf_counter() - t1
-    for tag, multi in (("pod", False), ("multipod", True)):
-        mesh = make_production_mesh(multi_pod=multi)
-        recs += [dryrun.run_ppr_cell(name, mesh, out_dir, tag, hw=hw)
-                 for name in dryrun.PPR_CELLS]
-    print(f"3o: {len(recs)} records in {time.perf_counter() - t1:.3f} s "
-          f"(the {len(all_cells())} model cells {t_cells:.3f} s)")
+    workers = min(8, os.cpu_count() or 1)
+    cells = sorted(all_cells(), key=dryrun.cost_rank)
+    ppr = [(name, make_production_mesh(multi_pod=multi), tag)
+           for tag, multi in (("pod", False), ("multipod", True))
+           for name in dryrun.PPR_CELLS]
+    as_run = sorted(MEASURED.items())
+    # one pool: the slowest cells first, then the PPR cells and each cell
+    # an earlier phase ran, traced again as it ran
+    out = dryrun.run_jobs(
+        [(dryrun.run_cell, (a, s, out_dir, "card"), dict(hw=hw))
+         for a, s in cells]
+        + [(dryrun.run_ppr_cell, (name, mesh, out_dir, tag), dict(hw=hw))
+           for name, mesh, tag in ppr]
+        + [(dryrun.trace_cell, (arch, shape), dict(
+            batch=m["batch"] or None, serve_dtype=None))
+           for (arch, shape), m in as_run], workers)
+    recs, traced = out[:len(cells) + len(ppr)], out[len(cells) + len(ppr):]
+    failures += [f"3o: {r}" for r in recs if isinstance(r, Exception)]
+    recs = [r for r in recs if not isinstance(r, Exception)]
+    print(f"3o: {len(recs)} records ({len(cells)} model cells, "
+          f"{len(ppr)} PPR cells) and {len(traced)} cells traced as run in "
+          f"{time.perf_counter() - t1:.3f} s in {workers} processes; the "
+          f"slowest: " + ", ".join(
+              f"{r['arch']} {r['shape']} {r['seconds']} s" for r in sorted(
+                  recs, key=lambda r: -r["seconds"])[:4]))
+    for r in recs:
+        if "mesh_16x16" in r:
+            m = r["mesh_16x16"]
+            print(f"3o: {r['arch']} {r['shape']}: a device of the 16 x 16 "
+                  f"mesh holds {m['param_bytes'] / 1e9:.3f} GB of its "
+                  f"parameters" + (f" and {m['opt_bytes'] / 1e9:.3f} GB of "
+                                   f"its optimizer state" if "opt_bytes" in m
+                                   else "") + " under sharding's specs")
     print(report.render(report.load(out_dir)))
     shutil.rmtree(out_dir, ignore_errors=True)
     failures += [f"3o: {r['arch']} {r['shape']} {r['mesh_tag']}: "
                  f"{r['error'][:120]}" for r in recs if not r.get("ok")]
     fits = {(r["arch"], r["shape"]): r.get("hbm_fits") for r in recs
             if r.get("mesh_tag") == "card"}
-    for (arch, shape), m in sorted(MEASURED.items()):
+    for ((arch, shape), m), res in zip(as_run, traced):
         uncut = m["batch"] == get_arch(arch).shape(shape).global_batch
         if uncut and not fits.get((arch, shape)):
             failures.append(f"3o: {arch} {shape} ran uncut in its phase but "
                             "is predicted not to fit")
-        try:
-            cost, ctx = dryrun.trace_cell(arch, shape, batch=m["batch"] or
-                                          None, serve_dtype=None)
-        except Exception as e:  # noqa: BLE001 - printed, not gated
-            print(f"3o as run: {arch} {shape}: {type(e).__name__}: {e}")
+        if isinstance(res, Exception):     # printed, not gated
+            print(f"3o as run: {arch} {shape}: {type(res).__name__}: {res}")
             continue
+        cost, ctx = res
         terms = roof.roofline_from_counts(
             cost, hw=hw, model_flops_total=ctx["model_flops"])
         used = roof.fit_check(terms, hw)[1]
@@ -4621,9 +5128,13 @@ def main() -> int:
     phase("3o dry-run and roofline", t0)
 
     t0 = time.perf_counter()
-    # 3g's and 3k's embedding_bag launches were replayed there, before
-    # each table was freed, and 3l's embedding_bag_backward after each cell
-    results = {"embedding_bag": replays_g + replays_k
+    counts_p, replays_p = phase_big_lms(torch, np, dev, failures)
+    phase("3p the large LMs at full width", t0)
+
+    t0 = time.perf_counter()
+    # 3g's, 3k's and 3p's embedding_bag launches were replayed there,
+    # before each table was freed, and 3l's embedding_bag_backward after each cell
+    results = {"embedding_bag": replays_g + replays_k + replays_p
                + replays_m["embedding_bag"],
                "embedding_bag_backward": replays_l
                + replays_m["embedding_bag_backward"]}
@@ -4660,6 +5171,13 @@ def main() -> int:
           f"{rel:.3e} of their largest (limit 1e-5)")
     if not rel <= 1e-5:
         failures.append(f"small {LM_ARCH} reference check")
+    rel = check_small_moe(torch, np, dev)
+    print(f"small reference, the large LMs reduced in f32: prefill and 4 "
+          f"decode steps (bf16 and int8 caches), and dbrx's and grok's "
+          f"_moe_ffn (routing equal) and 2 x 2 stacked _moe_ffn_shardmap, "
+          f"card vs CPU within {rel:.3e} of their largest (limit 1e-5)")
+    if not rel <= 1e-5:
+        failures.append("small large-LM / MoE reference check")
     for arch in TRAIN_CELLS:
         ok, res = check_small_train(torch, np, dev, arch)
         print(f"small reference, {arch} reduced in f32: one train step card "
@@ -4698,6 +5216,7 @@ def main() -> int:
              "monte-carlo (3h)": (MC_PATH, counts_h),
              "maintenance (3i)": (MAINT_PATH, counts_i),
              f"{LM_ARCH} (3k)": (LM_PATH, counts_k),
+             "large LMs (3p)": (LM_PATH, counts_p),
              **{f"train {arch} (3l)": (TRAIN_PATH, counts_l[arch])
                 for arch in TRAIN_CELLS},
              **{f"{GNN_ARCH} {shape} (3m)": (GNN_PATH, c)

@@ -18,6 +18,13 @@ size where every ``(data, model)`` shard runs (the walk counts), the
 ``model`` size where the data replicas repeat one tile (the VERD tile,
 whose sources every replica shares, as the reference's replicated ``P()``
 input).
+
+A ``data x model`` layout of per-shard blocks is ``[data, model, ...]``
+(``distributed.sharding.shard`` makes it); the per-axis collectives
+(``psum_axis``, ``pmean_axis``, ``all_gather_axis``) join the shards along
+one mesh axis of it, each group of the other axis apart, as the
+reference's collectives named by one axis inside a ``shard_map`` do, and
+charge what every one of the ``data * model`` shards receives.
 """
 
 from __future__ import annotations
@@ -80,4 +87,39 @@ class ShardMesh:
             out = x.transpose(0, 1).reshape(x.shape[1], -1)
         cost.charge_collective("all-gather",
                                x.shape[0] * cost.tensor_bytes(out))
+        return out
+
+    _AXIS = {"data": 0, "model": 1}
+
+    def _axis(self, x: torch.Tensor, axis: str) -> int:
+        if tuple(x.shape[:2]) != (self.data, self.model):
+            raise ValueError(f"expected [data, model, ...] blocks of a "
+                             f"{self.data} x {self.model} mesh, got "
+                             f"{tuple(x.shape)}")
+        return self._AXIS[axis]
+
+    def psum_axis(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``psum`` over ``axis`` of ``[data, model, ...]`` blocks: every
+        shard of a group holds the group's sum (the sum in shard order)."""
+        ax = self._axis(x, axis)
+        with cost.uncharged():
+            out = x.sum(dim=ax, keepdim=True).expand_as(x)
+        cost.charge_collective("all-reduce", cost.tensor_bytes(x))
+        return out
+
+    def pmean_axis(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``pmean`` over ``axis``: ``psum_axis`` over the axis's size."""
+        return self.psum_axis(x, axis) / self.shape[axis]
+
+    def all_gather_axis(self, x: torch.Tensor, axis: str,
+                        dim: int) -> torch.Tensor:
+        """``all_gather(axis_name=axis, axis=dim, tiled=True)`` of
+        ``[data, model, *block]`` blocks: every shard of a group holds the
+        group's blocks concatenated along block dimension ``dim`` in shard
+        order (one copy a group, shared by its shards' views)."""
+        ax = self._axis(x, axis)
+        with cost.uncharged():
+            whole = torch.cat(x.unbind(ax), dim=1 + dim).unsqueeze(ax)
+            out = whole.expand(self.data, self.model, *whole.shape[2:])
+        cost.charge_collective("all-gather", cost.tensor_bytes(out))
         return out

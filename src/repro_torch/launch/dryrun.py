@@ -14,10 +14,15 @@ holds the per-device FLOPs, HBM bytes, collective bytes, the memory
 analysis, the three roofline terms against the H100 and whether the cell
 fits the card.
 
-The model cells run on **one card** (``mesh_tag`` ``card``): the port has
-no sharding policy for them until ``distributed/sharding.py`` comes with a
-multi-GPU mesh.  The PPR engine cells run on the production meshes
-(``launch/mesh.py``: 16 x 16, and 32 x 16 for two pods), stacked on meta.
+The model cells run on **one card** (``mesh_tag`` ``card``).  Each LM
+record also holds, under ``mesh_16x16``, the bytes one device of the
+16 x 16 production mesh holds of the cell's parameters (and, for
+``train_4k``, of its optimizer state) laid out by
+``distributed/sharding.py``'s specs, the reference's ``in_shardings``.
+The PPR engine cells run on the production meshes (``launch/mesh.py``:
+16 x 16, and 32 x 16 for two pods), stacked on meta.  ``--workers N``
+traces the model cells in N processes, the slowest first (a 64-layer
+``train_4k`` takes a minute or two on the host).
 
 Data-dependent shapes: a GCN cell's bag width is the widest in-degree of
 its edges, which a meta tensor cannot give; the dry-run draws the cell's
@@ -27,25 +32,28 @@ host: the dry-run passes a real CPU key and meta tensors for the rest.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
-    python -m repro_torch.launch.dryrun --all --out results/dryrun
+    python -m repro_torch.launch.dryrun --all --workers 8 --out results/dryrun
     python -m repro_torch.launch.dryrun --ppr --mesh both --out results/dryrun
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
+import multiprocessing
 import os
 import time
 import traceback
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.overrides import TorchFunctionMode
 
 from repro_torch import rng
 from repro_torch.configs import all_cells, get_arch
+from repro_torch.distributed import sharding
 from repro_torch.distributed.mesh import ShardMesh
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import describe, make_production_mesh
@@ -93,6 +101,19 @@ def _gcn_twins(arch, shape_name: str, batch, *, reduced: bool = False):
             if not torch.is_floating_point(v)]
 
 
+def mesh_bytes(arch, params, opt_state=None) -> dict:
+    """The bytes one device of the 16 x 16 production mesh holds of
+    ``params`` (and ``opt_state``) under ``sharding``'s specs."""
+    mesh = make_production_mesh()
+    pspecs = sharding.param_specs(arch.family, params, arch.config)
+    out = dict(shape=dict(mesh.shape), param_bytes=sharding.per_device_bytes(
+        params, pspecs, mesh))
+    if opt_state is not None:
+        out["opt_bytes"] = sharding.per_device_bytes(
+            opt_state, sharding.opt_state_specs(pspecs), mesh)
+    return out
+
+
 def trace_cell(arch_id: str, shape_name: str, *, reduced: bool = False,
                batch: Optional[int] = None,
                serve_dtype: Optional[torch.dtype] = torch.bfloat16
@@ -133,6 +154,9 @@ def trace_cell(arch_id: str, shape_name: str, *, reduced: bool = False,
                model_flops=bundle.model_flops_per_step,
                mesh=describe(ShardMesh(1, 1, device=META)),
                global_batch=arch.shape(shape_name).global_batch)
+    if arch.family == "lm":
+        ctx["mesh_16x16"] = mesh_bytes(
+            arch, args[0], args[1] if bundle.kind == "train" else None)
     return cost, ctx
 
 
@@ -180,6 +204,46 @@ def run_cell(arch_id, shape_name, out_dir=None, mesh_tag="card", *,
     print(f"[{status}] {arch_id:22s} {shape_name:14s} {mesh_tag:8s} "
           f"{rec['seconds']:7.1f}s  {extra}", flush=True)
     return rec
+
+
+def cost_rank(cell) -> tuple:
+    """A sort key of model cells, the slowest to trace first: training
+    (three passes a layer, microbatched), then the LMs' prefill, each by
+    parameter count."""
+    spec = get_arch(cell[0])
+    kind = spec.shape(cell[1]).kind
+    n = spec.config.param_count() if spec.family == "lm" else 0
+    return (kind != "lm_train", kind != "lm_prefill", -n)
+
+
+def run_jobs(jobs, workers: int = 1) -> list:
+    """``fn(*args, **kwargs)`` of each ``(fn, args, kwargs)`` job (module
+    functions, such as :func:`run_cell` or :func:`trace_cell`), submitted
+    in the given order to ``workers`` spawned processes (each imports torch
+    anew; nothing of a caller's CUDA state is forked), or run here with
+    ``workers <= 1``.  Returns each job's result, or the exception it
+    raised, in the jobs' order."""
+    def guarded(fn, args, kwargs):
+        try:
+            return fn(*args, **kwargs)
+        except Exception as e:  # noqa: BLE001 - returned to the caller
+            return e
+    if workers <= 1:
+        return [guarded(*job) for job in jobs]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as ex:
+        futures = [ex.submit(fn, *args, **kwargs) for fn, args, kwargs in jobs]
+        return [f.exception() or f.result() for f in futures]
+
+
+def run_cells(cells, out_dir=None, mesh_tag="card", *,
+              hw: roof.Hardware = roof.HW, workers: int = 1) -> List[dict]:
+    """:func:`run_cell` over ``cells``, their records in ``cells``' order;
+    with ``workers > 1`` in that many processes, the slowest first."""
+    order = sorted(range(len(cells)), key=lambda i: cost_rank(cells[i]))
+    recs = run_jobs([(run_cell, (*cells[i], out_dir, mesh_tag), dict(hw=hw))
+                     for i in order], workers)
+    return [recs[order.index(i)] for i in range(len(cells))]
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +375,8 @@ def main(argv=None):
     ap.add_argument("--ppr", action="store_true",
                     help="run the PowerWalk engine cells")
     ap.add_argument("--out", default="results/dryrun")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="processes tracing the model cells")
     args = ap.parse_args(argv)
 
     n_fail = 0
@@ -333,9 +399,8 @@ def main(argv=None):
         if not (args.arch and args.shape):
             ap.error("--arch/--shape or --all")
         cells = [(args.arch, args.shape)]
-    for arch_id, shape_name in cells:
-        rec = run_cell(arch_id, shape_name, args.out, "card")
-        n_fail += 0 if rec.get("ok") else 1
+    recs = run_cells(cells, args.out, "card", workers=args.workers)
+    n_fail += sum(0 if rec.get("ok") else 1 for rec in recs)
     print(f"done; failures: {n_fail}", flush=True)
     raise SystemExit(1 if n_fail else 0)
 

@@ -1,8 +1,9 @@
 """Step factory: (arch, shape) -> init / step callables + batch specs.
 
-The counterpart of the reference's ``launch/steps.py`` for what the port
-holds, every cell of ``smollm-135m``, ``gcn-cora`` and DLRM RM2, DCN-v2,
-SASRec and MIND:
+The counterpart of the reference's ``launch/steps.py``: every cell of
+its ten architectures, the five LMs (``smollm-135m``, ``qwen1.5-32b``,
+``command-r-plus-104b`` and the MoE LMs ``dbrx-132b`` and
+``grok-1-314b``), ``gcn-cora`` and DLRM RM2, DCN-v2, SASRec and MIND:
 
 * training (``kind == "train"``): ``lm_train`` (``train_4k``, B = 256, S =
   4,096), ``rec_train`` (``train_batch``, B = 65,536) and the GCN's
@@ -17,7 +18,8 @@ SASRec and MIND:
 * ``lm_prefill`` (``prefill_32k``, the next-token logits of a ``[B, S]``
   batch) and ``lm_decode`` (``decode_32k``, ``long_500k``: one token a row
   against a KV cache, which :attr:`StepBundle.make_cache` makes on the
-  device);
+  device; the int8 cache wherever the bf16 one would pass 0.5 TB, as at
+  every large LM's ``decode_32k`` and qwen's ``long_500k``);
 * ``rec_serve`` (``serve_p99`` at B = 512, ``serve_bulk`` at B = 262,144)
   and ``rec_retrieval`` (``retrieval_cand``, one user against 10^6
   candidates).
@@ -98,7 +100,7 @@ def _lm_bundle(arch: ArchSpec, shape: ShapeSpec, cfg: tfm.TransformerConfig,
     if shape.kind == "lm_train":
         # the reference's rules: gradient accumulation grows with model
         # size, and the biggest models take fp8 mu, bf16 nu and a bf16
-        # accumulator (neither reached by a model one card holds)
+        # accumulator
         n_params = cfg.param_count()
         mb = 8 if n_params > 1.2e11 else 4 if n_params > 6e10 else \
             2 if n_params > 1.5e10 else 1

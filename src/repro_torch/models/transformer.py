@@ -23,9 +23,18 @@ Every token lookup is one ``embedding_bag`` launch
 ``models/attention.py``, whose rounding is the reference's.  The
 reference's config fields that only steer XLA's lowering (``act_shard``,
 ``precast_params``) are not carried; ``param_dtype`` neither:
-parameters are f32, cast to ``compute_dtype`` at use.  The MoE FFN is not
-ported: ``moe`` stays a field, and ``init``, ``forward``, ``loss_fn`` and
-``decode_step`` raise when it is set.
+parameters are f32, cast to ``compute_dtype`` at use.
+
+With ``moe`` set, each layer's FFN is the reference's capacity-based
+mixture of experts (``_moe_ffn``): the router ``router.w [n, d, E]``,
+the expert stacks ``w_gate``/``w_up [n, E * split, d, ff / split]`` and
+``w_down [n, E * split, ff / split, d]`` (``split = ep_split`` virtual
+experts a real one, each a slice of its ff axis).  ``forward`` returns the
+layers' summed load-balancing loss and ``loss_fn`` adds it.  The
+expert-parallel form (``_moe_ffn_shardmap``, the reference's ``shard_map``
+dispatch) runs on a :class:`~repro_torch.distributed.mesh.ShardMesh`
+given as ``mesh=`` to ``forward``, ``loss_fn`` and ``decode_step``; it
+takes the place of the reference's ``act_shard.mesh``.
 
 ``decode_step`` writes the new K/V into the cache's tensors in place (the
 reference's ``dynamic_update_slice`` copies the whole cache) at
@@ -39,12 +48,14 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device, seeded_generator
+from repro_torch.distributed import sharding
 from repro_torch.models import layers as L
 from repro_torch.models.attention import chunked_attention, decode_attention
 
@@ -101,13 +112,6 @@ class TransformerConfig:
         return self.param_count() - self.n_layers * (full_ffn - active_ffn)
 
 
-def _no_moe(cfg: TransformerConfig, what: str) -> None:
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{what}: the MoE FFN is not ported; it comes with the MoE archs "
-            "on the multi-GPU mesh")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -129,7 +133,6 @@ def init(cfg: TransformerConfig, seed: int = 0, *,
          device="cuda") -> Dict[str, Any]:
     """Random f32 parameters from ``seed``, made on ``device``, in the
     reference's tree (layers stacked on a leading ``n_layers`` axis)."""
-    _no_moe(cfg, "init")
     dev = resolve_device(device)
     gen = seeded_generator(dev, seed)
     n, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
@@ -145,10 +148,23 @@ def init(cfg: TransformerConfig, seed: int = 0, *,
         "wk": _stacked_dense(gen, n, d, cfg.n_kv_heads * hd, **qkv),
         "wv": _stacked_dense(gen, n, d, cfg.n_kv_heads * hd, **qkv),
         "wo": _stacked_dense(gen, n, cfg.n_heads * hd, d),
-        "w_gate": _stacked_dense(gen, n, d, cfg.d_ff),
-        "w_up": _stacked_dense(gen, n, d, cfg.d_ff),
-        "w_down": _stacked_dense(gen, n, cfg.d_ff, d),
     }
+    if cfg.moe:
+        e = cfg.moe.n_experts * cfg.moe.ep_split
+        ffs = cfg.d_ff // cfg.moe.ep_split
+
+        def experts(a, b):          # [n, E * split, a, b] of N(0, 1) / sqrt(a)
+            return torch.randn((n, e, a, b), generator=gen,
+                               dtype=torch.float32,
+                               device=gen.device).div_(math.sqrt(a))
+
+        layers.update(router=_stacked_dense(gen, n, d, cfg.moe.n_experts),
+                      w_gate=experts(d, ffs), w_up=experts(d, ffs),
+                      w_down=experts(ffs, d))
+    else:
+        layers.update(w_gate=_stacked_dense(gen, n, d, cfg.d_ff),
+                      w_up=_stacked_dense(gen, n, d, cfg.d_ff),
+                      w_down=_stacked_dense(gen, n, cfg.d_ff, d))
     return {
         "embed": L.embedding_init(gen, cfg.vocab, d),
         "layers": layers,
@@ -160,11 +176,228 @@ def init(cfg: TransformerConfig, seed: int = 0, *,
 def _unbound(layers, n: int) -> List[Dict[str, Any]]:
     """Every layer's parameters (views), each stacked leaf ``unbind``-ed
     once (its backward stacks the ``n`` slices' gradients in one
-    tensor)."""
-    parts = {name: {k: v.unbind(0) for k, v in p.items()}
-             for name, p in layers.items()}
-    return [{name: {k: v[i] for k, v in p.items()}
-             for name, p in parts.items()} for i in range(n)]
+    tensor).  A leaf is a tensor (the MoE expert stacks) or a dict of
+    them (``w``, ``b``, ``scale``)."""
+    def split(p):
+        return ({k: split(v) for k, v in p.items()} if isinstance(p, dict)
+                else p.unbind(0))
+
+    def pick(p, i):
+        return ({k: pick(v, i) for k, v in p.items()} if isinstance(p, dict)
+                else p[i])
+
+    parts = split(layers)
+    return [pick(parts, i) for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# MoE ffn
+# ---------------------------------------------------------------------------
+
+class MoERoute(NamedTuple):
+    """One batch's routing, the reference's ``_moe_ffn`` up to its
+    dispatch.  The ``T * k * split`` slots (token, rank, virtual expert)
+    are in the order of a stable sort by virtual expert, as the
+    reference's ``argsort(flat_e, stable=True)`` leaves them."""
+    top_e: torch.Tensor     # int64 [T, k]: experts by gate, lower first on ties
+    se: torch.Tensor        # int64 [T * kv]: each slot's virtual expert
+    stok: torch.Tensor      # int64 [T * kv]: each slot's token
+    sw: torch.Tensor        # f32 [T * kv]: each slot's normalised gate
+    pos: torch.Tensor       # int64 [T * kv]: its place in its expert's queue
+    keep: torch.Tensor      # bool [T * kv]: pos < cap
+    starts: torch.Tensor    # int64 [E * split]: each expert's first slot
+    counts: torch.Tensor    # int64 [E * split]: slots routed to each
+    cap: int
+    aux: Optional[torch.Tensor]   # f32 []: the load-balancing loss
+
+
+@functools.lru_cache(maxsize=16)
+def _sequential_folds(n: int, c_bits: int, device: str) -> torch.Tensor:
+    """``f32[n + 1]``: ``i`` adds of ``f32(c)`` into an f32 zero, one at a
+    time, at index ``i`` (``c_bits``: ``c``'s f32 bits).  The reference's
+    ``ce`` adds ``1 / (t k)`` once a slot with XLA's scatter, so an
+    expert's share is this fold at its count, not the count times ``c``.
+    Made on the host and copied to ``device`` at the first use of each
+    ``n`` (a token count), then kept, the last 16 of them: a step reads
+    nothing back, but a CUDA-graph capture of a forward needs one run at
+    its token count first.  ``decode_step`` computes no aux and never
+    comes here."""
+    folds = np.zeros(n + 1, np.float32)
+    c = np.array([c_bits], np.int32).view(np.float32)[0]
+    np.cumsum(np.full(n, c, np.float32), dtype=np.float32, out=folds[1:])
+    return torch.from_numpy(folds).to(device)
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the lower index first on
+    ties (a stable descending sort; ``torch.topk`` does not promise it)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _moe_route(moe: MoEConfig, router_w: torch.Tensor, x: torch.Tensor,
+               with_aux: bool = True) -> MoERoute:
+    """Route ``x [T, d]``: f32 router logits, softmax gates, the top ``k``
+    experts a token with their gates normalised, the Switch aux loss
+    ``w * E * sum_e f_e * P_e`` (``None`` unless ``with_aux``), then each selected expert's ``split``
+    virtual experts sorted stably by virtual expert, each slot's place in
+    its expert's queue and whether it is within the capacity ``cap``.
+    Integer work only past the gates, with static shapes and no host read
+    (searchsorted over the sorted experts in place of counts and a
+    cumsum)."""
+    t = x.shape[0]
+    e_real, k, split = moe.n_experts, moe.top_k, moe.ep_split
+    e_virt, kv = e_real * split, k * split
+    cap = max(int(t * kv * moe.capacity_factor / e_virt), 1)
+    gates = torch.softmax(x.float() @ router_w, dim=-1)          # [T, E]
+    top_g, top_e = _top_k(gates, k)                              # [T, k]
+    top_g = top_g / torch.clamp(top_g.sum(-1, keepdim=True), min=1e-9)
+
+    flat_e = (top_e[:, :, None] * split + torch.arange(
+        split, device=x.device)).reshape(-1)                     # [T * kv]
+    se, order = torch.sort(flat_e, stable=True)
+    stok = torch.div(order, kv, rounding_mode="floor")
+    sw = top_g.reshape(-1)[torch.div(order, split, rounding_mode="floor")]
+    experts = torch.arange(e_virt, device=x.device)
+    starts = torch.searchsorted(se, experts)
+    counts = torch.searchsorted(se, experts, right=True) - starts
+    pos = torch.arange(t * kv, device=x.device) - torch.searchsorted(se, se)
+    keep = pos < cap
+
+    aux = None
+    if with_aux:
+        me = gates.mean(dim=0)
+        c_bits = int(np.float32(1.0 / (t * k)).view(np.int32))
+        ce = _sequential_folds(t * k, c_bits, str(x.device))[
+            counts.reshape(e_real, split)[:, 0]]
+        aux = moe.aux_loss_weight * e_real * torch.sum(me * ce)
+    return MoERoute(top_e, se, stok, sw, pos, keep, starts, counts, cap, aux)
+
+
+def _moe_dispatch(r: MoERoute, xt: torch.Tensor) -> torch.Tensor:
+    """``[E * split, cap, d]``: each expert's queue of token rows, zero past
+    its count.  A gather of slot ``starts[e] + c`` for place ``c``: the
+    reference's scatter has one writer a place (its dropped slots add
+    zeros at ``cap - 1``), so this is its buffer, bit for bit, with no
+    scatter."""
+    n_slots = r.se.shape[0]
+    c = torch.arange(r.cap, device=xt.device)
+    slot = torch.clamp(r.starts[:, None] + c, max=n_slots - 1)
+    rows = xt[r.stok[slot]]                                      # [E, cap, d]
+    return torch.where((c < r.counts[:, None])[..., None], rows,
+                       torch.zeros((), dtype=xt.dtype, device=xt.device))
+
+
+def _moe_experts(cfg: TransformerConfig, buf: torch.Tensor, wg, wu,
+                 wd) -> torch.Tensor:
+    """The experts' SwiGLU on their queues: ``[e, cap, d] -> [e, cap, d]``,
+    the weights cast to the compute dtype at use (plain batched matrix
+    products, as the reference's einsums)."""
+    dt = cfg.compute_dtype
+    h = _silu(torch.bmm(buf, wg.to(dt))) * torch.bmm(buf, wu.to(dt))
+    return torch.bmm(h, wd.to(dt))
+
+
+def _moe_combine(r: MoERoute, out_buf: torch.Tensor, t: int) -> torch.Tensor:
+    """``[T, d]``: each token's kept slots' expert outputs weighted by
+    ``keep * gate`` (cast to the compute dtype before the product), summed
+    as the reference's scatter-add sums them: into a zero row, in slot
+    order (ascending virtual expert, the sorted order), rounding to the
+    compute dtype after each add.  A short loop over the ``k * split``
+    columns; no atomics, so two runs give the same bytes."""
+    kv = r.se.shape[0] // t
+    pos_c = torch.clamp(r.pos, max=r.cap - 1)
+    tok_out = out_buf[r.se, pos_c] * (
+        r.keep.float() * r.sw).to(out_buf.dtype)[:, None]        # sorted
+    # token i's slots, in sorted order: a stable sort of the slots' tokens
+    cols = torch.argsort(r.stok, stable=True).reshape(t, kv)
+    out = torch.zeros((t, out_buf.shape[-1]), dtype=out_buf.dtype,
+                      device=out_buf.device)
+    for i in range(kv):
+        out = out + tok_out[cols[:, i]]
+    return out
+
+
+def _moe_ffn(cfg: TransformerConfig, p, x: torch.Tensor,
+             with_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x ``[T, d]`` -> (``[T, d]`` in the compute dtype, aux loss or
+    ``None``): the reference's capacity-based sort dispatch on one
+    device."""
+    r = _moe_route(cfg.moe, p["router"]["w"], x, with_aux)
+    buf = _moe_dispatch(r, x.to(cfg.compute_dtype))
+    out_buf = _moe_experts(cfg, buf, p["w_gate"], p["w_up"], p["w_down"])
+    return _moe_combine(r, out_buf, x.shape[0]), r.aux
+
+
+# the expert stacks' specs in a layer: the stacked leaves' minus the lead
+_EXPERT_SPECS = {name: tuple(sharding.lm_leaf_spec(f"layers/{name}", 4))[1:]
+                 for name in ("w_gate", "w_up", "w_down")}
+
+
+def _moe_ffn_shardmap(cfg: TransformerConfig, p, x: torch.Tensor, mesh,
+                      with_aux: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's expert-parallel MoE (its ``shard_map`` dispatch) on
+    the stacked ``mesh``: tokens split over ``data`` (replicated where
+    ``T`` is below or not a multiple of it, as at a one-token decode),
+    each data shard routing and dispatching its own tokens with a capacity
+    from its own count; the experts' weights laid out by
+    ``sharding``'s specs (virtual experts over ``model``, the d axis
+    over ``data``) and all-gathered over ``data``, each model shard
+    running its ``E * split / model`` experts on its queues; the partial
+    token outputs summed over ``model`` and the aux loss averaged over
+    ``data``."""
+    moe = cfg.moe
+    e_virt = moe.n_experts * moe.ep_split
+    if e_virt % mesh.model:
+        raise ValueError(f"{e_virt} virtual experts do not split over "
+                         f"{mesh.model} model shards")
+    e_local = e_virt // mesh.model
+    t, d = x.shape
+    n_data = mesh.data
+    split_tokens = t % n_data == 0 and t >= n_data
+    xb = x.reshape(n_data, t // n_data, d) if split_tokens \
+        else x.expand(n_data, t, d)
+    # [data, model, e_local, d, ffs] (w_down: [..., ffs, d]) on every shard
+    w = {name: mesh.all_gather_axis(sharding.shard(
+             p[name], _EXPERT_SPECS[name], mesh), "data",
+             dim=_EXPERT_SPECS[name].index("data"))
+         for name in _EXPERT_SPECS}
+    parts, auxes = [], []
+    for i in range(n_data):
+        r = _moe_route(moe, p["router"]["w"], xb[i], with_aux)
+        buf = _moe_dispatch(r, xb[i].to(cfg.compute_dtype))
+        row = []
+        for m in range(mesh.model):
+            mine = slice(m * e_local, (m + 1) * e_local)
+            full = torch.zeros_like(buf)
+            full[mine] = _moe_experts(cfg, buf[mine], w["w_gate"][i, m],
+                                      w["w_up"][i, m], w["w_down"][i, m])
+            row.append(_moe_combine(r, full, xb.shape[1]))
+        parts.append(torch.stack(row))
+        if with_aux:
+            auxes.append(r.aux.expand(mesh.model))
+    out = mesh.psum_axis(torch.stack(parts), "model")     # [data, model, t_l, d]
+    y = out[:, 0].reshape(t, d) if split_tokens else out[0, 0]
+    if not with_aux:
+        return y, None
+    return y, mesh.pmean_axis(torch.stack(auxes), "data")[0, 0]
+
+
+def _ffn(cfg: TransformerConfig, p, x: torch.Tensor, mesh=None,
+         with_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer's FFN of ``x [B, S, d]``: ``(y [B, S, d], aux)``, the
+    dense SwiGLU with an f32 zero, or the MoE (``mesh``: its
+    expert-parallel form on that stacked mesh; aux ``None`` unless
+    ``with_aux``)."""
+    if not cfg.moe:
+        return _dense_ffn(cfg, p, x), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+    b, s, d = x.shape
+    moe_fn = _moe_ffn if mesh is None else functools.partial(
+        _moe_ffn_shardmap, mesh=mesh)
+    y, aux = moe_fn(cfg, p, x.reshape(b * s, d), with_aux=with_aux)
+    return y.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------
@@ -212,35 +445,39 @@ def _attn(cfg: TransformerConfig, p, h: torch.Tensor) -> torch.Tensor:
                          compute_dtype=cfg.compute_dtype)
 
 
-def _layer_body(cfg: TransformerConfig, h: torch.Tensor, p) -> torch.Tensor:
+def _layer_body(cfg: TransformerConfig, h: torch.Tensor, p,
+                mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     h = h + _attn(cfg, p, L.rmsnorm_apply(p["ln_attn"], h))
-    return h + _dense_ffn(cfg, p, L.rmsnorm_apply(p["ln_ffn"], h))
+    y, aux = _ffn(cfg, p, L.rmsnorm_apply(p["ln_ffn"], h), mesh)
+    return h + y, aux
 
 
-def forward(cfg: TransformerConfig, params,
-            tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *,
+            mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens ``[B, S]`` -> (hidden ``[B, S, d]`` in the compute dtype,
-    aux loss: an f32 zero without MoE)."""
-    _no_moe(cfg, "forward")
+    aux loss: the layers' MoE losses summed, an f32 zero without MoE).
+    ``mesh``: a ``ShardMesh`` that runs the MoE expert-parallel."""
     h = L.embedding_apply(params["embed"], tokens,
                           compute_dtype=cfg.compute_dtype)
-    body = functools.partial(_layer_body, cfg)
+    body = functools.partial(_layer_body, cfg, mesh=mesh)
     remat = cfg.remat and torch.is_grad_enabled()
+    auxes = []
     for p in _unbound(params["layers"], cfg.n_layers):
-        h = checkpoint(body, h, p, use_reentrant=False) if remat \
+        h, aux = checkpoint(body, h, p, use_reentrant=False) if remat \
             else body(h, p)
+        auxes.append(aux)
     h = L.rmsnorm_apply(params["ln_final"], h)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, torch.stack(auxes).sum()
 
 
-def loss_fn(cfg: TransformerConfig, params,
-            batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def loss_fn(cfg: TransformerConfig, params, batch, *,
+            mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy ``(loss, {"ce", "aux"})`` of ``tokens``,
     ``labels`` (int32) and ``mask`` (f32), each ``[B, S]``.  With
     ``loss_chunk`` dividing S, the logits are made ``loss_chunk`` positions
     at a time and each chunk is recomputed in the backward (the
     reference's checkpointed scan), so no ``[B, S, V]`` buffer is kept."""
-    h, aux = forward(cfg, params, batch["tokens"])
+    h, aux = forward(cfg, params, batch["tokens"], mesh=mesh)
     head = params["lm_head"]
     labels, mask = batch["labels"], batch["mask"]
     dt = cfg.compute_dtype
@@ -305,15 +542,17 @@ def _quantize_kv(x: torch.Tensor):
 
 
 def decode_step(cfg: TransformerConfig, params, cache,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, *, mesh=None):
     """One decode step. tokens ``[B, 1]`` -> (logits ``[B, 1, V]``, the
     cache with ``length + 1``).
 
     Each layer writes its new K/V into ``cache``'s tensors in place at
     position ``length`` (the last slot where ``length`` is past it) and
     attends to positions ``< length + 1``; the returned cache shares them.
+    A MoE layer routes the ``B`` tokens as one batch (``mesh``: on that
+    stacked mesh); the aux loss, which the reference computes and drops,
+    is not computed, so a step makes no host copy at any batch size.
     """
-    _no_moe(cfg, "decode_step")
     b = tokens.shape[0]
     dt, hd = cfg.compute_dtype, cfg.hd
     length = cache["length"]
@@ -339,7 +578,8 @@ def decode_step(cfg: TransformerConfig, params, cache,
                              n_kv_heads=cfg.n_kv_heads)
         h = h + L.dense_apply(p["wo"], o.reshape(b, 1, cfg.n_heads * hd),
                               compute_dtype=dt)
-        h = h + _dense_ffn(cfg, p, L.rmsnorm_apply(p["ln_ffn"], h))
+        h = h + _ffn(cfg, p, L.rmsnorm_apply(p["ln_ffn"], h), mesh,
+                     with_aux=False)[0]
     h = L.rmsnorm_apply(params["ln_final"], h)
     logits = L.dense_apply(params["lm_head"], h, compute_dtype=dt)
     return logits, {**cache, "length": length + 1}

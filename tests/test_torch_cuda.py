@@ -202,6 +202,41 @@ def test_lm_on_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_large_lms_and_moe_on_card_match_the_cpu(cuda):
+    """The four large LMs' reduced configs in f32, card against the plain
+    CPU path: prefill and 4 decode steps (bf16 and int8 caches); dbrx's
+    and grok's ``_moe_ffn`` with slots dropped (routing equal) and their
+    stacked 2 x 2 ``_moe_ffn_shardmap``; within 1e-5 of their largest."""
+    assert chip_smoke.check_small_moe(torch, np, cuda) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(chip_smoke.BIG_LMS))
+@pytest.mark.parametrize("shape,kind", [("prefill_32k", "lm_prefill"),
+                                        ("decode_32k", "lm_decode")])
+def test_large_lm_step_launches_embedding_bag_as_stated(cuda, arch, shape,
+                                                        kind):
+    """A large LM's reduced prefill forward and decode step each make one
+    ``embedding_bag`` launch (``chip_smoke.LM_LOOKUPS``, phase 3p's
+    gate); a MoE prefill twice gives the same bytes."""
+    from repro_torch.launch import steps
+
+    bundle = steps.build(arch, shape, reduced=True, device=cuda)
+    params = bundle.init_fn(0)
+    batch = bundle.make_batch(torch.Generator().manual_seed(1))
+    args = (params, bundle.make_cache(), batch) if bundle.make_cache \
+        else (params, batch)
+    tops.reset_launch_counts()
+    out = bundle.step_fn(*args)
+    out = out[0] if bundle.make_cache else out
+    assert tops.launch_counts()["embedding_bag"] == chip_smoke.LM_LOOKUPS[
+        (arch, kind)]
+    assert bool(torch.isfinite(out).all())
+    if not bundle.make_cache:
+        assert torch.equal(out, bundle.step_fn(params, batch))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,kind", [("prefill_32k", "lm_prefill"),
                                         ("decode_32k", "lm_decode")])
 def test_lm_step_launches_embedding_bag_as_stated(cuda, shape, kind):

@@ -273,7 +273,8 @@ def _reference_dot_flops(arch_id, shape_name):
 
 
 @pytest.mark.parametrize("arch_id,shape_name", [
-    ("smollm-135m", "prefill_32k"), ("dlrm-rm2", "serve_p99")])
+    ("smollm-135m", "prefill_32k"), ("dlrm-rm2", "serve_p99"),
+    ("dbrx-132b", "prefill_32k"), ("grok-1-314b", "prefill_32k")])
 def test_dot_flops_match_reference_hlo(arch_id, shape_name):
     want = _reference_dot_flops(arch_id, shape_name)
     cost, _ = dryrun.trace_cell(arch_id, shape_name, reduced=True)
@@ -359,7 +360,8 @@ def test_all_to_all_bytes_match_reference_hlo(exchange,
 
 @pytest.mark.parametrize("arch_id,shape_name", [
     ("dlrm-rm2", "serve_p99"), ("smollm-135m", "decode_32k"),
-    ("gcn-cora", "molecule"), ("sasrec", "train_batch")])
+    ("gcn-cora", "molecule"), ("sasrec", "train_batch"),
+    ("dbrx-132b", "train_4k"), ("qwen1.5-32b", "decode_32k")])
 def test_trace_argument_bytes_are_the_steps_inputs(arch_id, shape_name):
     b = tsteps.build(arch_id, shape_name, reduced=True, device="cpu")
     params = b.init_fn(dryrun.SEED)
@@ -378,6 +380,49 @@ def test_trace_argument_bytes_are_the_steps_inputs(arch_id, shape_name):
     assert ctx["kind"] == b.kind
     if b.kind == "train" or b.make_cache is not None:
         assert cost.alias_bytes > 0        # updated in place
+
+
+@pytest.mark.parametrize("arch_id", ["qwen1.5-32b", "command-r-plus-104b",
+                                     "dbrx-132b", "grok-1-314b"])
+def test_large_lm_decode_traces_at_full_size_with_mesh_bytes(arch_id):
+    """A large LM's ``long_500k`` step at its published size on meta: the
+    record holds the bytes a device of the 16 x 16 production mesh holds of
+    its (bf16 serving) parameters under ``sharding``'s specs, about a
+    256th of them; qwen's cache is int8 (its bf16 cache passes 0.5 TB)."""
+    cost, ctx = dryrun.trace_cell(arch_id, "long_500k")
+    cfg = tsteps.build(arch_id, "long_500k", device="meta")
+    m = ctx["mesh_16x16"]
+    assert m["shape"] == {"data": 16, "model": 16} and "opt_bytes" not in m
+    whole = 2 * dryrun.get_arch(arch_id).config.param_count()
+    assert whole / 256 <= m["param_bytes"] <= whole / 256 * 1.01
+    assert ("k_scale" in cfg.cache_spec) == (arch_id == "qwen1.5-32b")
+    assert cost.flops > 0 and cost.argument_bytes > whole
+
+
+def test_run_cells_in_workers_keeps_the_cells_order(tmp_path):
+    """``run_cells`` in two spawned processes: one record a cell, in the
+    cells' order, each written; the train cell's record holds the mesh
+    bytes of its optimizer state too.  ``run_jobs`` runs any module
+    function, and returns a job's exception in its place."""
+    cells = [("mind", "serve_p99"), ("dbrx-132b", "long_500k"),
+             ("smollm-135m", "train_4k")]
+    recs = dryrun.run_cells(cells, str(tmp_path), workers=2)
+    assert [(r["arch"], r["shape"]) for r in recs] == cells
+    assert all(r["ok"] for r in recs)
+    assert len(list(tmp_path.glob("*.json"))) == 3
+    assert "mesh_16x16" not in recs[0]
+    m = recs[2]["mesh_16x16"]
+    # smollm is too narrow for 16-way TP: every leaf replicated
+    params = 4 * dryrun.get_arch("smollm-135m").config.param_count()
+    assert m["param_bytes"] == params
+    assert m["opt_bytes"] == 4 + params       # bf16 mu and nu
+    ppr, bad = dryrun.run_jobs([
+        (dryrun.run_ppr_cell, ("ppr_verd_ukunion",
+                               tmesh.make_production_mesh(), str(tmp_path),
+                               "pod"), {}),
+        (dryrun.trace_cell, ("no-such-arch", "train_4k"), {})])
+    assert ppr["ok"] and ppr["mesh_tag"] == "pod"
+    assert isinstance(bad, KeyError)
 
 
 _NO_ALLOCATION = """

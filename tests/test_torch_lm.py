@@ -383,23 +383,28 @@ def test_lm_train_and_moe_raise(monkeypatch):
     """Training is ported (the name is from when it raised): two steps of
     the reduced ``train_4k`` on one batch, the second loss below 1.5x the
     first (the reference's ``test_second_train_step_decreases_or_close``),
-    one lookup and one backward launch a step; the MoE FFN still raises,
-    in training too."""
+    one lookup and one backward launch a step.  The MoE FFN is ported too
+    (the name is from when it raised): the same two steps with
+    ``smollm-135m``'s reduced config made MoE, the loss its cross-entropy
+    plus a positive aux loss (``tests/test_torch_moe.py`` holds it against
+    the reference)."""
     l1, l2, counts = _two_train_steps(ARCH, "train_4k", monkeypatch)
     assert np.isfinite(l1) and np.isfinite(l2) and l2 < 1.5 * l1
     n = chip_smoke.TRAIN_LOOKUPS[(ARCH, "lm_train")]
     assert counts["embedding_bag"] == counts["embedding_bag_backward"] == n
-    cfg = dataclasses.replace(tconfigs.get_arch(ARCH).reduced,
-                              moe=ttfm.MoEConfig(n_experts=4, top_k=2))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttfm.init(cfg, 0, device="cpu")
-    tp = ttfm.init(tconfigs.get_arch(ARCH).reduced, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttfm.forward(cfg, tp, torch.zeros((1, 4), dtype=torch.int32))
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttfm.loss_fn(cfg, tp, dict(tokens=tokens, labels=tokens,
-                                   mask=torch.ones((1, 4))))
+    moe = dict(moe=ttfm.MoEConfig(n_experts=4, top_k=2))
+    bundle = steps.build(ARCH, "train_4k", reduced=True, device="cpu",
+                         config_overrides=moe)
+    params = bundle.init_fn(0)
+    assert params["layers"]["w_gate"].shape[:2] == (4, 4)
+    state = ttl.init_state(bundle.opt_cfg, params)
+    batch = bundle.make_batch(torch.Generator().manual_seed(1))
+    params, state, m1 = bundle.step_fn(params, state, batch)
+    params, state, m2 = bundle.step_fn(params, state, batch)
+    assert float(m2["loss"]) < 1.5 * float(m1["loss"])
+    loss, parts = bundle.loss_fn(params, batch)
+    assert float(parts["aux"]) > 0
+    assert float(loss) == pytest.approx(float(parts["ce"] + parts["aux"]))
 
 
 def _two_train_steps(arch, shape, monkeypatch):

@@ -59,12 +59,20 @@ def _serve(svc, work):
             np.stack([a.top_vertices for a in by_id]), stats)
 
 
+def _still():
+    """A clock that stands still: the batcher's ``max_wait_s`` never
+    passes, so only ``max_batch`` (or the loop's final flush) closes a
+    batch, and how requests batch does not depend on the host's load."""
+    return 0.0
+
+
 def _port_service(setup, depth, **cfg):
     _, tg, _, tidx, _ = setup
     return PPRService(tg, tidx, ServiceConfig(
         query=tquery.QueryConfig(**QKW),
         batching=BatchingConfig(max_batch=8),
-        pipeline=PipelineConfig(depth=depth), **cfg), device="cpu")
+        pipeline=PipelineConfig(depth=depth), **cfg), clock=_still,
+        device="cpu")
 
 
 def test_service_depths_identical_and_match_reference(setup):
@@ -180,17 +188,18 @@ def ring_setup():
 
 
 def _ring_services(ring_setup, depth, reuse=True):
-    """The port's and the reference's service, single-width batches of 16."""
+    """The port's and the reference's service, single-width batches of 16,
+    both on the same still clock (``_still``)."""
     jg, tg, jidx, tidx = ring_setup
     batching = dict(max_batch=16, min_pad=16)
     port = PPRService(tg, tidx, ServiceConfig(
         query=tquery.QueryConfig(**RING_QKW),
         batching=BatchingConfig(**batching),
         pipeline=PipelineConfig(depth=depth, reuse_buffers=reuse)),
-        device="cpu")
+        clock=_still, device="cpu")
     ref = JService(jg, jidx, JServiceConfig(
         query=jquery.QueryConfig(**RING_QKW), batching=JBatching(**batching),
-        pipeline=JPipeline(depth=depth, reuse_buffers=reuse)))
+        pipeline=JPipeline(depth=depth, reuse_buffers=reuse)), clock=_still)
     return port, ref
 
 

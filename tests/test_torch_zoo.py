@@ -499,7 +499,9 @@ def _two_train_steps(arch, shape, monkeypatch):
 DROPPED_FIELDS = ("param_dtype", "act_shard", "precast_params")
 
 
-@pytest.mark.parametrize("arch", ZOO + ("dlrm-rm2", "smollm-135m"))
+@pytest.mark.parametrize("arch", ZOO + ("dlrm-rm2", "smollm-135m",
+                                  "qwen1.5-32b", "command-r-plus-104b",
+                                  "dbrx-132b", "grok-1-314b"))
 def test_configs_match_reference(arch):
     """``full()`` and ``reduced()`` field for field (dtypes mapped, the
     dropped fields aside), ``param_count()``, the spec's kind, source,
@@ -526,10 +528,15 @@ def test_configs_match_reference(arch):
 
 
 def test_all_cells_are_the_references_for_the_ported_archs():
-    ids = tconfigs.all_arch_ids()
-    assert sorted(ids) == sorted(ZOO + ("dlrm-rm2", "smollm-135m",
-                                        "gcn-cora"))
-    assert set(ids) <= set(jconfigs.all_arch_ids())
-    assert tconfigs.all_cells() == [c for c in jconfigs.all_cells()
-                                    if c[0] in ids]
-    assert len(tconfigs.all_cells()) == 24
+    """Every architecture is ported: the registry is the reference's, in
+    its order, and so are its 40 cells; ``steps.build`` builds each one at
+    full size on ``meta`` (nothing is made) and reduced on the CPU."""
+    assert tconfigs.all_arch_ids() == jconfigs.all_arch_ids()
+    assert tconfigs.all_cells() == jconfigs.all_cells()
+    assert len(tconfigs.all_cells()) == 40
+    for arch, shape in tconfigs.all_cells():
+        for kw in (dict(device="meta"), dict(device="cpu", reduced=True)):
+            b = steps.build(arch, shape, **kw)
+            assert (b.arch_id, b.shape_name) == (arch, shape)
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get_arch("no-such-arch")
