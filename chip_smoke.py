@@ -87,7 +87,27 @@ Phases, each timed and printed:
    device time by kernel over four more tiles (``torch.profiler``) with
    the push's share of it, the
    computed wire bytes per iteration, and RAG and precision at k = 50
-   against 3e's ``pi``;
+   against 3e's ``pi``; then, as 3q's yardsticks, each model shard's rows
+   digested and the same tile step answering the same 64 tiles from the
+   sharded build's rows;
+3q. the rank mesh: 8 processes spawned on the one card, a ``RankMesh(2,
+   4)`` over gloo (collectives staged through host memory), each
+   regenerating 3a's graph (its fingerprint the parent's) and running
+   3f's build one shard a process, its launch counters zeroed just before
+   the build and read after its tiles: each rank's rows the same bytes as
+   3f's rows of its model shard, on both data replicas; ranks 0-3 (a
+   ``RankMesh(1, 4)`` of the first replica) then answer 3c's 16,384
+   requests in 64 tiles of 256 from the rows they built, the answers the
+   same bytes on every rank and as 3f's stacked tile step on the same
+   rows; ``walk_step`` launched on every rank and ``sharded_frontier_push``
+   ``t`` = 2 times a tile on each tile rank.  Then NCCL: with one card, a
+   1 x 1 ``RankMesh`` over NCCL answers 4 tiles at ``ep = 1`` on 3b's
+   index, the same bytes as ``ShardMesh(1, 1)``; with four cards or more,
+   the 1 x 4 tile step over NCCL, a rank a card, the same bytes as the
+   gloo ranks'.  Prints the spawn seconds, each rank's build seconds, ms
+   a tile and requests/s (8 processes time-sliced on one card, collectives
+   through gloo and host memory: not a multi-card figure) and the phase's
+   seconds;
 3g. the recsys zoo at full width, each model with the counters zeroed
    just before its forwards and read just after, its parameters from the
    port's ``init`` (seed 0) on the card, bf16 compute, the card's name and
@@ -143,11 +163,12 @@ Phases, each timed and printed:
    of 1,024 (the benchmark's grid of 8 would be 131,072 chunks), with a
    4 GiB touch sketch (4,096 bits a row): ``build_maintainable_index``,
    a ``PPRService`` with its maintainer (sparse route, the sparse
-   combine, an answer cache) serving 4,096 requests, 4 edge batches
-   through ``apply_updates`` (4 fresh uniform edges each, the previous
-   batch's 4 deleted, the benchmark's pool from seed 5), each printed
-   with its seconds, edges/s, dirty rows, repaired chunks, resample ratio
-   and cache entries invalidated, the requests served again, and a
+   combine, an answer cache) serving 4,096 requests, ``UPD_BATCHES`` edge
+   batches through ``apply_updates`` (4 fresh uniform edges each, the
+   previous batch's 4 deleted, the benchmark's pool from seed 5), each
+   printed with its seconds, edges/s, dirty rows, repaired chunks,
+   resample ratio and cache entries invalidated, the requests served
+   again, and a
    rebuild on the final graph: the maintained index and sketch must
    equal the rebuild's bit for bit, the answers computed after the
    updates a fresh service's on the rebuilt index byte for byte, and the
@@ -313,6 +334,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import shutil
@@ -357,6 +379,10 @@ KERNEL_SOURCES = {
 SPARSE_PATH = ("walk_step", "frontier_push", "index_combine_sparse")
 DENSE_PATH = ("ell_spmm", "index_combine")
 DIST_PATH = ("walk_step", "sharded_frontier_push")
+RANK_DATA = 2                  # phase 3q: the rank mesh is RANK_DATA x DIST_EP
+RANK_NCCL_TILES = 4            # phase 3q's NCCL check, tiles at ep = 1
+RANK_TIMEOUT_S = 300.0         # phase 3q: a collective's timeout, each run's
+RANK_JOIN_S = 420.0            # ...and the spawned ranks' deadline
 RECSYS_PATH = ("embedding_bag",)   # phase 3g: each recsys model's forwards
 # embedding_bag launches one forward makes, one a gather: the one-hot
 # fields (DLRM, DCN-v2; field 0 holds the candidates in retrieval),
@@ -475,7 +501,9 @@ CKPT_CRASH_CHUNK = 160         # of 256: the resume starts at step 128
 CKPT_REQUESTS = 1024           # requests to the checkpoint-booted service
 UPD_R, UPD_L, UPD_C, UPD_MAX_STEPS = 16, 32, 0.25, 64  # bench_updates.py:41
 UPD_SOURCE_BATCH = 1024        # 1,024 chunks at n = 2^20 (the bench: 8)
-UPD_BATCHES = 2                # live edge batches of 3i(b) (the bench: 8)
+# live edge batches of 3i(b) (the bench: 8; cut to 2 in PR 29 to pay for
+# 3p, to 1 in PR 30 for 3q: a run on a slow host took 1,150 s of 1,200)
+UPD_BATCHES = 1
 UPD_EDGES = 4                  # fresh edges a batch, the previous 4 deleted
 UPD_SEED = 5                   # the bench's seed: edge pool and key
 UPD_REQUESTS = 4096
@@ -4701,6 +4729,273 @@ def phase_loadgen(torch, np, dev, g, index, cfg, closed_qps, failures):
         failures.append("3j zipf seed-set stream: answers bad")
 
 
+# -- phase 3q: the rank mesh ------------------------------------------------
+
+def digest(*tensors):
+    """sha256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_tile_config(n, ep, max_deg):
+    """3f's tile-step configuration at ``ep`` model shards."""
+    from repro_torch.core.distributed_engine import DistConfig
+
+    return DistConfig(n=n, ep=ep, q_tile=256, t_iterations=2,
+                      index_l=MAIN_L, top_k=50, degree_cap=max_deg,
+                      hub_split_degree=64)
+
+
+def rank_tiles(torch, np, mesh, cfg, slabs, rows, work, n_tiles):
+    """``n_tiles`` tiles of 256 of ``work`` with the sparse tile step of
+    ``cfg`` on ``mesh`` from ``slabs`` and ``rows`` (values, indices) of
+    the local model shard: ``(tiles, seconds)``."""
+    from repro_torch.core.distributed_engine import make_verd_tile_step
+
+    dev = mesh.device
+    step = make_verd_tile_step(cfg, mesh)
+    work_t = torch.as_tensor(np.asarray(work[:256 * n_tiles]),
+                             dtype=torch.int32, device=dev)
+    iv, ii = rows[0][None], rows[1][None]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    tiles = [step(slabs, work_t[j:j + 256], iv, ii)
+             for j in range(0, work_t.shape[0], 256)]
+    torch.cuda.synchronize(dev)
+    return tiles, time.perf_counter() - t0
+
+
+def save_shard(path, slabs, rows):
+    """A model shard's slabs and index rows, for the NCCL ranks."""
+    import numpy as np
+
+    np.savez(path, values=rows[0].cpu().numpy(),
+             indices=rows[1].cpu().numpy(),
+             **{k: getattr(slabs, k).cpu().numpy()
+                for k in ("row_ptr", "col_idx", "edge_w", "dangling")})
+
+
+def rank_mesh_rank(rank, world, out_dir, work, fingerprint, max_deg,
+                   spawn_t0, save_rows):
+    """One process of phase 3q's gloo run (spawned): a shard of the
+    ``RANK_DATA x DIST_EP`` mesh on ``cuda:0``; writes ``rank{r}.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import rng
+    from repro_torch.core.distributed_engine import build_sharded_graph
+    from repro_torch.core.graph import graph_fingerprint
+    from repro_torch.core.index import build_index_sharded
+    from repro_torch.distributed import RankMesh
+    from repro_torch.graphs import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.launch.ranks import answers_digest
+
+    mesh = make_rank_mesh(
+        RANK_DATA, DIST_EP, backend="gloo", device="cuda:0",
+        timeout_s=RANK_TIMEOUT_S, rank=rank, world_size=world,
+        init_method="file://" + os.path.join(out_dir, "store"))
+    dev = mesh.device
+    rec = dict(rank=rank, shard=[mesh.local_data[0], mesh.local_model[0]],
+               ready_s=time.time() - spawn_t0)
+    t0 = time.perf_counter()
+    g = synthetic.rmat(MAIN_N_LOG2, avg_deg=10.0, seed=0, device=dev)
+    rec["graph_s"] = time.perf_counter() - t0
+    rec["fingerprint_equal"] = graph_fingerprint(g) == fingerprint
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    index, stats = build_index_sharded(
+        g, r=MAIN_R, l=MAIN_L, key=rng.prng_key(0), mesh=mesh,
+        source_batch=MAIN_SOURCE_BATCH, respawn=True)
+    torch.cuda.synchronize(dev)
+    rec.update(build_s=time.perf_counter() - t0,
+               rows=digest(index.values, index.indices),
+               row_offset=stats["row_offset"], kept_mass=stats["kept_mass"],
+               dropped_mass=stats["dropped_mass"])
+    if mesh.local_data[0] == 0:     # the first replica answers the tiles
+        tile_mesh = RankMesh(1, DIST_EP, dev, ranks=range(DIST_EP),
+                             timeout_s=RANK_TIMEOUT_S)
+        cfg = rank_tile_config(g.n, DIST_EP, max_deg)
+        slabs = build_sharded_graph(g, cfg, device=dev,
+                                    shards=tile_mesh.local_model)
+        rows = (index.values, index.indices)
+        tiles, tiles_s = rank_tiles(torch, np, tile_mesh, cfg, slabs, rows,
+                                    work, len(work) // 256)
+        rec.update(tiles_s=tiles_s, n_tiles=len(tiles),
+                   answers=answers_digest(tiles),
+                   answers_sane=all(bool(torch.isfinite(v).all())
+                                    and not bool((v < 0).any())
+                                    for v, _ in tiles))
+        if save_rows:               # the NCCL ranks' shards on four cards
+            save_shard(os.path.join(out_dir, f"shard{rank}.npz"), slabs,
+                       rows)
+    rec["launches"] = ops.launch_counts()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def rank_mesh_nccl_rank(rank, world, out_dir, work, max_deg, n, n_tiles):
+    """One process of phase 3q's NCCL run (spawned): a ``1 x world``
+    ``RankMesh`` over NCCL, rank ``r`` on ``cuda:r``, answering
+    ``n_tiles`` tiles from the slabs and rows in ``shard{r}.npz``; writes
+    ``nccl{r}.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed_engine import ShardedGraph
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.launch.ranks import answers_digest
+
+    mesh = make_rank_mesh(
+        1, world, backend="nccl", device=f"cuda:{rank}",
+        timeout_s=RANK_TIMEOUT_S, rank=rank, world_size=world,
+        init_method="file://" + os.path.join(out_dir, "nccl-store"))
+    dev = mesh.device
+    shard = {k: torch.from_numpy(v).to(dev) for k, v in np.load(
+        os.path.join(out_dir, f"shard{rank}.npz")).items()}
+    slabs = ShardedGraph(**{k: shard[k] for k in (
+        "row_ptr", "col_idx", "edge_w", "dangling")})
+    ops.reset_launch_counts()
+    tiles, tiles_s = rank_tiles(
+        torch, np, mesh, rank_tile_config(n, world, max_deg), slabs,
+        (shard["values"], shard["indices"]), work, n_tiles)
+    rec = dict(rank=rank, backend=mesh.backend, tiles_s=tiles_s,
+               n_tiles=len(tiles), answers=answers_digest(tiles),
+               launches=ops.launch_counts())
+    with open(os.path.join(out_dir, f"nccl{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_rank_mesh(torch, np, dev, g, index, work, max_deg, yard,
+                    failures):
+    """Phase 3q: 3f's build and tile step one shard a process (the module
+    docstring), against ``yard``: 3f's rows digested by model shard, its
+    totals, and its stacked answers over the same tiles.  Returns the
+    gloo ranks' summed launch counts."""
+    from repro_torch.core.distributed_engine import build_sharded_graph
+    from repro_torch.core.graph import graph_fingerprint
+    from repro_torch.distributed import ShardMesh
+    from repro_torch.launch.ranks import answers_digest, spawn
+
+    world = RANK_DATA * DIST_EP
+    cards = torch.cuda.device_count()
+    out_dir = tempfile.mkdtemp(prefix="rank-mesh-")
+    label = ("8 processes time-sliced on one card, collectives through "
+             "gloo and host memory")
+    try:
+        t0 = time.time()
+        try:
+            seconds = spawn(rank_mesh_rank, world, (
+                world, out_dir, np.asarray(work, np.int32),
+                graph_fingerprint(g), max_deg, t0, cards >= DIST_EP),
+                join_timeout_s=RANK_JOIN_S)
+        except Exception as e:  # noqa: BLE001 - a failure of the phase
+            failures.append(f"3q: the gloo ranks failed: {e!r}"[-3000:])
+            print(f"3q: the gloo ranks failed: {e}", flush=True)
+            return {}
+        recs = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        ns = g.n // DIST_EP
+        print(f"3q: {card_name_and_power_limit()}; {world} ranks "
+              f"({RANK_DATA} x {DIST_EP}) over gloo on cuda:0, run in "
+              f"{seconds:.3f} s; spawned and joined in "
+              f"{min(x['ready_s'] for x in recs):.3f}.."
+              f"{max(x['ready_s'] for x in recs):.3f} s; the graph made in "
+              f"{min(x['graph_s'] for x in recs):.3f}.."
+              f"{max(x['graph_s'] for x in recs):.3f} s")
+        for x in recs:
+            d, m = x["shard"]
+            ok = dict(
+                graph=x["fingerprint_equal"],
+                rows=x["rows"] == yard["rows"][m],
+                offset=x["row_offset"] == m * ns,
+                totals=all(abs(x[k] - yard[k]) <= 1e-6 * max(abs(yard[k]),
+                                                               1.0)
+                           for k in ("kept_mass", "dropped_mass")),
+                walk_step=x["launches"]["walk_step"] > 0,
+                push=x["launches"]["sharded_frontier_push"] == (
+                    2 * x["n_tiles"] if d == 0 else 0))
+            print(f"3q: rank {x['rank']} (data {d}, model {m}): build "
+                  f"{x['build_s']:.3f} s, rows bit-equal to 3f's "
+                  f"{ok['rows']}, totals {x['kept_mass']!r} / "
+                  f"{x['dropped_mass']!r} (3f {yard['kept_mass']!r} / "
+                  f"{yard['dropped_mass']!r}), launches "
+                  f"{json.dumps(x['launches'])}")
+            failures += [f"3q rank {x['rank']}: {k}"
+                         for k, v in ok.items() if not v]
+        tile_recs = [x for x in recs if x["shard"][0] == 0]
+        answers = {x["answers"] for x in tile_recs}
+        same = answers == {yard["answers"]}
+        tiles_s = max(x["tiles_s"] for x in tile_recs)
+        n_tiles = tile_recs[0]["n_tiles"]
+        print(f"3q: tile step on ranks 0-{DIST_EP - 1}: {MAIN_REQUESTS} "
+              f"requests in {n_tiles} tiles of 256, {tiles_s:.3f} s: "
+              f"{1e3 * tiles_s / n_tiles:.3f} ms a tile, "
+              f"{MAIN_REQUESTS / tiles_s:.1f} requests/s ({label}); answers "
+              f"the same bytes on every rank and as 3f's stacked step on "
+              f"the same rows: {same}")
+        if not same or not all(x["answers_sane"] for x in tile_recs):
+            failures.append("3q: rank tile answers differ from the stacked "
+                            "step's or are not finite and non-negative")
+        counts = {}
+        for x in recs:
+            for k, v in x["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+
+        # NCCL: one rank a card
+        nccl_world = DIST_EP if cards >= DIST_EP else 1
+        if nccl_world == 1:
+            cfg = rank_tile_config(g.n, 1, max_deg)
+            slabs = build_sharded_graph(g, cfg, device=dev)
+            rows = (index.values, index.indices)
+            save_shard(os.path.join(out_dir, "shard0.npz"), slabs, rows)
+            stacked, _ = rank_tiles(torch, np, ShardMesh(1, 1, device=dev),
+                                    cfg, slabs, rows, work, RANK_NCCL_TILES)
+            want, n_nccl = answers_digest(stacked), RANK_NCCL_TILES
+            del stacked, slabs
+            what = f"ShardMesh(1, 1) on 3b's index, {n_nccl} tiles"
+        else:
+            want, n_nccl = yard["answers"], n_tiles
+            what = f"the gloo ranks, {n_nccl} tiles"
+        try:
+            nccl_s = spawn(rank_mesh_nccl_rank, nccl_world, (
+                nccl_world, out_dir, np.asarray(work, np.int32), max_deg,
+                g.n, n_nccl), join_timeout_s=RANK_JOIN_S)
+        except Exception as e:  # noqa: BLE001 - a failure of the phase
+            failures.append(f"3q: the NCCL ranks failed: {e!r}"[-3000:])
+            print(f"3q: the NCCL ranks failed: {e}", flush=True)
+            return counts
+        nccl = []
+        for r in range(nccl_world):
+            with open(os.path.join(out_dir, f"nccl{r}.json")) as f:
+                nccl.append(json.load(f))
+        same = {x["answers"] for x in nccl} == {want}
+        push_ok = all(x["launches"]["sharded_frontier_push"]
+                      == 2 * n_nccl for x in nccl)
+        print(f"3q: 1 x {nccl_world} RankMesh over {nccl[0]['backend']} "
+              f"({nccl_world} card{'s' if nccl_world > 1 else ''}), run in "
+              f"{nccl_s:.3f} s: {n_nccl} tiles in "
+              f"{max(x['tiles_s'] for x in nccl):.3f} s; the same bytes as "
+              f"{what}: {same}; sharded_frontier_push 2 a tile: {push_ok}")
+        if not same or not push_ok:
+            failures.append(f"3q: the NCCL tiles differ from {what}")
+        return counts
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4723,6 +5018,7 @@ def main() -> int:
     from repro_torch.distributed import ShardMesh
     from repro_torch.graphs import synthetic
     from repro_torch.kernels import build, ops
+    from repro_torch.launch.ranks import answers_digest
     from repro_torch.serving import PPRService, ServiceConfig
     from repro_torch.serving.batching import BatchingConfig
     from repro_torch.serving.pipeline import PipelineConfig
@@ -5076,8 +5372,30 @@ def main() -> int:
           f"single-device r_splits={DIST_DATA} build: {chunk_equal}")
     if not chunk_equal:
         failures.append("sharded build differs from the single-device build")
-    del sh_index, slabs, iv, ii
+    # phase 3q's yardsticks: each model shard's rows, the totals, and this
+    # tile step's answers from these rows over the same tiles
+    t1 = time.perf_counter()
+    sh_shape = (DIST_EP, ns_f, MAIN_L)
+    sh_tiles = [step(slabs, work_t[j:j + 256],
+                     sh_index.values.reshape(sh_shape),
+                     sh_index.indices.reshape(sh_shape))
+                for j in range(0, MAIN_REQUESTS, 256)]
+    yard_q = dict(
+        rows=[digest(sh_index.values[m * ns_f:(m + 1) * ns_f],
+                     sh_index.indices[m * ns_f:(m + 1) * ns_f])
+              for m in range(DIST_EP)],
+        answers=answers_digest(sh_tiles), kept_mass=sh_stats["kept_mass"],
+        dropped_mass=sh_stats["dropped_mass"])
+    print(f"3q's yardsticks: rows digested by model shard, the stacked tile "
+          f"step on the sharded build's rows ({len(sh_tiles)} tiles) in "
+          f"{time.perf_counter() - t1:.3f} s")
+    del sh_index, slabs, iv, ii, sh_tiles
     phase("3f distributed engine", t0)
+
+    t0 = time.perf_counter()
+    counts_q = phase_rank_mesh(torch, np, dev, g, index, work, max_deg,
+                               yard_q, failures)
+    phase("3q rank mesh", t0)
 
     t0 = time.perf_counter()
     counts_g, replays_g = phase_recsys(torch, np, dev, "dlrm-rm2", DLRM_PLAN,
@@ -5210,6 +5528,7 @@ def main() -> int:
     paths = {"sparse (3b, 3c)": (SPARSE_PATH, counts),
              "dense (3d)": (DENSE_PATH, counts_d),
              "distributed (3f)": (DIST_PATH, counts_f),
+             "rank mesh (3q)": (DIST_PATH, counts_q),
              "dlrm (3g)": (RECSYS_PATH, counts_g),
              **{f"{arch} (3g)": (RECSYS_PATH, counts_zoo[arch])
                 for arch in ZOO},
@@ -5233,7 +5552,8 @@ def main() -> int:
         main = next((x for x in runs if x["variant"] in (
             "streamed", "later", "second", "serve_bulk")), runs[0])
         # every path that runs the kernel, each counted from zero
-        by_path = {path: c[name] for path, (kernels_of, c) in paths.items()
+        by_path = {path: c.get(name, 0)
+                   for path, (kernels_of, c) in paths.items()
                    if name in kernels_of}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

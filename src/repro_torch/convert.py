@@ -56,15 +56,22 @@ def sharded_graph_from_arrays(row_ptr, col_idx, edge_w, dangling,
         edge_w=as_t(edge_w, np.float32), dangling=as_t(dangling, np.float32))
 
 
-def sharded_index_from_arrays(values, indices, ep: int, device="cuda"):
+def sharded_index_from_arrays(values, indices, ep: int, device="cuda",
+                              shards=None):
     """An ``[n_pad, L]`` index as the engine's vertex-sharded ``(values
-    f32[ep, n_pad / ep, L], indices int32[ep, n_pad / ep, L])``."""
-    index = index_from_arrays(values, indices, device=device)
-    n, l = index.values.shape
+    f32[S, n_pad / ep, L], indices int32[S, n_pad / ep, L])``: every one of
+    the ``ep`` shards (``S = ep``), or the listed model ``shards`` in that
+    order (a rank's own: ``RankMesh.local_model``)."""
+    values, indices = np.asarray(values), np.asarray(indices)
+    n, l = values.shape
     if n % ep:
         raise ValueError(f"{n} index rows do not split over {ep} shards")
-    return (index.values.reshape(ep, n // ep, l),
-            index.indices.reshape(ep, n // ep, l))
+    keep = list(range(ep) if shards is None else shards)
+    index = index_from_arrays(
+        values.reshape(ep, n // ep, l)[keep].reshape(-1, l),
+        indices.reshape(ep, n // ep, l)[keep].reshape(-1, l), device=device)
+    return (index.values.reshape(len(keep), n // ep, l),
+            index.indices.reshape(len(keep), n // ep, l))
 
 
 def params_from_arrays(tree, device="cuda"):

@@ -62,11 +62,16 @@ def from_seed_sets(
 
 
 def merge_duplicates(
-    values: torch.Tensor, indices: torch.Tensor
+    values: torch.Tensor, indices: torch.Tensor, *, ordered: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fold duplicate column hits within each row into one slot: stable
     sort by column, sum each run into its leader, zero the rest.  Width is
-    preserved; empty slots stay ``(0.0, 0)``."""
+    preserved; empty slots stay ``(0.0, 0)``.  A run sums in slot order
+    (``scatter_add_``: on CUDA its atomics add in no fixed order, so a run
+    of inexact sums can round differently from run to run); ``ordered``
+    sums each run as a difference of float64 prefix sums, rounded once:
+    the same bits on every run on any device, equal to the slot-order sum
+    wherever that is exact and within its rounding otherwise."""
     q, w = values.shape
     if w == 0:
         return values, indices
@@ -76,6 +81,16 @@ def merge_duplicates(
     is_new[:, 1:] = si[:, 1:] != si[:, :-1]
     pos = torch.arange(w, device=values.device).expand(q, w)
     leader = torch.cummax(torch.where(is_new, pos, 0), dim=1).values
+    if ordered:
+        # a run's sum is the difference of float64 prefix sums at its ends,
+        # rounded once, added to its leader by the run's last slot alone
+        # (the others add +0.0): exact whatever order the adds land in
+        cs = torch.cumsum(sv.to(torch.float64), dim=1)
+        before = torch.where(leader > 0,
+                             cs.gather(1, (leader - 1).clamp(min=0)), 0.0)
+        is_last = torch.ones_like(is_new)
+        is_last[:, :-1] = is_new[:, 1:]
+        sv = torch.where(is_last, (cs - before).to(sv.dtype), 0.0)
     summed = torch.zeros_like(sv).scatter_add_(1, leader, sv)
     out_v = torch.where(is_new, summed, 0.0)
     out_i = torch.where(is_new & (out_v > 0), si, 0)
@@ -128,10 +143,11 @@ def threshold_values(values: torch.Tensor, threshold: float) -> torch.Tensor:
 
 def compact_arrays(
     values: torch.Tensor, indices: torch.Tensor, k: int,
-    *, threshold: float = 0.0,
+    *, threshold: float = 0.0, ordered: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dedup -> epsilon-threshold -> top-K: the shared re-compaction law."""
-    v, i = merge_duplicates(values, indices)
+    """Dedup -> epsilon-threshold -> top-K: the shared re-compaction law
+    (``ordered``: :func:`merge_duplicates`')."""
+    v, i = merge_duplicates(values, indices, ordered=ordered)
     v = threshold_values(v, threshold)
     return topk_compact(v, i, k)
 
@@ -167,29 +183,40 @@ def merge_sketch_parts(values, indices, dropped, k: int):
 
 def bucket_by_owner(
     values: torch.Tensor, indices: torch.Tensor, ep: int, n_shard: int,
-    k: int, *, to_local: bool = True,
+    k: int, *, to_local: bool = True, ordered: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(row, owner) top-``k`` buckets: the distributed wire format.
 
     ``indices`` are global columns in ``[0, ep * n_shard)``, owner ``o``
-    holding ``[o * n_shard, (o + 1) * n_shard)``.  One global
-    :func:`merge_duplicates`, then per owner the masked :func:`topk_compact`
-    (masked-out slots parked at the owner's first column with value 0).
-    Returns ``(vals f32[Q, ep, k], idx int32[Q, ep, k])``, indices
-    owner-local with ``to_local``; empty slots ``(0.0, 0)``.  Exact when
-    ``k >= n_shard``.
+    holding ``[o * n_shard, (o + 1) * n_shard)``; ``values`` are f32
+    masses (``>= 0``).  One global :func:`merge_duplicates`, then each owner's
+    positive entries in descending value, ties in slot order (the order
+    a masked :func:`topk_compact` of each owner gives), all owners from
+    one sort of ``(owner, value)`` keys.  Returns ``(vals f32[Q, ep, k],
+    idx int32[Q, ep, k])``, indices owner-local with ``to_local``; empty
+    slots ``(0.0, 0)``.  Exact when ``k >= n_shard``.  ``ordered``:
+    :func:`merge_duplicates`'.
     """
-    values, indices = merge_duplicates(values, indices)
-    owner_of = torch.div(indices, n_shard, rounding_mode="floor")
-    out_v, out_i = [], []
-    for owner in range(ep):
-        mask = owner_of == owner
-        v = torch.where(mask, values, 0.0)
-        i = torch.where(mask, indices, owner * n_shard)
-        cv, ci = topk_compact(v, i, k)
-        if to_local:
-            ci = torch.where(cv > 0, ci - owner * n_shard, 0)
-        out_v.append(cv)
-        out_i.append(ci)
-    return (torch.stack(out_v, dim=1),
-            torch.stack(out_i, dim=1).to(torch.int32))
+    values, indices = merge_duplicates(values, indices, ordered=ordered)
+    q, dev = values.shape[0], values.device
+    owner = torch.where(values > 0, torch.div(
+        indices, n_shard, rounding_mode="floor"), ep).to(torch.int64)
+    # a non-negative f32's bits order as its value: owner ascending, then
+    # value descending, empty slots (owner ep) last; stable, so ties keep
+    # their slot order
+    bits = values.view(torch.int32).to(torch.int64)
+    keys, order = torch.sort(owner * (1 << 31) + ((1 << 31) - 1 - bits),
+                             dim=1, stable=True)
+    values, indices = values.gather(1, order), indices.gather(1, order)
+    # each owner's first sorted slot: its run starts where the keys pass it
+    first = torch.searchsorted(keys, torch.arange(
+        ep + 1, device=dev).expand(q, ep + 1).contiguous() * (1 << 31))
+    live = first[:, 1:] - first[:, :-1]
+    j = torch.arange(k, device=dev)
+    take = j < live[:, :, None]                            # [Q, ep, k]
+    slot = torch.where(take, first[:, :-1, None] + j, 0).reshape(q, ep * k)
+    out_v = torch.where(take, values.gather(1, slot).reshape(q, ep, k), 0.0)
+    out_i = indices.gather(1, slot).reshape(q, ep, k)
+    if to_local:
+        out_i = out_i - torch.arange(ep, device=dev)[:, None] * n_shard
+    return out_v, torch.where(take, out_i, 0).to(torch.int32)

@@ -8,7 +8,8 @@ same chunk padding, ``sketch_l = min(n, max(2l, l+32))``, per-chunk key
 equals the reference's bit for bit.  ``engine="legacy"`` keeps the dense
 MCFP oracle (``mcfp.estimate_ppr_batched`` truncated to top-L).
 :func:`build_index_sharded` builds the sparse rows on a
-:class:`~repro_torch.distributed.mesh.ShardMesh`.
+:class:`~repro_torch.distributed.mesh.ShardMesh`, or a rank's own shard of
+them on a :class:`~repro_torch.distributed.mesh.RankMesh`.
 
 Both sparse builds can record each row's walks-through Bloom filter
 (``touch_bits``, the invalidation sketch of ``core/updates.py``) and can
@@ -44,6 +45,12 @@ from repro_torch.core.walks import (DEFAULT_C, BuildLedger,
                                     simulate_walks_sparse)
 from repro_torch.device import resolve_device
 from repro_torch.distributed.checkpoint import Checkpointer, serialize_key
+from repro_torch.distributed.mesh import RankMesh
+
+# what the builds over a RankMesh do not do yet (ROADMAP.md, queue 1)
+RANK_MESH_NEXT = ("the checkpointed sharded build and the sharded repair "
+                  "over ranks are the next item of ROADMAP.md's queue 1; "
+                  "run them on a ShardMesh")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -534,7 +541,9 @@ def build_index_sharded(
     fault_plan=None,
 ) -> Tuple[PPRIndex, dict]:
     """The full-index build on a :class:`~repro_torch.distributed.mesh
-    .ShardMesh` (``distributed_engine.make_sparse_index_build_step``).
+    .ShardMesh` (``distributed_engine.make_sparse_index_build_step``), or
+    one rank's part of it on a :class:`~repro_torch.distributed.mesh
+    .RankMesh`.
 
     Sources shard over the model axis (each shard sweeps the chunks of its
     own vertex interval), walks split over the batch axes (``r / n_data``
@@ -555,10 +564,20 @@ def build_index_sharded(
     continues from the newest committed step bit for bit, and refuses a
     step of another graph, key, mesh or chunk grid.  ``fault_plan`` fires
     ``chunk_boundary`` at each segment's first chunk.
+
+    On a ``RankMesh`` every rank returns its own model shard: an index of
+    ``[n_shard, L]`` rows (global columns, ``n = n_pad``) that are rows
+    ``stats["row_offset"]`` on of the whole, identical on the shard's data
+    replicas, with ``stats["touch"]`` its rows' filters; ``kept_mass`` and
+    ``dropped_mass`` sum every shard's rows as the stacked build does, so
+    every rank's totals are its.  ``checkpoint_dir`` raises there.
     """
     from repro_torch.core.distributed_engine import (
         DistConfig, make_sparse_index_build_step)
 
+    on_ranks = isinstance(mesh, RankMesh)
+    if on_ranks and checkpoint_dir is not None:
+        raise ValueError(f"checkpoint_dir on a RankMesh: {RANK_MESH_NEXT}")
     ep, n_split = mesh.model, mesh.data
     if r % n_split != 0:
         raise ValueError(
@@ -602,7 +621,7 @@ def build_index_sharded(
         checkpoint_dir, checkpoint_every, checkpoint_keep, fault_plan)
     extra_stats: dict = {}
     if ckpt is None:
-        out = [x.reshape(n_pad, *x.shape[2:]) for x in sweep(0, None)]
+        out = [x.reshape(-1, *x.shape[2:]) for x in sweep(0, None)]
     else:
         signature = dict(
             kind="build_index_sharded",
@@ -655,6 +674,11 @@ def build_index_sharded(
                            resumed_at_chunk=start_chunk)
     values, indices, kept_rows, dropped_rows = out[:4]
     touch = out[4] if touch_bits else None
+    if on_ranks:    # every shard's rows, summed as the stacked build sums
+        kept_rows, dropped_rows = (
+            mesh.all_gather(x[None, None], "model").reshape(n_pad)
+            for x in (kept_rows, dropped_rows))
+        extra_stats = dict(row_offset=mesh.local_model[0] * ns)
     kept = float(kept_rows.sum())
     dropped = float(dropped_rows.sum())
     stats = dict(
@@ -672,7 +696,7 @@ def build_index_sharded(
         pad_fraction=pad / max(n_pad, 1),
         duplicate_sources=0,
         **_mass_stats(kept, dropped),
-        nbytes=n_pad * l * 8,
+        nbytes=values.shape[0] * l * 8,
     )
     stats.update(extra_stats)
     if ckpt is not None:

@@ -37,10 +37,11 @@ from repro_torch import rng
 from repro_torch.core import index as index_mod
 from repro_torch.core import walks as walks_mod
 from repro_torch.core.graph import Graph, _edge_pairs, apply_edge_updates
-from repro_torch.core.index import (PPRIndex, build_index,
+from repro_torch.core.index import (RANK_MESH_NEXT, PPRIndex, build_index,
                                     build_index_sharded,
                                     sparse_chunk_estimates)
 from repro_torch.distributed.checkpoint import deserialize_key
+from repro_torch.distributed.mesh import RankMesh
 
 DEFAULT_C = walks_mod.DEFAULT_C
 
@@ -174,13 +175,17 @@ def build_maintainable_index(
     On one device (``mesh=None``: :func:`~repro_torch.core.index
     .build_index` on ``device``) or on a ``ShardMesh`` (:func:`~repro_torch
     .core.index.build_index_sharded` on the mesh's device; ``r_splits`` is
-    then the mesh's data axis).  ``touch_bits=0`` sizes the filters from
-    ``r`` (:func:`default_touch_bits`).  The checkpoint arguments make the
-    build crash-safe; the filters ride in every commit, so
+    then the mesh's data axis; a ``RankMesh`` raises).  ``touch_bits=0``
+    sizes the filters from ``r`` (:func:`default_touch_bits`).  The
+    checkpoint arguments make the build crash-safe; the filters ride in
+    every commit, so
     :func:`load_maintainable_index` reloads an index that repairs as the
     returned one does.  Returns ``(maintainable, stats)``, the filters
     moved out of ``stats``.
     """
+    if isinstance(mesh, RankMesh):
+        raise ValueError(f"a maintainable index on a RankMesh: "
+                         f"{RANK_MESH_NEXT}")
     if touch_bits <= 0:
         touch_bits = default_touch_bits(r, c)
     ckpt_kwargs = dict(

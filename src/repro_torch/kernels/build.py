@@ -7,7 +7,10 @@ repository root and named by a hash of its source, every header under
 ``csrc/`` (in sorted order) and the flags, so an unchanged source is never
 rebuilt and an edit to any header rebuilds every library.  All missing
 libraries build in parallel, one nvcc process per source.  No ``--use_fast_math``:
-``walk_step`` must stay bit-exact.
+``walk_step`` must stay bit-exact.  Processes that build at once are safe:
+each nvcc writes a file of its own process, renamed into place; the ranks
+of ``launch.mesh.make_rank_mesh`` wait at a barrier while local rank 0
+builds, so a host runs one nvcc a source.
 """
 
 from __future__ import annotations

@@ -239,7 +239,9 @@ extern "C" int ell_spmm_launch(const void* f, const void* nbr, const void* w,
                                              (int*)slot, (float*)ftc,
                                              (int*)n_live);
   }
-  static const int smem_err = pw::allow_max_dynamic_smem(ell_pull_kernel);
+  static int smem_done[pw::kMaxDevices];
+  const int smem_err = pw::once_per_device(
+      smem_done, [] { return pw::allow_max_dynamic_smem(ell_pull_kernel); });
   if (smem_err) return smem_err;
   const int smem = ell_spmm_stage_bytes(rows > 0 ? k : 0);
   const dim3 grid(n_blocks, (q + kQ - 1) / kQ);

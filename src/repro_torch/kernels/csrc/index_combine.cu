@@ -760,8 +760,10 @@ extern "C" int index_combine_hash_launch(
       d_max > 3 * (1 << t_log2) / 4 - kHashThreads || (part_mul & 1u) == 0) {
     return (int)cudaErrorInvalidValue;
   }
-  static const int smem_err =
-      pw::allow_max_dynamic_smem(index_combine_hash_kernel);
+  static int smem_done[pw::kMaxDevices];
+  const int smem_err = pw::once_per_device(smem_done, [] {
+    return pw::allow_max_dynamic_smem(index_combine_hash_kernel);
+  });
   if (smem_err) return smem_err;
   const int smem = hash_smem_bytes(t_log2, k, k_out);
   cudaStream_t st = (cudaStream_t)stream;

@@ -55,6 +55,7 @@
 // three numbers back in one copy to size the scratch and the grids of the
 // wide path.  Regions are disjoint and rows independent in whatever order
 // the atomics land, so the answer does not depend on it.
+#include "smem_optin.cuh"
 #include "wide_row.cuh"
 
 constexpr int kThreads = 512;
@@ -309,17 +310,17 @@ extern "C" void sharded_frontier_push_wide_smem(int k, int wire_k,
 }
 
 static int allow_wide_smem() {
-  static int err = -1;  // once per process
-  if (err < 0) {
+  static int done[pw::kMaxDevices];  // once per device
+  return pw::once_per_device(done, [] {
     const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
-    err = (int)cudaFuncSetAttribute(sharded_wide_gather_kernel, a,
-                                    kGatherBytes);
+    int err = (int)cudaFuncSetAttribute(sharded_wide_gather_kernel, a,
+                                        kGatherBytes);
     if (!err) err = (int)cudaFuncSetAttribute(wr::merge_pass_kernel, a,
                                               wr::kMergeBytes);
     if (!err) err = (int)cudaFuncSetAttribute(sharded_wide_select_kernel, a,
                                               wr::kSelectBytes);
-  }
-  return err;
+    return err;
+  });
 }
 
 // The wide rows' push: total, longest and n_wide are the size kernel's

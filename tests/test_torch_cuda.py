@@ -592,3 +592,62 @@ def test_static_shared_bytes_read_from_the_libraries(cuda):
     push = trace.static_smem_bytes(build.library_path("frontier_push"))
     assert walk == {"walk_step_kernel": 0}
     assert push["frontier_push_kernel"] >= 32 * 1024
+
+
+@pytest.mark.cuda
+def test_sparse_tile_step_answers_identical_across_runs(cuda):
+    """The stacked sparse tile step three times on the same tiles: the
+    same bytes (its dedups sum without float atomics,
+    ``frontier.merge_duplicates``' ``ordered``; the atomic
+    ``scatter_add_`` there made the answers differ between runs)."""
+    from repro_torch import rng
+    from repro_torch.core.distributed_engine import (
+        DistConfig, build_sharded_graph, make_verd_tile_step)
+    from repro_torch.core.index import build_index
+    from repro_torch.core.verd import resolve_degree_cap
+    from repro_torch.distributed import ShardMesh
+
+    g = tsyn.rmat(14, avg_deg=10.0, seed=0, device=cuda)
+    index, _ = build_index(g, r=32, l=64, key=rng.prng_key(0),
+                           source_batch=4096, device=cuda)
+    cfg = DistConfig(n=g.n, ep=4, q_tile=256, t_iterations=2, index_l=64,
+                     top_k=50, degree_cap=resolve_degree_cap(g),
+                     hub_split_degree=64)
+    step = make_verd_tile_step(cfg, ShardMesh(1, 4, device=cuda))
+    slabs = build_sharded_graph(g, cfg, device=cuda)
+    shape = (4, g.n // 4, 64)
+    work = torch.as_tensor(np.random.default_rng(1).integers(0, g.n, 1024),
+                           dtype=torch.int32, device=cuda)
+    runs = [[step(slabs, work[j:j + 256], index.values.reshape(shape),
+                  index.indices.reshape(shape)) for j in range(0, 1024, 256)]
+            for _ in range(3)]
+    for first, *later in zip(*runs):
+        for v, i in later:
+            assert torch.equal(first[0].view(torch.int32), v.view(torch.int32))
+            assert torch.equal(first[1], i)
+
+
+@pytest.mark.cuda
+def test_rank_mesh_on_card_matches_the_stacked_mesh(cuda, tmp_path):
+    """Four gloo ranks on the card at rmat(12) (``tests/torch_rank_mesh_
+    worker.py``, no JAX): the 1 x 4 build's rows and its sparse tile
+    step's answers from them, and the 2 x 2 build's rows, each rank's bit
+    for bit the stacked ``ShardMesh``'s of its shard."""
+    import torch_rank_mesh_worker as worker
+
+    got, _ = worker.run_ranks(tmp_path, ["card"], device="cuda:0",
+                              timeout_s=300.0, join_timeout_s=600.0)
+    want = worker.stacked_card(cuda)
+    n = want["rows14"].n
+    for r, out in enumerate(got):
+        d, m = divmod(r, 2)
+        for name, shards, shard in (("rows14", 4, r), ("rows22", 2, m)):
+            rows = slice(shard * n // shards, (shard + 1) * n // shards)
+            for part in ("values", "indices"):
+                assert np.array_equal(
+                    out[f"card/{name}_{part}"],
+                    getattr(want[name], part)[rows].cpu().numpy()), (r, name)
+        assert np.array_equal(out["card/tile_values"].view(np.uint32),
+                              want["tile_values"].view(np.uint32)), r
+        assert np.array_equal(out["card/tile_indices"],
+                              want["tile_indices"]), r

@@ -48,7 +48,8 @@ def test_port_imports_no_jax_and_no_reference_module():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20
     walked = {f.relative_to(PKG).as_posix() for f in files}
-    assert {"distributed/sharding.py", "models/transformer.py",
+    assert {"distributed/sharding.py", "distributed/mesh.py",
+            "launch/mesh.py", "launch/ranks.py", "models/transformer.py",
             "configs/qwen1_5_32b.py", "configs/command_r_plus_104b.py",
             "configs/dbrx_132b.py", "configs/grok_1_314b.py"} <= walked
     bad = [(f.relative_to(PKG), m) for f in files
