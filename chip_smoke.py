@@ -88,8 +88,9 @@ Phases, each timed and printed:
    the push's share of it, the
    computed wire bytes per iteration, and RAG and precision at k = 50
    against 3e's ``pi``; then, as 3q's yardsticks, each model shard's rows
-   digested and the same tile step answering the same 64 tiles from the
-   sharded build's rows;
+   digested, the same tile step answering the same 64 tiles from the
+   sharded build's rows and a ``PPRService`` on them serving 3c's first
+   4,096 requests;
 3q. the rank mesh: 8 processes spawned on the one card, a ``RankMesh(2,
    4)`` over gloo (collectives staged through host memory), each
    regenerating 3a's graph (its fingerprint the parent's) and running
@@ -107,7 +108,24 @@ Phases, each timed and printed:
    gloo ranks'.  Prints the spawn seconds, each rank's build seconds, ms
    a tile and requests/s (8 processes time-sliced on one card, collectives
    through gloo and host memory: not a multi-card figure) and the phase's
-   seconds;
+   seconds.  Then, on the same spawned ranks: (i) ranks 0-3 serve the
+   first 4,096 of 3c's requests in batches of 256 through ``PPRService``
+   over the rows they built (rank 0 leads, gathering each batch's touched
+   rows from their owners; ranks 1-3 run ``serve_follower``), the answers
+   the same bytes as 3f's stacked ``PPRService`` on the assembled index,
+   ``frontier_push`` and ``index_combine_sparse`` counted on the leader
+   (zeroed just before, read just after), every rank's index its own
+   ``[n_shard, L]`` rows; it prints qps, p50 / p99, the row bytes a batch
+   that crossed and its seconds; (ii) rmat(14)'s checkpointed maintainable
+   build on the ``RankMesh(2, 4)``, crashed by a ``FaultPlan`` after its
+   one partial commit and resumed, one update batch through the leader's
+   ``apply_updates`` with ``SMALL_REQUESTS`` served after it, and a
+   ``from_checkpoint`` boot serving them: rows, filters, report and both
+   answers' bytes equal to the same on ``ShardMesh(2, 4)`` in this
+   process; (iii) the NCCL ranks also serve through the rank service,
+   1,024 requests on 3b's index on one card (the same bytes as a
+   one-device ``PPRService``), 3q (i)'s 4,096 with four cards (the gloo
+   ranks' bytes);
 3g. the recsys zoo at full width, each model with the counters zeroed
    just before its forwards and read just after, its parameters from the
    port's ``init`` (seed 0) on the card, bf16 compute, the card's name and
@@ -383,6 +401,13 @@ RANK_DATA = 2                  # phase 3q: the rank mesh is RANK_DATA x DIST_EP
 RANK_NCCL_TILES = 4            # phase 3q's NCCL check, tiles at ep = 1
 RANK_TIMEOUT_S = 300.0         # phase 3q: a collective's timeout, each run's
 RANK_JOIN_S = 420.0            # ...and the spawned ranks' deadline
+RANK_SERVE_REQUESTS = 4096     # 3q (i): 3c's first requests, rank service
+RANK_NCCL_REQUESTS = 1024      # 3q (iii): the 1 x 1 NCCL service's
+RANK_SERVE_PATH = ("frontier_push", "index_combine_sparse")  # its leader's
+SMALL_N_LOG2 = 14              # 3q (ii): the small stack on the same ranks
+SMALL_STACK = dict(r=16, l=64, source_batch=1024, touch_bits=4096)
+SMALL_CKPT_EVERY = 2           # of 4 chunks a shard: one partial commit
+SMALL_REQUESTS = 512           # served after the update, and after a boot
 RECSYS_PATH = ("embedding_bag",)   # phase 3g: each recsys model's forwards
 # embedding_bag launches one forward makes, one a gather: the one-hot
 # fields (DLRM, DCN-v2; field 0 holds the candidates in retrieval),
@@ -4777,6 +4802,201 @@ def save_shard(path, slabs, rows):
                 for k in ("row_ptr", "col_idx", "edge_w", "dangling")})
 
 
+def rank_service(torch, mesh, g, index, work):
+    """3q's rank service: ``work`` through ``PPRService`` over the rank's
+    ``index`` on the ``1 x ep`` ``mesh`` (the leader), or this shard's
+    rows to the leader until it closes (a follower); a record of it."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.ranks import (service_answers_digest,
+                                          service_config)
+    from repro_torch.serving import PPRService
+    from repro_torch.serving.engine import serve_follower
+
+    t0 = time.perf_counter()
+    if not index.is_leader:
+        res = serve_follower(g, index, mesh)
+        return dict(row_requests=res["row_requests"],
+                    shard_rows=index.n_shard,
+                    seconds=time.perf_counter() - t0)
+    svc = PPRService(g, index, service_config(256), device=mesh.device,
+                     mesh=mesh)
+    ops.reset_launch_counts()
+    answers, st = svc.run_closed_loop(work)
+    torch.cuda.synchronize(mesh.device)
+    counts = ops.launch_counts()
+    svc.close()
+    return dict(answers=service_answers_digest(answers), served=len(answers),
+                qps=st["qps"], p50_ms=1e3 * st["latency_p50"],
+                p99_ms=1e3 * st["latency_p99"], batches=st["batches"],
+                exchange_rows=st["exchange_rows"],
+                exchange_rows_crossed=st["exchange_rows_crossed"],
+                exchange_bytes=st["exchange_bytes_crossed"],
+                graphs_captured=st["graphs_captured"],
+                shard_rows=index.n_shard, launches=counts,
+                seconds=time.perf_counter() - t0)
+
+
+def small_stack_inputs(g):
+    """3q (ii)'s service, requests and update batch on rmat(14), from a
+    seed: 4 fresh edges and 4 of the graph's deleted, all out of vertices
+    no edge enters, so few rows' walks pass them and the repair resamples
+    some chunks of each shard, not all."""
+    import numpy as np
+
+    from repro_torch.launch.ranks import service_config
+
+    r = np.random.default_rng(UPD_SEED)
+    src, dst = g.src.cpu().numpy(), g.col_idx.cpu().numpy()
+    unreached = np.bincount(dst, minlength=g.n) == 0
+    gone = r.choice(np.flatnonzero(unreached[src]), UPD_EDGES,
+                    replace=False)
+    ins = np.stack([r.choice(np.flatnonzero(unreached), UPD_EDGES),
+                    r.integers(0, g.n, UPD_EDGES)], axis=1)
+    cfg = service_config(256)
+    cfg.query.combine_path = "sparse"
+    return (cfg, r.integers(0, g.n, SMALL_REQUESTS).tolist(), ins,
+            np.stack([src[gone], dst[gone]], axis=1))
+
+
+def report_summary(report):
+    """A repair report's JSON fields, its dirty rows digested (not its
+    times, nor the cache's)."""
+    out = {k: v for k, v in report.items() if k not in (
+        "dirty_row_ids", "capture_s", "graphs_captured",
+        "cache_invalidated")}
+    out["dirty_row_ids"] = hashlib.sha256(
+        report["dirty_row_ids"].tobytes()).hexdigest()
+    return out
+
+
+def small_stack_rank(torch, mesh, service_mesh, out_dir):
+    """3q (ii) on a rank: rmat(14)'s checkpointed maintainable build on
+    the ``RANK_DATA x DIST_EP`` mesh, crashed after its one partial commit
+    and resumed; then on the first data replica (``service_mesh``, else
+    ``None``) one update batch through the leader's ``apply_updates`` and
+    ``SMALL_REQUESTS`` served, and a service booted from the checkpoint
+    serving them.  Returns a record of digests."""
+    from repro_torch import rng
+    from repro_torch.core.updates import build_maintainable_index
+    from repro_torch.graphs import synthetic
+    from repro_torch.launch.ranks import service_answers_digest
+    from repro_torch.serving import PPRService
+    from repro_torch.serving.engine import serve_follower
+    from repro_torch.testing import FaultPlan, InjectedFault
+
+    t0 = time.perf_counter()
+    dev = mesh.device
+    g = synthetic.rmat(SMALL_N_LOG2, avg_deg=10.0, seed=0, device=dev)
+    ckpt = os.path.join(out_dir, "small-ckpt")
+    kw = dict(SMALL_STACK, key=rng.prng_key(0), mesh=mesh,
+              checkpoint_dir=ckpt, checkpoint_every=SMALL_CKPT_EVERY)
+    try:
+        build_maintainable_index(g, fault_plan=FaultPlan(
+            raise_at_chunks=(SMALL_CKPT_EVERY,)), **kw)
+        crashed = False
+    except InjectedFault:
+        crashed = True
+    m, stats = build_maintainable_index(g, resume=True, **kw)
+    torch.cuda.synchronize(dev)
+    rec = dict(crashed=crashed, resumed_at=stats["resumed_at_chunk"],
+               rows=digest(m.index.values, m.index.indices),
+               touch=digest(m.touch.bits), kept_mass=stats["kept_mass"],
+               build_s=time.perf_counter() - t0)
+    if service_mesh is None:
+        return rec
+    t0 = time.perf_counter()
+    cfg, work, ins, dele = small_stack_inputs(g)
+    if m.index.is_leader:
+        svc = PPRService(g, None, cfg, device=dev, mesh=service_mesh,
+                         maintainer=m)
+        rec["report"] = report_summary(svc.apply_updates(inserts=ins,
+                                                         deletes=dele))
+        answers, _ = svc.run_closed_loop(work)
+        rec["answers"] = service_answers_digest(answers)
+        svc.close()
+        final = svc.maintainer
+    else:
+        final = serve_follower(g, None, service_mesh,
+                               maintainer=m)["maintainer"]
+    rec["repaired"] = digest(final.index.values, final.index.indices,
+                             final.touch.bits)
+    rec["update_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if m.index.is_leader:
+        svc = PPRService.from_checkpoint(g, ckpt, cfg, device=dev,
+                                         mesh=service_mesh)
+        answers, _ = svc.run_closed_loop(work)
+        rec["booted"] = service_answers_digest(answers)
+        svc.close()
+    else:
+        serve_follower(g, None, service_mesh, checkpoint_dir=ckpt)
+    rec["boot_s"] = time.perf_counter() - t0
+    return rec
+
+
+def small_stack_stacked(torch, dev, ckpt):
+    """3q (ii)'s yardsticks on ``ShardMesh(RANK_DATA, DIST_EP)`` in this
+    process: each model shard's rows and filters after the crash and the
+    resume and after the update, the report, and the answers after the
+    update and of the booted service."""
+    import numpy as np
+
+    from repro_torch import rng
+    from repro_torch.core.updates import build_maintainable_index
+    from repro_torch.distributed import ShardMesh
+    from repro_torch.graphs import synthetic
+    from repro_torch.launch.ranks import service_answers_digest
+    from repro_torch.serving import PPRService
+    from repro_torch.testing import FaultPlan, InjectedFault
+
+    t0 = time.perf_counter()
+    g = synthetic.rmat(SMALL_N_LOG2, avg_deg=10.0, seed=0, device=dev)
+    kw = dict(SMALL_STACK, key=rng.prng_key(0),
+              mesh=ShardMesh(RANK_DATA, DIST_EP, device=dev),
+              checkpoint_dir=ckpt, checkpoint_every=SMALL_CKPT_EVERY)
+    try:
+        build_maintainable_index(g, fault_plan=FaultPlan(
+            raise_at_chunks=(SMALL_CKPT_EVERY,)), **kw)
+    except InjectedFault:
+        pass
+    m, stats = build_maintainable_index(g, resume=True, **kw)
+    ns = m.index.n // DIST_EP
+
+    def shards(m, touch):
+        return [digest(m.index.values[j * ns:(j + 1) * ns],
+                       m.index.indices[j * ns:(j + 1) * ns],
+                       *((m.touch.bits[j * ns:(j + 1) * ns],) if touch
+                         else ()))
+                for j in range(DIST_EP)]
+
+    yard = dict(rows=shards(m, False), kept_mass=stats["kept_mass"],
+                resumed_at=stats["resumed_at_chunk"],
+                touch=[digest(m.touch.bits[j * ns:(j + 1) * ns])
+                       for j in range(DIST_EP)])
+    cfg, work, ins, dele = small_stack_inputs(g)
+    svc = PPRService(g, None, cfg, device=dev, maintainer=m)
+    report = svc.apply_updates(inserts=ins, deletes=dele)
+    yard["report"] = report_summary(report)
+    yard["answers"] = service_answers_digest(svc.run_closed_loop(work)[0])
+    yard["repaired"] = shards(svc.maintainer, True)
+    # a selective repair: some chunks resampled, the others' rows kept
+    sb = SMALL_STACK["source_batch"]
+    kept = torch.ones(m.index.n, dtype=torch.bool, device=dev)
+    for c in np.unique(report["dirty_row_ids"] // sb):
+        kept[c * sb:(c + 1) * sb] = False
+    after = svc.maintainer.index
+    yard["selective"] = bool(
+        0 < report["repaired_chunks"] < report["total_chunks"]
+        and torch.equal(after.values[kept], m.index.values[kept])
+        and torch.equal(after.indices[kept], m.index.indices[kept]))
+    boot = PPRService.from_checkpoint(g, ckpt, cfg, device=dev)
+    yard["booted"] = service_answers_digest(boot.run_closed_loop(work)[0])
+    del svc, boot
+    torch.cuda.synchronize(dev)
+    yard["seconds"] = time.perf_counter() - t0
+    return yard
+
+
 def rank_mesh_rank(rank, world, out_dir, work, fingerprint, max_deg,
                    spawn_t0, save_rows):
     """One process of phase 3q's gloo run (spawned): a shard of the
@@ -4833,23 +5053,37 @@ def rank_mesh_rank(rank, world, out_dir, work, fingerprint, max_deg,
         if save_rows:               # the NCCL ranks' shards on four cards
             save_shard(os.path.join(out_dir, f"shard{rank}.npz"), slabs,
                        rows)
+        del slabs
     rec["launches"] = ops.launch_counts()
+    if mesh.local_data[0] == 0:     # (i) the rank service from these rows
+        rec["serve"] = rank_service(
+            torch, tile_mesh, g, index,
+            [int(v) for v in work[:RANK_SERVE_REQUESTS]])
+    del g, index
+    torch.cuda.empty_cache()
+    rec["small"] = small_stack_rank(                  # (ii)
+        torch, mesh, tile_mesh if mesh.local_data[0] == 0 else None,
+        out_dir)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
     dist.barrier()
     dist.destroy_process_group()
 
 
-def rank_mesh_nccl_rank(rank, world, out_dir, work, max_deg, n, n_tiles):
+def rank_mesh_nccl_rank(rank, world, out_dir, work, max_deg, n, n_tiles,
+                        n_serve):
     """One process of phase 3q's NCCL run (spawned): a ``1 x world``
     ``RankMesh`` over NCCL, rank ``r`` on ``cuda:r``, answering
-    ``n_tiles`` tiles from the slabs and rows in ``shard{r}.npz``; writes
-    ``nccl{r}.json``."""
+    ``n_tiles`` tiles from the slabs and rows in ``shard{r}.npz``, then
+    serving ``n_serve`` requests through the rank service over those rows
+    (the graph from ``graph.npz``); writes ``nccl{r}.json``."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from repro_torch.core.distributed_engine import ShardedGraph
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.index import PPRIndex, RankIndex
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_rank_mesh
     from repro_torch.launch.ranks import answers_digest
@@ -4870,6 +5104,17 @@ def rank_mesh_nccl_rank(rank, world, out_dir, work, max_deg, n, n_tiles):
     rec = dict(rank=rank, backend=mesh.backend, tiles_s=tiles_s,
                n_tiles=len(tiles), answers=answers_digest(tiles),
                launches=ops.launch_counts())
+    del slabs, tiles
+    arrays = {k: torch.from_numpy(v).to(dev) for k, v in np.load(
+        os.path.join(out_dir, "graph.npz")).items()}
+    g = Graph(n=n, m=int(arrays["col_idx"].shape[0]), **arrays)
+    rows = shard["values"].shape[0]
+    index = RankIndex(rows=PPRIndex(values=shard["values"],
+                                    indices=shard["indices"], l=MAIN_L,
+                                    n=rows * world),
+                      row_offset=rank * rows, mesh=mesh)
+    rec["serve"] = rank_service(torch, mesh, g, index,
+                                [int(v) for v in work[:n_serve]])
     with open(os.path.join(out_dir, f"nccl{rank}.json"), "w") as f:
         json.dump(rec, f)
     dist.barrier()
@@ -4878,14 +5123,19 @@ def rank_mesh_nccl_rank(rank, world, out_dir, work, max_deg, n, n_tiles):
 
 def phase_rank_mesh(torch, np, dev, g, index, work, max_deg, yard,
                     failures):
-    """Phase 3q: 3f's build and tile step one shard a process (the module
+    """Phase 3q: 3f's build, tile step and service one shard a process,
+    and the small stack's checkpointed build, repair and boot (the module
     docstring), against ``yard``: 3f's rows digested by model shard, its
-    totals, and its stacked answers over the same tiles.  Returns the
-    gloo ranks' summed launch counts."""
+    totals, its stacked answers over the same tiles and its stacked
+    service's.  Returns the gloo ranks' summed launch counts and the rank
+    service leader's."""
     from repro_torch.core.distributed_engine import build_sharded_graph
     from repro_torch.core.graph import graph_fingerprint
     from repro_torch.distributed import ShardMesh
-    from repro_torch.launch.ranks import answers_digest, spawn
+    from repro_torch.launch.ranks import (answers_digest,
+                                          service_answers_digest,
+                                          service_config, spawn)
+    from repro_torch.serving import PPRService
 
     world = RANK_DATA * DIST_EP
     cards = torch.cuda.device_count()
@@ -4893,6 +5143,12 @@ def phase_rank_mesh(torch, np, dev, g, index, work, max_deg, yard,
     label = ("8 processes time-sliced on one card, collectives through "
              "gloo and host memory")
     try:
+        t0 = time.perf_counter()
+        small = small_stack_stacked(torch, dev, os.path.join(
+            out_dir, "small-stacked-ckpt"))
+        print(f"3q (ii) yardsticks: the small stack on ShardMesh("
+              f"{RANK_DATA}, {DIST_EP}) at rmat({SMALL_N_LOG2}) in "
+              f"{time.perf_counter() - t0:.3f} s")
         t0 = time.time()
         try:
             seconds = spawn(rank_mesh_rank, world, (
@@ -4902,7 +5158,7 @@ def phase_rank_mesh(torch, np, dev, g, index, work, max_deg, yard,
         except Exception as e:  # noqa: BLE001 - a failure of the phase
             failures.append(f"3q: the gloo ranks failed: {e!r}"[-3000:])
             print(f"3q: the gloo ranks failed: {e}", flush=True)
-            return {}
+            return {}, {}
         recs = []
         for r in range(world):
             with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -4954,7 +5210,71 @@ def phase_rank_mesh(torch, np, dev, g, index, work, max_deg, yard,
             for k, v in x["launches"].items():
                 counts[k] = counts.get(k, 0) + v
 
-        # NCCL: one rank a card
+        # (i) the rank service over the rows the ranks built
+        lead = recs[0]["serve"]
+        same = lead["answers"] == yard["service"]
+        ok = dict(
+            answers=same,
+            launched=all(lead["launches"][k] > 0 for k in RANK_SERVE_PATH),
+            uncaptured=lead["graphs_captured"] == 0,
+            shard_rows=all(x["serve"]["shard_rows"] == ns
+                           for x in tile_recs),
+            followers=all(x["serve"]["row_requests"] == lead["batches"]
+                          for x in tile_recs[1:]))
+        print(f"3q (i): rank service on ranks 0-{DIST_EP - 1} "
+              f"(RankMesh(1, {DIST_EP}), {label}): "
+              f"{lead['served']} of 3c's requests in {lead['batches']} "
+              f"batches of up to 256, {lead['seconds']:.3f} s: "
+              f"{lead['qps']:.1f} qps, p50 {lead['p50_ms']:.3f} ms, p99 "
+              f"{lead['p99_ms']:.3f} ms; rows crossed "
+              f"{lead['exchange_bytes'] / max(lead['batches'], 1):.0f} bytes "
+              f"a batch, the followers' blocks padded to the longest ("
+              f"{lead['exchange_rows'] / max(lead['batches'], 1):.0f} rows "
+              f"gathered a batch, "
+              f"{lead['exchange_rows_crossed'] / max(lead['batches'], 1):.0f}"
+              f" of them the followers', each of {MAIN_L * 8} bytes); every "
+              f"rank's index {ns} rows; answers the same bytes as 3f's "
+              f"stacked PPRService on the assembled index: {same}; leader "
+              f"launches {json.dumps(lead['launches'])}")
+        failures += [f"3q (i) rank service: {k}" for k, v in ok.items()
+                     if not v]
+
+        # (ii) the small stack
+        bad = []
+        for x in recs:
+            d, m = x["shard"]
+            got = x["small"]
+            ok = dict(crashed=got["crashed"],
+                      resumed=got["resumed_at"] == small["resumed_at"],
+                      rows=got["rows"] == small["rows"][m],
+                      touch=got["touch"] == small["touch"][m],
+                      kept=got["kept_mass"] == small["kept_mass"])
+            if d == 0:
+                ok["repaired"] = got["repaired"] == small["repaired"][m]
+            if x["rank"] == 0:
+                ok.update(selective=small["selective"],
+                          report=got["report"] == small["report"],
+                          answers=got["answers"] == small["answers"],
+                          booted=got["booted"] == small["booted"])
+            bad += [f"rank {x['rank']} {k}" for k, v in ok.items() if not v]
+        lead = recs[0]["small"]
+        build_s = max(x["small"]["build_s"] for x in recs)
+        print(f"3q (ii): the small stack at rmat({SMALL_N_LOG2}) on the "
+              f"same ranks, {build_s + lead['update_s'] + lead['boot_s']:.3f}"
+              f" s (build, crash and resume {build_s:.3f} s; update and "
+              f"{SMALL_REQUESTS} requests {lead['update_s']:.3f} s; boot and "
+              f"{SMALL_REQUESTS} requests {lead['boot_s']:.3f} s): crashed "
+              f"after its partial commit, resumed at chunk "
+              f"{lead['resumed_at']}; report {json.dumps(lead['report'])}; "
+              f"rows, filters, report and answers bit-equal to ShardMesh("
+              f"{RANK_DATA}, {DIST_EP})'s: {not bad}")
+        failures += [f"3q (ii) small stack: {b}" for b in bad]
+
+        # (iii) NCCL: one rank a card
+        t0 = time.perf_counter()
+        np.savez(os.path.join(out_dir, "graph.npz"),
+                 **{k: getattr(g, k).cpu().numpy()
+                    for k in ("row_ptr", "col_idx", "src", "out_deg")})
         nccl_world = DIST_EP if cards >= DIST_EP else 1
         if nccl_world == 1:
             cfg = rank_tile_config(g.n, 1, max_deg)
@@ -4965,18 +5285,26 @@ def phase_rank_mesh(torch, np, dev, g, index, work, max_deg, yard,
                                     cfg, slabs, rows, work, RANK_NCCL_TILES)
             want, n_nccl = answers_digest(stacked), RANK_NCCL_TILES
             del stacked, slabs
+            n_serve = RANK_NCCL_REQUESTS
+            want_serve = service_answers_digest(PPRService(
+                g, index, service_config(256), device=dev).run_closed_loop(
+                    work[:n_serve])[0])
             what = f"ShardMesh(1, 1) on 3b's index, {n_nccl} tiles"
+            what_serve = "a one-device PPRService on 3b's index"
         else:
             want, n_nccl = yard["answers"], n_tiles
+            n_serve, want_serve = RANK_SERVE_REQUESTS, recs[0]["serve"][
+                "answers"]
             what = f"the gloo ranks, {n_nccl} tiles"
+            what_serve = "the gloo ranks' service"
         try:
             nccl_s = spawn(rank_mesh_nccl_rank, nccl_world, (
                 nccl_world, out_dir, np.asarray(work, np.int32), max_deg,
-                g.n, n_nccl), join_timeout_s=RANK_JOIN_S)
+                g.n, n_nccl, n_serve), join_timeout_s=RANK_JOIN_S)
         except Exception as e:  # noqa: BLE001 - a failure of the phase
             failures.append(f"3q: the NCCL ranks failed: {e!r}"[-3000:])
             print(f"3q: the NCCL ranks failed: {e}", flush=True)
-            return counts
+            return counts, recs[0]["serve"]["launches"]
         nccl = []
         for r in range(nccl_world):
             with open(os.path.join(out_dir, f"nccl{r}.json")) as f:
@@ -4991,7 +5319,18 @@ def phase_rank_mesh(torch, np, dev, g, index, work, max_deg, yard,
               f"{what}: {same}; sharded_frontier_push 2 a tile: {push_ok}")
         if not same or not push_ok:
             failures.append(f"3q: the NCCL tiles differ from {what}")
-        return counts
+        lead = nccl[0]["serve"]
+        same = lead["answers"] == want_serve
+        print(f"3q (iii): rank service over {nccl[0]['backend']} (1 x "
+              f"{nccl_world}): {lead['served']} requests in "
+              f"{lead['seconds']:.3f} s, {lead['qps']:.1f} qps, p50 "
+              f"{lead['p50_ms']:.3f} ms, p99 {lead['p99_ms']:.3f} ms; the "
+              f"same bytes as {what_serve}: {same}; step "
+              f"{time.perf_counter() - t0:.3f} s")
+        if not same:
+            failures.append(f"3q (iii): the NCCL service differs from "
+                            f"{what_serve}")
+        return counts, recs[0]["serve"]["launches"]
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
@@ -5018,7 +5357,9 @@ def main() -> int:
     from repro_torch.distributed import ShardMesh
     from repro_torch.graphs import synthetic
     from repro_torch.kernels import build, ops
-    from repro_torch.launch.ranks import answers_digest
+    from repro_torch.launch.ranks import (answers_digest,
+                                          service_answers_digest,
+                                          service_config)
     from repro_torch.serving import PPRService, ServiceConfig
     from repro_torch.serving.batching import BatchingConfig
     from repro_torch.serving.pipeline import PipelineConfig
@@ -5386,15 +5727,20 @@ def main() -> int:
               for m in range(DIST_EP)],
         answers=answers_digest(sh_tiles), kept_mass=sh_stats["kept_mass"],
         dropped_mass=sh_stats["dropped_mass"])
+    svc_q = PPRService(g, sh_index, service_config(256), device=dev)
+    yard_q["service"] = service_answers_digest(svc_q.run_closed_loop(
+        work[:RANK_SERVE_REQUESTS])[0])
+    del svc_q
     print(f"3q's yardsticks: rows digested by model shard, the stacked tile "
-          f"step on the sharded build's rows ({len(sh_tiles)} tiles) in "
-          f"{time.perf_counter() - t1:.3f} s")
+          f"step on the sharded build's rows ({len(sh_tiles)} tiles) and "
+          f"the stacked PPRService on them ({RANK_SERVE_REQUESTS} requests) "
+          f"in {time.perf_counter() - t1:.3f} s")
     del sh_index, slabs, iv, ii, sh_tiles
     phase("3f distributed engine", t0)
 
     t0 = time.perf_counter()
-    counts_q = phase_rank_mesh(torch, np, dev, g, index, work, max_deg,
-                               yard_q, failures)
+    counts_q, counts_q_serve = phase_rank_mesh(
+        torch, np, dev, g, index, work, max_deg, yard_q, failures)
     phase("3q rank mesh", t0)
 
     t0 = time.perf_counter()
@@ -5529,6 +5875,7 @@ def main() -> int:
              "dense (3d)": (DENSE_PATH, counts_d),
              "distributed (3f)": (DIST_PATH, counts_f),
              "rank mesh (3q)": (DIST_PATH, counts_q),
+             "rank service (3q)": (RANK_SERVE_PATH, counts_q_serve),
              "dlrm (3g)": (RECSYS_PATH, counts_g),
              **{f"{arch} (3g)": (RECSYS_PATH, counts_zoo[arch])
                 for arch in ZOO},

@@ -216,6 +216,28 @@ def build_sharded_graph(graph: Graph, cfg: DistConfig, device="cuda",
 # one VERD iteration, per shard
 # ---------------------------------------------------------------------------
 
+_ADD_ELEMENTS = 1 << 26   # values one accumulating index_put_ sorts
+
+
+def _add_columns(acc, cols, vals):
+    """``acc[q, cols[q, j]] += vals[q, j]`` for ``[qt, n]`` rows, each
+    column's values summed in ``j`` order on the card too: an accumulating
+    ``index_put_`` (``index_add_`` adds duplicates by CUDA atomics, in no
+    fixed order, so the answers would differ from run to run).  It sorts
+    an int64 index of its values, so ``j`` goes ``_ADD_ELEMENTS`` values
+    at a time; each call adds a column's values to what it holds in ``j``
+    order, so the sums are those of one call."""
+    qt, n = acc.shape
+    rows = torch.arange(qt, dtype=torch.int64, device=acc.device)[:, None]
+    width = max(1, _ADD_ELEMENTS // qt)
+    for j in range(0, vals.shape[1], width):
+        part = vals[:, j:j + width]
+        flat = rows * n + cols[:, j:j + width].long()
+        acc.view(-1).index_put_((flat.expand(part.shape).reshape(-1),),
+                                part.reshape(-1), accumulate=True)
+    return acc
+
+
 def _push_local(cfg: DistConfig, g_row_ptr, g_col, g_w, f_local):
     """Local dense push: ``[qt, ns] -> [qt, ep, ns]`` contributions by
     destination owner, scanning the slab ``edge_chunk`` edges at a time."""
@@ -232,7 +254,7 @@ def _push_local(cfg: DistConfig, g_row_ptr, g_col, g_w, f_local):
             0, cfg.n_shard - 1)
         vals = f_local[:, src_row] * g_w[e_ids.long()][None, :]
         # destination bucket = owner * n_shard + local id == global id
-        acc.index_add_(1, g_col[e_ids.long()].long(), vals)
+        _add_columns(acc, g_col[e_ids.long()][None, :], vals)
     return acc.reshape(qt, cfg.ep, cfg.n_shard)
 
 
@@ -344,7 +366,7 @@ def _make_verd_tile_step_dense(cfg: DistConfig, mesh):
                 iv = index_vals[e][v0:v0 + v_chunk].to(torch.float32)
                 ii = index_idx[e][v0:v0 + v_chunk]
                 fw = f[e][:, v0:v0 + v_chunk, None] * iv[None, :, :]
-                acc.index_add_(1, ii.reshape(-1).long(), fw.reshape(qt, -1))
+                _add_columns(acc, ii.reshape(1, -1), fw.reshape(qt, -1))
             contrib.append(acc.reshape(qt, ep, ns))
         recv = wire_a2a(torch.stack(contrib))
         k = min(cfg.top_k, ns)

@@ -9,7 +9,9 @@ equals the reference's bit for bit.  ``engine="legacy"`` keeps the dense
 MCFP oracle (``mcfp.estimate_ppr_batched`` truncated to top-L).
 :func:`build_index_sharded` builds the sparse rows on a
 :class:`~repro_torch.distributed.mesh.ShardMesh`, or a rank's own shard of
-them on a :class:`~repro_torch.distributed.mesh.RankMesh`.
+them on a :class:`~repro_torch.distributed.mesh.RankMesh`: a
+:class:`RankIndex`, whose leader gathers the rows a query touches from the
+model shards that own them (:meth:`RankIndex.gather_rows`).
 
 Both sparse builds can record each row's walks-through Bloom filter
 (``touch_bits``, the invalidation sketch of ``core/updates.py``) and can
@@ -45,12 +47,11 @@ from repro_torch.core.walks import (DEFAULT_C, BuildLedger,
                                     simulate_walks_sparse)
 from repro_torch.device import resolve_device
 from repro_torch.distributed.checkpoint import Checkpointer, serialize_key
-from repro_torch.distributed.mesh import RankMesh
+from repro_torch.distributed.mesh import AXES, RankMesh, fail_together
 
-# what the builds over a RankMesh do not do yet (ROADMAP.md, queue 1)
-RANK_MESH_NEXT = ("the checkpointed sharded build and the sharded repair "
-                  "over ranks are the next item of ROADMAP.md's queue 1; "
-                  "run them on a ShardMesh")
+# the rank service's leader to its followers: the first word of each
+# command it broadcasts over the model axis (serving/engine.py)
+CMD_ROWS, CMD_UPDATE, CMD_STOP = 0, 1, 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +113,143 @@ class PPRIndex:
         new_i = self.indices.clone()
         new_i[rows] = indices.to(new_i)
         return PPRIndex(values=new_v, indices=new_i, l=self.l, n=self.n)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankIndex:
+    """One model shard's rows of a PPR index on a ``RankMesh``: ``rows``
+    holds the rank's ``[n_shard, L]`` rows (global columns, ``n`` the whole
+    index's row count), rows ``row_offset`` on of the whole.  No rank holds
+    another's rows: a query's combine runs on the mesh's leader (model
+    shard 0) over the rows its frontier touches, which
+    :meth:`gather_rows` collects from their owners; the other shards answer
+    in :meth:`send_rows`.  ``exchange`` counts what crossed."""
+
+    rows: PPRIndex
+    row_offset: int
+    mesh: RankMesh
+    exchange: Dict = dataclasses.field(
+        default_factory=lambda: dict(exchanges=0, rows=0, rows_crossed=0,
+                                     bytes_crossed=0),
+        compare=False, repr=False)
+
+    @property
+    def values(self) -> torch.Tensor:
+        return self.rows.values
+
+    @property
+    def indices(self) -> torch.Tensor:
+        return self.rows.indices
+
+    @property
+    def l(self) -> int:
+        return self.rows.l
+
+    @property
+    def n(self) -> int:
+        return self.rows.n
+
+    @property
+    def n_shard(self) -> int:
+        return int(self.rows.values.shape[0])
+
+    @property
+    def nbytes(self) -> int:
+        return self.n_shard * self.l * 8
+
+    @property
+    def is_leader(self) -> bool:
+        return self.mesh.local_model[0] == 0
+
+    def to(self, device) -> "RankIndex":
+        """This index: its rows stay on the mesh's device."""
+        if resolve_device(device) != self.mesh.device:
+            raise ValueError(f"a RankIndex lives on its mesh's device "
+                             f"{self.mesh.device}, not {device}")
+        return self
+
+    def on(self, mesh: RankMesh) -> "RankIndex":
+        """The same rows over ``mesh`` (a service's ``1 x ep`` mesh of the
+        build mesh's first data replica, say), whose model shard must be
+        this rank's."""
+        if not isinstance(mesh, RankMesh):
+            raise ValueError(f"a RankIndex serves over a RankMesh, got "
+                             f"{mesh!r}")
+        if mesh.model != self.mesh.model or (
+                mesh.local_model != self.mesh.local_model):
+            raise ValueError(f"{mesh!r} does not hold this rank's model "
+                             f"shard of {self.mesh!r}")
+        return dataclasses.replace(self, mesh=mesh)
+
+    def replace_rows(self, rows, values: torch.Tensor,
+                     indices: torch.Tensor) -> "RankIndex":
+        """``PPRIndex.replace_rows`` of rows of this shard (global ids)."""
+        local = np.asarray(rows, np.int64) - self.row_offset
+        if local.size and (local.min() < 0 or local.max() >= self.n_shard):
+            raise ValueError("rows outside this rank's shard")
+        return dataclasses.replace(
+            self, rows=self.rows.replace_rows(local, values, indices))
+
+    def _block(self, need: torch.Tensor) -> torch.Tensor:
+        """This shard's rows of the sorted global ids ``need``, values and
+        indices side by side as ``int32[k, 2L]``."""
+        lo = self.row_offset
+        mine = need[(need >= lo) & (need < lo + self.n_shard)] - lo
+        return torch.cat([self.values[mine].view(torch.int32),
+                          self.indices[mine]], dim=1)
+
+    def send_rows(self, need: torch.Tensor) -> None:
+        """A follower's part of :meth:`gather_rows`: its rows of ``need``
+        to the leader."""
+        self.mesh.gather_blocks(self._block(need.to(self.mesh.device)),
+                                "model", dst=0)
+
+    def gather_rows(self, fv: torch.Tensor, fi: torch.Tensor
+                    ) -> Tuple[PPRIndex, torch.Tensor]:
+        """On the leader: the rows of the live slots (``fv > 0``) of the
+        frontier ``(fv, fi)``, gathered from their owners in ascending row
+        order with one zero row after them, as a ``PPRIndex`` (``n`` the
+        whole index's), and ``fi`` remapped to each slot's gathered row
+        (dead slots to the zero row).  A combine reads rows only through
+        live slots, so its answer over these rows is the same bytes as
+        over the whole index.  Nothing is summed across ranks.  The
+        leader's own rows stay local; the followers' blocks cross, each
+        padded to the longest, and ``exchange`` counts those bytes."""
+        if not self.is_leader:
+            raise ValueError("only the leader (model shard 0) gathers rows; "
+                             "followers run serving.engine.serve_follower")
+        dev = self.mesh.device
+        live = fv > 0
+        need = torch.unique(fi[live].long())
+        self.mesh.broadcast(torch.cat([torch.full(
+            (1,), CMD_ROWS, dtype=torch.int64, device=dev), need]), src=0,
+            axes="model")
+        own = self._block(need)
+        blocks = self.mesh.gather_blocks(own[:0], "model", dst=0)
+        got = torch.cat([own] + list(blocks[1:])
+                        + [own.new_zeros(1, 2 * self.l)])
+        vals = got[:, :self.l].contiguous().view(torch.float32)
+        idx = got[:, self.l:].contiguous()
+        slot = torch.searchsorted(need, fi.long())
+        slot = torch.where(live, slot, need.shape[0]).to(torch.int32)
+        # every follower sends the longest follower block's row count
+        sent = [int(b.shape[0]) for b in blocks[1:]]
+        ex = self.exchange
+        ex["exchanges"] += 1
+        ex["rows"] += int(need.shape[0])
+        ex["rows_crossed"] += sum(sent)
+        ex["bytes_crossed"] += len(sent) * max(sent, default=0) * self.l * 8
+        return PPRIndex(values=vals, indices=idx, l=self.l, n=self.n), slot
+
+
+def rank_block(mesh: RankMesh, whole: int) -> slice:
+    """This rank's model shard of ``whole`` rows (an even split), or
+    ``ValueError``."""
+    if whole % mesh.model:
+        raise ValueError(f"{whole} index rows do not split into "
+                         f"{mesh.model} model shards")
+    ns = whole // mesh.model
+    return slice(mesh.local_model[0] * ns, (mesh.local_model[0] + 1) * ns)
 
 
 def truncate_topl(estimates: torch.Tensor, l: int
@@ -521,6 +659,96 @@ def _build_index_legacy(graph: Graph, r: int, l: int, key, *, c: float,
     return PPRIndex(values=values, indices=indices, l=l, n=n), stats
 
 
+class _RankCommits:
+    """The checkpointed sharded build's commits over a ``RankMesh``.
+
+    One writer, the mesh's shard ``(0, 0)``, gathers each model shard's
+    blocks of every segment from the first data replica, keeps them on the
+    host (by the last commit, the whole index: the stacked build's layout
+    needs every block in one step) and commits them as the stacked build
+    does; every rank waits for each commit's outcome, so a failed commit
+    fails them all.  On resume the writer picks the step and every rank
+    restores its own block of it."""
+
+    def __init__(self, ckpt: Checkpointer, mesh: RankMesh, names):
+        self.ckpt, self.mesh, self.names = ckpt, mesh, names
+        self.model = mesh.local_model[0]
+        self.gathers = mesh.local_data[0] == 0
+        self.writer = self.gathers and self.model == 0
+        self.host = []      # the writer's segments, [ep, rows, ...] each
+
+    def _from_writer(self, word: Optional[int]) -> int:
+        x = (torch.tensor([word], dtype=torch.int64, device=self.mesh.device)
+             if self.writer else None)
+        return int(self.mesh.broadcast(x, src=0, axes=AXES)[0])
+
+    def resume(self, signature: dict):
+        """``(next_chunk, tree, extra)`` of the step the writer resumes
+        from on every rank (``tree`` the whole step), or ``None``."""
+        hit, err, step = None, None, -1
+        if self.writer:
+            try:
+                hit = _resume_build_state(self.ckpt, signature)
+                step = -1 if hit is None else hit[0]
+            except ValueError as e:
+                err, step = e, -2
+        step = self._from_writer(step)
+        if err is not None:
+            raise err
+        if step == -2:
+            raise ValueError(f"checkpoint at {self.ckpt.root}: the writer "
+                             "refused to resume (signature mismatch)")
+        if step == -1:
+            return None
+        err = None
+        if hit is None:
+            try:
+                tree, extra = self.ckpt.restore(step)
+                if extra.get("signature") != signature:
+                    raise ValueError(f"checkpoint at {self.ckpt.root} step "
+                                     f"{step} was written by a different "
+                                     "build; refusing to resume")
+                hit = (int(extra["next_chunk"]), tree, extra)
+            except (OSError, ValueError, RuntimeError) as e:
+                err = e
+        # a barrier too: no rank reads a step the writer may prune
+        fail_together(self.mesh, err, f"restoring step {step} of "
+                      f"{self.ckpt.root}", AXES)
+        return hit
+
+    def restored(self, tree: dict) -> list:
+        """This rank's blocks ``[1, rows, ...]`` of a partial step; the
+        writer keeps the whole step as its first segment."""
+        if self.writer:
+            self.host.append([tree[k] for k in self.names])
+        return [torch.from_numpy(np.ascontiguousarray(tree[k][self.model]))
+                [None].to(self.mesh.device) for k in self.names]
+
+    def commit(self, step: int, blocks, extra: dict,
+               whole: bool = False) -> None:
+        """Gather this segment's ``[1, rows, ...]`` blocks on the writer,
+        which commits every segment so far as step ``step`` (``whole``:
+        reshaped to the assembled ``[n_pad, ...]`` index)."""
+        if self.gathers:
+            got = [self.mesh.gather_blocks(b[0], "model", dst=0)
+                   for b in blocks]
+            if self.writer:
+                self.host.append([torch.stack(g).cpu().numpy() for g in got])
+        err = None
+        if self.writer:
+            try:
+                segs = [np.concatenate(parts, axis=1)
+                        for parts in zip(*self.host)]
+                self.host = [segs]
+                tree = {k: (a.reshape(-1, *a.shape[2:]) if whole else a)
+                        for k, a in zip(self.names, segs)}
+                self.ckpt.save(step, tree, extra)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                err = e
+        fail_together(self.mesh, err, f"the commit of step {step} under "
+                      f"{self.ckpt.root}", AXES)
+
+
 def build_index_sharded(
     graph: Graph,
     r: int,
@@ -539,7 +767,7 @@ def build_index_sharded(
     resume: bool = False,
     checkpoint_keep: int = 3,
     fault_plan=None,
-) -> Tuple[PPRIndex, dict]:
+):
     """The full-index build on a :class:`~repro_torch.distributed.mesh
     .ShardMesh` (``distributed_engine.make_sparse_index_build_step``), or
     one rank's part of it on a :class:`~repro_torch.distributed.mesh
@@ -565,19 +793,21 @@ def build_index_sharded(
     step of another graph, key, mesh or chunk grid.  ``fault_plan`` fires
     ``chunk_boundary`` at each segment's first chunk.
 
-    On a ``RankMesh`` every rank returns its own model shard: an index of
-    ``[n_shard, L]`` rows (global columns, ``n = n_pad``) that are rows
-    ``stats["row_offset"]`` on of the whole, identical on the shard's data
-    replicas, with ``stats["touch"]`` its rows' filters; ``kept_mass`` and
-    ``dropped_mass`` sum every shard's rows as the stacked build does, so
-    every rank's totals are its.  ``checkpoint_dir`` raises there.
+    On a ``RankMesh`` every rank returns its own model shard: a
+    :class:`RankIndex` of ``[n_shard, L]`` rows (global columns, ``n =
+    n_pad``) that are rows ``stats["row_offset"]`` on of the whole,
+    identical on the shard's data replicas, with ``stats["touch"]`` its
+    rows' filters; ``kept_mass`` and ``dropped_mass`` sum every shard's
+    rows as the stacked build does, so every rank's totals are its.  A
+    checkpointed build there writes the stacked build's steps, byte for
+    byte (:class:`_RankCommits`: one writer, which holds the whole index
+    in host memory at each commit), so either mesh resumes the other's;
+    ``fault_plan.chunk_boundary`` fires on every rank.
     """
     from repro_torch.core.distributed_engine import (
         DistConfig, make_sparse_index_build_step)
 
     on_ranks = isinstance(mesh, RankMesh)
-    if on_ranks and checkpoint_dir is not None:
-        raise ValueError(f"checkpoint_dir on a RankMesh: {RANK_MESH_NEXT}")
     ep, n_split = mesh.model, mesh.data
     if r % n_split != 0:
         raise ValueError(
@@ -606,6 +836,7 @@ def build_index_sharded(
         row_ptr = torch.cat([row_ptr, row_ptr[-1:].expand(pad)])
         out_deg = torch.cat([out_deg, torch.zeros(
             pad, dtype=out_deg.dtype, device=out_deg.device)])
+    row_offset = mesh.local_model[0] * ns if on_ranks else 0
 
     def sweep(chunk_start: int, chunk_count: Optional[int]):
         step = make_sparse_index_build_step(
@@ -616,6 +847,23 @@ def build_index_sharded(
             chunk_count=chunk_count,
         )
         return step(row_ptr, graph.col_idx, out_deg, key)
+
+    def shard_major(parts):
+        """Segments ``[S, rows, ...]`` in sweep order -> ``[S * ns, ...]``."""
+        x = torch.cat(parts, dim=1)
+        return x.reshape(-1, *x.shape[2:])
+
+    def finish(values, indices, stats, touch):
+        if touch is not None:
+            stats["touch"] = touch
+            stats["touch_bits"] = touch_bits
+        rows = PPRIndex(values=values, indices=indices, l=l, n=n_pad)
+        if on_ranks:
+            stats.update(row_offset=row_offset,
+                         nbytes=values.shape[0] * l * 8)
+            return RankIndex(rows=rows, row_offset=row_offset, mesh=mesh), \
+                stats
+        return rows, stats
 
     ckpt = _make_build_checkpointer(
         checkpoint_dir, checkpoint_every, checkpoint_keep, fault_plan)
@@ -637,22 +885,27 @@ def build_index_sharded(
         )
         names = ("vals", "idxs", "kept", "dropped", "touch")[
             :5 if touch_bits else 4]
-        # per segment, shard-major blocks [ep, rows, ...] on the device
+        ranks = _RankCommits(ckpt, mesh, names) if on_ranks else None
+        # per segment, shard-major blocks [S, rows, ...] on the device
         segs = []
         start_chunk = 0
         commits = 0
         if resume:
-            restored = _resume_build_state(ckpt, signature)
+            restored = (ranks.resume(signature) if on_ranks
+                        else _resume_build_state(ckpt, signature))
             if restored is not None:
                 start_chunk, tree, extra = restored
                 if extra.get("complete"):
-                    index = PPRIndex(
-                        values=torch.from_numpy(tree["vals"]).to(dev),
-                        indices=torch.from_numpy(tree["idxs"]).to(dev),
-                        l=l, n=n_pad)
-                    return index, _complete_stats(
-                        extra, tree, touch_bits, dev)
-                segs.append([torch.from_numpy(tree[k]).to(dev)
+                    if on_ranks:
+                        own = rank_block(mesh, tree["vals"].shape[0])
+                        tree = {k: v[own] for k, v in tree.items()}
+                    stats = _complete_stats(extra, tree, touch_bits, dev)
+                    return finish(
+                        torch.from_numpy(tree["vals"]).to(dev),
+                        torch.from_numpy(tree["idxs"]).to(dev), stats,
+                        stats.pop("touch", None))
+                segs.append(ranks.restored(tree) if on_ranks else
+                            [torch.from_numpy(tree[k]).to(dev)
                              for k in names])
         ci = start_chunk
         while ci < n_chunks:
@@ -662,25 +915,29 @@ def build_index_sharded(
             segs.append(list(sweep(ci, cnt)))
             ci += cnt
             if ci < n_chunks:
+                meta = dict(signature=signature, complete=False,
+                            next_chunk=ci, n_chunks=n_chunks)
+                if on_ranks:
+                    ranks.commit(ci, segs[-1], meta)
                 segs = [[torch.cat(parts, dim=1) for parts in zip(*segs)]]
-                ckpt.save(ci, dict(zip(names, segs[0])), dict(
-                    signature=signature, complete=False, next_chunk=ci,
-                    n_chunks=n_chunks))
+                if not on_ranks:
+                    ckpt.save(ci, dict(zip(names, segs[0])), meta)
                 commits += 1
-        # shard-major reassembly: the [n_pad, ...] row order of one sweep
-        out = [torch.cat(parts, dim=1).reshape(n_pad, *parts[0].shape[2:])
-               for parts in zip(*segs)]
+        tail = segs[-1]     # the last segment's blocks: not committed yet
+        # shard-major reassembly: the [S * ns, ...] row order of one sweep
+        out = [shard_major(parts) for parts in zip(*segs)]
         extra_stats = dict(checkpoint_commits=commits,
                            resumed_at_chunk=start_chunk)
     values, indices, kept_rows, dropped_rows = out[:4]
     touch = out[4] if touch_bits else None
     if on_ranks:    # every shard's rows, summed as the stacked build sums
-        kept_rows, dropped_rows = (
+        kept_all, dropped_all = (
             mesh.all_gather(x[None, None], "model").reshape(n_pad)
             for x in (kept_rows, dropped_rows))
-        extra_stats = dict(row_offset=mesh.local_model[0] * ns)
-    kept = float(kept_rows.sum())
-    dropped = float(dropped_rows.sum())
+    else:
+        kept_all, dropped_all = kept_rows, dropped_rows
+    kept = float(kept_all.sum())
+    dropped = float(dropped_all.sum())
     stats = dict(
         r=r,
         l=l,
@@ -696,21 +953,21 @@ def build_index_sharded(
         pad_fraction=pad / max(n_pad, 1),
         duplicate_sources=0,
         **_mass_stats(kept, dropped),
-        nbytes=values.shape[0] * l * 8,
+        nbytes=n_pad * l * 8,
     )
     stats.update(extra_stats)
     if ckpt is not None:
-        tree = dict(vals=values, idxs=indices, kept=kept_rows,
-                    dropped=dropped_rows)
-        if touch is not None:
-            tree["touch"] = touch
-        ckpt.save(n_chunks, tree, dict(
-            signature=signature, complete=True, next_chunk=n_chunks,
-            n_chunks=n_chunks, stats=dict(stats)))
-    if touch is not None:
-        stats["touch"] = touch
-        stats["touch_bits"] = touch_bits
-    return PPRIndex(values=values, indices=indices, l=l, n=n_pad), stats
+        meta = dict(signature=signature, complete=True, next_chunk=n_chunks,
+                    n_chunks=n_chunks, stats=dict(stats))
+        if on_ranks:
+            ranks.commit(n_chunks, tail, meta, whole=True)
+        else:
+            tree = dict(vals=values, idxs=indices, kept=kept_rows,
+                        dropped=dropped_rows)
+            if touch is not None:
+                tree["touch"] = touch
+            ckpt.save(n_chunks, tree, meta)
+    return finish(values, indices, stats, touch)
 
 
 def _restore_complete(checkpoint_dir: str) -> Tuple[dict, dict]:
@@ -724,28 +981,48 @@ def _restore_complete(checkpoint_dir: str) -> Tuple[dict, dict]:
     return hit[1], hit[2]
 
 
-def _index_from_tree(tree: dict, extra: dict, device
+def _index_from_tree(tree: dict, extra: dict, device, mesh=None
                      ) -> Tuple[PPRIndex, dict]:
-    dev = resolve_device(device)
+    """The index (and filters) of a complete step; on a ``RankMesh`` the
+    rank's own block of an even split of its rows, as a :class:`RankIndex`
+    on the mesh's device."""
     stats = dict(extra["stats"])
+    if isinstance(mesh, RankMesh):
+        dev = mesh.device
+        own = rank_block(mesh, tree["vals"].shape[0])
+        n = int(tree["vals"].shape[0])
+        tree = {k: np.ascontiguousarray(v[own]) for k, v in tree.items()
+                if k in ("vals", "idxs", "touch")}
+    else:
+        dev = resolve_device(device)
+        n = None
     values = torch.from_numpy(tree["vals"]).to(dev)
     indices = torch.from_numpy(tree["idxs"]).to(dev)
-    n, l = values.shape
+    rows, l = values.shape
     if "touch" in tree:
         stats["touch"] = torch.from_numpy(tree["touch"]).to(dev)
         stats["touch_bits"] = int(tree["touch"].shape[1])
-    return PPRIndex(values=values, indices=indices, l=int(l), n=int(n)), stats
+    index = PPRIndex(values=values, indices=indices, l=int(l),
+                     n=int(rows) if n is None else n)
+    if n is None:
+        return index, stats
+    offset = mesh.local_model[0] * int(rows)
+    stats.update(row_offset=offset, nbytes=int(rows) * int(l) * 8)
+    return RankIndex(rows=index, row_offset=offset, mesh=mesh), stats
 
 
-def load_index_checkpoint(checkpoint_dir: str, device="cuda"
+def load_index_checkpoint(checkpoint_dir: str, device="cuda", mesh=None
                           ) -> Tuple[PPRIndex, dict]:
     """The serving boot path: the index and the JSON-safe build stats of
     the newest *complete* committed step under ``checkpoint_dir`` (with
     ``stats["touch"]`` where the build recorded filters), on ``device``,
     without simulating a walk.  Corrupt steps fall back to the prior
     complete one; none raises ``FileNotFoundError``.  Reads the
-    reference's build checkpoints too."""
-    return _index_from_tree(*_restore_complete(checkpoint_dir), device)
+    reference's build checkpoints too.  With a ``RankMesh`` each rank
+    boots its own model shard's block (a :class:`RankIndex`); every rank
+    reads the step's whole files."""
+    return _index_from_tree(*_restore_complete(checkpoint_dir), device,
+                            mesh)
 
 
 # ---------------------------------------------------------------------------

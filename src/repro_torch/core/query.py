@@ -37,7 +37,7 @@ from repro_torch.core import verd as verd_mod
 from repro_torch.core import walks as walks_mod
 from repro_torch.core.frontier import topk_dense
 from repro_torch.core.graph import Graph
-from repro_torch.core.index import PPRIndex
+from repro_torch.core.index import PPRIndex, RankIndex
 from repro_torch.core.walks import DEFAULT_C
 from repro_torch.device import resolve_device
 
@@ -46,6 +46,11 @@ AUTO_SPARSE_MIN_N = 1 << 14
 SCATTER_COMBINE_BUDGET_BYTES = 256 * 1024 * 1024
 
 MCFP_MAX_STEPS = 64   # positions a walk of the mcfp mode (estimate_ppr's)
+
+# what a rank-sharded index does not serve yet
+RANK_INDEX_NEXT = ("is not ported to a rank-sharded index (ROADMAP.md, "
+                   "queue 1); a RankIndex serves the powerwalk mode on the "
+                   "sparse route")
 
 
 def auto_frontier_floor(top_k: int) -> int:
@@ -119,6 +124,19 @@ class BatchQueryEngine:
         self.graphs: Dict[tuple, capture_mod.CapturedQuery] = {}
         self._pool = None
         self.capture_s = 0.0
+        if self.rank_sharded:
+            if cfg.mode != "powerwalk":
+                raise ValueError(f"mode {cfg.mode!r} {RANK_INDEX_NEXT}")
+            if not self.uses_sparse_path():
+                raise ValueError(f"the dense route {RANK_INDEX_NEXT}")
+
+    @property
+    def rank_sharded(self) -> bool:
+        """Whether the index is one rank's model shard (a
+        :class:`~repro_torch.core.index.RankIndex`): each combine then
+        gathers its rows from the other ranks, which no CUDA graph can
+        hold, so every dispatch runs eagerly."""
+        return isinstance(self.index, RankIndex)
 
     @property
     def frontier_k(self) -> int:
@@ -303,14 +321,17 @@ class BatchQueryEngine:
         combines by scatter while the ``[Q, n]`` scratch fits the budget,
         else through ``index_combine_sparse``; the dense route is
         :meth:`query_topk`'s.  ``key`` seeds the ``mcfp`` mode (default:
-        the base key; the pipeline passes :meth:`dispatch_key`)."""
+        the base key; the pipeline passes :meth:`dispatch_key`).  On a
+        rank-sharded index (:attr:`rank_sharded`) the dispatch runs
+        eagerly on the card too, its combine's row exchange in the
+        middle."""
         cfg = self.config
         if weights is not None and cfg.mode in ("mcfp", "pi"):
             raise ValueError(
                 f"mode {cfg.mode!r} does not support seed-set queries")
         if self.uses_key and key is None:
             key = self._base_key
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not self.rank_sharded:
             vals, idx = self._replay(sources, weights, key)
         else:
             vals, idx = self._query_eager(sources, weights, key)

@@ -23,6 +23,13 @@ touched vertex.  This module finds that set and repairs only it, as
 * **Accounting.**  Work is counted in resampled walk positions, chunk
   slots swept times ``r / c``, the unit of
   ``index.preprocessing_cost_model``.
+* **Over ranks.**  A maintainer of a :class:`~repro_torch.core.index
+  .RankIndex` holds one model shard's rows and filters.  Every rank of its
+  mesh calls :func:`apply_updates` with the same batch: each applies it to
+  its copy of the graph, plans over its own filters and resamples the
+  chunks of its own interval, as the stacked repair does; the dirty rows
+  are then gathered, so the report is the stacked one on every rank.  A
+  rank that fails fails the call on all of them.
 """
 
 from __future__ import annotations
@@ -37,11 +44,11 @@ from repro_torch import rng
 from repro_torch.core import index as index_mod
 from repro_torch.core import walks as walks_mod
 from repro_torch.core.graph import Graph, _edge_pairs, apply_edge_updates
-from repro_torch.core.index import (RANK_MESH_NEXT, PPRIndex, build_index,
+from repro_torch.core.index import (PPRIndex, RankIndex, build_index,
                                     build_index_sharded,
                                     sparse_chunk_estimates)
 from repro_torch.distributed.checkpoint import deserialize_key
-from repro_torch.distributed.mesh import RankMesh
+from repro_torch.distributed.mesh import fail_together
 
 DEFAULT_C = walks_mod.DEFAULT_C
 
@@ -121,7 +128,8 @@ class BuildParams:
 @dataclasses.dataclass(frozen=True)
 class MaintainableIndex:
     """A ``PPRIndex`` with what repair needs: the build key (``int64[2]``),
-    the chunk-grid parameters and the rows' touch sketch."""
+    the chunk-grid parameters and the rows' touch sketch.  Over ranks the
+    index is a ``RankIndex`` and the sketch holds its rows' filters."""
 
     index: PPRIndex
     touch: TouchSketch
@@ -175,7 +183,8 @@ def build_maintainable_index(
     On one device (``mesh=None``: :func:`~repro_torch.core.index
     .build_index` on ``device``) or on a ``ShardMesh`` (:func:`~repro_torch
     .core.index.build_index_sharded` on the mesh's device; ``r_splits`` is
-    then the mesh's data axis; a ``RankMesh`` raises).  ``touch_bits=0``
+    then the mesh's data axis); on a ``RankMesh`` each rank keeps its own
+    model shard's rows and filters.  ``touch_bits=0``
     sizes the filters from ``r`` (:func:`default_touch_bits`).  The
     checkpoint arguments make the build crash-safe; the filters ride in
     every commit, so
@@ -183,9 +192,6 @@ def build_maintainable_index(
     returned one does.  Returns ``(maintainable, stats)``, the filters
     moved out of ``stats``.
     """
-    if isinstance(mesh, RankMesh):
-        raise ValueError(f"a maintainable index on a RankMesh: "
-                         f"{RANK_MESH_NEXT}")
     if touch_bits <= 0:
         touch_bits = default_touch_bits(r, c)
     ckpt_kwargs = dict(
@@ -216,9 +222,9 @@ def build_maintainable_index(
 
 
 def _maintainable_from_tree(tree: dict, extra: dict, device,
-                            checkpoint_dir: str
+                            checkpoint_dir: str, mesh=None
                             ) -> Tuple[MaintainableIndex, dict]:
-    index, stats = index_mod._index_from_tree(tree, extra, device)
+    index, stats = index_mod._index_from_tree(tree, extra, device, mesh)
     if "touch" not in stats:
         raise ValueError(
             f"checkpoint under {checkpoint_dir} has no touch sketch: not a "
@@ -249,11 +255,13 @@ def load_maintainable_index(checkpoint_dir: str, device="cuda"
 def plan_repair(m: MaintainableIndex, touched_sources) -> dict:
     """Invalidation plan for a touched-source set: the dirty rows (filter
     hits and the touched sources) and the build-grid chunks covering
-    them."""
+    them; of a rank maintainer, those of its own rows."""
     touched = np.unique(np.asarray(touched_sources, np.int64).reshape(-1))
     touched = touched[(touched >= 0) & (touched < m.real_n)]
-    dirty = m.touch.dirty_rows(touched)
-    dirty = np.union1d(dirty, touched)
+    lo = m.index.row_offset if isinstance(m.index, RankIndex) else 0
+    hi = lo + m.touch.rows
+    dirty = m.touch.dirty_rows(touched) + lo
+    dirty = np.union1d(dirty, touched[(touched >= lo) & (touched < hi)])
     dirty = dirty[dirty < m.real_n]
     sb = m.params.source_batch
     chunks = np.unique(dirty // sb) if dirty.size else np.zeros(0, np.int64)
@@ -278,63 +286,66 @@ def _padded_walk_graph(graph: Graph, n_pad: int) -> Graph:
                  out_deg=out_deg, n=n_pad, m=graph.m)
 
 
-def apply_updates(
-    m: MaintainableIndex,
-    graph: Graph,
-    inserts=None,
-    deletes=None,
-) -> Tuple[Graph, MaintainableIndex, dict]:
-    """Apply an edge-update batch and repair exactly the dirtied rows.
+def _chunk_rows(m: MaintainableIndex, chunk: int) -> np.ndarray:
+    """The index rows the build-grid chunk ``chunk`` writes."""
+    sb = m.params.source_batch
+    start = int(chunk) * sb
+    real = sb if m.params.engine == "sparse-sharded" else min(
+        sb, m.real_n - start)
+    return np.arange(start, start + real, dtype=np.int64)
 
-    ``graph`` must be the graph ``m`` was built (or last repaired) on; the
-    repair runs on its device.  Returns ``(new_graph, new_maintainable,
-    report)`` and changes neither input.  ``report["dirty_row_ids"]`` is
-    the vertex set an answer cache must invalidate; ``resampled_*`` and
-    ``rebuild_*`` count walk positions.
-    """
-    if graph.n != m.real_n:
-        raise ValueError(
-            f"graph has {graph.n} vertices but the index was built on "
-            f"{m.real_n}")
-    new_graph, touched = apply_edge_updates(graph, inserts, deletes)
-    plan = plan_repair(m, touched)
+
+def _report(m: MaintainableIndex, inserts, deletes, touched: np.ndarray,
+            dirty: np.ndarray, chunks: np.ndarray) -> dict:
     p = m.params
     sb = p.source_batch
     # every swept chunk slot expects r / c counted positions; a rebuild
     # sweeps the whole grid, pad slots included
     pos_per_slot = p.r / p.c
-    resampled_slots = int(len(plan["chunks"])) * sb
-    rebuild_slots = plan["n_chunks_total"] * sb
+    resampled_slots = int(len(chunks)) * sb
+    rebuild_slots = m.n_chunks * sb
     report = dict(
         edges_inserted=len(_edge_pairs(inserts)),
         edges_deleted=len(_edge_pairs(deletes)),
-        touched_sources=int(plan["touched"].size),
-        dirty_rows=int(plan["dirty_rows"].size),
-        dirty_row_ids=plan["dirty_rows"],
-        repaired_chunks=int(len(plan["chunks"])),
-        total_chunks=int(plan["n_chunks_total"]),
+        touched_sources=int(touched.size),
+        dirty_rows=int(dirty.size),
+        dirty_row_ids=dirty,
+        repaired_chunks=int(len(chunks)),
+        total_chunks=int(m.n_chunks),
         resampled_positions=resampled_slots * pos_per_slot,
         rebuild_positions=rebuild_slots * pos_per_slot,
         resample_ratio=rebuild_slots / max(resampled_slots, 1),
     )
-    if not len(plan["chunks"]):
-        return new_graph, m, report
+    if len(chunks):
+        report["rows_replaced"] = int(sum(
+            _chunk_rows(m, c).size for c in chunks))
+    return report
 
+
+def _repaired(m: MaintainableIndex, new_graph: Graph, chunks
+              ) -> MaintainableIndex:
+    """``m`` with the build-grid chunks ``chunks`` resampled on
+    ``new_graph`` with the build's keys; on a rank the chunks must be of
+    its own interval."""
+    if not len(chunks):
+        return m
+    p = m.params
+    sb = p.source_batch
     dev = new_graph.device
     walk_g = _padded_walk_graph(new_graph, m.index.n)
     sharded = p.engine == "sparse-sharded"
     rows_parts, vals_parts, idxs_parts, touch_parts = [], [], [], []
-    for chunk in plan["chunks"]:
+    for chunk in chunks:
         start = int(chunk) * sb
+        rows = _chunk_rows(m, chunk)
+        real = rows.size
         if sharded:
             # the sharded grid covers the padded vertex range: pad rows
             # are swept (their slot positions matter), then zeroed
-            real = sb
             src = torch.arange(start, start + sb, dtype=torch.int32,
                                device=dev)
         else:
             # the single-device grid pads its ragged tail with source 0
-            real = min(sb, m.real_n - start)
             src = torch.zeros(sb, dtype=torch.int32, device=dev)
             src[:real] = torch.arange(start, start + real,
                                       dtype=torch.int32, device=dev)
@@ -349,16 +360,70 @@ def apply_updates(
             vals = torch.where(realm, vals, 0.0)
             idxs = torch.where(realm, idxs, 0)
             touch = touch & realm
-        rows_parts.append(np.arange(start, start + real, dtype=np.int64))
+        rows_parts.append(rows)
         vals_parts.append(vals[:real])
         idxs_parts.append(idxs[:real])
         touch_parts.append(touch[:real])
 
     rows = np.concatenate(rows_parts)
+    offset = m.index.row_offset if isinstance(m.index, RankIndex) else 0
     new_index = m.index.replace_rows(
         rows, torch.cat(vals_parts), torch.cat(idxs_parts))
-    new_touch = m.touch.replace_rows(rows, torch.cat(touch_parts))
-    new_m = MaintainableIndex(index=new_index, touch=new_touch, key=m.key,
-                              params=p, real_n=m.real_n)
-    report["rows_replaced"] = int(rows.size)
-    return new_graph, new_m, report
+    new_touch = m.touch.replace_rows(rows - offset, torch.cat(touch_parts))
+    return MaintainableIndex(index=new_index, touch=new_touch, key=m.key,
+                             params=p, real_n=m.real_n)
+
+
+def apply_updates(
+    m: MaintainableIndex,
+    graph: Graph,
+    inserts=None,
+    deletes=None,
+) -> Tuple[Graph, MaintainableIndex, dict]:
+    """Apply an edge-update batch and repair exactly the dirtied rows.
+
+    ``graph`` must be the graph ``m`` was built (or last repaired) on; the
+    repair runs on its device.  Returns ``(new_graph, new_maintainable,
+    report)`` and changes neither input.  ``report["dirty_row_ids"]`` is
+    the vertex set an answer cache must invalidate; ``resampled_*`` and
+    ``rebuild_*`` count walk positions.  On a rank maintainer every rank of
+    its mesh calls this with the same batch (the module docstring).
+    """
+    if graph.n != m.real_n:
+        raise ValueError(
+            f"graph has {graph.n} vertices but the index was built on "
+            f"{m.real_n}")
+    if isinstance(m.index, RankIndex):
+        return _apply_updates_on_ranks(m, graph, inserts, deletes)
+    new_graph, touched = apply_edge_updates(graph, inserts, deletes)
+    plan = plan_repair(m, touched)
+    report = _report(m, inserts, deletes, plan["touched"],
+                     plan["dirty_rows"], plan["chunks"])
+    return new_graph, _repaired(m, new_graph, plan["chunks"]), report
+
+
+def _apply_updates_on_ranks(m: MaintainableIndex, graph: Graph, inserts,
+                            deletes) -> Tuple[Graph, MaintainableIndex, dict]:
+    """:func:`apply_updates` on one rank's shard (the module docstring)."""
+    mesh = m.index.mesh
+    sb = m.params.source_batch
+    err = None
+    try:
+        lo = m.index.row_offset
+        hi = lo + m.index.n_shard
+        if lo % sb or (hi % sb and hi < m.real_n):
+            raise ValueError(f"rows [{lo}, {hi}) of this rank split chunks "
+                             f"of {sb}: the build's grid must align with "
+                             "the model shards")
+        new_graph, touched = apply_edge_updates(graph, inserts, deletes)
+        plan = plan_repair(m, touched)
+        new_m = _repaired(m, new_graph, plan["chunks"])
+    except Exception as e:  # noqa: BLE001 - every rank votes first
+        err = e
+    fail_together(mesh, err, "the repair")
+    dirty = torch.cat(list(mesh.gather_blocks(
+        torch.from_numpy(plan["dirty_rows"]).to(mesh.device), "model",
+        dst=None))).cpu().numpy()
+    chunks = np.unique(dirty // sb) if dirty.size else np.zeros(0, np.int64)
+    return new_graph, new_m, _report(m, inserts, deletes, plan["touched"],
+                                     dirty, chunks)

@@ -27,7 +27,7 @@ import torch
 from repro_torch.core import frontier
 from repro_torch.core.graph import (Graph, transition_with_dangling,
                                     transition_with_dangling_seeds)
-from repro_torch.core.index import PPRIndex
+from repro_torch.core.index import PPRIndex, RankIndex
 from repro_torch.core.walks import DEFAULT_C
 from repro_torch.kernels import ops as kernel_ops
 
@@ -316,11 +316,24 @@ def gather_combine_candidates(sv, si, fv, fi, vals, idx):
     return combine_candidates_from_rows(sv, si, fv, vals[rows], idx[rows])
 
 
+def _gathered(f, index):
+    """On a :class:`RankIndex`, the touched rows gathered from their owners
+    and the frontier pointed at them (:meth:`RankIndex.gather_rows`): the
+    combine over them is the same bytes.  Else ``(f, index)``."""
+    if not isinstance(index, RankIndex):
+        return f, index
+    rows, fi = index.gather_rows(f.values, f.indices)
+    return frontier.SparseFrontier(values=f.values, indices=fi, k=f.k,
+                                   n=f.n), rows
+
+
 def combine_with_index_sparse(s, f, index: PPRIndex, *,
                               out_k: Optional[int] = None):
     """``p = s + f @ P_hat`` against only the ``K`` touched index rows,
     compacted to ``out_k`` (default: exact) — through the
-    ``index_combine_sparse`` kernel wrapper."""
+    ``index_combine_sparse`` kernel wrapper.  A :class:`RankIndex` first
+    gathers those rows on the leader."""
+    f, index = _gathered(f, index)
     if out_k is None:
         out_k = min(s.values.shape[1] + f.values.shape[1] * index.l, index.n)
     v, i = kernel_ops.index_combine_sparse(
@@ -336,7 +349,9 @@ def combine_with_index_scatter(s, f, index: PPRIndex, *, out_k: int,
     descending sort for ``lax.top_k``'s order (value desc, column asc).
     The scatter is an accumulating ``index_put_``, which sums each
     column's candidates in candidate order on the card too (no float
-    atomics), so its answers are the same bytes on every run."""
+    atomics), so its answers are the same bytes on every run.  A
+    :class:`RankIndex` first gathers the touched rows on the leader."""
+    f, index = _gathered(f, index)
     cand_v, cand_i = gather_combine_candidates(
         s.values, s.indices, f.values, f.indices, index.values,
         index.indices)

@@ -32,6 +32,13 @@ A ``data x model`` layout of per-shard blocks is ``[data, model, ...]``
 one mesh axis of it, each group of the other axis apart, as the
 reference's collectives named by one axis inside a ``shard_map`` do, and
 charge what every one of the ``data * model`` shards receives.
+
+Two collectives move data that is not one block a shard: ``broadcast``
+sends one shard's tensor to its group (the rank service's leader to its
+followers), ``gather_blocks`` collects blocks of different lengths (each
+model shard's rows of a PPR index) on one shard or on all of them.  On a
+stacked mesh both are the identity: one process already holds every
+shard's tensors.
 """
 
 from __future__ import annotations
@@ -171,6 +178,42 @@ class ShardMesh:
         cost.charge_collective("all-gather", cost.tensor_bytes(out))
         return out
 
+    def broadcast(self, x: torch.Tensor, src: int = 0,
+                  axes: Axes = "model") -> torch.Tensor:
+        """Shard ``src``'s tensor on every shard of the group: ``x``, which
+        this process holds for all of them."""
+        return x
+
+    def gather_blocks(self, x: torch.Tensor, axes: Axes = "model",
+                      dst: Optional[int] = 0) -> Sequence[torch.Tensor]:
+        """``RankMesh.gather_blocks``'s call shape: ``[x]``, the one block
+        of the one process that holds every shard."""
+        return [x]
+
+
+def fail_together(mesh, err: Optional[BaseException], what: str,
+                  axes: Axes = "model") -> None:
+    """A vote of the group's shards on a step each ran on its own: raise
+    ``err`` where it was raised, ``RuntimeError`` on the shards that
+    succeeded if any failed, or return, so no shard goes on to a
+    collective its failed peers never reach."""
+    flags = mesh.gather_blocks(torch.tensor(
+        [int(err is not None)], dtype=torch.int64, device=mesh.device),
+        axes, dst=None)
+    bad = [i for i, f in enumerate(flags) if int(f[0])]
+    if err is not None:
+        raise err
+    if bad:
+        raise RuntimeError(f"{what} failed on shard(s) {bad} of the group "
+                           f"over {'+'.join(mesh_axes(axes))}")
+
+
+# dtypes a broadcast header can name, by their index here
+_DTYPES = (torch.float32, torch.int32, torch.int64, torch.bool,
+           torch.float64, torch.bfloat16, torch.float16, torch.uint8,
+           torch.int16, torch.int8)
+_MAX_DIMS = 6
+
 
 def _group(members: Tuple[int, ...], timeout: Optional[datetime.timedelta]):
     """The process group of ``members`` (global ranks, ascending): the
@@ -250,12 +293,14 @@ class RankMesh:
         timeout = (None if timeout_s is None
                    else datetime.timedelta(seconds=timeout_s))
         self._groups = {}
+        self._members = {}
         for axes in (("model",), ("data",), AXES):
             members = tuple(
                 ranks[d * model + m]
                 for d in (range(data) if "data" in axes else (d0,))
                 for m in (range(model) if "model" in axes else (m0,)))
             self._groups[axes] = (len(members), _group(members, timeout))
+            self._members[axes] = members
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -333,3 +378,87 @@ class RankMesh:
         *block]``: the group's blocks along block dimension ``dim``."""
         parts = self._gather(self._block(x), axis)      # [S, *block]
         return torch.cat(parts.unbind(0), dim=dim)[None, None]
+
+    def broadcast(self, x: Optional[torch.Tensor], src: int = 0,
+                  axes: Axes = "model") -> torch.Tensor:
+        """Shard ``src`` of the group (its place in shard order) sends
+        ``x`` to every shard of it; the others pass ``None`` and receive
+        it.  Any dtype of ``_DTYPES`` and up to six dimensions: a header
+        of the dtype and the shape goes first, then the bytes (none for
+        an empty tensor)."""
+        axes = mesh_axes(axes)
+        size, group = self._groups[axes]
+        members = self._members[axes]
+        if not 0 <= src < size:
+            raise ValueError(f"src {src} is not a shard of the {size} over "
+                             f"{axes}")
+        sender = members[src] == dist.get_rank()
+        if sender and x is None:
+            raise ValueError("the broadcast's source shard must pass a "
+                             "tensor")
+        if group is None:
+            return x
+        head = torch.zeros(2 + _MAX_DIMS, dtype=torch.int64)
+        if sender:
+            if x.dim() > _MAX_DIMS or x.dtype not in _DTYPES:
+                raise ValueError(f"cannot broadcast a {x.dtype} tensor of "
+                                 f"{x.dim()} dimensions")
+            head[0], head[1] = _DTYPES.index(x.dtype), x.dim()
+            head[2:2 + x.dim()] = torch.tensor(x.shape, dtype=torch.int64)
+        wire = self._host(head.to(self.device))
+        dist.broadcast(wire, src=members[src], group=group)
+        head = wire.cpu()
+        dtype = _DTYPES[int(head[0])]
+        shape = [int(d) for d in head[2:2 + int(head[1])]]
+        if sender:
+            send = x.contiguous().reshape(-1).view(torch.uint8)
+        else:
+            send = torch.empty(math.prod(shape) * dtype.itemsize,
+                               dtype=torch.uint8, device=self.device)
+        if send.numel():
+            send = self._host(send)
+            dist.broadcast(send, src=members[src], group=group)
+        if sender:
+            return x
+        return send.to(self.device).view(dtype).reshape(shape)
+
+    def gather_blocks(self, x: torch.Tensor, axes: Axes = "model",
+                      dst: Optional[int] = 0
+                      ) -> Optional[Sequence[torch.Tensor]]:
+        """Each shard's ``[rows, ...]`` block (rows may differ between
+        shards; the trailing shape and the dtype may not), on shard
+        ``dst`` of the group in shard order, ``None`` on the others; on
+        every shard with ``dst=None``.  The lengths are gathered first,
+        then the blocks padded to the longest, as bytes."""
+        axes = mesh_axes(axes)
+        size, group = self._groups[axes]
+        members = self._members[axes]
+        if group is None:
+            return [x]
+        lengths = self._gather(torch.tensor(
+            [[x.shape[0]]], dtype=torch.int64, device=self.device),
+            axes).reshape(-1).tolist()
+        rows = max(lengths)
+        send = _as_bytes(x)
+        width = send.shape[1]
+        if rows and width:
+            if send.shape[0] < rows:
+                send = torch.cat([send, send.new_zeros(
+                    rows - send.shape[0], width)])
+            send = self._host(send)
+            me = members.index(dist.get_rank())
+            if dst is None:
+                parts = [torch.empty_like(send) for _ in range(size)]
+                dist.all_gather(parts, send, group=group)
+            else:
+                parts = ([torch.empty_like(send) for _ in range(size)]
+                         if me == dst else None)
+                dist.gather(send, parts, dst=members[dst], group=group)
+                if parts is None:
+                    return None
+        elif dst is not None and members[dst] != dist.get_rank():
+            return None
+        else:
+            parts = [send.new_zeros(rows, width) for _ in range(size)]
+        return [p[:n].to(self.device).view(x.dtype).reshape(n, *x.shape[1:])
+                for p, n in zip(parts, lengths)]

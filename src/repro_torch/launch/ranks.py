@@ -16,8 +16,13 @@ requests with the sparse tile step from the rows it built::
 
 Rank 0 prints the build's totals, each rank's build seconds, the tiles'
 ms and a digest of the answers, which every rank must share.  With
+``--serve N`` the first data replica's ranks then serve ``N`` requests
+through ``PPRService`` over the rows they built (a ``1 x model`` mesh: rank
+0 leads, the others run ``serving.engine.serve_follower``), and rank 0
+prints the service's qps, p50 / p99 and its answers' digest.  With
 ``--stacked`` (no ``torchrun``) one process runs the same on a stacked
-``ShardMesh`` and prints the digest the ranks' must equal.
+``ShardMesh`` (its service on the assembled index) and prints the digests
+the ranks' must equal.
 """
 
 from __future__ import annotations
@@ -62,11 +67,69 @@ def answers_digest(tiles) -> str:
     return h.hexdigest()
 
 
+def service_answers_digest(answers) -> str:
+    """sha256 of the answers' ``(top_scores, top_vertices)`` bytes in
+    request order."""
+    h = hashlib.sha256()
+    for a in sorted(answers, key=lambda a: a.request_id):
+        h.update(a.top_scores.tobytes())
+        h.update(a.top_vertices.tobytes())
+    return h.hexdigest()
+
+
+def service_config(max_batch: int):
+    """The service ``--serve`` runs: 3c's query on the sparse route."""
+    from repro_torch.core.query import QueryConfig
+    from repro_torch.serving import ServiceConfig
+    from repro_torch.serving.batching import BatchingConfig
+    from repro_torch.serving.pipeline import PipelineConfig
+
+    return ServiceConfig(
+        query=QueryConfig(t_iterations=2, top_k=50, hub_split_degree=64,
+                          frontier_path="sparse"),
+        batching=BatchingConfig(max_batch=max_batch, max_wait_s=0.05),
+        pipeline=PipelineConfig(depth=4))
+
+
+def serve(mesh, g, index, requests: int, max_batch: int, seed: int = 0):
+    """``requests`` of :func:`run`'s requests served through
+    ``PPRService`` over ``index``: on a ``ShardMesh`` one service on the
+    assembled index; on a ``RankMesh`` the first data replica's ranks as a
+    ``1 x model`` rank service (the others return ``None`` at once), the
+    leader returning ``(answers, stats)`` and a follower ``None``."""
+    import numpy as np
+
+    from repro_torch.distributed import RankMesh
+    from repro_torch.serving import PPRService
+    from repro_torch.serving.engine import serve_follower
+
+    work = np.random.default_rng(seed + 1).integers(
+        0, g.n, requests).tolist()
+    cfg = service_config(max_batch)
+    if not isinstance(mesh, RankMesh):
+        return PPRService(g, index, cfg, device=mesh.device) \
+            .run_closed_loop(work)
+    if mesh.local_data[0] != 0:
+        return None
+    sm = mesh if mesh.data == 1 else RankMesh(
+        1, mesh.model, mesh.device, ranks=mesh.ranks[:mesh.model])
+    if not index.is_leader:
+        serve_follower(g, index, sm)
+        return None
+    svc = PPRService(g, index, cfg, device=mesh.device, mesh=sm)
+    try:
+        return svc.run_closed_loop(work)
+    finally:
+        svc.close()
+
+
 def run(mesh, *, n_log2: int, r: int, l: int, source_batch: int,
-        requests: int, q_tile: int, seed: int = 0):
+        requests: int, q_tile: int, seed: int = 0, serve_n: int = 0):
     """This rank's share of the build and of ``requests`` answered in
     tiles of ``q_tile`` on ``mesh``: ``(index, stats, build_s, tiles,
-    tiles_s)``, the index the rank's own rows."""
+    tiles_s, served)``, the index the rank's own rows; ``served`` is
+    :func:`serve`'s of ``serve_n`` requests in batches of ``q_tile``
+    (``None`` without)."""
     import numpy as np
     import torch
 
@@ -100,7 +163,10 @@ def run(mesh, *, n_log2: int, r: int, l: int, source_batch: int,
              for j in range(0, requests, q_tile)]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return index, stats, build_s, tiles, time.perf_counter() - t0
+    tiles_s = time.perf_counter() - t0
+    served = (serve(mesh, g, index, serve_n, q_tile, seed) if serve_n
+              else None)
+    return index, stats, build_s, tiles, tiles_s, served
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -117,12 +183,14 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--source-batch", type=int, default=256)
     p.add_argument("--requests", type=int, default=1024)
     p.add_argument("--q-tile", type=int, default=256)
+    p.add_argument("--serve", type=int, default=0, metavar="N",
+                   help="then serve N requests through PPRService")
     p.add_argument("--stacked", action="store_true",
                    help="one process, the shards stacked (ShardMesh)")
     args = p.parse_args(argv)
     sizes = dict(n_log2=args.n_log2, r=args.walks, l=args.index_l,
                  source_batch=args.source_batch, requests=args.requests,
-                 q_tile=args.q_tile)
+                 q_tile=args.q_tile, serve_n=args.serve)
 
     import torch.distributed as dist
 
@@ -131,17 +199,19 @@ def main(argv: Optional[list] = None) -> int:
 
     if args.stacked:
         mesh = ShardMesh(args.data, args.model, device=args.device or "cuda")
-        _, stats, build_s, tiles, tiles_s = run(mesh, **sizes)
+        _, stats, build_s, tiles, tiles_s, served = run(mesh, **sizes)
         print(json.dumps(dict(stacked=[args.data, args.model],
                               build_s=round(build_s, 3),
                               digest=answers_digest(tiles))))
         print(f"{len(tiles)} tiles of {args.q_tile}: "
               f"{1e3 * tiles_s / len(tiles):.3f} ms a tile")
+        if served is not None:
+            print_service(served, "stacked")
         return 0
 
     mesh = make_rank_mesh(args.data, args.model, backend=args.backend,
                           device=args.device)
-    _, stats, build_s, tiles, tiles_s = run(mesh, **sizes)
+    _, stats, build_s, tiles, tiles_s, served = run(mesh, **sizes)
     mine = dict(rank=dist.get_rank(), shard=[mesh.local_data[0],
                                              mesh.local_model[0]],
                 build_s=round(build_s, 3), digest=answers_digest(tiles))
@@ -157,8 +227,21 @@ def main(argv: Optional[list] = None) -> int:
               f"{1e3 * tiles_s / len(tiles):.3f} ms a tile on rank 0; "
               f"answers the same bytes on every rank: "
               f"{len({rec['digest'] for rec in every}) == 1}")
+        if served is not None:
+            print_service(served, f"1 x {args.model} ranks")
     dist.destroy_process_group()
     return 0
+
+
+def print_service(served, what: str) -> None:
+    """One JSON line of a ``--serve`` run: its qps, p50 / p99 (ms) and
+    the answers' digest."""
+    answers, stats = served
+    print(json.dumps(dict(service=what, served=len(answers),
+                          qps=round(stats["qps"], 1),
+                          p50_ms=round(1e3 * stats["latency_p50"], 3),
+                          p99_ms=round(1e3 * stats["latency_p99"], 3),
+                          service_digest=service_answers_digest(answers))))
 
 
 if __name__ == "__main__":

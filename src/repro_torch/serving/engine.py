@@ -11,6 +11,15 @@ live, repairing the index and invalidating exactly the answers it
 changed (:meth:`PPRService.apply_updates`); :meth:`PPRService
 .from_checkpoint` boots from a checkpointed build.  The counterpart of
 ``repro.serving.engine``.
+
+Over a ``RankMesh`` of ``1 x ep`` ranks the index is sharded by rows (a
+``core.index.RankIndex``), as the reference serves ``build_index_sharded``'s
+output: model shard 0, the *leader*, runs the whole service (buffer,
+cache, pipeline, the VERD push on its replica of the graph) and gathers
+each batch's touched rows from the shards that own them; every other rank
+runs :func:`serve_follower`, which answers the leader's broadcast
+commands in order (rows, an update batch, stop) until the leader's
+:meth:`PPRService.close`.
 """
 
 from __future__ import annotations
@@ -20,10 +29,13 @@ import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.core.graph import Graph
-from repro_torch.core.index import PPRIndex
+from repro_torch.core.graph import Graph, _edge_pairs
+from repro_torch.core.index import (CMD_ROWS, CMD_STOP, CMD_UPDATE,
+                                    PPRIndex, RankIndex)
 from repro_torch.core.query import BatchQueryEngine, QueryConfig
+from repro_torch.distributed.mesh import fail_together
 from repro_torch.serving.batching import (BatchingConfig, BufferOverloadError,
                                           RequestBuffer)
 from repro_torch.serving.cache import (AnswerCache, CacheConfig,
@@ -53,22 +65,57 @@ class Answer:
     rejected: bool = False        # shed by admission control (empty top-k)
 
 
+# what a rank service does not run yet
+RANK_SERVICE_NEXT = ("a rank service runs on a 1 x ep mesh; the service "
+                     "replicated over data rows is ROADMAP.md queue 1")
+
+
+def _on_service_mesh(index, maintainer, mesh):
+    """A rank service's index (the maintainer's, if ``None``) and
+    maintainer, bound to ``mesh`` (default: the index's own), which must
+    be ``1 x ep``."""
+    if index is None and maintainer is not None:
+        index = maintainer.index
+    if not isinstance(index, RankIndex):
+        raise ValueError("a service over a RankMesh serves a RankIndex "
+                         "(build_index_sharded on the mesh, or "
+                         "PPRService.from_checkpoint(..., mesh=))")
+    mesh = mesh or index.mesh
+    if mesh.data != 1:
+        raise ValueError(f"a {mesh.data} x {mesh.model} service mesh: "
+                         f"{RANK_SERVICE_NEXT}")
+    index = index.on(mesh)
+    if maintainer is not None:
+        maintainer = dataclasses.replace(maintainer, index=index)
+    return index, maintainer, mesh
+
+
 class PPRService:
     """Serves PPR answers against a :class:`PPRIndex` on ``device``.
 
     ``maintainer`` (a ``core.updates.MaintainableIndex``) enables
-    :meth:`apply_updates`; with ``index=None`` its index serves.
+    :meth:`apply_updates`; with ``index=None`` its index serves.  A
+    ``RankIndex`` (or ``mesh``, a ``1 x ep`` ``RankMesh``) makes this the
+    rank service's leader, on model shard 0 of the mesh: the other ranks
+    run :func:`serve_follower` until :meth:`close`.
     """
 
     def __init__(self, graph: Graph, index: Optional[PPRIndex],
                  cfg: Optional[ServiceConfig] = None, clock=None,
-                 device="cuda", maintainer=None):
+                 device="cuda", maintainer=None, mesh=None):
         self.cfg = cfg or ServiceConfig()
-        self.maintainer = maintainer
+        self.mesh = None
         if index is None and maintainer is not None:
             index = maintainer.index
+        if mesh is not None or isinstance(index, RankIndex):
+            index, maintainer, self.mesh = _on_service_mesh(
+                index, maintainer, mesh)
+        self.maintainer = maintainer
         self.engine = BatchQueryEngine(graph, index, self.cfg.query,
                                        device=device)
+        if self.mesh is not None and not index.is_leader:
+            raise ValueError("PPRService runs on the mesh's model shard 0; "
+                             "the other ranks run serve_follower")
         self.graph = self.engine.graph
         self.buffer = RequestBuffer(self.cfg.batching, clock=clock)
         self.clock = clock or time.monotonic
@@ -81,6 +128,8 @@ class PPRService:
             "sparse" if self.engine.uses_sparse_path() else "dense")
         self.answer_k = self.engine.effective_top_k
         self.index_rows = index.n if index is not None else 0
+        self.index_sharded = isinstance(index, RankIndex)
+        self._closed = False
         self.stats: Dict[str, float] = dict(
             served=0, batches=0, total_latency=0.0, max_latency=0.0,
             pad_rows=0, first_batch_service_s=0.0, cache_served=0,
@@ -94,27 +143,17 @@ class PPRService:
     @classmethod
     def from_checkpoint(cls, graph: Graph, checkpoint_dir: str,
                         cfg: Optional[ServiceConfig] = None, clock=None,
-                        device="cuda") -> "PPRService":
+                        device="cuda", mesh=None) -> "PPRService":
         """Boot from the *complete* committed step of a checkpointed build
         (partial steps, ``.tmp`` dirs and corrupt steps never boot), with
         no walk simulated.  A maintainable build (filters in the
         checkpoint) boots with its ``maintainer``, so :meth:`apply_updates`
-        works across the restart; a plain one serves read-only."""
-        from repro_torch.core import index as index_mod
-        from repro_torch.core import updates as updates_mod
-
-        tree, extra = index_mod._restore_complete(checkpoint_dir)
-        if "touch" not in tree:
-            index, _ = index_mod._index_from_tree(tree, extra, device)
-            return cls(graph, index, cfg, clock=clock, device=device)
-        m, _ = updates_mod._maintainable_from_tree(
-            tree, extra, device, checkpoint_dir)
-        if m.real_n != graph.n:
-            raise ValueError(
-                f"checkpoint was built on {m.real_n} vertices but the "
-                f"graph has {graph.n}")
-        return cls(graph, None, cfg, clock=clock, device=device,
-                   maintainer=m)
+        works across the restart; a plain one serves read-only.  With a
+        ``RankMesh`` every rank boots its own block: this leader here, the
+        followers in ``serve_follower(..., checkpoint_dir=)``."""
+        index, m = boot_checkpoint(graph, checkpoint_dir, device, mesh)
+        return cls(graph, index if m is None else None, cfg, clock=clock,
+                   device=device, maintainer=m, mesh=mesh)
 
     # -- client API ----------------------------------------------------------
     def submit(self, vertex: Optional[int] = None, tier: str = "interactive",
@@ -202,6 +241,8 @@ class PPRService:
                 "PPRService(..., maintainer=...))")
         from repro_torch.core import updates as updates_mod
 
+        if self.mesh is not None:
+            return self._apply_updates_on_ranks(inserts, deletes)
         try:
             new_graph, new_m, report = updates_mod.apply_updates(
                 self.maintainer, self.graph, inserts=inserts,
@@ -221,6 +262,11 @@ class PPRService:
         except BaseException:
             self.stats["update_rollbacks"] += 1
             raise
+        return self._commit_update(new_engine, new_m, frontier_path,
+                                   answer_k, report)
+
+    def _commit_update(self, new_engine, new_m, frontier_path, answer_k,
+                       report) -> dict:
         # the commit point: attribute assignments only, none can raise
         self.graph = new_engine.graph
         self.maintainer = new_m
@@ -236,6 +282,59 @@ class PPRService:
         self.stats["updates_applied"] += 1
         self.stats["rows_repaired"] += report["dirty_rows"]
         return report
+
+    def _apply_updates_on_ranks(self, inserts, deletes) -> dict:
+        """:meth:`apply_updates` on the leader: the batch goes to every
+        rank, each repairs its own rows (``core.updates.apply_updates``,
+        which fails on every rank if it fails on one), and the leader's
+        verdict on its new engine commits or rolls back every rank."""
+        from repro_torch.core import updates as updates_mod
+
+        self._command(CMD_UPDATE, encode_edges(inserts, deletes))
+        try:
+            new_graph, new_m, report = updates_mod.apply_updates(
+                self.maintainer, self.graph, inserts=inserts,
+                deletes=deletes)
+        except BaseException:
+            self.stats["update_rollbacks"] += 1
+            raise
+        try:
+            new_engine = BatchQueryEngine(new_graph, new_m.index,
+                                          self.cfg.query,
+                                          device=self.engine.device)
+            report["capture_s"] = 0.0
+            report["graphs_captured"] = len(new_engine.graphs)
+            commit = True
+        except BaseException:
+            commit = False
+            raise
+        finally:
+            self.mesh.broadcast(torch.tensor(
+                [int(commit)], dtype=torch.int64, device=self.mesh.device),
+                src=0, axes="model")
+            if not commit:
+                self.stats["update_rollbacks"] += 1
+        return self._commit_update(new_engine, new_m, "sparse",
+                                   new_engine.effective_top_k, report)
+
+    def _command(self, kind: int, payload: Optional[torch.Tensor] = None
+                 ) -> None:
+        """Broadcast a command to the followers (``serve_follower``)."""
+        if self._closed:
+            raise RuntimeError("the rank service is closed")
+        head = torch.tensor([kind], dtype=torch.int64)
+        msg = head if payload is None else torch.cat([head, payload])
+        self.mesh.broadcast(msg.to(self.mesh.device), src=0, axes="model")
+
+    def close(self) -> None:
+        """Stop the followers of a rank service (``serve_follower``
+        returns); idempotent, and nothing on one device.  A batch in
+        flight gathered its rows when it was dispatched: :meth:`poll`
+        still harvests it."""
+        if self.mesh is None or self._closed:
+            return
+        self._command(CMD_STOP)
+        self._closed = True
 
     @property
     def in_flight(self) -> int:
@@ -316,6 +415,11 @@ class PPRService:
         s["frontier_path"] = self.frontier_path
         s["answer_k"] = self.answer_k
         s["index_rows"] = self.index_rows
+        s["index_sharded"] = self.index_sharded
+        if self.index_sharded:
+            s["index_shard_rows"] = self.engine.index.n_shard
+            s.update({f"exchange_{k}": v
+                      for k, v in self.engine.index.exchange.items()})
         s["device"] = str(self.engine.device)
         s["graphs_captured"] = len(self.engine.graphs)
         s["capture_s"] = self.engine.capture_s
@@ -364,3 +468,93 @@ class PPRService:
         from repro_torch.serving import loadgen
 
         return loadgen.run_closed_loop(self, vertices)
+
+
+def encode_edges(inserts=None, deletes=None) -> torch.Tensor:
+    """An update batch as one ``int64`` vector for a broadcast: the two
+    counts, then the inserted and the deleted ``(src, dst)`` pairs."""
+    ins, dele = _edge_pairs(inserts), _edge_pairs(deletes)
+    return torch.from_numpy(np.concatenate(
+        [[len(ins), len(dele)], ins.reshape(-1), dele.reshape(-1)]).astype(
+            np.int64))
+
+
+def decode_edges(x: torch.Tensor):
+    """``(inserts, deletes)`` of :func:`encode_edges`."""
+    # contract: allow(host-sync): an update batch is applied on the host
+    a = x.cpu().numpy()
+    ni, nd = int(a[0]), int(a[1])
+    return (a[2:2 + 2 * ni].reshape(ni, 2),
+            a[2 + 2 * ni:2 + 2 * (ni + nd)].reshape(nd, 2))
+
+
+def boot_checkpoint(graph: Graph, checkpoint_dir: str, device="cuda",
+                    mesh=None):
+    """``(index, maintainer)`` of the complete step under
+    ``checkpoint_dir`` (the maintainer ``None`` for a build without
+    filters); with a ``RankMesh``, this rank's block."""
+    from repro_torch.core import index as index_mod
+    from repro_torch.core import updates as updates_mod
+
+    tree, extra = index_mod._restore_complete(checkpoint_dir)
+    if "touch" not in tree:
+        index, _ = index_mod._index_from_tree(tree, extra, device, mesh)
+        return index, None
+    m, _ = updates_mod._maintainable_from_tree(
+        tree, extra, device, checkpoint_dir, mesh)
+    if m.real_n != graph.n:
+        raise ValueError(
+            f"checkpoint was built on {m.real_n} vertices but the "
+            f"graph has {graph.n}")
+    return m.index, m
+
+
+def serve_follower(graph: Graph, index: Optional[RankIndex], mesh=None,
+                   maintainer=None, *, checkpoint_dir: Optional[str] = None
+                   ) -> dict:
+    """A rank service's follower (every model shard but 0 of a ``1 x ep``
+    mesh): answers the leader's commands in order until it closes.  Rows:
+    this shard's rows a batch touches, to the leader.  An update batch:
+    this shard's repair (``core.updates.apply_updates`` on the
+    ``maintainer``), swapped in if the leader commits it, dropped if the
+    repair fails on any rank or the leader rolls back.  ``checkpoint_dir``
+    boots this rank's block of a complete step instead of ``index``.
+    Returns the follower's counts and its final ``index``, ``maintainer``
+    and ``graph``."""
+    from repro_torch.core import updates as updates_mod
+
+    if checkpoint_dir is not None:
+        index, maintainer = boot_checkpoint(graph, checkpoint_dir,
+                                            mesh=mesh)
+    index, maintainer, mesh = _on_service_mesh(index, maintainer, mesh)
+    if index.is_leader:
+        raise ValueError("model shard 0 leads: it runs PPRService")
+    graph = graph.to(mesh.device)
+    stats = dict(row_requests=0, updates_applied=0, update_rollbacks=0)
+    while True:
+        msg = mesh.broadcast(None, src=0, axes="model")
+        kind = int(msg[0])
+        if kind == CMD_ROWS:
+            index.send_rows(msg[1:])
+            stats["row_requests"] += 1
+        elif kind == CMD_UPDATE:
+            inserts, deletes = decode_edges(msg[1:])
+            try:
+                if maintainer is None:
+                    fail_together(mesh, ValueError(
+                        "a follower with no maintainer"), "the repair")
+                new_graph, new_m, _ = updates_mod.apply_updates(
+                    maintainer, graph, inserts=inserts, deletes=deletes)
+            except Exception:  # noqa: BLE001 - the leader raises it
+                stats["update_rollbacks"] += 1
+                continue
+            if int(mesh.broadcast(None, src=0, axes="model")[0]):
+                graph, maintainer, index = new_graph, new_m, new_m.index
+                stats["updates_applied"] += 1
+            else:
+                stats["update_rollbacks"] += 1
+        elif kind == CMD_STOP:
+            return dict(stats, index=index, maintainer=maintainer,
+                        graph=graph)
+        else:
+            raise ValueError(f"unknown rank service command {kind}")

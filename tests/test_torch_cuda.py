@@ -628,6 +628,112 @@ def test_sparse_tile_step_answers_identical_across_runs(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("compress_k", [0, 64])
+def test_dense_tile_step_answers_identical_across_runs(cuda, compress_k):
+    """The stacked dense-exchange tile step (the slab oracle, and its
+    per-owner top-``compress_k`` wire) three times on the same tiles at
+    rmat(14): the same bytes.  Its local push and its index combine sum
+    many contributions into one column; an ``index_add_`` there adds them
+    by CUDA atomics in no fixed order."""
+    import warnings
+
+    from repro_torch import rng
+    from repro_torch.core.distributed_engine import (
+        DistConfig, build_sharded_graph, make_verd_tile_step)
+    from repro_torch.core.index import build_index
+    from repro_torch.core.verd import resolve_degree_cap
+    from repro_torch.distributed import ShardMesh
+
+    g = tsyn.rmat(14, avg_deg=10.0, seed=0, device=cuda)
+    index, _ = build_index(g, r=32, l=64, key=rng.prng_key(0),
+                           source_batch=4096, device=cuda)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        cfg = DistConfig(n=g.n, ep=4, q_tile=256, t_iterations=2,
+                         index_l=64, top_k=50,
+                         degree_cap=resolve_degree_cap(g), exchange="dense",
+                         compress_k=compress_k)
+    step = make_verd_tile_step(cfg, ShardMesh(1, 4, device=cuda))
+    slabs = build_sharded_graph(g, cfg, device=cuda)
+    shape = (4, g.n // 4, 64)
+    work = torch.as_tensor(np.random.default_rng(1).integers(0, g.n, 1024),
+                           dtype=torch.int32, device=cuda)
+    runs = [[step(slabs, work[j:j + 256], index.values.reshape(shape),
+                  index.indices.reshape(shape)) for j in range(0, 1024, 256)]
+            for _ in range(3)]
+    for first, *later in zip(*runs):
+        for v, i in later:
+            assert torch.equal(first[0].view(torch.int32), v.view(torch.int32))
+            assert torch.equal(first[1], i)
+
+
+@pytest.mark.cuda
+def test_rank_service_on_card_matches_the_stacked_mesh(cuda, tmp_path):
+    """Four gloo ranks on the card at rmat(12) (``tests/torch_rank_serving_
+    worker.py``, no JAX): the rank service's answers in every case, the
+    rank repair, the service's updates and rollback, the checkpointed
+    build crashed and resumed both ways, and a service booted from it,
+    each the same bytes as the stacked ``ShardMesh``'s or the one-device
+    service's on the card."""
+    import torch_rank_serving_worker as worker
+    from repro_torch.core.updates import apply_updates
+    from repro_torch.serving import PPRService
+    from repro_torch.testing import FaultPlan, InjectedFault
+
+    def same(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype == np.float32:
+            a, b = a.view(np.uint32), np.asarray(b, np.float32).view(
+                np.uint32)
+        return a.shape == b.shape and np.array_equal(a, b)
+
+    def block(x, r, ep):
+        x = x.cpu().numpy()
+        ns = x.shape[0] // ep
+        return x[r % ep * ns:(r % ep + 1) * ns]
+
+    with pytest.raises(InjectedFault):
+        worker.stacked_checkpoint(
+            tmp_path / "stacked_crash", device=cuda,
+            fault_plan=FaultPlan(raise_at_chunks=(worker.CRASH_CHUNK,)))
+    got, _ = worker.run_ranks(tmp_path, device="cuda:0", timeout_s=300.0,
+                              join_timeout_s=600.0)
+    leader = got[0]
+    m, _ = worker.stacked_maintainer(cuda)
+    for label, (_, _, script) in worker.SERVICE_CASES.items():
+        want = worker.run_script(worker.stacked_service(m.index, label,
+                                                        cuda), script)
+        for k, v in want.items():
+            assert same(leader[f"serve14/{label}/{k}"], v), (label, k)
+    g = worker.graph(cuda)
+    first, _ = worker.edge_batches(g)
+    _, m1, report = apply_updates(m, g, **first)
+    svc = PPRService(g, None, worker.service_config(*worker.UPDATE_CASE),
+                     clock=worker.still, device=cuda, maintainer=m)
+    want = {"before": worker.run_script(svc, "cache")}
+    svc.apply_updates(**first)
+    want["after"] = worker.run_script(svc, "cache")
+    for name, arrays in want.items():
+        for k, v in arrays.items():
+            assert same(leader[f"service_update/{name}/{k}"], v), (name, k)
+    cm, _ = worker.stacked_checkpoint(tmp_path / "stacked_full",
+                                         device=cuda)
+    for r, out in enumerate(got):
+        for k, v in worker.report_arrays(report).items():
+            assert same(out[f"repair/report/{k}"], v), (r, k)
+        assert same(out["repair/values"], block(m1.index.values, r, 4)), r
+        assert same(out["repair/touch"], block(m1.touch.bits, r, 4)), r
+        assert same(out["service_update/final/values"],
+                    block(m1.index.values, r, 4)), r
+        for tag in ("full", "crash/resumed", "stacked_crash/resumed"):
+            assert same(out[f"ckpt/{tag}/values"],
+                        block(cm.index.values, r, 2)), (r, tag)
+            assert same(out[f"ckpt/{tag}/touch"],
+                        block(cm.touch.bits, r, 2)), (r, tag)
+    assert str(leader["service_update/failed"]) == "yes"
+
+
+@pytest.mark.cuda
 def test_rank_mesh_on_card_matches_the_stacked_mesh(cuda, tmp_path):
     """Four gloo ranks on the card at rmat(12) (``tests/torch_rank_mesh_
     worker.py``, no JAX): the 1 x 4 build's rows and its sparse tile

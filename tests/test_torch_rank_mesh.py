@@ -34,7 +34,8 @@ from repro.core.power_iteration import exact_ppr_dense
 from repro.graphs import synthetic as jsyn
 from repro_torch import convert, rng
 from repro_torch.core import frontier as TF
-from repro_torch.distributed import RankMesh
+from repro_torch.distributed import RankMesh, ShardMesh
+from repro_torch.distributed.mesh import fail_together
 from repro_torch.launch import mesh as launch_mesh
 
 torch.set_num_threads(1)
@@ -232,7 +233,8 @@ def test_rank_build_matches_reference_single_device(ranks):
 
 def test_rank_mesh_refusals_on_ranks(ranks):
     for got in ranks["ranks"]:
-        for name in ("size", "meta", "checkpoint", "repair"):
+        for name in ("size", "meta", "dense_route", "fppr", "mcfp", "pi",
+                     "verd", "data_mesh"):
             assert bool(got[f"refusals/{name}"]), name
 
 
@@ -273,6 +275,23 @@ def test_make_rank_mesh_refuses_before_joining(monkeypatch, tmp_path, case):
     with pytest.raises(err, match=match):
         call()
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("failed", [False, True])
+def test_stacked_mesh_broadcast_gather_and_vote_are_identities(failed):
+    """``ShardMesh``'s ``broadcast`` and ``gather_blocks`` take
+    ``RankMesh``'s call shapes, so ``fail_together`` votes on either."""
+    mesh = ShardMesh(1, 4, "cpu")
+    x = torch.arange(6, dtype=torch.int32).reshape(3, 2)
+    assert mesh.broadcast(x, src=0) is x
+    assert [b is x for b in mesh.gather_blocks(x, "model", dst=None)] == [
+        True]
+    err = ValueError("this shard failed") if failed else None
+    if failed:
+        with pytest.raises(ValueError, match="this shard failed"):
+            fail_together(mesh, err, "the step")
+    else:
+        fail_together(mesh, err, "the step")
 
 
 @pytest.mark.parametrize("indices,clash", [((0, 1), False), ((0, 0), True)])
@@ -316,10 +335,14 @@ def test_ranks_cli_stacked_run_prints_its_digest(capsys):
 
     args = ["--stacked", "--device", "cpu", "--model", "2", "--n-log2", "8",
             "--walks", "4", "--index-l", "8", "--source-batch", "32",
-            "--requests", "16", "--q-tile", "8"]
+            "--requests", "16", "--q-tile", "8", "--serve", "16"]
     assert ranks_cli.main(args) == 0
     first = capsys.readouterr().out
     assert '"digest": "' in first and "2 tiles of 8" in first
+    assert '"service": "stacked", "served": 16' in first
+    assert '"service_digest": "' in first
     assert ranks_cli.main(args) == 0
-    assert capsys.readouterr().out.split("\n")[0].split('"digest"')[1] == \
-        first.split("\n")[0].split('"digest"')[1]
+    again = capsys.readouterr().out
+    for line in (0, 2):     # the tiles' digest, the service's
+        assert again.split("\n")[line].split('digest"')[1] == \
+            first.split("\n")[line].split('digest"')[1]

@@ -17,7 +17,6 @@ import torch
 from repro_torch import convert, rng
 from repro_torch.core import distributed_engine as tde
 from repro_torch.core import index as tindex
-from repro_torch.core.updates import build_maintainable_index
 from repro_torch.distributed import RankMesh, ShardMesh
 from repro_torch.graphs import synthetic as tsyn
 
@@ -172,19 +171,36 @@ def _build(mesh, n, kw, dev):
 
 
 def _refusals(meshes, dev):
-    """What a RankMesh refuses, each ``True`` where it raised as it must."""
-    mesh = meshes[(2, 2)]
+    """What a RankMesh refuses, each ``True`` where it raised as it must:
+    a mesh of the wrong size or on ``meta``, and what a rank-sharded index
+    does not serve yet (ROADMAP.md, queue 1): the dense route, the modes
+    but ``powerwalk``, and a service mesh with data replicas."""
+    from repro_torch.core.query import QueryConfig
+    from repro_torch.serving import PPRService, ServiceConfig
+
     g = build_graph(64, dev)
+    index14, _ = tindex.build_index_sharded(
+        g, r=4, l=4, key=rng.prng_key(0), mesh=meshes[(1, 4)],
+        source_batch=16)
+    index22, _ = tindex.build_index_sharded(
+        g, r=4, l=4, key=rng.prng_key(0), mesh=meshes[(2, 2)],
+        source_batch=16)
+
+    def service(index, **query):
+        return lambda: PPRService(g, index, ServiceConfig(query=QueryConfig(
+            **dict(dict(top_k=8, frontier_path="sparse"), **query))),
+            device=dev)
+
     out = {}
     for name, call, match in (
         ("size", lambda: RankMesh(3, 1, dev), "3 ranks"),
         ("meta", lambda: RankMesh(2, 2, "meta"), "meta"),
-        ("checkpoint", lambda: tindex.build_index_sharded(
-            g, r=4, l=4, key=rng.prng_key(0), mesh=mesh, source_batch=16,
-            checkpoint_dir="unused"), "ROADMAP"),
-        ("repair", lambda: build_maintainable_index(
-            g, 4, 4, rng.prng_key(0), mesh=mesh, source_batch=16),
-         "ROADMAP"),
+        ("dense_route", service(index14, frontier_path="dense"), "ROADMAP"),
+        ("fppr", service(index14, mode="fppr"), "ROADMAP"),
+        ("mcfp", service(index14, mode="mcfp"), "ROADMAP"),
+        ("pi", service(index14, mode="pi"), "ROADMAP"),
+        ("verd", service(index14, mode="verd"), "ROADMAP"),
+        ("data_mesh", service(index22), "ROADMAP"),
     ):
         try:
             call()
