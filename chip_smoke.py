@@ -90,7 +90,11 @@ Phases, each timed and printed:
    against 3e's ``pi``; then, as 3q's yardsticks, each model shard's rows
    digested, the same tile step answering the same 64 tiles from the
    sharded build's rows and a ``PPRService`` on them serving 3c's first
-   4,096 requests;
+   4,096 requests; and, for 3q (iv), a ``PPRService`` on them serving
+   3e's 64 requests in each of ``RANK_MODE_CASES`` (dense ``powerwalk``,
+   ``fppr``, ``verd`` on each route, ``mcfp``, ``pi``), with the transposed
+   view of one batch's gathered rows built and timed as the rank leader
+   builds it a batch;
 3q. the rank mesh: 8 processes spawned on the one card, a ``RankMesh(2,
    4)`` over gloo (collectives staged through host memory), each
    regenerating 3a's graph (its fingerprint the parent's) and running
@@ -125,7 +129,18 @@ Phases, each timed and printed:
    process; (iii) the NCCL ranks also serve through the rank service,
    1,024 requests on 3b's index on one card (the same bytes as a
    one-device ``PPRService``), 3q (i)'s 4,096 with four cards (the gloo
-   ranks' bytes);
+   ranks' bytes); (iv) ranks 0-3 serve 3e's 64 requests in batches of 32
+   (closed only when full) in each mode and route of
+   ``RANK_MODE_CASES``: dense ``powerwalk`` gathers the rows of ``f``'s
+   nonzero columns, ``fppr`` its seeds' rows, and ``verd``, ``mcfp`` and
+   ``pi`` read no index and run captured on the leader as on one device.
+   ``fppr``, ``mcfp``, ``pi`` and both ``verd`` routes must be the same
+   bytes as 3f's yardsticks; dense ``powerwalk`` within 1e-5 L1 of them on
+   densified rows (its transposed view is built a batch over the gathered
+   rows, where a hub column may split elsewhere) and the same bytes on a
+   second pass; each case's kernels counted on the leader (zeroed just
+   before, read just after); it prints each case's qps, p50 / p99, rows
+   and bytes crossed a batch, graphs captured and seconds;
 3g. the recsys zoo at full width, each model with the counters zeroed
    just before its forwards and read just after, its parameters from the
    port's ``init`` (seed 0) on the card, bf16 compute, the card's name and
@@ -404,6 +419,18 @@ RANK_JOIN_S = 420.0            # ...and the spawned ranks' deadline
 RANK_SERVE_REQUESTS = 4096     # 3q (i): 3c's first requests, rank service
 RANK_NCCL_REQUESTS = 1024      # 3q (iii): the 1 x 1 NCCL service's
 RANK_SERVE_PATH = ("frontier_push", "index_combine_sparse")  # its leader's
+RANK_MODE_BATCH = 32           # 3q (iv): 3e's requests in two full batches
+# 3q (iv): label -> (mode, route, the kernels its leader must launch)
+RANK_MODE_CASES = {
+    "powerwalk_dense": ("powerwalk", "dense", ("ell_spmm", "index_combine")),
+    "fppr": ("fppr", "dense", ()),
+    "verd_sparse": ("verd", "sparse", ("frontier_push",)),
+    "verd_dense": ("verd", "dense", ("ell_spmm",)),
+    # the mcfp mode's dense estimator is plain PyTorch: no kernel of its own
+    "mcfp": ("mcfp", "dense", ()),
+    "pi": ("pi", "dense", ("ell_spmm",)),
+}
+RANK_MODES_PATH = ("frontier_push", "ell_spmm", "index_combine")
 SMALL_N_LOG2 = 14              # 3q (ii): the small stack on the same ranks
 SMALL_STACK = dict(r=16, l=64, source_batch=1024, touch_bits=4096)
 SMALL_CKPT_EVERY = 2           # of 4 chunks a shard: one partial commit
@@ -4836,6 +4863,66 @@ def rank_service(torch, mesh, g, index, work):
                 seconds=time.perf_counter() - t0)
 
 
+def rank_mode_config(mode, route):
+    """3q (iv)'s service: 3c's query in ``mode`` on ``route``, in batches
+    of ``RANK_MODE_BATCH`` that only a full batch or the last forced poll
+    closes, so the rank leader and the one-device yardstick dispatch the
+    same batches (the ``mcfp`` mode draws by dispatch order)."""
+    from repro_torch.launch.ranks import service_config
+
+    cfg = service_config(RANK_MODE_BATCH, mode=mode, frontier_path=route)
+    cfg.batching.max_wait_s = 3600.0
+    return cfg
+
+
+def served_rows(answers):
+    """The answers' scores and vertices, lists in request order."""
+    answers = sorted(answers, key=lambda a: a.request_id)
+    return ([a.top_scores.tolist() for a in answers],
+            [a.top_vertices.tolist() for a in answers])
+
+
+def rank_modes(torch, mesh, g, index, work):
+    """3q (iv) on a rank of the ``1 x ep`` ``mesh``: ``work`` through the
+    rank service in each case of ``RANK_MODE_CASES`` on the leader (dense
+    ``powerwalk`` twice), the rows each case's batches ask for on a
+    follower; a record of each case."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.ranks import service_answers_digest
+    from repro_torch.serving import PPRService
+    from repro_torch.serving.engine import serve_follower
+
+    out = {}
+    for label, (mode, route, _) in RANK_MODE_CASES.items():
+        t0 = time.perf_counter()
+        if not index.is_leader:
+            res = serve_follower(g, index, mesh)
+            out[label] = dict(row_requests=res["row_requests"],
+                              seconds=time.perf_counter() - t0)
+            continue
+        svc = PPRService(g, index, rank_mode_config(mode, route),
+                         device=mesh.device, mesh=mesh)
+        ops.reset_launch_counts()
+        passes = [svc.run_closed_loop(work)
+                  for _ in range(2 if label == "powerwalk_dense" else 1)]
+        torch.cuda.synchronize(mesh.device)
+        counts = ops.launch_counts()
+        svc.close()
+        answers, st = passes[0]
+        out[label] = dict(
+            answers=service_answers_digest(answers),
+            passes=[service_answers_digest(a) for a, _ in passes],
+            rows=served_rows(answers), qps=st["qps"],
+            p50_ms=1e3 * st["latency_p50"], p99_ms=1e3 * st["latency_p99"],
+            batches=st["batches"], frontier_path=st["frontier_path"],
+            exchange_rows=st["exchange_rows"],
+            exchange_rows_crossed=st["exchange_rows_crossed"],
+            exchange_bytes=st["exchange_bytes_crossed"],
+            graphs_captured=st["graphs_captured"], launches=counts,
+            seconds=time.perf_counter() - t0)
+    return out
+
+
 def small_stack_inputs(g):
     """3q (ii)'s service, requests and update batch on rmat(14), from a
     seed: 4 fresh edges and 4 of the graph's deleted, all out of vertices
@@ -5059,6 +5146,8 @@ def rank_mesh_rank(rank, world, out_dir, work, fingerprint, max_deg,
         rec["serve"] = rank_service(
             torch, tile_mesh, g, index,
             [int(v) for v in work[:RANK_SERVE_REQUESTS]])
+        rec["modes"] = rank_modes(                    # (iv)
+            torch, tile_mesh, g, index, [int(v) for v in work[:E_ROWS]])
     del g, index
     torch.cuda.empty_cache()
     rec["small"] = small_stack_rank(                  # (ii)
@@ -5127,8 +5216,9 @@ def phase_rank_mesh(torch, np, dev, g, index, work, max_deg, yard,
     and the small stack's checkpointed build, repair and boot (the module
     docstring), against ``yard``: 3f's rows digested by model shard, its
     totals, its stacked answers over the same tiles and its stacked
-    service's.  Returns the gloo ranks' summed launch counts and the rank
-    service leader's."""
+    service's and its service in every mode.  Returns the gloo ranks'
+    summed launch counts, the rank service leader's, and its leader's over
+    3q (iv)'s cases."""
     from repro_torch.core.distributed_engine import build_sharded_graph
     from repro_torch.core.graph import graph_fingerprint
     from repro_torch.distributed import ShardMesh
@@ -5158,7 +5248,7 @@ def phase_rank_mesh(torch, np, dev, g, index, work, max_deg, yard,
         except Exception as e:  # noqa: BLE001 - a failure of the phase
             failures.append(f"3q: the gloo ranks failed: {e!r}"[-3000:])
             print(f"3q: the gloo ranks failed: {e}", flush=True)
-            return {}, {}
+            return {}, {}, {}
         recs = []
         for r in range(world):
             with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -5239,6 +5329,53 @@ def phase_rank_mesh(torch, np, dev, g, index, work, max_deg, yard,
         failures += [f"3q (i) rank service: {k}" for k, v in ok.items()
                      if not v]
 
+        # (iv) every mode and route on the rank service
+        counts_modes = {}
+        for label, (mode, route, kernels) in RANK_MODE_CASES.items():
+            x, want = recs[0]["modes"][label], yard["modes"][label]
+            followers = [r["modes"][label]["row_requests"]
+                         for r in tile_recs[1:]]
+            if label == "powerwalk_dense":
+                mine, yard_rows = ([torch.tensor(t) for t in r]
+                                   for r in (x["rows"], want["rows"]))
+                l1 = densified_l1(np, mine, yard_rows, g.n)
+                ok = dict(agree=l1 <= 1e-5,
+                          passes=len(set(x["passes"])) == 1)
+                how = (f"within {l1:.3e} L1 of the yardstick (limit 1e-5), "
+                       f"the same bytes: {x['answers'] == want['answers']}; "
+                       f"two passes the same bytes: {ok['passes']}")
+            else:
+                ok = dict(answers=x["answers"] == want["answers"])
+                how = f"the same bytes as the yardstick: {ok['answers']}"
+            ok["launched"] = all(x["launches"].get(k, 0) > 0
+                                 for k in kernels)
+            if mode in ("powerwalk", "fppr"):
+                ok.update(crossed=x["exchange_rows_crossed"] > 0,
+                          eager=x["graphs_captured"] == 0,
+                          followers=all(f == x["batches"] * len(x["passes"])
+                                        for f in followers))
+            else:
+                ok.update(no_rows=x["exchange_rows"] == 0
+                          and not any(followers),
+                          captured=x["graphs_captured"]
+                          == want["graphs_captured"])
+            batches = max(x["batches"], 1)
+            print(f"3q (iv) {label} ({mode}, route {x['frontier_path']}): "
+                  f"{E_ROWS} of 3e's requests in {x['batches']} batches, "
+                  f"{x['seconds']:.3f} s: {x['qps']:.1f} qps, p50 "
+                  f"{x['p50_ms']:.3f} ms, p99 {x['p99_ms']:.3f} ms; rows "
+                  f"{x['exchange_rows'] / batches:.0f} gathered a batch, "
+                  f"{x['exchange_rows_crossed'] / batches:.0f} the "
+                  f"followers', {x['exchange_bytes'] / batches:.0f} bytes "
+                  f"crossed a batch; graphs captured "
+                  f"{x['graphs_captured']} (yardstick "
+                  f"{want['graphs_captured']}); {how}; leader launches "
+                  f"{json.dumps(x['launches'])}")
+            failures += [f"3q (iv) {label}: {k}" for k, v in ok.items()
+                         if not v]
+            for k, v in x["launches"].items():
+                counts_modes[k] = counts_modes.get(k, 0) + v
+
         # (ii) the small stack
         bad = []
         for x in recs:
@@ -5304,7 +5441,7 @@ def phase_rank_mesh(torch, np, dev, g, index, work, max_deg, yard,
         except Exception as e:  # noqa: BLE001 - a failure of the phase
             failures.append(f"3q: the NCCL ranks failed: {e!r}"[-3000:])
             print(f"3q: the NCCL ranks failed: {e}", flush=True)
-            return counts, recs[0]["serve"]["launches"]
+            return counts, recs[0]["serve"]["launches"], counts_modes
         nccl = []
         for r in range(nccl_world):
             with open(os.path.join(out_dir, f"nccl{r}.json")) as f:
@@ -5330,7 +5467,7 @@ def phase_rank_mesh(torch, np, dev, g, index, work, max_deg, yard,
         if not same:
             failures.append(f"3q (iii): the NCCL service differs from "
                             f"{what_serve}")
-        return counts, recs[0]["serve"]["launches"]
+        return counts, recs[0]["serve"]["launches"], counts_modes
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
@@ -5354,9 +5491,11 @@ def main() -> int:
     from repro_torch.core.metrics import (is_stochastic, mean_rag,
                                           precision_at_k)
     from repro_torch.core.query import BatchQueryEngine, QueryConfig
+    from repro_torch.core.verd import verd_iterate
     from repro_torch.distributed import ShardMesh
     from repro_torch.graphs import synthetic
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.index_combine import index_columns
     from repro_torch.launch.ranks import (answers_digest,
                                           service_answers_digest,
                                           service_config)
@@ -5735,11 +5874,42 @@ def main() -> int:
           f"step on the sharded build's rows ({len(sh_tiles)} tiles) and "
           f"the stacked PPRService on them ({RANK_SERVE_REQUESTS} requests) "
           f"in {time.perf_counter() - t1:.3f} s")
+    t1 = time.perf_counter()
+    yard_q["modes"] = {}
+    for label, (mode, route, _) in RANK_MODE_CASES.items():
+        svc_q = PPRService(g, sh_index, rank_mode_config(mode, route),
+                           device=dev)
+        answers, st = svc_q.run_closed_loop(work[:E_ROWS])
+        yard_q["modes"][label] = dict(
+            answers=service_answers_digest(answers),
+            rows=served_rows(answers), graphs_captured=st["graphs_captured"])
+        print(f"3q (iv)'s yardstick {label}: {E_ROWS} requests, "
+              f"{st['qps']:.1f} qps, {st['graphs_captured']} graphs "
+              f"captured, route {st['frontier_path']}")
+        del svc_q
+    # one batch of the rank leader's dense combine: the rows of f's
+    # nonzero columns and their transposed view, built as it builds it
+    _, f_q = verd_iterate(g, work_t[:RANK_MODE_BATCH], t=2)
+    need = f_q.ne(0).any(dim=0).nonzero()[:, 0]
+    del f_q
+    rows_q = (sh_index.values[need], sh_index.indices[need])
+    view = index_columns(*rows_q, g.n)
+    view_ms = cuda_ms(torch, lambda: index_columns(*rows_q, g.n),
+                      max_reps=5)
+    print(f"3q (iv)'s yardsticks in {time.perf_counter() - t1:.3f} s; a "
+          f"dense batch of {RANK_MODE_BATCH}: f holds a nonzero in "
+          f"{need.numel()} of {g.n} columns, so the leader gathers "
+          f"{need.numel()} rows ({need.numel() * MAIN_L * 8 / 1e6:.1f} MB) "
+          f"and builds their transposed view ({view.ent_v.numel()} "
+          f"entries, {view.tasks.shape[0]} split tasks in "
+          f"{view.heavy.shape[0]} columns, {view.nbytes / 1e6:.1f} MB) in "
+          f"{view_ms:.3f} ms on one card (CUDA events)")
+    del rows_q, view, need
     del sh_index, slabs, iv, ii, sh_tiles
     phase("3f distributed engine", t0)
 
     t0 = time.perf_counter()
-    counts_q, counts_q_serve = phase_rank_mesh(
+    counts_q, counts_q_serve, counts_q_modes = phase_rank_mesh(
         torch, np, dev, g, index, work, max_deg, yard_q, failures)
     phase("3q rank mesh", t0)
 
@@ -5876,6 +6046,8 @@ def main() -> int:
              "distributed (3f)": (DIST_PATH, counts_f),
              "rank mesh (3q)": (DIST_PATH, counts_q),
              "rank service (3q)": (RANK_SERVE_PATH, counts_q_serve),
+             "rank service, every mode (3q iv)": (RANK_MODES_PATH,
+                                                  counts_q_modes),
              "dlrm (3g)": (RECSYS_PATH, counts_g),
              **{f"{arch} (3g)": (RECSYS_PATH, counts_zoo[arch])
                 for arch in ZOO},

@@ -11,7 +11,7 @@ MCFP oracle (``mcfp.estimate_ppr_batched`` truncated to top-L).
 :class:`~repro_torch.distributed.mesh.ShardMesh`, or a rank's own shard of
 them on a :class:`~repro_torch.distributed.mesh.RankMesh`: a
 :class:`RankIndex`, whose leader gathers the rows a query touches from the
-model shards that own them (:meth:`RankIndex.gather_rows`).
+model shards that own them (:meth:`RankIndex.gather`).
 
 Both sparse builds can record each row's walks-through Bloom filter
 (``touch_bits``, the invalidation sketch of ``core/updates.py``) and can
@@ -52,6 +52,8 @@ from repro_torch.distributed.mesh import AXES, RankMesh, fail_together
 # the rank service's leader to its followers: the first word of each
 # command it broadcasts over the model axis (serving/engine.py)
 CMD_ROWS, CMD_UPDATE, CMD_STOP = 0, 1, 2
+# what RankIndex.exchange counts
+EXCHANGE_COUNTS = ("exchanges", "rows", "rows_crossed", "bytes_crossed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,17 +122,17 @@ class RankIndex:
     """One model shard's rows of a PPR index on a ``RankMesh``: ``rows``
     holds the rank's ``[n_shard, L]`` rows (global columns, ``n`` the whole
     index's row count), rows ``row_offset`` on of the whole.  No rank holds
-    another's rows: a query's combine runs on the mesh's leader (model
-    shard 0) over the rows its frontier touches, which
-    :meth:`gather_rows` collects from their owners; the other shards answer
-    in :meth:`send_rows`.  ``exchange`` counts what crossed."""
+    another's rows: a query reads rows only on the mesh's leader (model
+    shard 0), which :meth:`gather` collects from their owners (the rows
+    a sparse frontier touches, :meth:`gather_rows`; the columns of a dense
+    one that hold a nonzero; an ``fppr`` query's seeds); the other shards
+    answer in :meth:`send_rows`.  ``exchange`` counts what crossed."""
 
     rows: PPRIndex
     row_offset: int
     mesh: RankMesh
     exchange: Dict = dataclasses.field(
-        default_factory=lambda: dict(exchanges=0, rows=0, rows_crossed=0,
-                                     bytes_crossed=0),
+        default_factory=lambda: dict.fromkeys(EXCHANGE_COUNTS, 0),
         compare=False, repr=False)
 
     @property
@@ -171,7 +173,7 @@ class RankIndex:
     def on(self, mesh: RankMesh) -> "RankIndex":
         """The same rows over ``mesh`` (a service's ``1 x ep`` mesh of the
         build mesh's first data replica, say), whose model shard must be
-        this rank's."""
+        this rank's, with ``exchange`` counted from zero."""
         if not isinstance(mesh, RankMesh):
             raise ValueError(f"a RankIndex serves over a RankMesh, got "
                              f"{mesh!r}")
@@ -179,7 +181,8 @@ class RankIndex:
                 mesh.local_model != self.mesh.local_model):
             raise ValueError(f"{mesh!r} does not hold this rank's model "
                              f"shard of {self.mesh!r}")
-        return dataclasses.replace(self, mesh=mesh)
+        return dataclasses.replace(
+            self, mesh=mesh, exchange=dict.fromkeys(EXCHANGE_COUNTS, 0))
 
     def replace_rows(self, rows, values: torch.Tensor,
                      indices: torch.Tensor) -> "RankIndex":
@@ -199,39 +202,31 @@ class RankIndex:
                           self.indices[mine]], dim=1)
 
     def send_rows(self, need: torch.Tensor) -> None:
-        """A follower's part of :meth:`gather_rows`: its rows of ``need``
+        """A follower's part of :meth:`gather`: its rows of ``need``
         to the leader."""
         self.mesh.gather_blocks(self._block(need.to(self.mesh.device)),
                                 "model", dst=0)
 
-    def gather_rows(self, fv: torch.Tensor, fi: torch.Tensor
-                    ) -> Tuple[PPRIndex, torch.Tensor]:
-        """On the leader: the rows of the live slots (``fv > 0``) of the
-        frontier ``(fv, fi)``, gathered from their owners in ascending row
-        order with one zero row after them, as a ``PPRIndex`` (``n`` the
-        whole index's), and ``fi`` remapped to each slot's gathered row
-        (dead slots to the zero row).  A combine reads rows only through
-        live slots, so its answer over these rows is the same bytes as
-        over the whole index.  Nothing is summed across ranks.  The
-        leader's own rows stay local; the followers' blocks cross, each
-        padded to the longest, and ``exchange`` counts those bytes."""
+    def gather(self, need: torch.Tensor, *, spare: int = 0) -> PPRIndex:
+        """On the leader: the rows ``need`` (ascending unique global ids),
+        gathered from their owners in that order, then ``spare`` zero rows,
+        as a ``PPRIndex`` whose ``n`` is the whole index's.  The ids go to
+        the followers as a ``CMD_ROWS`` broadcast (``send_rows`` answers
+        it).  Nothing is summed across ranks: the leader's own rows stay
+        local and the followers' blocks cross as bytes, each padded to the
+        longest, which ``exchange`` counts."""
         if not self.is_leader:
             raise ValueError("only the leader (model shard 0) gathers rows; "
                              "followers run serving.engine.serve_follower")
         dev = self.mesh.device
-        live = fv > 0
-        need = torch.unique(fi[live].long())
+        need = need.to(dev, torch.int64)
         self.mesh.broadcast(torch.cat([torch.full(
             (1,), CMD_ROWS, dtype=torch.int64, device=dev), need]), src=0,
             axes="model")
         own = self._block(need)
         blocks = self.mesh.gather_blocks(own[:0], "model", dst=0)
         got = torch.cat([own] + list(blocks[1:])
-                        + [own.new_zeros(1, 2 * self.l)])
-        vals = got[:, :self.l].contiguous().view(torch.float32)
-        idx = got[:, self.l:].contiguous()
-        slot = torch.searchsorted(need, fi.long())
-        slot = torch.where(live, slot, need.shape[0]).to(torch.int32)
+                        + [own.new_zeros(spare, 2 * self.l)])
         # every follower sends the longest follower block's row count
         sent = [int(b.shape[0]) for b in blocks[1:]]
         ex = self.exchange
@@ -239,7 +234,24 @@ class RankIndex:
         ex["rows"] += int(need.shape[0])
         ex["rows_crossed"] += sum(sent)
         ex["bytes_crossed"] += len(sent) * max(sent, default=0) * self.l * 8
-        return PPRIndex(values=vals, indices=idx, l=self.l, n=self.n), slot
+        return PPRIndex(values=got[:, :self.l].contiguous().view(
+            torch.float32), indices=got[:, self.l:].contiguous(), l=self.l,
+            n=self.n)
+
+    def gather_rows(self, fv: torch.Tensor, fi: torch.Tensor
+                    ) -> Tuple[PPRIndex, torch.Tensor]:
+        """On the leader: the rows of the live slots (``fv > 0``) of the
+        frontier ``(fv, fi)`` (:meth:`gather`, one zero row after them),
+        and ``fi`` remapped to each slot's gathered row (dead slots to the
+        zero row).  A combine reads rows only through live slots, so its
+        answer over these rows is the same bytes as over the whole
+        index."""
+        live = fv > 0
+        need = torch.unique(fi[live].long())
+        rows = self.gather(need, spare=1)
+        slot = torch.searchsorted(need, fi.long())
+        slot = torch.where(live, slot, need.shape[0]).to(torch.int32)
+        return rows, slot
 
 
 def rank_block(mesh: RankMesh, whole: int) -> slice:

@@ -47,11 +47,6 @@ SCATTER_COMBINE_BUDGET_BYTES = 256 * 1024 * 1024
 
 MCFP_MAX_STEPS = 64   # positions a walk of the mcfp mode (estimate_ppr's)
 
-# what a rank-sharded index does not serve yet
-RANK_INDEX_NEXT = ("is not ported to a rank-sharded index (ROADMAP.md, "
-                   "queue 1); a RankIndex serves the powerwalk mode on the "
-                   "sparse route")
-
 
 def auto_frontier_floor(top_k: int) -> int:
     """Minimum auto-derived sparse frontier width K: 4x the answer size,
@@ -67,7 +62,13 @@ def normalize_seed_weights(weights: torch.Tensor) -> torch.Tensor:
 
 def _fppr_lookup(index: PPRIndex, sources, seed_w) -> torch.Tensor:
     """fppr dense answers: a plain row lookup, or for seed sets the
-    weighted sum of each seed's index row (exact by PPR linearity)."""
+    weighted sum of each seed's index row (exact by PPR linearity).  A
+    :class:`RankIndex` first gathers the seeds' rows on the leader and
+    looks them up there: the same rows, the same bytes."""
+    if isinstance(index, RankIndex):
+        need = torch.unique(sources.long())
+        index, sources = index.gather(need), torch.searchsorted(
+            need, sources.long())
     if seed_w is None:
         return index.lookup_dense(sources)
     q, s = sources.shape
@@ -124,19 +125,17 @@ class BatchQueryEngine:
         self.graphs: Dict[tuple, capture_mod.CapturedQuery] = {}
         self._pool = None
         self.capture_s = 0.0
-        if self.rank_sharded:
-            if cfg.mode != "powerwalk":
-                raise ValueError(f"mode {cfg.mode!r} {RANK_INDEX_NEXT}")
-            if not self.uses_sparse_path():
-                raise ValueError(f"the dense route {RANK_INDEX_NEXT}")
 
     @property
-    def rank_sharded(self) -> bool:
-        """Whether the index is one rank's model shard (a
-        :class:`~repro_torch.core.index.RankIndex`): each combine then
-        gathers its rows from the other ranks, which no CUDA graph can
-        hold, so every dispatch runs eagerly."""
-        return isinstance(self.index, RankIndex)
+    def exchanges_rows(self) -> bool:
+        """Whether a query gathers index rows from other ranks: the index
+        is one rank's model shard (a
+        :class:`~repro_torch.core.index.RankIndex`) and the mode reads it
+        (``powerwalk``, ``fppr``).  No CUDA graph can hold the exchange,
+        so those dispatches run eagerly; the other modes capture as on
+        one device."""
+        return (isinstance(self.index, RankIndex)
+                and self.config.mode in ("powerwalk", "fppr"))
 
     @property
     def frontier_k(self) -> int:
@@ -321,9 +320,9 @@ class BatchQueryEngine:
         combines by scatter while the ``[Q, n]`` scratch fits the budget,
         else through ``index_combine_sparse``; the dense route is
         :meth:`query_topk`'s.  ``key`` seeds the ``mcfp`` mode (default:
-        the base key; the pipeline passes :meth:`dispatch_key`).  On a
-        rank-sharded index (:attr:`rank_sharded`) the dispatch runs
-        eagerly on the card too, its combine's row exchange in the
+        the base key; the pipeline passes :meth:`dispatch_key`).  Where a
+        query gathers rows from other ranks (:attr:`exchanges_rows`) the
+        dispatch runs eagerly on the card too, the row exchange in the
         middle."""
         cfg = self.config
         if weights is not None and cfg.mode in ("mcfp", "pi"):
@@ -331,7 +330,7 @@ class BatchQueryEngine:
                 f"mode {cfg.mode!r} does not support seed-set queries")
         if self.uses_key and key is None:
             key = self._base_key
-        if self.device.type == "cuda" and not self.rank_sharded:
+        if self.device.type == "cuda" and not self.exchanges_rows:
             vals, idx = self._replay(sources, weights, key)
         else:
             vals, idx = self._query_eager(sources, weights, key)

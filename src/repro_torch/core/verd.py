@@ -7,7 +7,9 @@ S + F P_hat`` against the top-L index.  Two routes, as in
 
 * dense ``[Q, n]`` state (:func:`verd_iterate`, :func:`combine_with_index`,
   :func:`verd_query`): every push runs through the ``ell_spmm`` kernel
-  wrapper and the combine through the dense ``index_combine``;
+  wrapper and the combine through the dense ``index_combine`` (on a
+  rank-sharded index, over the rows gathered for ``f``'s nonzero
+  columns);
 * sparse ``Q x K`` state (``verd_iterate_sparse`` and below): the push runs
   through ``frontier_push`` and the final sparse combine through
   ``index_combine_sparse``; the scatter combine stays plain PyTorch, as the
@@ -79,7 +81,19 @@ def combine_with_index(s, f, index: PPRIndex):
     """Algorithm 4 line 10, ``p~ = s + sum_v f(v) * p_hat_v``, through the
     dense ``index_combine`` kernel wrapper (an index may hold more rows
     than the frontier has columns; the extra rows are never touched).
-    The kernel pulls through the index's cached transposed view."""
+    The kernel pulls through the index's cached transposed view.
+
+    A :class:`RankIndex` first gathers, on the leader, the rows of the
+    columns of ``f`` that hold a nonzero, in ascending order, and the
+    combine runs on ``f``'s columns of them.  Both the kernel and its
+    plain version sum an entry as ``s``, then its terms in ascending
+    ``(v, j)``, and a column of zeros adds ``+0`` to each sum, so on the
+    CPU the answer is the whole index's, bit for bit; on the card the
+    transposed view is built a batch over the gathered rows, and a
+    column of more than ``COLUMN_SEGMENT`` entries may split elsewhere."""
+    if isinstance(index, RankIndex):
+        need = f.ne(0).any(dim=0).nonzero()[:, 0]
+        index, f = index.gather(need), f[:, need]
     columns = index.columns(f.shape[1], s.shape[1]) if f.is_cuda else None
     return kernel_ops.index_combine(s, f, index.values, index.indices,
                                     columns=columns)

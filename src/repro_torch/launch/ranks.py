@@ -19,10 +19,16 @@ ms and a digest of the answers, which every rank must share.  With
 ``--serve N`` the first data replica's ranks then serve ``N`` requests
 through ``PPRService`` over the rows they built (a ``1 x model`` mesh: rank
 0 leads, the others run ``serving.engine.serve_follower``), and rank 0
-prints the service's qps, p50 / p99 and its answers' digest.  With
-``--stacked`` (no ``torchrun``) one process runs the same on a stacked
-``ShardMesh`` (its service on the assembled index) and prints the digests
-the ranks' must equal.
+prints the service's qps, p50 / p99 and its answers' digest; ``--mode``
+and ``--frontier-path`` pick the service's mode and route (default
+``powerwalk`` on the sparse route)::
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.ranks \\
+        --device cpu --model 4 --n-log2 10 --serve 64 --mode fppr
+
+With ``--stacked`` (no ``torchrun``) one process runs the same on a
+stacked ``ShardMesh`` (its service on the assembled index) and prints the
+digests the ranks' must equal.
 """
 
 from __future__ import annotations
@@ -77,23 +83,27 @@ def service_answers_digest(answers) -> str:
     return h.hexdigest()
 
 
-def service_config(max_batch: int):
-    """The service ``--serve`` runs: 3c's query on the sparse route."""
+def service_config(max_batch: int, mode: str = "powerwalk",
+                   frontier_path: str = "sparse"):
+    """The service ``--serve`` runs: 3c's query in ``mode`` on
+    ``frontier_path`` (by default ``powerwalk`` on the sparse route)."""
     from repro_torch.core.query import QueryConfig
     from repro_torch.serving import ServiceConfig
     from repro_torch.serving.batching import BatchingConfig
     from repro_torch.serving.pipeline import PipelineConfig
 
     return ServiceConfig(
-        query=QueryConfig(t_iterations=2, top_k=50, hub_split_degree=64,
-                          frontier_path="sparse"),
+        query=QueryConfig(mode=mode, t_iterations=2, top_k=50,
+                          hub_split_degree=64, frontier_path=frontier_path),
         batching=BatchingConfig(max_batch=max_batch, max_wait_s=0.05),
         pipeline=PipelineConfig(depth=4))
 
 
-def serve(mesh, g, index, requests: int, max_batch: int, seed: int = 0):
+def serve(mesh, g, index, requests: int, max_batch: int, seed: int = 0,
+          **query):
     """``requests`` of :func:`run`'s requests served through
-    ``PPRService`` over ``index``: on a ``ShardMesh`` one service on the
+    ``PPRService`` over ``index`` (``query``: :func:`service_config`'s
+    mode and route): on a ``ShardMesh`` one service on the
     assembled index; on a ``RankMesh`` the first data replica's ranks as a
     ``1 x model`` rank service (the others return ``None`` at once), the
     leader returning ``(answers, stats)`` and a follower ``None``."""
@@ -105,7 +115,7 @@ def serve(mesh, g, index, requests: int, max_batch: int, seed: int = 0):
 
     work = np.random.default_rng(seed + 1).integers(
         0, g.n, requests).tolist()
-    cfg = service_config(max_batch)
+    cfg = service_config(max_batch, **query)
     if not isinstance(mesh, RankMesh):
         return PPRService(g, index, cfg, device=mesh.device) \
             .run_closed_loop(work)
@@ -124,12 +134,13 @@ def serve(mesh, g, index, requests: int, max_batch: int, seed: int = 0):
 
 
 def run(mesh, *, n_log2: int, r: int, l: int, source_batch: int,
-        requests: int, q_tile: int, seed: int = 0, serve_n: int = 0):
+        requests: int, q_tile: int, seed: int = 0, serve_n: int = 0,
+        mode: str = "powerwalk", frontier_path: str = "sparse"):
     """This rank's share of the build and of ``requests`` answered in
     tiles of ``q_tile`` on ``mesh``: ``(index, stats, build_s, tiles,
     tiles_s, served)``, the index the rank's own rows; ``served`` is
-    :func:`serve`'s of ``serve_n`` requests in batches of ``q_tile``
-    (``None`` without)."""
+    :func:`serve`'s of ``serve_n`` requests in batches of ``q_tile`` in
+    ``mode`` on ``frontier_path`` (``None`` without)."""
     import numpy as np
     import torch
 
@@ -164,8 +175,8 @@ def run(mesh, *, n_log2: int, r: int, l: int, source_batch: int,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     tiles_s = time.perf_counter() - t0
-    served = (serve(mesh, g, index, serve_n, q_tile, seed) if serve_n
-              else None)
+    served = (serve(mesh, g, index, serve_n, q_tile, seed, mode=mode,
+                    frontier_path=frontier_path) if serve_n else None)
     return index, stats, build_s, tiles, tiles_s, served
 
 
@@ -185,12 +196,19 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--q-tile", type=int, default=256)
     p.add_argument("--serve", type=int, default=0, metavar="N",
                    help="then serve N requests through PPRService")
+    p.add_argument("--mode", default="powerwalk",
+                   choices=["powerwalk", "verd", "fppr", "mcfp", "pi"],
+                   help="the --serve service's mode")
+    p.add_argument("--frontier-path", default="sparse",
+                   choices=["auto", "dense", "sparse"],
+                   help="the --serve service's route")
     p.add_argument("--stacked", action="store_true",
                    help="one process, the shards stacked (ShardMesh)")
     args = p.parse_args(argv)
     sizes = dict(n_log2=args.n_log2, r=args.walks, l=args.index_l,
                  source_batch=args.source_batch, requests=args.requests,
-                 q_tile=args.q_tile, serve_n=args.serve)
+                 q_tile=args.q_tile, serve_n=args.serve, mode=args.mode,
+                 frontier_path=args.frontier_path)
 
     import torch.distributed as dist
 

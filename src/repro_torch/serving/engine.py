@@ -15,11 +15,13 @@ changed (:meth:`PPRService.apply_updates`); :meth:`PPRService
 Over a ``RankMesh`` of ``1 x ep`` ranks the index is sharded by rows (a
 ``core.index.RankIndex``), as the reference serves ``build_index_sharded``'s
 output: model shard 0, the *leader*, runs the whole service (buffer,
-cache, pipeline, the VERD push on its replica of the graph) and gathers
-each batch's touched rows from the shards that own them; every other rank
-runs :func:`serve_follower`, which answers the leader's broadcast
-commands in order (rows, an update batch, stop) until the leader's
-:meth:`PPRService.close`.
+cache, pipeline, every mode and route on its replica of the graph) and
+gathers the rows a batch reads (``powerwalk``'s combine on either route,
+``fppr``'s lookup) from the shards that own them; the modes that read no
+index (``verd``, ``mcfp``, ``pi``) run as on one device, captured on the
+card, and send nothing.  Every other rank runs :func:`serve_follower`,
+which answers the leader's broadcast commands in order (rows, an update
+batch, stop) until the leader's :meth:`PPRService.close`.
 """
 
 from __future__ import annotations
@@ -68,6 +70,11 @@ class Answer:
 # what a rank service does not run yet
 RANK_SERVICE_NEXT = ("a rank service runs on a 1 x ep mesh; the service "
                      "replicated over data rows is ROADMAP.md queue 1")
+
+
+def _route(engine: BatchQueryEngine) -> str:
+    """The route an engine serves: ``"sparse"`` or ``"dense"``."""
+    return "sparse" if engine.uses_sparse_path() else "dense"
 
 
 def _on_service_mesh(index, maintainer, mesh):
@@ -124,8 +131,7 @@ class PPRService:
             self.engine, self.buffer, self.cfg.pipeline, clock=self.clock,
             epoch_fn=lambda: self.cache.epoch,
         )
-        self.frontier_path = (
-            "sparse" if self.engine.uses_sparse_path() else "dense")
+        self.frontier_path = _route(self.engine)
         self.answer_k = self.engine.effective_top_k
         self.index_rows = index.n if index is not None else 0
         self.index_sharded = isinstance(index, RankIndex)
@@ -247,33 +253,35 @@ class PPRService:
             new_graph, new_m, report = updates_mod.apply_updates(
                 self.maintainer, self.graph, inserts=inserts,
                 deletes=deletes)
-            new_engine = BatchQueryEngine(new_graph, new_m.index,
-                                          self.cfg.query,
-                                          device=self.engine.device)
-            frontier_path = (
-                "sparse" if new_engine.uses_sparse_path() else "dense")
-            answer_k = new_engine.effective_top_k
-            # the old engine's graphs captured anew over the new graph and
-            # index, before the commit point: a failed capture rolls back
-            t0 = time.perf_counter()
-            new_engine.capture_shapes(list(self.engine.graphs))
-            report["capture_s"] = time.perf_counter() - t0
-            report["graphs_captured"] = len(new_engine.graphs)
+            new_engine = self._new_engine(new_graph, new_m, report)
+            route = _route(new_engine)
         except BaseException:
             self.stats["update_rollbacks"] += 1
             raise
-        return self._commit_update(new_engine, new_m, frontier_path,
-                                   answer_k, report)
+        return self._commit_update(new_engine, new_m, route, report)
 
-    def _commit_update(self, new_engine, new_m, frontier_path, answer_k,
-                       report) -> dict:
+    def _new_engine(self, graph: Graph, m, report: dict
+                    ) -> BatchQueryEngine:
+        """An engine on the repaired graph and index, with the old
+        engine's CUDA graphs captured anew before the commit point, so a
+        failed capture rolls back (none where every dispatch runs eagerly:
+        a rank service's row exchange)."""
+        engine = BatchQueryEngine(graph, m.index, self.cfg.query,
+                                  device=self.engine.device)
+        t0 = time.perf_counter()
+        engine.capture_shapes(list(self.engine.graphs))
+        report["capture_s"] = time.perf_counter() - t0
+        report["graphs_captured"] = len(engine.graphs)
+        return engine
+
+    def _commit_update(self, new_engine, new_m, route, report) -> dict:
         # the commit point: attribute assignments only, none can raise
         self.graph = new_engine.graph
         self.maintainer = new_m
         self.engine = new_engine
         self.pipeline.engine = new_engine
-        self.frontier_path = frontier_path
-        self.answer_k = answer_k
+        self.frontier_path = route
+        self.answer_k = new_engine.effective_top_k
         self.index_rows = new_m.index.n
         # an answer is stale iff a seed's row was repaired; the call runs
         # for an empty set too, for its epoch bump
@@ -299,11 +307,8 @@ class PPRService:
             self.stats["update_rollbacks"] += 1
             raise
         try:
-            new_engine = BatchQueryEngine(new_graph, new_m.index,
-                                          self.cfg.query,
-                                          device=self.engine.device)
-            report["capture_s"] = 0.0
-            report["graphs_captured"] = len(new_engine.graphs)
+            new_engine = self._new_engine(new_graph, new_m, report)
+            route = _route(new_engine)
             commit = True
         except BaseException:
             commit = False
@@ -314,8 +319,7 @@ class PPRService:
                 src=0, axes="model")
             if not commit:
                 self.stats["update_rollbacks"] += 1
-        return self._commit_update(new_engine, new_m, "sparse",
-                                   new_engine.effective_top_k, report)
+        return self._commit_update(new_engine, new_m, route, report)
 
     def _command(self, kind: int, payload: Optional[torch.Tensor] = None
                  ) -> None:

@@ -4,7 +4,8 @@ reference, on the CPU.
 
 One module fixture spawns four gloo ranks (``tests/torch_rank_serving_worker
 .py``), which build an rmat(12) index one shard a rank, serve it through
-``PPRService`` (rank 0 leads, the others follow), repair it, and build,
+``PPRService`` in every mode and on both routes (rank 0 leads, the others
+follow), repair it, and build,
 crash, resume and boot from checkpoints, each rank writing what it got.
 The tests hold the answers, rows, filters, reports and checkpoint files
 against the stacked mesh's and the one-device service's, bit for bit, and
@@ -95,6 +96,10 @@ def test_rank_rows_are_the_stacked_rows_and_no_rank_holds_more(ranks,
 
 @pytest.mark.parametrize("label", sorted(worker.SERVICE_CASES))
 def test_rank_service_matches_stacked_service(ranks, stacked, label):
+    """Every mode and route, the same bytes as the one-device service on
+    the assembled index.  The modes that read the index gather rows and
+    run eagerly; the others send no command and capture as on one
+    device."""
     m, _ = stacked
     svc = worker.stacked_service(m.index, label)
     want = worker.run_script(svc, worker.SERVICE_CASES[label][2])
@@ -103,11 +108,19 @@ def test_rank_service_matches_stacked_service(ranks, stacked, label):
     _same_answers(leader, want, prefix)
     assert bool(leader[prefix + "index_sharded"])
     assert int(leader[prefix + "index_rows"]) == 4096
-    assert int(leader[prefix + "graphs_captured"]) == 0
     stats = svc.snapshot_stats()
     assert not stats["index_sharded"]
+    assert str(leader[prefix + "frontier_path"]) == stats["frontier_path"]
     for k in ("shed", "cache_served"):
         assert int(leader[prefix + k]) == stats[k], k
+    if not worker.reads_index(label):
+        assert int(leader[prefix + "graphs_captured"]) == \
+            stats["graphs_captured"]
+        assert int(leader[prefix + "exchange_rows"]) == 0
+        for got in ranks["ranks"][1:]:
+            assert int(got[prefix + "row_requests"]) == 0
+        return
+    assert int(leader[prefix + "graphs_captured"]) == 0
     # rows crossed: the 3 followers' touched rows, each batch's blocks
     # padded to its longest; the leader's own rows stay local
     row_bytes = worker.BUILD["l"] * 8
@@ -129,26 +142,37 @@ def test_two_rank_service_matches_stacked_service(ranks, label):
     assert int(ranks["ranks"][1][f"serve12/{label}/shard_rows"]) == 2048
 
 
-@pytest.mark.parametrize("label", ["scatter_d4", "sparse_d4_seeds"])
-def test_rank_service_matches_reference_sharded_service(ranks, label):
-    """The reference's PPRService on the reference's sharded build's rows
-    (a 1 x 1 mesh: the same chunk grid, so the same rows) within 1e-5 L1.
-    The rows are handed to the service as plain arrays: under jax 0.9.0
-    the reference's service raises ``ShardingTypeError`` on arrays still
+@pytest.fixture(scope="module")
+def reference_index():
+    """The reference's sharded build's rows (a 1 x 1 mesh: the same chunk
+    grid, so the same rows), as plain arrays: under jax 0.9.0 the
+    reference's service raises ``ShardingTypeError`` on arrays still
     sharded over ``model`` (its gather, as ROADMAP queue 3 lists for its
     sharded repair)."""
-    query, depth, script = worker.SERVICE_CASES[label]
     jg = jsyn.rmat(worker.N_LOG2, avg_deg=8.0, seed=0)
     jidx, _ = jindex.build_index_sharded(
         jg, worker.BUILD["r"], worker.BUILD["l"], jax.random.PRNGKey(
             worker.KEY), mesh=jax.make_mesh((1, 1), ("data", "model")),
         source_batch=worker.BUILD["source_batch"], respawn=False)
-    jidx = dataclasses.replace(
+    return jg, dataclasses.replace(
         jidx, values=jax.numpy.asarray(np.asarray(jidx.values)),
         indices=jax.numpy.asarray(np.asarray(jidx.indices)))
+
+
+@pytest.mark.parametrize("label", ["scatter_d4", "sparse_d4_seeds",
+                                   "dense_d4", "fppr_d2_seeds", "mcfp_d4"])
+def test_rank_service_matches_reference_sharded_service(
+        ranks, reference_index, label):
+    """The reference's PPRService on the reference's sharded build's rows
+    within 1e-5 L1, on a clock that stands still, so both services close
+    the same batches (the ``mcfp`` mode's draws follow the dispatch
+    order)."""
+    query, depth, script = worker.SERVICE_CASES[label]
+    jg, jidx = reference_index
     js = JService(jg, jidx, JServiceConfig(
         query=jquery.QueryConfig(**dict(worker.QKW, **query)),
-        batching=JBatching(max_batch=8), pipeline=JPipeline(depth=depth)))
+        batching=JBatching(max_batch=8), pipeline=JPipeline(depth=depth)),
+        clock=worker.still)
     answers, _ = js.run_closed_loop(worker.work(script == "seeds"))
     answers = sorted(answers, key=lambda a: a.request_id)
     want = densify_rows(np.stack([a.top_scores for a in answers]),
@@ -218,6 +242,27 @@ def test_rank_service_updates_match_stacked_and_roll_back(ranks, stacked):
         for k, x in (("values", m1.index.values), ("touch", m1.touch.bits)):
             assert _equal(got[f"service_update/final/{k}"],
                           _block(x.numpy(), r)), (r, k)
+
+
+def test_rank_fppr_after_repair_reads_the_repaired_rows(ranks, stacked):
+    """An fppr rank service with the maintainer, after the first update
+    batch, answers the repaired rows as the one-device service does after
+    the same repair, and not as before it."""
+    m, _ = stacked
+    first, _ = worker.edge_batches(worker.graph())
+    cfg = worker.service_config(*worker.FPPR_UPDATE_CASE)
+    svc = PPRService(worker.graph(), None, cfg, clock=worker.still,
+                     device="cpu", maintainer=m)
+    items = worker.repaired_requests(svc.apply_updates(**first))
+    assert items
+    want = worker.answers_arrays(svc.run_closed_loop(items)[0],
+                                 svc.answer_k)
+    _same_answers(ranks["ranks"][0], want, "fppr_update/")
+    before = PPRService(worker.graph(), m.index, cfg, clock=worker.still,
+                        device="cpu")
+    old = worker.answers_arrays(before.run_closed_loop(items)[0],
+                                before.answer_k)
+    assert not _equal(old["scores"], want["scores"])
 
 
 # -- checkpoints --------------------------------------------------------------
@@ -322,26 +367,32 @@ def test_rank_service_boots_from_checkpoint_like_stacked(ranks,
 
 def test_rank_service_refusals(ranks):
     for r, got in enumerate(ranks["ranks"]):
-        for name in worker.REFUSED_MODES + ("dense_route", "data_mesh",
-                                            "role"):
+        for name in ("data_mesh", "role"):
             assert bool(got[f"refusals/{name}"]), (r, name)
 
 
-def test_ranks_cli_serve_digest_matches_the_ranks(ranks, capsys):
-    """``launch.ranks --stacked --serve``'s digest is the rank service's."""
+@pytest.mark.parametrize("case", sorted(worker.CLI_CASES))
+def test_ranks_cli_serve_digest_matches_the_ranks(ranks, capsys, case):
+    """``launch.ranks --stacked --serve``'s digest is the rank service's,
+    with its default mode and route and with ``--mode fppr
+    --frontier-path dense``."""
     from repro_torch.launch import ranks as ranks_cli
 
     c = worker.CLI
+    query = worker.CLI_CASES[case]
+    flags = [x for k, v in query.items()
+             for x in (f"--{k.replace('_', '-')}", v)]
     assert ranks_cli.main([
         "--stacked", "--device", "cpu", "--model", "4", "--n-log2",
         str(c["n_log2"]), "--walks", str(c["r"]), "--index-l", str(c["l"]),
         "--source-batch", str(c["source_batch"]), "--requests",
         str(c["requests"]), "--q-tile", str(c["q_tile"]), "--serve",
-        str(c["serve_n"])]) == 0
+        str(c["serve_n"])] + flags) == 0
     line = capsys.readouterr().out.strip().splitlines()[-1]
     rec = json.loads(line)
     assert rec["service"] == "stacked" and rec["served"] == c["serve_n"]
-    assert rec["service_digest"] == str(ranks["ranks"][0]["cli/digest"])
+    assert rec["service_digest"] == str(
+        ranks["ranks"][0][f"cli/{case}/digest"])
 
 
 def test_rank_serving_runs_inside_its_budget(ranks):

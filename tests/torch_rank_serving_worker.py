@@ -44,12 +44,38 @@ SERVICE_CASES = {
                          "seeds"),
     "cache_d2": (dict(combine_path="sparse"), 2, "cache"),
     "shed_d4": (dict(combine_path="scatter"), 4, "shed"),
+    # the dense route: the combine over the rows of f's nonzero columns
+    "dense_d4": (dict(frontier_path="dense"), 4, "closed"),
+    "dense_d1_seeds": (dict(frontier_path="dense", max_seeds=3), 1,
+                       "seeds"),
+    # a default route and hub split: rmat(12) is below AUTO_SPARSE_MIN_N,
+    # so it routes dense
+    "auto_d2": (dict(frontier_path="auto", hub_split_degree=0), 2,
+                "closed"),
+    "fppr_d4": (dict(mode="fppr"), 4, "closed"),
+    "fppr_d2_seeds": (dict(mode="fppr", max_seeds=3), 2, "seeds"),
+    # the modes that read no index
+    "verd_sparse_d4": (dict(mode="verd"), 4, "closed"),
+    "verd_dense_d1_seeds": (dict(mode="verd", frontier_path="dense",
+                                 max_seeds=3), 1, "seeds"),
+    "mcfp_d4": (dict(mode="mcfp", r_online=200), 4, "closed"),
+    "pi_d2": (dict(mode="pi"), 2, "closed"),
 }
 PAIR_CASES = ("scatter_d4", "sparse_d4_seeds")   # also on 1 x 2 ranks
 UPDATE_CASE = (dict(combine_path="sparse"), 2, "cache")
-REFUSED_MODES = ("fppr", "mcfp", "pi", "verd")
+FPPR_UPDATE_CASE = (dict(mode="fppr"), 2, "closed")
 CLI = dict(n_log2=8, r=4, l=8, source_batch=32, requests=16, q_tile=8,
            serve_n=16)
+# the CLI's --serve runs: its default, and fppr on the dense route
+CLI_CASES = {"default": {}, "fppr_dense": dict(mode="fppr",
+                                               frontier_path="dense")}
+
+
+def reads_index(label: str) -> bool:
+    """Whether a service case's mode reads the index (and so gathers rows
+    from the other ranks)."""
+    return SERVICE_CASES[label][0].get("mode", "powerwalk") in (
+        "powerwalk", "fppr")
 
 
 def graph(device="cpu"):
@@ -139,6 +165,7 @@ def run_script(svc, script: str) -> dict:
 def service_snapshot(svc) -> dict:
     s = svc.snapshot_stats()
     return dict(index_sharded=np.array(s["index_sharded"]),
+                frontier_path=np.array(s["frontier_path"]),
                 index_rows=np.array(s["index_rows"]),
                 shed=np.array(s["shed"]),
                 cache_served=np.array(s["cache_served"]),
@@ -147,6 +174,12 @@ def service_snapshot(svc) -> dict:
                 exchange_rows_crossed=np.array(
                     s.get("exchange_rows_crossed", 0)),
                 exchange_bytes=np.array(s.get("exchange_bytes_crossed", 0)))
+
+
+def repaired_requests(report: dict) -> list:
+    """Requests of rows an update batch repaired: the first 16 dirty
+    rows."""
+    return [int(v) for v in report["dirty_row_ids"][:16]]
 
 
 def report_arrays(report: dict) -> dict:
@@ -231,6 +264,19 @@ def _updates(mesh, m, g, dev, out, rank):
                 for k, v in maintainer_arrays(final).items()})
     if rank == 2:
         tupdates.apply_edge_updates = real
+    # an fppr service with the maintainer: the first batch, then the
+    # repaired rows looked up
+    cfg = service_config(*FPPR_UPDATE_CASE)
+    if m.index.is_leader:
+        svc = PPRService(g, None, cfg, clock=still, device=dev, mesh=mesh,
+                         maintainer=m)
+        report = svc.apply_updates(**first)
+        answers, _ = svc.run_closed_loop(repaired_requests(report))
+        svc.close()
+        out.update({f"fppr_update/{k}": v for k, v in answers_arrays(
+            answers, svc.answer_k).items()})
+    else:
+        serve_follower(g, None, mesh, maintainer=m)
 
 
 def _checkpoints(mesh, g, out_dir, rank, out):
@@ -308,13 +354,6 @@ def _refusals(mesh14, g, index14, index22, dev):
             out[name] = match in str(e)
 
     base = dict(QKW)
-    for mode in REFUSED_MODES:
-        refused(mode, lambda: PPRService(g, index14, ServiceConfig(
-            query=QueryConfig(**dict(base, mode=mode))), device=dev,
-            mesh=mesh14), "ROADMAP")
-    refused("dense_route", lambda: PPRService(g, index14, ServiceConfig(
-        query=QueryConfig(**dict(base, frontier_path="dense"))),
-        device=dev, mesh=mesh14), "ROADMAP")
     refused("data_mesh", lambda: PPRService(g, index22, ServiceConfig(
         query=QueryConfig(**base)), device=dev), "ROADMAP")
     if index14.is_leader:
@@ -359,10 +398,11 @@ def rank_main(rank, world, out_dir, device, timeout_s):
         os.path.join(out_dir, "full"), mesh=mesh22)
     out.update({f"refusals/{k}": v for k, v in _refusals(
         mesh14, g, m14.index, index22, dev).items()})
-    served = ranks_cli.run(mesh14, **CLI)[-1]
-    if served is not None:
-        out["cli/digest"] = np.array(
-            ranks_cli.service_answers_digest(served[0]))
+    for name, query in CLI_CASES.items():
+        served = ranks_cli.run(mesh14, **CLI, **query)[-1]
+        if served is not None:
+            out[f"cli/{name}/digest"] = np.array(
+                ranks_cli.service_answers_digest(served[0]))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
              **{k: v.detach().cpu().numpy() if torch.is_tensor(v) else v
                 for k, v in out.items()})
