@@ -90,7 +90,7 @@ Phases, each timed and printed:
    against 3e's ``pi``; then, as 3q's yardsticks, each model shard's rows
    digested, the same tile step answering the same 64 tiles from the
    sharded build's rows and a ``PPRService`` on them serving 3c's first
-   4,096 requests; and, for 3q (iv), a ``PPRService`` on them serving
+   1,024 requests; and, for 3q (iv), a ``PPRService`` on them serving
    3e's 64 requests in each of ``RANK_MODE_CASES`` (dense ``powerwalk``,
    ``fppr``, ``verd`` on each route, ``mcfp``, ``pi``), with the transposed
    view of one batch's gathered rows built and timed as the rank leader
@@ -113,7 +113,7 @@ Phases, each timed and printed:
    a tile and requests/s (8 processes time-sliced on one card, collectives
    through gloo and host memory: not a multi-card figure) and the phase's
    seconds.  Then, on the same spawned ranks: (i) ranks 0-3 serve the
-   first 4,096 of 3c's requests in batches of 256 through ``PPRService``
+   first 1,024 of 3c's requests in batches of 256 through ``PPRService``
    over the rows they built (rank 0 leads, gathering each batch's touched
    rows from their owners; ranks 1-3 run ``serve_follower``), the answers
    the same bytes as 3f's stacked ``PPRService`` on the assembled index,
@@ -295,6 +295,24 @@ Phases, each timed and printed:
    peak beside the measured ``max_memory_allocated`` above the phase's
    base and its roofline time beside the measured p50 ms (printed, not
    gated);
+3r. the large LMs' ``train_4k`` at full width with the depth and batch
+   cut (``BIG_TRAIN``: qwen1.5-32b 2 layers at B = 2, dbrx-132b 1 layer
+   at B = 8, one sequence of 4,096 a microbatch) under the published
+   config's rules (microbatches 2 and 8; dbrx's fp8 ``mu``, bf16 ``nu``
+   and accumulator), each traced on meta first and run only where the
+   predicted peak is within 75 GB (the phase runs last, after phase 4,
+   once the main path's tensors, views and services are freed: dbrx's
+   step takes 70 GB): the seconds a step, tokens/s, peak
+   memory beside the prediction, the losses and ``grad_norm``, the
+   lookups and their backward gated at one each a microbatch, finite
+   values, ``mu`` fp8 for dbrx, and the first step's lookup and backward
+   replayed as 2b; then (ii) training one shard a process: the reduced
+   dbrx (capacity 1.0, remat) and grok on 2 x 2 gloo ranks on the card
+   (forward, loss, gradients, decode and a train step of two
+   microbatches under the published rules) and one full-width dbrx MoE
+   layer's forward and backward on 4,096 tokens, each rank's outputs the
+   stacked 2 x 2 mesh's on the card bit for bit, the ranks' lookups and
+   backward launches gated;
 2b. replay the inputs of each kernel's first launch on its path (and of
    ``ell_spmm``'s second, a batch's push of a spread-out frontier, and
    its ``dense`` variant, the last push of 3e's ``pi``, of
@@ -346,7 +364,9 @@ Phases, each timed and printed:
    1e-5 of their largest; one train step of each of the five train
    cells' reduced configs in f32, card against CPU (loss within 1e-5,
    gradients within 1e-5 of each leaf's norm, parameters within the
-   tests' rule), and of gcn-cora's four shapes; and the Monte-Carlo
+   tests' rule), and of gcn-cora's four shapes, and of the four large
+   LMs' reduced configs under the published train rules (gradients
+   within ``TRAIN_CHECK_GRAD`` of each leaf's norm); and the Monte-Carlo
    path, card against CPU, bit-equal: the legacy build of every fourth
    source, the dense and sparse MCFP and MCEP estimates of 64 sources, ``mcfp``-mode answers at dispatch keys
    0-3, and ``randint``; and maintenance at ``rmat(14)``, bit-equal: the
@@ -367,6 +387,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import os
@@ -416,7 +437,8 @@ RANK_DATA = 2                  # phase 3q: the rank mesh is RANK_DATA x DIST_EP
 RANK_NCCL_TILES = 4            # phase 3q's NCCL check, tiles at ep = 1
 RANK_TIMEOUT_S = 300.0         # phase 3q: a collective's timeout, each run's
 RANK_JOIN_S = 420.0            # ...and the spawned ranks' deadline
-RANK_SERVE_REQUESTS = 4096     # 3q (i): 3c's first requests, rank service
+RANK_SERVE_REQUESTS = 1024     # 3q (i): 3c's first requests, rank service
+# (cut from 4,096 to pay for phase 3r: a run on a slow host took 1,131 s)
 RANK_NCCL_REQUESTS = 1024      # 3q (iii): the 1 x 1 NCCL service's
 RANK_SERVE_PATH = ("frontier_push", "index_combine_sparse")  # its leader's
 RANK_MODE_BATCH = 32           # 3q (iv): 3e's requests in two full batches
@@ -536,6 +558,20 @@ BIG_SHARDMAP_MESH = (2, 2)
 BIG_SHARDMAP_PREFILL = (2, 16)  # the expert-parallel forward's [B, S]
 BIG_SHARDMAP_DECODE = 3        # its decode steps at B = 2 and at B = 1
 BIG_REPLAY = "command-r-plus-104b"   # its prefill lookup is replayed (2b)
+# phase 3r: train_4k at full width, (layers, B), one sequence of 4,096 a
+# microbatch under the published rules (qwen: 2 microbatches, bf16
+# moments; dbrx: 8, fp8 mu, bf16 nu and accumulator); each cut traced on
+# meta first and run only if its predicted peak is within BIG_TRAIN_PEAK
+BIG_TRAIN = {"qwen1.5-32b": (2, 2), "dbrx-132b": (1, 8)}
+BIG_TRAIN_PLAN = (1, 1)        # warm-up, timed steps
+BIG_TRAIN_PEAK = 75e9
+# phase 3r (ii): the reduced MoE LMs (``launch.ranks.CASES``) and one
+# full-width dbrx MoE layer on RANK_TRAIN_MESH gloo ranks on one card,
+# against the stacked mesh there
+RANK_TRAIN_MESH = (2, 2)
+RANK_FFN_ARCH = "dbrx-132b"
+RANK_FFN_TOKENS = 4096         # one train_4k microbatch's tokens
+RANK_TRAIN_JOIN_S = 420.0
 DIST_EP = 4                    # model shards of phase 3f's tile step
 DIST_DATA = 2                  # data replicas of phase 3f's build
 MC_PATH = ("walk_step",)       # the sparse estimators of phase 3h
@@ -3177,6 +3213,451 @@ def phase_big_lms(torch, np, dev, failures):
     return counts, replays.get("embedding_bag", [])
 
 
+# -- phase 3r: the large LMs' train_4k, and training one shard a process -------
+
+def tensor_digest(t, chunk=1 << 26):
+    """A digest of a tensor's bytes (any dtype), computed where it lies:
+    its dtype, shape and, over its bytes read as int32 words (or bytes),
+    the wrapping int64 sums of the words and of each word times an odd
+    multiplier of its place, a chunk of words at a time.  Any one changed
+    bit changes it, and no word read back to the host (a sha256 of a
+    3 GB gradient's bytes takes the host seconds)."""
+    import torch
+
+    shape = tuple(t.shape)
+    t = t.detach().contiguous().reshape(-1)
+    raw = t.view(torch.uint8)
+    words = raw.view(torch.int32) if raw.numel() % 4 == 0 else raw
+    sums = torch.zeros(2, dtype=torch.int64, device=t.device)
+    for i in range(0, words.numel(), chunk):
+        w = words[i:i + chunk].to(torch.int64)
+        place = torch.arange(i, i + w.numel(), dtype=torch.int64,
+                             device=t.device)
+        sums[0] += w.sum()
+        sums[1] += (w * (place * 2654435761 + 1)).sum()
+    return f"{t.dtype}{shape}:{sums[0].item()}:{sums[1].item()}"
+
+
+def big_train_cell(torch, np, dev, arch, layers, b, failures):
+    """One ``train_4k`` cell of ``BIG_TRAIN`` at full width, its depth cut
+    to ``layers`` and its batch to ``b`` rows (one sequence of 4,096 a
+    microbatch) under the published config's rules: traced on meta
+    first (``launch/dryrun.py``) and run only if the predicted peak is
+    within ``BIG_TRAIN_PEAK``; then ``BIG_TRAIN_PLAN``'s steps with CUDA
+    events, the peak beside the prediction, the losses and ``grad_norm``,
+    the lookups' and their backward's launches gated at one each a
+    microbatch, every loss, norm and parameter finite, the microbatches
+    and dtypes the published bundle's (dbrx's ``mu`` fp8).  The first
+    step's lookup and backward launches wait on the host and are replayed
+    as 2b once the cell is freed.  Returns the launch counts, the replay
+    results by kernel and the cell's figures."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.roofline import analysis as roof
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_leaves
+
+    spec = get_arch(arch)
+    over = dict(n_layers=layers)
+    cfg = dataclasses.replace(spec.config, **over)
+    t1 = time.perf_counter()
+    cost, ctx = dryrun.trace_cell(arch, "train_4k", batch=b,
+                                  config_overrides=over)
+    hw = roof.Hardware.from_device()
+    terms = roof.roofline_from_counts(cost, hw=hw,
+                                      model_flops_total=ctx["model_flops"])
+    predicted = roof.fit_check(terms, hw)[1]
+    bound_s = max(terms.compute_s, terms.memory_s, terms.collective_s)
+    print(f"  {arch} train_4k: {layers} of {spec.config.n_layers} layers, "
+          f"B = {b}: traced on meta in {time.perf_counter() - t1:.3f} s; "
+          f"predicted peak {predicted / 1e9:.2f} GB (limit "
+          f"{BIG_TRAIN_PEAK / 1e9:.0f}); roofline {bound_s * 1e3:.3f} ms a "
+          f"step ({terms.dominant}: compute {terms.compute_s * 1e3:.3f}, "
+          f"memory {terms.memory_s * 1e3:.3f})")
+    if not predicted <= BIG_TRAIN_PEAK:
+        failures.append(f"3r {arch}: predicted peak {predicted / 1e9:.2f} "
+                        f"GB above {BIG_TRAIN_PEAK / 1e9:.0f}")
+        return {}, {}, {}
+    published = steps.build(arch, "train_4k", device="meta")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    bundle = steps.build(arch, "train_4k", device=dev, config_overrides=over)
+    opt, mb = bundle.opt_cfg, bundle.microbatches
+    rules = (mb, opt.mu_dt, opt.nu_dt, bundle.accum_dtype)
+    want = (published.microbatches, published.opt_cfg.mu_dt,
+            published.opt_cfg.nu_dt, published.accum_dtype)
+    params = bundle.init_fn(BIG_SEED)
+    state = train_loop.init_state(opt, params)
+    gen = torch.Generator(device=dev).manual_seed(BIG_SEED + 1)
+    (b_ref, s), _ = bundle.batch_spec["tokens"]
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                         dtype=torch.int32, device=dev)
+    batch = dict(tokens=toks, labels=torch.roll(toks, -1, dims=1),
+                 mask=torch.ones((b, s), dtype=torch.float32, device=dev))
+    torch.cuda.synchronize()
+    print(f"  {arch}: {cfg.param_count()} parameters "
+          f"({cfg.active_param_count()} active a token; the published "
+          f"config's {spec.config.param_count()} set the rules), "
+          f"{tree_bytes(params) / 1e9:.3f} GB in f32, made in "
+          f"{time.perf_counter() - t1:.3f} s; {mb} microbatches of "
+          f"{b // mb} x {s} (cut from {b_ref} x {s}), mu {opt.mu_dt}, nu "
+          f"{opt.nu_dt}, accumulator {bundle.accum_dtype}; the published "
+          f"bundle's rules {rules == want}")
+    if rules != want:
+        failures.append(f"3r {arch}: rules {rules}, published {want}")
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    warm, reps = BIG_TRAIN_PLAN
+    ops.reset_launch_counts()
+    losses, norms, ms, held = [], [], [], {}
+    for j in range(warm + reps):
+        ops.capture_first_launches(j == 0)
+        ev0.record()
+        params, state, metrics = bundle.step_fn(params, state, batch)
+        ev1.record()
+        ev1.synchronize()
+        if j == 0:
+            held = {tag: (tuple(None if x is None else x.detach().cpu()
+                                for x in args), kwargs)
+                    for tag, (args, kwargs) in ops.captured_launches().items()
+                    if tag.split("/")[0] in TRAIN_PATH}
+            ops.capture_first_launches(False)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        if j >= warm:
+            ms.append(ev0.elapsed_time(ev1))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    stated = mb * (warm + reps)
+    finite = bool(np.all(np.isfinite(losses + norms))) and all(
+        bool(torch.isfinite(x).all()) for x in tree_leaves(params))
+    mu = tree_leaves(state.mu)
+    mu_dtypes = sorted({str(x.dtype) for x in mu})
+    live = sum(int(((x.view(torch.uint8) & 0x7F) != 0).sum()) if
+               x.dtype == torch.float8_e4m3fn else int((x != 0).sum())
+               for x in mu) / max(sum(x.numel() for x in mu), 1)
+    sec = float(np.median(ms)) / 1e3
+    print(f"  {arch}: {card_name_and_power_limit()}; losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; grad_norm "
+          f"{', '.join(f'{x:.6f}' for x in norms)}; {reps} timed step(s) "
+          f"{', '.join(f'{x:.3f}' for x in ms)} ms: {sec:.3f} s a step, "
+          f"{b * s / sec:.1f} tokens/s, model "
+          f"{6.0 * cfg.active_param_count() * b * s / sec / 1e12:.3f} "
+          f"TFLOP/s (6 N_active B S); peak device memory "
+          f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the "
+          f"{base / 1e9:.2f} GB held before; predicted {predicted / 1e9:.2f}"
+          f"); mu {mu_dtypes}, nonzero in {100 * live:.2f}% of its elements;"
+          f" launches {json.dumps(counts)} ({stated} lookups and as many "
+          f"backward launches stated: one each a microbatch)")
+    if not finite:
+        failures.append(f"3r {arch}: a loss, norm or parameter is not "
+                        f"finite")
+    if arch == "dbrx-132b" and mu_dtypes != ["torch.float8_e4m3fn"]:
+        failures.append(f"3r {arch}: mu is {mu_dtypes}, not fp8")
+    for name in TRAIN_PATH:
+        if counts[name] != stated:
+            failures.append(f"3r {arch}: {name} launched {counts[name]} "
+                            f"times, {stated} stated")
+    figures = dict(s_a_step=sec, tokens_s=b * s / sec, peak=peak - base,
+                   predicted=predicted, loss=losses, grad_norm=norms)
+    del params, state, batch, metrics, mu
+    torch.cuda.empty_cache()
+    results = {}
+    replay_all(torch, {f"{tag.split('/')[0]}/{arch}.train_4k": (
+        tuple(None if x is None else x.to(dev) for x in args), kwargs)
+        for tag, (args, kwargs) in held.items()}, results, failures)
+    del held
+    torch.cuda.empty_cache()
+    return counts, results, figures
+
+
+def rank_train_stated():
+    """The lookups and backward launches a rank's ``launch.ranks
+    .train_case`` of each case makes: ``forward``, the two gradients'
+    forwards, the decode steps and the train step's microbatches; a
+    backward each for the two gradients and each microbatch."""
+    from repro_torch.launch import ranks
+
+    micro = ranks.CASE_MICROBATCHES
+    fwd = 3 + sum(n for _, n in ranks.CASE_DECODE) + micro
+    return {"embedding_bag": fwd * len(ranks.CASES),
+            "embedding_bag_backward": (2 + micro) * len(ranks.CASES)}
+
+
+def ffn_layer(torch, cfg, mesh, dev):
+    """One full-width MoE layer of ``cfg`` for ``mesh``'s process: the
+    router, each expert stack (a rank's block ``[E / model, d / data,
+    ffs]``, a stacked mesh's whole, drawn as pieces of one expert's one d
+    block, each from its own seed, so both hold the same values), the
+    input ``x [RANK_FFN_TOKENS, d]`` in the compute dtype and an f32
+    cotangent of the output, all from seeds."""
+    import math
+
+    from repro_torch.distributed import ShardMesh
+
+    moe = cfg.moe
+    e_virt, d = moe.n_experts * moe.ep_split, cfg.d_model
+    ffs = cfg.d_ff // moe.ep_split
+    el, dl = e_virt // mesh.model, d // mesh.data
+    stacked = isinstance(mesh, ShardMesh)
+    es = range(e_virt) if stacked else range(
+        mesh.local_model[0] * el, (mesh.local_model[0] + 1) * el)
+    js = range(mesh.data) if stacked else mesh.local_data
+
+    def seeded(seed, shape, scale):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev).div_(scale)
+
+    p = {"router": {"w": seeded(7, (d, moe.n_experts), math.sqrt(d))}}
+    for k, name in enumerate(("w_gate", "w_up", "w_down")):
+        down = name == "w_down"
+        p[name] = torch.stack([torch.cat([seeded(
+            1000 + (k * e_virt + e) * mesh.data + j,
+            (ffs, dl) if down else (dl, ffs), math.sqrt(ffs if down else d))
+            for j in js], dim=1 if down else 0) for e in es])
+    x = seeded(8, (RANK_FFN_TOKENS, d), 1.0).to(cfg.compute_dtype)
+    ct = seeded(9, (RANK_FFN_TOKENS, d), 1.0)
+    return p, x, ct
+
+
+def ffn_fwd_bwd(torch, cfg, mesh, p, x, ct):
+    """``_moe_ffn_shardmap`` of the layer on ``mesh`` and the gradients of
+    ``sum(y * ct) + aux``: ``(y, aux, grads)``, the grads of ``x``, the
+    router and the three stacks in that order."""
+    from repro_torch.models import transformer as tfm
+
+    leaves = [x, p["router"]["w"], p["w_gate"], p["w_up"], p["w_down"]]
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    q = {"router": {"w": live[1]}, "w_gate": live[2], "w_up": live[3],
+         "w_down": live[4]}
+    y, aux = tfm._moe_ffn_shardmap(cfg, q, live[0], mesh)
+    grads = torch.autograd.grad((y.float() * ct).sum() + aux, live)
+    return y.detach(), aux.detach(), grads
+
+
+def rank_train_rank(rank, world, out_dir, spawn_t0):
+    """One process of phase 3r (ii) (spawned): a shard of the
+    ``RANK_TRAIN_MESH`` gloo mesh on ``cuda:0``.  Runs each reduced case
+    (``launch.ranks.train_case``) and the full-width MoE layer's forward
+    and backward, and writes ``rank{r}.json``: each output's digest, the
+    layer's outputs held against the stacked mesh's
+    (``ffn_stacked.pt``) and its expert gradients' digests and norms."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import ranks
+    from repro_torch.launch.mesh import make_rank_mesh
+
+    mesh = make_rank_mesh(
+        *RANK_TRAIN_MESH, backend="gloo", device="cuda:0",
+        timeout_s=RANK_TIMEOUT_S, rank=rank, world_size=world,
+        init_method="file://" + os.path.join(out_dir, "store"))
+    dev = mesh.device
+    rec = dict(rank=rank, shard=[mesh.local_data[0], mesh.local_model[0]],
+               ready_s=time.time() - spawn_t0, cases={})
+    ops.reset_launch_counts()
+    for label in ranks.CASES:
+        t0 = time.perf_counter()
+        out, _ = ranks.train_case(label, mesh, seed=BIG_SEED)
+        torch.cuda.synchronize(dev)
+        rec["cases"][label] = dict(
+            seconds=time.perf_counter() - t0,
+            digests={k: tensor_digest(v) for k, v in out.items()},
+            loss=float(out["step_loss"]), grad_norm=float(out["grad_norm"]))
+    torch.cuda.synchronize(dev)
+    rec["launches"] = ops.launch_counts()
+    cfg = get_arch(RANK_FFN_ARCH).config
+    p, x, ct = ffn_layer(torch, cfg, mesh, dev)
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    y, aux, grads = ffn_fwd_bwd(torch, cfg, mesh, p, x, ct)
+    torch.cuda.synchronize(dev)
+    rec["ffn_s"] = time.perf_counter() - t0
+    rec["ffn_peak"] = torch.cuda.max_memory_allocated(dev)
+    del p, x
+    want = torch.load(os.path.join(out_dir, "ffn_stacked.pt"))
+    mine = dict(y=y, aux=aux, dx=grads[0], router=grads[1])
+    rec["ffn"] = {k: dict(equal=bool(torch.equal(v.cpu(), want[k])),
+                          max_abs=float((v.float().cpu()
+                                         - want[k].float()).abs().max()))
+                  for k, v in mine.items()}
+    rec["ffn_blocks"] = {name: dict(digest=tensor_digest(g),
+                                    norm=float(g.double().norm()))
+                         for name, g in zip(("w_gate", "w_up", "w_down"),
+                                            grads[2:])}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_rank_train(torch, np, dev, failures):
+    """Phase 3r (ii): training one shard a process on the card.  The
+    stacked ``ShardMesh`` yardsticks first, in this process: each reduced
+    case (``launch.ranks.train_case``) with its expected digests for
+    every rank's shard, and the full-width MoE layer's forward and
+    backward, whose
+    output, aux, ``x`` and router gradients go to ``ffn_stacked.pt`` and
+    whose expert gradients' blocks are digested by rank; then
+    ``RANK_TRAIN_MESH`` gloo ranks spawned on the card, each held to them
+    bit for bit.  Returns the ranks' summed launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import ShardMesh, sharding
+    from repro_torch.launch import ranks
+    from repro_torch.launch.ranks import spawn
+
+    world = RANK_TRAIN_MESH[0] * RANK_TRAIN_MESH[1]
+    mesh = ShardMesh(*RANK_TRAIN_MESH, device=dev)
+    out_dir = tempfile.mkdtemp(prefix="rank-train-")
+    try:
+        t0 = time.perf_counter()
+        want = {}
+        for label in ranks.CASES:
+            out, specs = ranks.train_case(label, mesh, seed=BIG_SEED)
+            for r in range(world):
+                d, m = divmod(r, mesh.model)
+                for k, v in out.items():
+                    spec = specs.get(k.partition("/")[2])
+                    if (k.partition("/")[0] in ("grad", "grad3", "param",
+                                                "mu", "nu")
+                            and not sharding.is_replicated(spec)):
+                        v = sharding.shard(v, spec, mesh)[d, m]
+                    want.setdefault(r, {}).setdefault(label, {})[k] = (
+                        tensor_digest(v))
+            print(f"3r (ii) yardstick {label} on the stacked "
+                  f"{mesh.data} x {mesh.model} mesh: loss "
+                  f"{float(out['loss']):.6f}, the step's loss "
+                  f"{float(out['step_loss']):.6f} and grad_norm "
+                  f"{float(out['grad_norm']):.6f}")
+            del out
+        cfg = get_arch(RANK_FFN_ARCH).config
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        p, x, ct = ffn_layer(torch, cfg, mesh, dev)
+        n_expert = sum(p[k].numel() for k in ("w_gate", "w_up", "w_down"))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y, aux, grads = ffn_fwd_bwd(torch, cfg, mesh, p, x, ct)
+        torch.cuda.synchronize()
+        stacked_s = time.perf_counter() - t1
+        stacked_peak = torch.cuda.max_memory_allocated() - base
+        del p, x, ct
+        torch.save(dict(y=y.cpu(), aux=aux.cpu(), dx=grads[0].cpu(),
+                        router=grads[1].cpu()),
+                   os.path.join(out_dir, "ffn_stacked.pt"))
+        specs = {n: sharding.lm_leaf_spec(f"layers/{n}", 4)[1:]
+                 for n in ("w_gate", "w_up", "w_down")}
+        blocks = {n: [dict(digest=tensor_digest(
+            sharding.shard(g, specs[n], mesh)[d, m]), norm=float(
+                sharding.shard(g, specs[n], mesh)[d, m].double().norm()))
+            for d in range(mesh.data) for m in range(mesh.model)]
+            for n, g in zip(("w_gate", "w_up", "w_down"), grads[2:])}
+        print(f"3r (ii) yardstick: one full-width {RANK_FFN_ARCH} MoE layer "
+              f"({n_expert} expert parameters in f32, {cfg.moe.n_experts} "
+              f"experts top-{cfg.moe.top_k}, capacity factor "
+              f"{cfg.moe.capacity_factor}) on {RANK_FFN_TOKENS} tokens in "
+              f"{cfg.compute_dtype}, forward and backward on the stacked "
+              f"{mesh.data} x {mesh.model} mesh: {stacked_s:.3f} s, peak "
+              f"{stacked_peak / 1e9:.2f} GB above the "
+              f"{base / 1e9:.2f} GB held; yardsticks in "
+              f"{time.perf_counter() - t0:.3f} s")
+        del y, aux, grads
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        try:
+            seconds = spawn(rank_train_rank, world, (world, out_dir, t0),
+                            join_timeout_s=RANK_TRAIN_JOIN_S)
+        except Exception as e:  # noqa: BLE001 - a failure of the phase
+            failures.append(f"3r (ii): the gloo ranks failed: {e!r}"[-3000:])
+            print(f"3r (ii): the gloo ranks failed: {e}", flush=True)
+            return {}
+        recs = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        counts = {}
+        stated = rank_train_stated()
+        for r, rec in enumerate(recs):
+            bad = sorted(f"{label}/{k}" for label, c in rec["cases"].items()
+                         for k, v in c["digests"].items()
+                         if want[r][label].get(k) != v)
+            ffn_bad = sorted(k for k, v in rec["ffn"].items()
+                             if not v["equal"])
+            ffn_bad += sorted(n for n, v in rec["ffn_blocks"].items()
+                              if v["digest"] != blocks[n][r]["digest"])
+            n_keys = sum(len(c["digests"]) for c in rec["cases"].values())
+            print(f"3r (ii) rank {r} (data {rec['shard'][0]}, model "
+                  f"{rec['shard'][1]}): reduced cases "
+                  + ", ".join(f"{label} {c['seconds']:.3f} s (step loss "
+                              f"{c['loss']:.6f}, grad_norm "
+                              f"{c['grad_norm']:.6f})"
+                              for label, c in rec["cases"].items())
+                  + f"; {n_keys - len(bad)} of {n_keys} outputs the stacked "
+                  f"mesh's bytes; the full-width layer's forward and "
+                  f"backward {rec['ffn_s']:.3f} s, peak "
+                  f"{rec['ffn_peak'] / 1e9:.2f} GB, y / aux / dx / router "
+                  f"gradient the stacked bytes "
+                  + " / ".join(str(v["equal"]) for v in rec["ffn"].values())
+                  + " (max |difference| "
+                  + " / ".join(f"{v['max_abs']:.3e}"
+                               for v in rec["ffn"].values())
+                  + "), expert gradient blocks' digests equal "
+                  + " / ".join(str(v["digest"] == blocks[n][r]["digest"])
+                               for n, v in rec["ffn_blocks"].items())
+                  + " (norms "
+                  + ", ".join(f"{v['norm']:.6e} vs "
+                              f"{blocks[n][r]['norm']:.6e}"
+                              for n, v in rec["ffn_blocks"].items())
+                  + f"); launches {json.dumps(rec['launches'])}")
+            if bad or ffn_bad:
+                failures.append(f"3r (ii) rank {r}: differs from the stacked "
+                                f"mesh at {(bad + ffn_bad)[:8]}")
+            for name, n in stated.items():
+                if rec["launches"].get(name) != n:
+                    failures.append(f"3r (ii) rank {r}: {name} launched "
+                                    f"{rec['launches'].get(name)} times, "
+                                    f"{n} stated")
+            counts = {k: counts.get(k, 0) + v
+                      for k, v in rec["launches"].items()}
+        print(f"3r (ii): {card_name_and_power_limit()}; {world} ranks "
+              f"({RANK_TRAIN_MESH[0]} x {RANK_TRAIN_MESH[1]}) over gloo on "
+              f"cuda:0, run in {seconds:.3f} s; spawned and joined in "
+              f"{min(x['ready_s'] for x in recs):.3f}.."
+              f"{max(x['ready_s'] for x in recs):.3f} s")
+        return counts
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def phase_big_train(torch, np, dev, failures):
+    """Phase 3r: ``BIG_TRAIN``'s full-width ``train_4k`` steps
+    (``big_train_cell``), each counted from zero, then training one shard
+    a process (``phase_rank_train``).  Returns the cells' summed launch
+    counts, the ranks', and the replays' results by kernel."""
+    print(f"3r: {card_name_and_power_limit()}")
+    counts, replays = {}, {}
+    for arch, (layers, b) in BIG_TRAIN.items():
+        t1 = time.perf_counter()
+        c, res, _ = big_train_cell(torch, np, dev, arch, layers, b, failures)
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        for k, v in res.items():
+            replays.setdefault(k, []).extend(v)
+        print(f"  {arch}: {time.perf_counter() - t1:.3f} s")
+    t1 = time.perf_counter()
+    counts_rank = phase_rank_train(torch, np, dev, failures)
+    print(f"3r (ii): {time.perf_counter() - t1:.3f} s")
+    return counts, counts_rank, replays
+
+
 # -- phase 3l: training ---------------------------------------------------------
 
 def tree_bits_equal(torch, a, b):
@@ -3247,7 +3728,8 @@ def plain_kernels(ops):
 
 def train_card_vs_cpu(torch, np, dev, arch, *, reduced, shape=None,
                       overrides=None, rows=None, seq=None, seed=3,
-                      controls=False, plain_on_card=False):
+                      controls=False, plain_on_card=False,
+                      published_rules=False):
     """One train step of ``arch`` (its ``shape``, ``TRAIN_CELLS``' by
     default) in f32 (``compute_dtype`` overridden) on
     the card and through the plain CPU path from the same parameters and
@@ -3262,7 +3744,8 @@ def train_card_vs_cpu(torch, np, dev, arch, *, reduced, shape=None,
     ``controls``, also the gradients' worst leaf of two card runs that are
     wrong on purpose, against the same CPU gradients: ``control_bf16``
     computes in bf16, ``control_dropped_slot`` drops one slot in the
-    backward (``dropped_slot``)."""
+    backward (``dropped_slot``).  ``published_rules``: the bundles take
+    the published config's train rules (``steps.build``'s)."""
     import dataclasses as dc
 
     from repro_torch.configs import get_arch
@@ -3276,9 +3759,9 @@ def train_card_vs_cpu(torch, np, dev, arch, *, reduced, shape=None,
     spec = get_arch(arch)
     base = spec.reduced if reduced else spec.config
     cpu = steps.build(arch, shape, reduced=reduced, device="cpu",
-                      config_overrides=over)
+                      config_overrides=over, published_rules=published_rules)
     card = steps.build(arch, shape, reduced=reduced, device=dev,
-                       config_overrides=over)
+                       config_overrides=over, published_rules=published_rules)
     loss = cpu.loss_fn
     params = cpu.init_fn(seed)
     batch = cpu.make_batch(torch.Generator().manual_seed(seed + 1))
@@ -4060,6 +4543,19 @@ def check_small_train(torch, np, dev, arch):
     within 1e-5 of each leaf's norm, parameters within the rule."""
     res = train_card_vs_cpu(torch, np, dev, arch, reduced=True)
     return (res["loss_rel"] <= 1e-5 and res["grad_rel"] <= 1e-5
+            and res["param_beyond"] == 0.0), res
+
+
+def check_small_big_train(torch, np, dev, arch):
+    """One ``train_4k`` step of a large LM's reduced config in f32 under
+    the published config's train rules (fp8 ``mu``, bf16 ``nu`` and
+    accumulator above 6e10 parameters), card against the plain CPU path
+    (``train_card_vs_cpu``): loss within 1e-5, gradients within
+    ``TRAIN_CHECK_GRAD`` of each leaf's norm, parameters within the
+    rule."""
+    res = train_card_vs_cpu(torch, np, dev, arch, reduced=True,
+                            shape="train_4k", published_rules=True)
+    return (res["loss_rel"] <= 1e-5 and res["grad_rel"] <= TRAIN_CHECK_GRAD
             and res["param_beyond"] == 0.0), res
 
 
@@ -5527,538 +6023,577 @@ def main() -> int:
     failures += [f"synthetic {k}" for k, v in synth.items() if not v]
     phase("2a kernel vs plain, synthetic", t0)
 
-    t0 = time.perf_counter()
-    g = synthetic.rmat(MAIN_N_LOG2, avg_deg=10.0, seed=0, device=dev)
-    max_deg = int(g.out_deg.max())
-    print(f"graph rmat({MAIN_N_LOG2}): n={g.n} m={g.m} max_out_degree="
-          f"{max_deg}")
-    phase("3a graph", t0)
+    def main_path():
+        """Phases 3a–3p, 2b and 4: returns the paths' launch counts and the
+        2b replays' results.  Its tensors, services and views are its
+        locals, so the card is free of them once it returns."""
+        nonlocal failures
+        t0 = time.perf_counter()
+        g = synthetic.rmat(MAIN_N_LOG2, avg_deg=10.0, seed=0, device=dev)
+        max_deg = int(g.out_deg.max())
+        print(f"graph rmat({MAIN_N_LOG2}): n={g.n} m={g.m} max_out_degree="
+              f"{max_deg}")
+        phase("3a graph", t0)
 
-    ops.reset_launch_counts()
-    ops.capture_first_launches(True)
-    t0 = time.perf_counter()
-    index, stats = build_index(
-        g, r=MAIN_R, l=MAIN_L, key=rng.prng_key(0),
-        source_batch=MAIN_SOURCE_BATCH, device=dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    print("index:", json.dumps({k: stats[k] for k in (
-        "r", "l", "sketch_l", "source_batch", "kept_mass", "dropped_mass",
-        "drop_fraction", "nbytes")}))
-    print(f"build seconds: {build_s:.3f}")
-    phase("3b build_index", t0)
+        ops.reset_launch_counts()
+        ops.capture_first_launches(True)
+        t0 = time.perf_counter()
+        index, stats = build_index(
+            g, r=MAIN_R, l=MAIN_L, key=rng.prng_key(0),
+            source_batch=MAIN_SOURCE_BATCH, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        print("index:", json.dumps({k: stats[k] for k in (
+            "r", "l", "sketch_l", "source_batch", "kept_mass", "dropped_mass",
+            "drop_fraction", "nbytes")}))
+        print(f"build seconds: {build_s:.3f}")
+        phase("3b build_index", t0)
 
-    t0 = time.perf_counter()
-    cfg = ServiceConfig(
-        query=QueryConfig(t_iterations=2, top_k=50, hub_split_degree=64),
-        batching=BatchingConfig(max_batch=256, max_wait_s=0.05),
-        pipeline=PipelineConfig(depth=4),
-    )
-    svc = PPRService(g, index, cfg, device=dev)
-    eng = svc.engine
-    route = dict(frontier_path=svc.frontier_path, frontier_k=eng.frontier_k,
-                 scatter_combine_at_256=eng.uses_scatter_combine(256))
-    print("route:", json.dumps(route))
-    if route["frontier_path"] != "sparse" or route["scatter_combine_at_256"]:
-        failures.append(f"route {route}")
-    work = np.random.default_rng(1).integers(0, g.n, MAIN_REQUESTS).tolist()
-    answers, sstats = svc.run_closed_loop(work)
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    captured_s = ops.captured_launches()
-    ops.capture_first_launches(False)
-    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print("serve:", json.dumps({k: sstats[k] for k in SERVE_KEYS}))
-    print("main-path launches:", json.dumps(counts))
-    failures += [f"kernel {k} never launched on the sparse main path"
-                 for k in SPARSE_PATH if counts[k] <= 0]
-    bad = bad_answers(np, answers, g.n)
-    if len(answers) != MAIN_REQUESTS or bad:
-        failures.append(f"answers: {len(answers)} served, {len(bad)} bad")
-    mass = np.array([a.top_scores.sum() for a in answers])
-    print(f"answer mass: min {mass.min():.6f} mean {mass.mean():.6f} "
-          f"max {mass.max():.6f}")
-    src256 = torch.tensor(work[:256], dtype=torch.int32, device=dev)
-    for how, fn in (("eager", lambda: eng.query_topk(src256)),
-                    ("captured", lambda: eng.query_topk_async(src256))):
-        wall_ms, device_ms, split = device_time_split(torch, fn)
-        print(f"sparse batch of 256, {how}, device time by kernel "
-              f"(torch.profiler): wall {wall_ms:.3f} ms, device busy "
-              f"{device_ms:.3f} ms, idle "
-              f"{100 * (1 - device_ms / wall_ms):.1f}% of the wall")
+        t0 = time.perf_counter()
+        cfg = ServiceConfig(
+            query=QueryConfig(t_iterations=2, top_k=50, hub_split_degree=64),
+            batching=BatchingConfig(max_batch=256, max_wait_s=0.05),
+            pipeline=PipelineConfig(depth=4),
+        )
+        svc = PPRService(g, index, cfg, device=dev)
+        eng = svc.engine
+        route = dict(frontier_path=svc.frontier_path, frontier_k=eng.frontier_k,
+                     scatter_combine_at_256=eng.uses_scatter_combine(256))
+        print("route:", json.dumps(route))
+        if route["frontier_path"] != "sparse" or route["scatter_combine_at_256"]:
+            failures.append(f"route {route}")
+        work = np.random.default_rng(1).integers(0, g.n, MAIN_REQUESTS).tolist()
+        answers, sstats = svc.run_closed_loop(work)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        captured_s = ops.captured_launches()
+        ops.capture_first_launches(False)
+        print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print("serve:", json.dumps({k: sstats[k] for k in SERVE_KEYS}))
+        print("main-path launches:", json.dumps(counts))
+        failures += [f"kernel {k} never launched on the sparse main path"
+                     for k in SPARSE_PATH if counts[k] <= 0]
+        bad = bad_answers(np, answers, g.n)
+        if len(answers) != MAIN_REQUESTS or bad:
+            failures.append(f"answers: {len(answers)} served, {len(bad)} bad")
+        mass = np.array([a.top_scores.sum() for a in answers])
+        print(f"answer mass: min {mass.min():.6f} mean {mass.mean():.6f} "
+              f"max {mass.max():.6f}")
+        src256 = torch.tensor(work[:256], dtype=torch.int32, device=dev)
+        for how, fn in (("eager", lambda: eng.query_topk(src256)),
+                        ("captured", lambda: eng.query_topk_async(src256))):
+            wall_ms, device_ms, split = device_time_split(torch, fn)
+            print(f"sparse batch of 256, {how}, device time by kernel "
+                  f"(torch.profiler): wall {wall_ms:.3f} ms, device busy "
+                  f"{device_ms:.3f} ms, idle "
+                  f"{100 * (1 - device_ms / wall_ms):.1f}% of the wall")
+            for name, ms in split:
+                print(f"  {ms:9.3f} ms  {100 * ms / max(device_ms, 1e-9):5.1f}%  "
+                      f"{name[:110]}")
+        # the combine pinned to the batch of 256's (sparse, gated above):
+        # under "auto" a batch that closes below the scatter threshold
+        # takes the scatter combine, whose bytes differ, so which batches
+        # close short (the host's timing) would decide the A/B
+        print("sparse route, captured against eager on the same requests "
+              "(the sparse combine at every width):")
+        _, sparse_ab, _ = captured_vs_eager(
+            torch, np, lambda depth: PPRService(g, index, ServiceConfig(
+                query=dataclasses.replace(cfg.query, combine_path="sparse"),
+                batching=cfg.batching,
+                pipeline=PipelineConfig(depth=depth)), device=dev),
+            work, "sparse", failures, depth1_requests=MAIN_REQUESTS // 4)
+        phase("3c serve", t0)
+
+        # -- 3b's breakdown, outside the counted run: one build chunk ---------
+        t0 = time.perf_counter()
+        chunk = torch.arange(MAIN_SOURCE_BATCH, dtype=torch.int32, device=dev)
+        walks0 = ops.launch_counts()["walk_step"]
+        wall_ms, device_ms, split = device_time_split(
+            torch, lambda: sparse_chunk_estimates(
+                g, chunk, rng.fold_in(rng.prng_key(0), 0), r=MAIN_R, l=MAIN_L,
+                sketch_l=stats["sketch_l"]), top=None)
+        walk_launches = ops.launch_counts()["walk_step"] - walks0
+        walk_ms = sum(ms for name, ms in split if "walk_step" in name)
+        print(f"build chunk of {MAIN_SOURCE_BATCH} sources, device time by "
+              f"kernel (torch.profiler): wall {wall_ms:.3f} ms, device busy "
+              f"{device_ms:.3f} ms, idle {100 * (1 - device_ms / wall_ms):.1f}% "
+              f"of the wall; walk_step {walk_ms:.3f} ms in {walk_launches} "
+              f"launches ({walk_ms / max(walk_launches, 1):.4f} ms a launch, "
+              f"{100 * walk_ms / max(device_ms, 1e-9):.1f}% of the busy time)")
+        for name, ms in split[:10]:
+            print(f"  {ms:9.3f} ms  {100 * ms / max(device_ms, 1e-9):5.1f}%  "
+                  f"{name[:110]}")
+        phase("3b' build chunk breakdown", t0)
+
+        # -- 3d: the dense route on the same graph and index ---------------------
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        dcfg = ServiceConfig(
+            query=QueryConfig(t_iterations=2, top_k=50),
+            batching=BatchingConfig(max_batch=256, max_wait_s=0.05),
+            pipeline=PipelineConfig(depth=4),
+        )
+        svc_d = PPRService(g, index, dcfg, device=dev)
+        eng_d = svc_d.engine
+        t1 = time.perf_counter()
+        ell = eng_d.graph.ell()
+        torch.cuda.synchronize()
+        print(f"ELL view: rows {ell.rows_used} x {ell.k}, built in "
+              f"{time.perf_counter() - t1:.3f} s")
+        t1 = time.perf_counter()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cols = eng_d.index.columns(g.n, g.n)
+        torch.cuda.synchronize()
+        print(f"index column view: {cols.ent_v.numel()} entries, "
+              f"{cols.tasks.shape[0]} split tasks in {cols.heavy.shape[0]} "
+              f"columns, {cols.nbytes / 2**30:.3f} GiB, built in "
+              f"{time.perf_counter() - t1:.3f} s, its build's peak "
+              f"{(torch.cuda.max_memory_allocated() - before) / 2**30:.2f} GiB "
+              f"above the {before / 2**30:.2f} GiB allocated before it")
+        del cols
+        torch.cuda.reset_peak_memory_stats()
+        route_d = dict(frontier_path=svc_d.frontier_path,
+                       hub_split_degree=dcfg.query.hub_split_degree,
+                       gather_width=eng_d.effective_gather_width(),
+                       frontier_k=eng_d.frontier_k)
+        print("dense route:", json.dumps(route_d))
+        if route_d["frontier_path"] != "dense":
+            failures.append(f"dense route {route_d}")
+        ops.reset_launch_counts()
+        ops.capture_first_launches(True)
+        answers_d, dstats = svc_d.run_closed_loop(work)
+        torch.cuda.synchronize()
+        counts_d = ops.launch_counts()
+        captured = ops.captured_launches()
+        ops.capture_first_launches(False)
+        print(f"peak device memory (dense route, serving with its views "
+              f"built): {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print("serve dense:", json.dumps({k: dstats[k] for k in SERVE_KEYS}))
+        print("dense-path launches:", json.dumps(counts_d))
+        # every batch is a replay of its width's graph, and every graph's
+        # capture made one eager warm-up batch
+        batches = int(dstats["batches"]) + len(eng_d.graphs)
+        want = {"ell_spmm": 2 * batches, "index_combine": batches}
+        failures += [f"dense path: {k} launched {counts_d[k]} times, want {v}"
+                     for k, v in want.items() if counts_d[k] != v]
+        bad = bad_answers(np, answers_d, g.n)
+        if len(answers_d) != MAIN_REQUESTS or bad:
+            failures.append(f"dense answers: {len(answers_d)} served, "
+                            f"{len(bad)} bad")
+        mass = np.array([a.top_scores.sum() for a in answers_d])
+        print(f"dense answer mass: min {mass.min():.6f} mean {mass.mean():.6f} "
+              f"max {mass.max():.6f}")
+        batch_ms = cuda_ms(torch, lambda: eng_d.query_topk(src256), max_reps=5)
+        out256 = eng_d.query_dense(src256)
+        topk_ms = cuda_ms(torch, lambda: topk_dense(out256, 50), max_reps=10)
+        sort_ms = cuda_ms(torch, lambda: torch.sort(
+            out256, dim=1, descending=True, stable=True), max_reps=3)
+        print(f"dense batch of 256: query_topk {batch_ms:.3f} ms, of which "
+              f"top-50 of [256, {g.n}] {topk_ms:.3f} ms "
+              f"({100 * topk_ms / batch_ms:.1f}%); a stable sort of the same "
+              f"rows {sort_ms:.3f} ms")
+        del out256
+        wall_ms, device_ms, split = device_time_split(
+            torch, lambda: eng_d.query_topk(src256))
+        print(f"dense batch of 256, device time by kernel (torch.profiler): "
+              f"wall {wall_ms:.3f} ms, device busy {device_ms:.3f} ms")
         for name, ms in split:
             print(f"  {ms:9.3f} ms  {100 * ms / max(device_ms, 1e-9):5.1f}%  "
                   f"{name[:110]}")
-    print("sparse route, captured against eager on the same requests:")
-    _, sparse_ab, _ = captured_vs_eager(
-        torch, np, lambda depth: PPRService(g, index, ServiceConfig(
-            query=cfg.query, batching=cfg.batching,
-            pipeline=PipelineConfig(depth=depth)), device=dev),
-        work, "sparse", failures, depth1_requests=MAIN_REQUESTS // 4)
-    phase("3c serve", t0)
+        eng_d.graphs.clear()     # 3e queries eng_d eagerly: free its pool
+        torch.cuda.empty_cache()
+        print("dense route, captured against eager on the same requests:")
+        captured_vs_eager(
+            torch, np, lambda depth: PPRService(g, index, ServiceConfig(
+                query=dcfg.query, batching=dcfg.batching,
+                pipeline=PipelineConfig(depth=depth)), device=dev),
+            work[:MAIN_REQUESTS // 4], "dense", failures,
+            depth1_requests=MAIN_REQUESTS // 16)
+        phase("3d serve, dense route", t0)
 
-    # -- 3b's breakdown, outside the counted run: one build chunk ---------
-    t0 = time.perf_counter()
-    chunk = torch.arange(MAIN_SOURCE_BATCH, dtype=torch.int32, device=dev)
-    walks0 = ops.launch_counts()["walk_step"]
-    wall_ms, device_ms, split = device_time_split(
-        torch, lambda: sparse_chunk_estimates(
-            g, chunk, rng.fold_in(rng.prng_key(0), 0), r=MAIN_R, l=MAIN_L,
-            sketch_l=stats["sketch_l"]), top=None)
-    walk_launches = ops.launch_counts()["walk_step"] - walks0
-    walk_ms = sum(ms for name, ms in split if "walk_step" in name)
-    print(f"build chunk of {MAIN_SOURCE_BATCH} sources, device time by "
-          f"kernel (torch.profiler): wall {wall_ms:.3f} ms, device busy "
-          f"{device_ms:.3f} ms, idle {100 * (1 - device_ms / wall_ms):.1f}% "
-          f"of the wall; walk_step {walk_ms:.3f} ms in {walk_launches} "
-          f"launches ({walk_ms / max(walk_launches, 1):.4f} ms a launch, "
-          f"{100 * walk_ms / max(device_ms, 1e-9):.1f}% of the busy time)")
-    for name, ms in split[:10]:
-        print(f"  {ms:9.3f} ms  {100 * ms / max(device_ms, 1e-9):5.1f}%  "
-              f"{name[:110]}")
-    phase("3b' build chunk breakdown", t0)
+        # -- 3e: the baselines against power iteration ---------------------------
+        t0 = time.perf_counter()
+        src64 = src256[:E_ROWS]
+        eng_pi = BatchQueryEngine(g, None, QueryConfig(
+            mode="pi", top_k=50, pi_iterations=100), device=dev)
+        # the last push of pi is ell_spmm's input at its densest: keep it
+        ops.reset_launch_counts()
+        ops.capture_first_launches(True, last=True)
+        truth = eng_pi.query_dense(src64)
+        captured_e = {"ell_spmm/dense": ops.captured_launches()["ell_spmm/later"]}
+        ops.capture_first_launches(False)
+        pi_ms = cuda_ms(torch, lambda: eng_pi.query_dense(src64), max_reps=3)
+        print(f"pi batch of {E_ROWS} ({eng_pi.config.pi_iterations} iterations, "
+              f"as many ell_spmm launches): {pi_ms:.3f} ms")
+        stochastic = is_stochastic(truth, atol=1e-4)
+        print(f"pi: {int(stochastic.sum())} of {E_ROWS} rows stochastic; row "
+              f"mass {float(truth.sum(1).min()):.7f}.."
+              f"{float(truth.sum(1).max()):.7f}")
+        mass_off = float((truth.sum(1) - 1.0).abs().max())
+        if not stochastic.all() or not mass_off <= 1e-4:
+            failures.append(f"pi rows not stochastic (|mass - 1| {mass_off:.3e})")
+        candidates = {
+            "pi": eng_pi,
+            "fppr": BatchQueryEngine(g, index, QueryConfig(mode="fppr", top_k=50),
+                                     device=dev),
+            "verd (dense)": BatchQueryEngine(g, None, QueryConfig(
+                mode="verd", t_iterations=2, top_k=50), device=dev),
+            "powerwalk (dense)": eng_d,
+            "powerwalk (sparse)": eng,
+        }
+        quality = {}
+        for label, e in candidates.items():
+            v, i = e.query_topk(src64)
+            if not bool(torch.isfinite(v).all()) or bool((v < 0).any()):
+                failures.append(f"{label}: answers not finite and non-negative")
+            approx = densify(torch, v, i, g.n)
+            quality[label] = dict(
+                mean_rag=mean_rag(truth, approx, 50),
+                precision=float(precision_at_k(truth, approx, 50).mean()))
+            del approx
+        print("accuracy at k=50 against pi (first 64 requests):",
+              json.dumps(quality))
+        del candidates
+        phase("3e baselines", t0)
 
-    # -- 3d: the dense route on the same graph and index ---------------------
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    dcfg = ServiceConfig(
-        query=QueryConfig(t_iterations=2, top_k=50),
-        batching=BatchingConfig(max_batch=256, max_wait_s=0.05),
-        pipeline=PipelineConfig(depth=4),
-    )
-    svc_d = PPRService(g, index, dcfg, device=dev)
-    eng_d = svc_d.engine
-    t1 = time.perf_counter()
-    ell = eng_d.graph.ell()
-    torch.cuda.synchronize()
-    print(f"ELL view: rows {ell.rows_used} x {ell.k}, built in "
-          f"{time.perf_counter() - t1:.3f} s")
-    t1 = time.perf_counter()
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    cols = eng_d.index.columns(g.n, g.n)
-    torch.cuda.synchronize()
-    print(f"index column view: {cols.ent_v.numel()} entries, "
-          f"{cols.tasks.shape[0]} split tasks in {cols.heavy.shape[0]} "
-          f"columns, {cols.nbytes / 2**30:.3f} GiB, built in "
-          f"{time.perf_counter() - t1:.3f} s, its build's peak "
-          f"{(torch.cuda.max_memory_allocated() - before) / 2**30:.2f} GiB "
-          f"above the {before / 2**30:.2f} GiB allocated before it")
-    del cols
-    torch.cuda.reset_peak_memory_stats()
-    route_d = dict(frontier_path=svc_d.frontier_path,
-                   hub_split_degree=dcfg.query.hub_split_degree,
-                   gather_width=eng_d.effective_gather_width(),
-                   frontier_k=eng_d.frontier_k)
-    print("dense route:", json.dumps(route_d))
-    if route_d["frontier_path"] != "dense":
-        failures.append(f"dense route {route_d}")
-    ops.reset_launch_counts()
-    ops.capture_first_launches(True)
-    answers_d, dstats = svc_d.run_closed_loop(work)
-    torch.cuda.synchronize()
-    counts_d = ops.launch_counts()
-    captured = ops.captured_launches()
-    ops.capture_first_launches(False)
-    print(f"peak device memory (dense route, serving with its views "
-          f"built): {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print("serve dense:", json.dumps({k: dstats[k] for k in SERVE_KEYS}))
-    print("dense-path launches:", json.dumps(counts_d))
-    # every batch is a replay of its width's graph, and every graph's
-    # capture made one eager warm-up batch
-    batches = int(dstats["batches"]) + len(eng_d.graphs)
-    want = {"ell_spmm": 2 * batches, "index_combine": batches}
-    failures += [f"dense path: {k} launched {counts_d[k]} times, want {v}"
-                 for k, v in want.items() if counts_d[k] != v]
-    bad = bad_answers(np, answers_d, g.n)
-    if len(answers_d) != MAIN_REQUESTS or bad:
-        failures.append(f"dense answers: {len(answers_d)} served, "
-                        f"{len(bad)} bad")
-    mass = np.array([a.top_scores.sum() for a in answers_d])
-    print(f"dense answer mass: min {mass.min():.6f} mean {mass.mean():.6f} "
-          f"max {mass.max():.6f}")
-    batch_ms = cuda_ms(torch, lambda: eng_d.query_topk(src256), max_reps=5)
-    out256 = eng_d.query_dense(src256)
-    topk_ms = cuda_ms(torch, lambda: topk_dense(out256, 50), max_reps=10)
-    sort_ms = cuda_ms(torch, lambda: torch.sort(
-        out256, dim=1, descending=True, stable=True), max_reps=3)
-    print(f"dense batch of 256: query_topk {batch_ms:.3f} ms, of which "
-          f"top-50 of [256, {g.n}] {topk_ms:.3f} ms "
-          f"({100 * topk_ms / batch_ms:.1f}%); a stable sort of the same "
-          f"rows {sort_ms:.3f} ms")
-    del out256
-    wall_ms, device_ms, split = device_time_split(
-        torch, lambda: eng_d.query_topk(src256))
-    print(f"dense batch of 256, device time by kernel (torch.profiler): "
-          f"wall {wall_ms:.3f} ms, device busy {device_ms:.3f} ms")
-    for name, ms in split:
-        print(f"  {ms:9.3f} ms  {100 * ms / max(device_ms, 1e-9):5.1f}%  "
-              f"{name[:110]}")
-    eng_d.graphs.clear()     # 3e queries eng_d eagerly: free its pool
-    torch.cuda.empty_cache()
-    print("dense route, captured against eager on the same requests:")
-    captured_vs_eager(
-        torch, np, lambda depth: PPRService(g, index, ServiceConfig(
-            query=dcfg.query, batching=dcfg.batching,
-            pipeline=PipelineConfig(depth=depth)), device=dev),
-        work[:MAIN_REQUESTS // 4], "dense", failures,
-        depth1_requests=MAIN_REQUESTS // 16)
-    phase("3d serve, dense route", t0)
-
-    # -- 3e: the baselines against power iteration ---------------------------
-    t0 = time.perf_counter()
-    src64 = src256[:E_ROWS]
-    eng_pi = BatchQueryEngine(g, None, QueryConfig(
-        mode="pi", top_k=50, pi_iterations=100), device=dev)
-    # the last push of pi is ell_spmm's input at its densest: keep it
-    ops.reset_launch_counts()
-    ops.capture_first_launches(True, last=True)
-    truth = eng_pi.query_dense(src64)
-    captured_e = {"ell_spmm/dense": ops.captured_launches()["ell_spmm/later"]}
-    ops.capture_first_launches(False)
-    pi_ms = cuda_ms(torch, lambda: eng_pi.query_dense(src64), max_reps=3)
-    print(f"pi batch of {E_ROWS} ({eng_pi.config.pi_iterations} iterations, "
-          f"as many ell_spmm launches): {pi_ms:.3f} ms")
-    stochastic = is_stochastic(truth, atol=1e-4)
-    print(f"pi: {int(stochastic.sum())} of {E_ROWS} rows stochastic; row "
-          f"mass {float(truth.sum(1).min()):.7f}.."
-          f"{float(truth.sum(1).max()):.7f}")
-    mass_off = float((truth.sum(1) - 1.0).abs().max())
-    if not stochastic.all() or not mass_off <= 1e-4:
-        failures.append(f"pi rows not stochastic (|mass - 1| {mass_off:.3e})")
-    candidates = {
-        "pi": eng_pi,
-        "fppr": BatchQueryEngine(g, index, QueryConfig(mode="fppr", top_k=50),
-                                 device=dev),
-        "verd (dense)": BatchQueryEngine(g, None, QueryConfig(
-            mode="verd", t_iterations=2, top_k=50), device=dev),
-        "powerwalk (dense)": eng_d,
-        "powerwalk (sparse)": eng,
-    }
-    quality = {}
-    for label, e in candidates.items():
-        v, i = e.query_topk(src64)
-        if not bool(torch.isfinite(v).all()) or bool((v < 0).any()):
-            failures.append(f"{label}: answers not finite and non-negative")
-        approx = densify(torch, v, i, g.n)
-        quality[label] = dict(
-            mean_rag=mean_rag(truth, approx, 50),
-            precision=float(precision_at_k(truth, approx, 50).mean()))
-        del approx
-    print("accuracy at k=50 against pi (first 64 requests):",
-          json.dumps(quality))
-    del candidates
-    phase("3e baselines", t0)
-
-    # -- 3f: the distributed engine on the same graph --------------------------
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    key = rng.prng_key(0)
-    dcfg_f = DistConfig(n=g.n, ep=DIST_EP, q_tile=256, t_iterations=2,
-                        index_l=MAIN_L, top_k=50, degree_cap=max_deg,
-                        hub_split_degree=64)
-    slabs = build_sharded_graph(g, dcfg_f, device=dev)
-    step = make_verd_tile_step(dcfg_f, ShardMesh(1, DIST_EP, device=dev))
-    shape = (DIST_EP, g.n // DIST_EP, MAIN_L)
-    iv, ii = index.values.reshape(shape), index.indices.reshape(shape)
-    work_t = torch.tensor(work, dtype=torch.int32, device=dev)
-    torch.cuda.synchronize()
-    print(f"sharded slabs: col_idx {list(slabs.col_idx.shape)}, built in "
-          f"{time.perf_counter() - t0:.3f} s")
-    ops.reset_launch_counts()
-    ops.capture_first_launches(True)
-    t1 = time.perf_counter()
-    sh_index, sh_stats = build_index_sharded(
-        g, r=MAIN_R, l=MAIN_L, key=key,
-        mesh=ShardMesh(data=DIST_DATA, model=DIST_EP, device=dev),
-        source_batch=MAIN_SOURCE_BATCH, respawn=True)
-    torch.cuda.synchronize()
-    sharded_build_s = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    tiles = [step(slabs, work_t[j:j + 256], iv, ii)
-             for j in range(0, MAIN_REQUESTS, 256)]
-    torch.cuda.synchronize()
-    tiles_s = time.perf_counter() - t1
-    counts_f = ops.launch_counts()
-    captured_f = ops.captured_launches()
-    ops.capture_first_launches(False)
-    peak_f = torch.cuda.max_memory_allocated() / 2**30
-    print("sharded index:", json.dumps({k: sh_stats[k] for k in (
-        "r", "l", "sketch_l", "r_splits", "respawn", "shards", "n_pad",
-        "source_batch", "kept_mass", "dropped_mass", "drop_fraction")}))
-    print(f"sharded build seconds: {sharded_build_s:.3f}")
-    n_tiles = len(tiles)
-    print(f"tile step: {MAIN_REQUESTS} requests in {n_tiles} tiles of 256, "
-          f"{tiles_s:.3f} s: {1e3 * tiles_s / n_tiles:.3f} ms per tile, "
-          f"{MAIN_REQUESTS / tiles_s:.1f} requests/s; peak device memory "
-          f"{peak_f:.2f} GiB")
-    print("computed wire bytes per shard and iteration (not a measured "
-          "transfer; the stacked exchange is a device-local permute):",
-          json.dumps(exchange_bytes_per_iteration(dcfg_f)))
-    print("distributed-path launches:", json.dumps(counts_f))
-    want_push = dcfg_f.t_iterations * DIST_EP * n_tiles
-    if counts_f["sharded_frontier_push"] != want_push:
-        failures.append(f"distributed path: sharded_frontier_push launched "
-                        f"{counts_f['sharded_frontier_push']} times, want "
-                        f"{want_push}")
-    failures += [f"kernel {k} never launched on the distributed path"
-                 for k in DIST_PATH if counts_f[k] <= 0]
-    split_tiles = min(4, n_tiles)
-    wall_ms, device_ms, split = device_time_split(torch, lambda: [
-        step(slabs, work_t[j:j + 256], iv, ii)
-        for j in range(0, split_tiles * 256, 256)], top=None)
-    print(f"tile step, device time by kernel over {split_tiles} tiles "
-          f"(torch.profiler): wall {wall_ms / split_tiles:.3f} ms per tile, "
-          f"device busy {device_ms / split_tiles:.3f} ms per tile "
-          f"({100 * device_ms / wall_ms:.1f}% of the wall)")
-    for name, ms in split[:8]:
-        print(f"  {ms / split_tiles:9.3f} ms per tile  "
-              f"{100 * ms / max(device_ms, 1e-9):5.1f}%  {name[:110]}")
-    push_ms = sum(ms for name, ms in split if any(
-        tag in name for tag in ("sharded_push", "sharded_wide", "wr::")))
-    print(f"  sharded_frontier_push, all its kernels: "
-          f"{push_ms / split_tiles:.3f} ms per tile "
-          f"({100 * push_ms / max(device_ms, 1e-9):.1f}%)")
-    top_v = torch.cat([v for v, _ in tiles])
-    top_i = torch.cat([i for _, i in tiles])
-    mass = top_v.sum(dim=1)
-    if (top_v.shape != (MAIN_REQUESTS, 50)
-            or not bool(torch.isfinite(top_v).all())
-            or bool((top_v < 0).any()) or float(mass.max()) > 1.0 + 1e-4):
-        failures.append("distributed answers not finite, non-negative and "
-                        "of mass <= 1")
-    print(f"distributed answer mass: min {float(mass.min()):.6f} mean "
-          f"{float(mass.mean()):.6f} max {float(mass.max()):.6f}")
-    approx = densify(torch, top_v[:E_ROWS], top_i[:E_ROWS], g.n)
-    print("accuracy at k=50 against pi (first 64 requests):", json.dumps({
-        "powerwalk (4-shard sparse exchange)": dict(
-            mean_rag=mean_rag(truth, approx, 50),
-            precision=float(precision_at_k(truth, approx, 50).mean()))}))
-    del approx, tiles
-    # the first chunk of every shard against the single-device build
-    ns_f = sh_stats["n_pad"] // DIST_EP
-    chunk_equal = True
-    for shard in range(DIST_EP):
-        off = shard * ns_f
-        rows = slice(off, off + MAIN_SOURCE_BATCH)
-        vals, idxs, _, _ = sparse_chunk_estimates(
-            g, torch.arange(off, off + MAIN_SOURCE_BATCH, dtype=torch.int32,
-                            device=dev),
-            rng.fold_in(key, off), r=MAIN_R, l=MAIN_L,
-            sketch_l=sh_stats["sketch_l"], r_splits=DIST_DATA, respawn=True)
-        chunk_equal &= (bits_equal(torch, vals, sh_index.values[rows])
-                        and bits_equal(torch, idxs, sh_index.indices[rows]))
-    print(f"sharded build, first chunk of every shard bit-equal to the "
-          f"single-device r_splits={DIST_DATA} build: {chunk_equal}")
-    if not chunk_equal:
-        failures.append("sharded build differs from the single-device build")
-    # phase 3q's yardsticks: each model shard's rows, the totals, and this
-    # tile step's answers from these rows over the same tiles
-    t1 = time.perf_counter()
-    sh_shape = (DIST_EP, ns_f, MAIN_L)
-    sh_tiles = [step(slabs, work_t[j:j + 256],
-                     sh_index.values.reshape(sh_shape),
-                     sh_index.indices.reshape(sh_shape))
-                for j in range(0, MAIN_REQUESTS, 256)]
-    yard_q = dict(
-        rows=[digest(sh_index.values[m * ns_f:(m + 1) * ns_f],
-                     sh_index.indices[m * ns_f:(m + 1) * ns_f])
-              for m in range(DIST_EP)],
-        answers=answers_digest(sh_tiles), kept_mass=sh_stats["kept_mass"],
-        dropped_mass=sh_stats["dropped_mass"])
-    svc_q = PPRService(g, sh_index, service_config(256), device=dev)
-    yard_q["service"] = service_answers_digest(svc_q.run_closed_loop(
-        work[:RANK_SERVE_REQUESTS])[0])
-    del svc_q
-    print(f"3q's yardsticks: rows digested by model shard, the stacked tile "
-          f"step on the sharded build's rows ({len(sh_tiles)} tiles) and "
-          f"the stacked PPRService on them ({RANK_SERVE_REQUESTS} requests) "
-          f"in {time.perf_counter() - t1:.3f} s")
-    t1 = time.perf_counter()
-    yard_q["modes"] = {}
-    for label, (mode, route, _) in RANK_MODE_CASES.items():
-        svc_q = PPRService(g, sh_index, rank_mode_config(mode, route),
-                           device=dev)
-        answers, st = svc_q.run_closed_loop(work[:E_ROWS])
-        yard_q["modes"][label] = dict(
-            answers=service_answers_digest(answers),
-            rows=served_rows(answers), graphs_captured=st["graphs_captured"])
-        print(f"3q (iv)'s yardstick {label}: {E_ROWS} requests, "
-              f"{st['qps']:.1f} qps, {st['graphs_captured']} graphs "
-              f"captured, route {st['frontier_path']}")
+        # -- 3f: the distributed engine on the same graph --------------------------
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        key = rng.prng_key(0)
+        dcfg_f = DistConfig(n=g.n, ep=DIST_EP, q_tile=256, t_iterations=2,
+                            index_l=MAIN_L, top_k=50, degree_cap=max_deg,
+                            hub_split_degree=64)
+        slabs = build_sharded_graph(g, dcfg_f, device=dev)
+        step = make_verd_tile_step(dcfg_f, ShardMesh(1, DIST_EP, device=dev))
+        shape = (DIST_EP, g.n // DIST_EP, MAIN_L)
+        iv, ii = index.values.reshape(shape), index.indices.reshape(shape)
+        work_t = torch.tensor(work, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        print(f"sharded slabs: col_idx {list(slabs.col_idx.shape)}, built in "
+              f"{time.perf_counter() - t0:.3f} s")
+        ops.reset_launch_counts()
+        ops.capture_first_launches(True)
+        t1 = time.perf_counter()
+        sh_index, sh_stats = build_index_sharded(
+            g, r=MAIN_R, l=MAIN_L, key=key,
+            mesh=ShardMesh(data=DIST_DATA, model=DIST_EP, device=dev),
+            source_batch=MAIN_SOURCE_BATCH, respawn=True)
+        torch.cuda.synchronize()
+        sharded_build_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        tiles = [step(slabs, work_t[j:j + 256], iv, ii)
+                 for j in range(0, MAIN_REQUESTS, 256)]
+        torch.cuda.synchronize()
+        tiles_s = time.perf_counter() - t1
+        counts_f = ops.launch_counts()
+        captured_f = ops.captured_launches()
+        ops.capture_first_launches(False)
+        peak_f = torch.cuda.max_memory_allocated() / 2**30
+        print("sharded index:", json.dumps({k: sh_stats[k] for k in (
+            "r", "l", "sketch_l", "r_splits", "respawn", "shards", "n_pad",
+            "source_batch", "kept_mass", "dropped_mass", "drop_fraction")}))
+        print(f"sharded build seconds: {sharded_build_s:.3f}")
+        n_tiles = len(tiles)
+        print(f"tile step: {MAIN_REQUESTS} requests in {n_tiles} tiles of 256, "
+              f"{tiles_s:.3f} s: {1e3 * tiles_s / n_tiles:.3f} ms per tile, "
+              f"{MAIN_REQUESTS / tiles_s:.1f} requests/s; peak device memory "
+              f"{peak_f:.2f} GiB")
+        print("computed wire bytes per shard and iteration (not a measured "
+              "transfer; the stacked exchange is a device-local permute):",
+              json.dumps(exchange_bytes_per_iteration(dcfg_f)))
+        print("distributed-path launches:", json.dumps(counts_f))
+        want_push = dcfg_f.t_iterations * DIST_EP * n_tiles
+        if counts_f["sharded_frontier_push"] != want_push:
+            failures.append(f"distributed path: sharded_frontier_push launched "
+                            f"{counts_f['sharded_frontier_push']} times, want "
+                            f"{want_push}")
+        failures += [f"kernel {k} never launched on the distributed path"
+                     for k in DIST_PATH if counts_f[k] <= 0]
+        split_tiles = min(4, n_tiles)
+        wall_ms, device_ms, split = device_time_split(torch, lambda: [
+            step(slabs, work_t[j:j + 256], iv, ii)
+            for j in range(0, split_tiles * 256, 256)], top=None)
+        print(f"tile step, device time by kernel over {split_tiles} tiles "
+              f"(torch.profiler): wall {wall_ms / split_tiles:.3f} ms per tile, "
+              f"device busy {device_ms / split_tiles:.3f} ms per tile "
+              f"({100 * device_ms / wall_ms:.1f}% of the wall)")
+        for name, ms in split[:8]:
+            print(f"  {ms / split_tiles:9.3f} ms per tile  "
+                  f"{100 * ms / max(device_ms, 1e-9):5.1f}%  {name[:110]}")
+        push_ms = sum(ms for name, ms in split if any(
+            tag in name for tag in ("sharded_push", "sharded_wide", "wr::")))
+        print(f"  sharded_frontier_push, all its kernels: "
+              f"{push_ms / split_tiles:.3f} ms per tile "
+              f"({100 * push_ms / max(device_ms, 1e-9):.1f}%)")
+        top_v = torch.cat([v for v, _ in tiles])
+        top_i = torch.cat([i for _, i in tiles])
+        mass = top_v.sum(dim=1)
+        if (top_v.shape != (MAIN_REQUESTS, 50)
+                or not bool(torch.isfinite(top_v).all())
+                or bool((top_v < 0).any()) or float(mass.max()) > 1.0 + 1e-4):
+            failures.append("distributed answers not finite, non-negative and "
+                            "of mass <= 1")
+        print(f"distributed answer mass: min {float(mass.min()):.6f} mean "
+              f"{float(mass.mean()):.6f} max {float(mass.max()):.6f}")
+        approx = densify(torch, top_v[:E_ROWS], top_i[:E_ROWS], g.n)
+        print("accuracy at k=50 against pi (first 64 requests):", json.dumps({
+            "powerwalk (4-shard sparse exchange)": dict(
+                mean_rag=mean_rag(truth, approx, 50),
+                precision=float(precision_at_k(truth, approx, 50).mean()))}))
+        del approx, tiles
+        # the first chunk of every shard against the single-device build
+        ns_f = sh_stats["n_pad"] // DIST_EP
+        chunk_equal = True
+        for shard in range(DIST_EP):
+            off = shard * ns_f
+            rows = slice(off, off + MAIN_SOURCE_BATCH)
+            vals, idxs, _, _ = sparse_chunk_estimates(
+                g, torch.arange(off, off + MAIN_SOURCE_BATCH, dtype=torch.int32,
+                                device=dev),
+                rng.fold_in(key, off), r=MAIN_R, l=MAIN_L,
+                sketch_l=sh_stats["sketch_l"], r_splits=DIST_DATA, respawn=True)
+            chunk_equal &= (bits_equal(torch, vals, sh_index.values[rows])
+                            and bits_equal(torch, idxs, sh_index.indices[rows]))
+        print(f"sharded build, first chunk of every shard bit-equal to the "
+              f"single-device r_splits={DIST_DATA} build: {chunk_equal}")
+        if not chunk_equal:
+            failures.append("sharded build differs from the single-device build")
+        # phase 3q's yardsticks: each model shard's rows, the totals, and this
+        # tile step's answers from these rows over the same tiles
+        t1 = time.perf_counter()
+        sh_shape = (DIST_EP, ns_f, MAIN_L)
+        sh_tiles = [step(slabs, work_t[j:j + 256],
+                         sh_index.values.reshape(sh_shape),
+                         sh_index.indices.reshape(sh_shape))
+                    for j in range(0, MAIN_REQUESTS, 256)]
+        yard_q = dict(
+            rows=[digest(sh_index.values[m * ns_f:(m + 1) * ns_f],
+                         sh_index.indices[m * ns_f:(m + 1) * ns_f])
+                  for m in range(DIST_EP)],
+            answers=answers_digest(sh_tiles), kept_mass=sh_stats["kept_mass"],
+            dropped_mass=sh_stats["dropped_mass"])
+        svc_q = PPRService(g, sh_index, service_config(256), device=dev)
+        yard_q["service"] = service_answers_digest(svc_q.run_closed_loop(
+            work[:RANK_SERVE_REQUESTS])[0])
         del svc_q
-    # one batch of the rank leader's dense combine: the rows of f's
-    # nonzero columns and their transposed view, built as it builds it
-    _, f_q = verd_iterate(g, work_t[:RANK_MODE_BATCH], t=2)
-    need = f_q.ne(0).any(dim=0).nonzero()[:, 0]
-    del f_q
-    rows_q = (sh_index.values[need], sh_index.indices[need])
-    view = index_columns(*rows_q, g.n)
-    view_ms = cuda_ms(torch, lambda: index_columns(*rows_q, g.n),
-                      max_reps=5)
-    print(f"3q (iv)'s yardsticks in {time.perf_counter() - t1:.3f} s; a "
-          f"dense batch of {RANK_MODE_BATCH}: f holds a nonzero in "
-          f"{need.numel()} of {g.n} columns, so the leader gathers "
-          f"{need.numel()} rows ({need.numel() * MAIN_L * 8 / 1e6:.1f} MB) "
-          f"and builds their transposed view ({view.ent_v.numel()} "
-          f"entries, {view.tasks.shape[0]} split tasks in "
-          f"{view.heavy.shape[0]} columns, {view.nbytes / 1e6:.1f} MB) in "
-          f"{view_ms:.3f} ms on one card (CUDA events)")
-    del rows_q, view, need
-    del sh_index, slabs, iv, ii, sh_tiles
-    phase("3f distributed engine", t0)
+        print(f"3q's yardsticks: rows digested by model shard, the stacked tile "
+              f"step on the sharded build's rows ({len(sh_tiles)} tiles) and "
+              f"the stacked PPRService on them ({RANK_SERVE_REQUESTS} requests) "
+              f"in {time.perf_counter() - t1:.3f} s")
+        t1 = time.perf_counter()
+        yard_q["modes"] = {}
+        for label, (mode, route, _) in RANK_MODE_CASES.items():
+            svc_q = PPRService(g, sh_index, rank_mode_config(mode, route),
+                               device=dev)
+            answers, st = svc_q.run_closed_loop(work[:E_ROWS])
+            yard_q["modes"][label] = dict(
+                answers=service_answers_digest(answers),
+                rows=served_rows(answers), graphs_captured=st["graphs_captured"])
+            print(f"3q (iv)'s yardstick {label}: {E_ROWS} requests, "
+                  f"{st['qps']:.1f} qps, {st['graphs_captured']} graphs "
+                  f"captured, route {st['frontier_path']}")
+            del svc_q
+        # one batch of the rank leader's dense combine: the rows of f's
+        # nonzero columns and their transposed view, built as it builds it
+        _, f_q = verd_iterate(g, work_t[:RANK_MODE_BATCH], t=2)
+        need = f_q.ne(0).any(dim=0).nonzero()[:, 0]
+        del f_q
+        rows_q = (sh_index.values[need], sh_index.indices[need])
+        view = index_columns(*rows_q, g.n)
+        view_ms = cuda_ms(torch, lambda: index_columns(*rows_q, g.n),
+                          max_reps=5)
+        print(f"3q (iv)'s yardsticks in {time.perf_counter() - t1:.3f} s; a "
+              f"dense batch of {RANK_MODE_BATCH}: f holds a nonzero in "
+              f"{need.numel()} of {g.n} columns, so the leader gathers "
+              f"{need.numel()} rows ({need.numel() * MAIN_L * 8 / 1e6:.1f} MB) "
+              f"and builds their transposed view ({view.ent_v.numel()} "
+              f"entries, {view.tasks.shape[0]} split tasks in "
+              f"{view.heavy.shape[0]} columns, {view.nbytes / 1e6:.1f} MB) in "
+              f"{view_ms:.3f} ms on one card (CUDA events)")
+        del rows_q, view, need
+        del sh_index, slabs, iv, ii, sh_tiles
+        phase("3f distributed engine", t0)
 
-    t0 = time.perf_counter()
-    counts_q, counts_q_serve, counts_q_modes = phase_rank_mesh(
-        torch, np, dev, g, index, work, max_deg, yard_q, failures)
-    phase("3q rank mesh", t0)
+        t0 = time.perf_counter()
+        counts_q, counts_q_serve, counts_q_modes = phase_rank_mesh(
+            torch, np, dev, g, index, work, max_deg, yard_q, failures)
+        phase("3q rank mesh", t0)
 
-    t0 = time.perf_counter()
-    counts_g, replays_g = phase_recsys(torch, np, dev, "dlrm-rm2", DLRM_PLAN,
-                                       ("serve_p99", "serve_bulk"), failures)
-    counts_zoo = {}
-    for arch in ZOO:
-        counts_zoo[arch], res = phase_recsys(
-            torch, np, dev, arch, ZOO_PLAN, ("serve_bulk",), failures)
-        replays_g += res
-    phase("3g the recsys zoo at full width", t0)
+        t0 = time.perf_counter()
+        counts_g, replays_g = phase_recsys(torch, np, dev, "dlrm-rm2", DLRM_PLAN,
+                                           ("serve_p99", "serve_bulk"), failures)
+        counts_zoo = {}
+        for arch in ZOO:
+            counts_zoo[arch], res = phase_recsys(
+                torch, np, dev, arch, ZOO_PLAN, ("serve_bulk",), failures)
+            replays_g += res
+        phase("3g the recsys zoo at full width", t0)
 
-    t0 = time.perf_counter()
-    counts_h, captured_walk = phase_montecarlo(
-        torch, np, dev, g, src64, truth, work, failures)
-    captured_h = {} if captured_walk is None else {
-        "walk_step/mc": captured_walk}
-    del truth
-    phase("3h monte-carlo path", t0)
+        t0 = time.perf_counter()
+        counts_h, captured_walk = phase_montecarlo(
+            torch, np, dev, g, src64, truth, work, failures)
+        captured_h = {} if captured_walk is None else {
+            "walk_step/mc": captured_walk}
+        del truth
+        phase("3h monte-carlo path", t0)
 
-    t0 = time.perf_counter()
-    counts_i = phase_maintenance(torch, np, dev, g, index, stats, cfg, work,
-                                 failures)
-    phase("3i maintenance and crash safety", t0)
+        t0 = time.perf_counter()
+        counts_i = phase_maintenance(torch, np, dev, g, index, stats, cfg, work,
+                                     failures)
+        phase("3i maintenance and crash safety", t0)
 
-    t0 = time.perf_counter()
-    phase_loadgen(torch, np, dev, g, index, cfg, sparse_ab["qps"], failures)
-    phase("3j load generation", t0)
+        t0 = time.perf_counter()
+        phase_loadgen(torch, np, dev, g, index, cfg, sparse_ab["qps"], failures)
+        phase("3j load generation", t0)
 
-    t0 = time.perf_counter()
-    counts_k, replays_k = phase_lm(torch, np, dev, failures)
-    phase("3k smollm-135m at full width", t0)
+        t0 = time.perf_counter()
+        counts_k, replays_k = phase_lm(torch, np, dev, failures)
+        phase("3k smollm-135m at full width", t0)
 
-    t0 = time.perf_counter()
-    counts_l, replays_l = phase_train(torch, np, dev, failures)
-    phase("3l training at full width", t0)
+        t0 = time.perf_counter()
+        counts_l, replays_l = phase_train(torch, np, dev, failures)
+        phase("3l training at full width", t0)
 
-    t0 = time.perf_counter()
-    replays_m = {}
-    counts_m = phase_gnn(torch, np, dev, index, replays_m, failures)
-    phase("3m gcn-cora at full width", t0)
+        t0 = time.perf_counter()
+        replays_m = {}
+        counts_m = phase_gnn(torch, np, dev, index, replays_m, failures)
+        phase("3m gcn-cora at full width", t0)
 
-    t0 = time.perf_counter()
-    phase_contract_auditor(torch, dev, g, index, failures)
-    phase("3n contract auditor", t0)
+        t0 = time.perf_counter()
+        phase_contract_auditor(torch, dev, g, index, failures)
+        phase("3n contract auditor", t0)
 
-    t0 = time.perf_counter()
-    phase_dryrun(torch, failures)
-    phase("3o dry-run and roofline", t0)
+        t0 = time.perf_counter()
+        phase_dryrun(torch, failures)
+        phase("3o dry-run and roofline", t0)
 
-    t0 = time.perf_counter()
-    counts_p, replays_p = phase_big_lms(torch, np, dev, failures)
-    phase("3p the large LMs at full width", t0)
+        t0 = time.perf_counter()
+        counts_p, replays_p = phase_big_lms(torch, np, dev, failures)
+        phase("3p the large LMs at full width", t0)
 
-    t0 = time.perf_counter()
-    # 3g's, 3k's and 3p's embedding_bag launches were replayed there,
-    # before each table was freed, and 3l's embedding_bag_backward after each cell
-    results = {"embedding_bag": replays_g + replays_k + replays_p
-               + replays_m["embedding_bag"],
-               "embedding_bag_backward": replays_l
-               + replays_m["embedding_bag_backward"]}
-    captured_f = {tag: v for tag, v in captured_f.items()
-                  if tag.startswith("sharded_frontier_push/")}
-    captured.update(captured_e)
-    for batch in (captured_s, captured, captured_f, captured_h):
-        replay_all(torch, batch, results, failures)
-    del captured, captured_s, captured_e, captured_f, captured_h
-    phase("2b kernel vs plain, main-path inputs", t0)
+        t0 = time.perf_counter()
+        # 3g's, 3k's and 3p's embedding_bag launches were replayed there,
+        # before each table was freed, and 3l's embedding_bag_backward after each cell
+        results = {"embedding_bag": replays_g + replays_k + replays_p
+                   + replays_m["embedding_bag"],
+                   "embedding_bag_backward": replays_l
+                   + replays_m["embedding_bag_backward"]}
+        captured_f = {tag: v for tag, v in captured_f.items()
+                      if tag.startswith("sharded_frontier_push/")}
+        captured.update(captured_e)
+        for batch in (captured_s, captured, captured_f, captured_h):
+            replay_all(torch, batch, results, failures)
+        del captured, captured_s, captured_e, captured_f, captured_h
+        phase("2b kernel vs plain, main-path inputs", t0)
 
-    t0 = time.perf_counter()
-    index_equal, l1, l1_dense = check_small_reference(torch, np, dev)
-    print(f"small reference: index bit-equal {index_equal}, answers max L1 "
-          f"{l1:.3e} (sparse route), {l1_dense:.3e} (dense route)")
-    if not index_equal or not l1 <= 1e-5 or not l1_dense <= 1e-5:
-        failures.append("small reference check")
-    build_equal, l1_dist, l1_exchange = check_small_distributed(
-        torch, np, dev)
-    print(f"small reference, distributed: sharded build bit-equal "
-          f"{build_equal}, tile step max L1 {l1_dist:.3e} (card vs CPU), "
-          f"dense exchange vs sparse at covering widths {l1_exchange:.3e}")
-    if not build_equal or not l1_dist <= 1e-5 or not l1_exchange <= 1e-4:
-        failures.append("small distributed reference check")
-    for arch in ("dlrm-rm2",) + ZOO:
-        rel = check_small_recsys(torch, np, dev, arch)
-        print(f"small reference, {arch} reduced in f32: outputs card vs CPU "
-              f"within {rel:.3e} of their largest (limit 1e-5)")
+        t0 = time.perf_counter()
+        index_equal, l1, l1_dense = check_small_reference(torch, np, dev)
+        print(f"small reference: index bit-equal {index_equal}, answers max L1 "
+              f"{l1:.3e} (sparse route), {l1_dense:.3e} (dense route)")
+        if not index_equal or not l1 <= 1e-5 or not l1_dense <= 1e-5:
+            failures.append("small reference check")
+        build_equal, l1_dist, l1_exchange = check_small_distributed(
+            torch, np, dev)
+        print(f"small reference, distributed: sharded build bit-equal "
+              f"{build_equal}, tile step max L1 {l1_dist:.3e} (card vs CPU), "
+              f"dense exchange vs sparse at covering widths {l1_exchange:.3e}")
+        if not build_equal or not l1_dist <= 1e-5 or not l1_exchange <= 1e-4:
+            failures.append("small distributed reference check")
+        for arch in ("dlrm-rm2",) + ZOO:
+            rel = check_small_recsys(torch, np, dev, arch)
+            print(f"small reference, {arch} reduced in f32: outputs card vs CPU "
+                  f"within {rel:.3e} of their largest (limit 1e-5)")
+            if not rel <= 1e-5:
+                failures.append(f"small {arch} reference check")
+        rel = check_small_lm(torch, np, dev)
+        print(f"small reference, {LM_ARCH} reduced in f32 (G = 1 and G = 3): "
+              f"prefill and 8 decode steps' logits and caches card vs CPU within "
+              f"{rel:.3e} of their largest (limit 1e-5)")
         if not rel <= 1e-5:
-            failures.append(f"small {arch} reference check")
-    rel = check_small_lm(torch, np, dev)
-    print(f"small reference, {LM_ARCH} reduced in f32 (G = 1 and G = 3): "
-          f"prefill and 8 decode steps' logits and caches card vs CPU within "
-          f"{rel:.3e} of their largest (limit 1e-5)")
-    if not rel <= 1e-5:
-        failures.append(f"small {LM_ARCH} reference check")
-    rel = check_small_moe(torch, np, dev)
-    print(f"small reference, the large LMs reduced in f32: prefill and 4 "
-          f"decode steps (bf16 and int8 caches), and dbrx's and grok's "
-          f"_moe_ffn (routing equal) and 2 x 2 stacked _moe_ffn_shardmap, "
-          f"card vs CPU within {rel:.3e} of their largest (limit 1e-5)")
-    if not rel <= 1e-5:
-        failures.append("small large-LM / MoE reference check")
-    for arch in TRAIN_CELLS:
-        ok, res = check_small_train(torch, np, dev, arch)
-        print(f"small reference, {arch} reduced in f32: one train step card "
-              f"vs CPU: {json.dumps(res)}")
-        if not ok:
-            failures.append(f"small {arch} train check")
-    for shape in GNN_CELLS:
-        ok, res = check_small_gnn(torch, np, dev, shape)
-        print(f"small reference, {GNN_ARCH} {shape} reduced in f32: one "
-              f"train step card vs CPU: {json.dumps(res)}")
-        if not ok:
-            failures.append(f"small {GNN_ARCH} {shape} train check")
-    mc_equal = check_small_montecarlo(torch, np, dev)
-    print("small reference, monte-carlo path, card vs CPU bit-equal:",
-          json.dumps(mc_equal))
-    failures += [f"small monte-carlo reference: {k}"
-                 for k, v in mc_equal.items() if not v]
-    maint_equal = check_small_maintenance(torch, np, dev)
-    print("small reference, maintenance, bit-equal:", json.dumps(maint_equal))
-    failures += [f"small maintenance reference: {k}"
-                 for k, v in maint_equal.items() if not v]
-    t1 = time.perf_counter()
-    capture_ok = {k: fn(torch, np, dev) for k, fn in CAPTURE_CHECKS.items()}
-    print(f"small reference, captured graphs at rmat(14) "
-          f"({time.perf_counter() - t1:.3f} s):", json.dumps(capture_ok))
-    failures += [f"small captured-graph check: {k}"
-                 for k, v in capture_ok.items() if not v]
-    phase("4 small reference", t0)
+            failures.append(f"small {LM_ARCH} reference check")
+        rel = check_small_moe(torch, np, dev)
+        print(f"small reference, the large LMs reduced in f32: prefill and 4 "
+              f"decode steps (bf16 and int8 caches), and dbrx's and grok's "
+              f"_moe_ffn (routing equal) and 2 x 2 stacked _moe_ffn_shardmap, "
+              f"card vs CPU within {rel:.3e} of their largest (limit 1e-5)")
+        if not rel <= 1e-5:
+            failures.append("small large-LM / MoE reference check")
+        for arch in TRAIN_CELLS:
+            ok, res = check_small_train(torch, np, dev, arch)
+            print(f"small reference, {arch} reduced in f32: one train step card "
+                  f"vs CPU: {json.dumps(res)}")
+            if not ok:
+                failures.append(f"small {arch} train check")
+        for arch in BIG_LMS:
+            ok, res = check_small_big_train(torch, np, dev, arch)
+            print(f"small reference, {arch} reduced in f32 under the published "
+                  f"config's train rules: one train_4k step card vs CPU: "
+                  f"{json.dumps(res)} (limits: loss 1e-5, gradients "
+                  f"{TRAIN_CHECK_GRAD} of each leaf's norm, parameters 0 beyond "
+                  f"the rule)")
+            if not ok:
+                failures.append(f"small {arch} published-rules train check")
+        for shape in GNN_CELLS:
+            ok, res = check_small_gnn(torch, np, dev, shape)
+            print(f"small reference, {GNN_ARCH} {shape} reduced in f32: one "
+                  f"train step card vs CPU: {json.dumps(res)}")
+            if not ok:
+                failures.append(f"small {GNN_ARCH} {shape} train check")
+        mc_equal = check_small_montecarlo(torch, np, dev)
+        print("small reference, monte-carlo path, card vs CPU bit-equal:",
+              json.dumps(mc_equal))
+        failures += [f"small monte-carlo reference: {k}"
+                     for k, v in mc_equal.items() if not v]
+        maint_equal = check_small_maintenance(torch, np, dev)
+        print("small reference, maintenance, bit-equal:", json.dumps(maint_equal))
+        failures += [f"small maintenance reference: {k}"
+                     for k, v in maint_equal.items() if not v]
+        t1 = time.perf_counter()
+        capture_ok = {k: fn(torch, np, dev) for k, fn in CAPTURE_CHECKS.items()}
+        print(f"small reference, captured graphs at rmat(14) "
+              f"({time.perf_counter() - t1:.3f} s):", json.dumps(capture_ok))
+        failures += [f"small captured-graph check: {k}"
+                     for k, v in capture_ok.items() if not v]
+        phase("4 small reference", t0)
 
-    paths = {"sparse (3b, 3c)": (SPARSE_PATH, counts),
-             "dense (3d)": (DENSE_PATH, counts_d),
-             "distributed (3f)": (DIST_PATH, counts_f),
-             "rank mesh (3q)": (DIST_PATH, counts_q),
-             "rank service (3q)": (RANK_SERVE_PATH, counts_q_serve),
-             "rank service, every mode (3q iv)": (RANK_MODES_PATH,
-                                                  counts_q_modes),
-             "dlrm (3g)": (RECSYS_PATH, counts_g),
-             **{f"{arch} (3g)": (RECSYS_PATH, counts_zoo[arch])
-                for arch in ZOO},
-             "monte-carlo (3h)": (MC_PATH, counts_h),
-             "maintenance (3i)": (MAINT_PATH, counts_i),
-             f"{LM_ARCH} (3k)": (LM_PATH, counts_k),
-             "large LMs (3p)": (LM_PATH, counts_p),
-             **{f"train {arch} (3l)": (TRAIN_PATH, counts_l[arch])
-                for arch in TRAIN_CELLS},
-             **{f"{GNN_ARCH} {shape} (3m)": (GNN_PATH, c)
-                for shape, c in counts_m.items()}}
+        paths = {"sparse (3b, 3c)": (SPARSE_PATH, counts),
+                 "dense (3d)": (DENSE_PATH, counts_d),
+                 "distributed (3f)": (DIST_PATH, counts_f),
+                 "rank mesh (3q)": (DIST_PATH, counts_q),
+                 "rank service (3q)": (RANK_SERVE_PATH, counts_q_serve),
+                 "rank service, every mode (3q iv)": (RANK_MODES_PATH,
+                                                      counts_q_modes),
+                 "dlrm (3g)": (RECSYS_PATH, counts_g),
+                 **{f"{arch} (3g)": (RECSYS_PATH, counts_zoo[arch])
+                    for arch in ZOO},
+                 "monte-carlo (3h)": (MC_PATH, counts_h),
+                 "maintenance (3i)": (MAINT_PATH, counts_i),
+                 f"{LM_ARCH} (3k)": (LM_PATH, counts_k),
+                 "large LMs (3p)": (LM_PATH, counts_p),
+                 **{f"train {arch} (3l)": (TRAIN_PATH, counts_l[arch])
+                    for arch in TRAIN_CELLS},
+                 **{f"{GNN_ARCH} {shape} (3m)": (GNN_PATH, c)
+                    for shape, c in counts_m.items()}}
+        return paths, results
+
+    paths, results = main_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3r last: dbrx's train step takes 70 GB of the card, which the main
+    # path's index, views and services would not leave while they live
+    t0 = time.perf_counter()
+    print(f"3r: {torch.cuda.memory_allocated() / 1e9:.2f} GB held on the "
+          f"card before it")
+    counts_r, counts_r_ranks, replays_r = phase_big_train(torch, np, dev,
+                                                          failures)
+    for name, runs in replays_r.items():
+        results.setdefault(name, []).extend(runs)
+    paths.update({"large LM train_4k (3r)": (TRAIN_PATH, counts_r),
+                  "rank train (3r ii)": (TRAIN_PATH, counts_r_ranks)})
+    phase("3r the large LMs' train_4k and training one shard a process", t0)
+
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         runs = results.get(name)

@@ -33,6 +33,17 @@ one mesh axis of it, each group of the other axis apart, as the
 reference's collectives named by one axis inside a ``shard_map`` do, and
 charge what every one of the ``data * model`` shards receives.
 
+Both meshes also carry what the expert-parallel MoE needs to train
+(``models/transformer.py``'s ``_moe_ffn_shardmap``): ``split_axis`` (a
+shard's block of a tensor the group holds whole), ``concat_axis`` (the
+group's blocks joined into the whole every shard then uses), ``from_first``
+(the group's first shard's block) and ``pvary`` (a tensor the group holds
+whole, used by each shard in a computation of its own).  On a stacked mesh
+each is a view or the identity and autograd sums what the stacked uses
+give; on a :class:`RankMesh` each collective is a
+``torch.autograd.Function`` whose backward is what the stacked autograd
+computes for the rank's shard (see :class:`RankMesh`).
+
 Two collectives move data that is not one block a shard: ``broadcast``
 sends one shard's tensor to its group (the rank service's leader to its
 followers), ``gather_blocks`` collects blocks of different lengths (each
@@ -178,6 +189,28 @@ class ShardMesh:
         cost.charge_collective("all-gather", cost.tensor_bytes(out))
         return out
 
+    def split_axis(self, x: torch.Tensor, axis: str,
+                   dim: int = 0) -> torch.Tensor:
+        """The ``axis`` group's blocks of ``x`` (the whole, its
+        dimension ``dim`` a multiple of the group's size) along ``dim``,
+        stacked on a new leading axis in shard order: a view."""
+        return x.unflatten(dim, (self.shape[axis], -1)).movedim(dim, 0)
+
+    def concat_axis(self, x: torch.Tensor, axis: str,
+                    dim: int = 0) -> torch.Tensor:
+        """The group's blocks ``[size, *block]`` joined along block
+        dimension ``dim`` in shard order: the inverse of ``split_axis``."""
+        return x.movedim(0, dim).flatten(dim, dim + 1)
+
+    def from_first(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The first shard's block of the group's stack ``[size, ...]``."""
+        return x[0]
+
+    def pvary(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x`` as it is: each stacked use of it is one shard's, and
+        autograd sums their cotangents."""
+        return x
+
     def broadcast(self, x: torch.Tensor, src: int = 0,
                   axes: Axes = "model") -> torch.Tensor:
         """Shard ``src``'s tensor on every shard of the group: ``x``, which
@@ -236,6 +269,104 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(t.shape[0], math.prod(t.shape[1:])).view(torch.uint8)
 
 
+def _block_of(x: torch.Tensor, dim: int, size: int,
+              index: int) -> torch.Tensor:
+    """Block ``index`` of ``size`` equal blocks of ``x`` along ``dim``."""
+    n = x.shape[dim] // size
+    return x.narrow(dim, index * n, n)
+
+
+class _PsumAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x, axis):
+        return mesh._gather(mesh._block(x), axis).sum(dim=0)[None, None]
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g, None
+
+
+class _AllGatherAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        parts = mesh._gather(mesh._block(x), axis)      # [S, *block]
+        return torch.cat(parts.unbind(0), dim=dim)[None, None]
+
+    @staticmethod
+    def backward(ctx, g):
+        mine = _reduce_scatter(ctx.mesh, g[0, 0], ctx.axis, ctx.dim)
+        return None, mine[None, None], None, None
+
+
+def _reduce_scatter(mesh, whole: torch.Tensor, axis: str, dim: int, *,
+                    by_slice: bool = True) -> torch.Tensor:
+    """This shard's block along ``dim`` of the group's ``whole`` tensors
+    summed (in shard order): each shard's block sent to its owner
+    (``all_to_all``).  Where ``dim`` is not the leading axis, one leading
+    index at a time, so the send buffer is one slice's (an expert's, of a
+    layer's gathered stack) and not a copy of the whole."""
+    if by_slice and dim > 0 and whole.shape[0] > 1:
+        return torch.stack([_reduce_scatter(mesh, w, axis, dim - 1,
+                                            by_slice=False)
+                            for w in whole.unbind(0)])
+    size = mesh.shape[axis]
+    # [1, 1, S, *block]: the block each shard of the group owns
+    sent = whole.unflatten(dim, (size, -1)).movedim(dim, 0)
+    got = mesh.all_to_all(sent[None, None].contiguous(), axis)
+    return got[0, 0].sum(dim=0)
+
+
+class _SplitAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _block_of(x, dim, mesh.shape[axis],
+                         mesh._index(axis))[None].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.mesh, ctx.axis, ctx.dim
+        parts = mesh._gather(g.contiguous(), axis)       # [S, *block]
+        return None, torch.cat(parts.unbind(0), dim=dim), None, None
+
+
+class _ConcatAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        parts = mesh._gather(x.contiguous(), axis)       # [S, *block]
+        return torch.cat(parts.unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.mesh, ctx.axis, ctx.dim
+        mine = _block_of(g, dim, mesh.shape[axis], mesh._index(axis))
+        return None, mine[None].contiguous(), None, None
+
+
+class _FromFirst(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x, axis):
+        ctx.first = mesh._index(axis) == 0
+        return x[0].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, (g if ctx.first else torch.zeros_like(g))[None], None
+
+
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.mesh._sum(g.contiguous(), ctx.axis), None
+
+
 class RankMesh:
     """``data x model`` shards, one a rank of a ``torch.distributed``
     process group (the port's ``shard_map`` over real devices).
@@ -257,6 +388,29 @@ class RankMesh:
     host memory (a copy to the CPU, the collective, a copy back): that is
     how ranks that share one card run, and gloo's CUDA support varies by
     collective.  ``meta`` is refused (the dry-run keeps ``ShardMesh``).
+
+    The per-axis collectives and ``split_axis``, ``concat_axis``,
+    ``from_first`` and ``pvary`` are differentiable.  Each backward is what
+    the stacked mesh's autograd gives this shard where every shard goes on
+    with a replicated result identically (the dense layers of a model that
+    every rank runs whole), so that cotangent counts once, and where each
+    shard uses a gathered or replicated input in a computation of its own,
+    so the group's cotangents are summed:
+
+    * ``psum_axis``: the sum is replicated, so each block's cotangent is
+      the one cotangent, handed on as it is (a psum of it would count it
+      once a shard); ``pmean_axis`` divides it by the group's size;
+    * ``all_gather_axis``: the group's cotangents summed, this shard's
+      block of the sum (a reduce-scatter, through ``all_to_all``);
+    * ``split_axis``: the blocks' cotangents gathered into the whole's;
+      ``concat_axis``: this shard's block of the whole's cotangent;
+      ``from_first``: the cotangent on the group's first shard, zeros on
+      the others;
+    * ``pvary``: the group's cotangents summed (the transpose of
+      ``jax.lax.pvary``).
+
+    Every sum in a backward is a forward reduction's: the blocks gathered
+    as bytes and summed in shard order.
     """
 
     def __init__(self, data: int, model: int, device: Any = "cuda", *,
@@ -367,7 +521,7 @@ class RankMesh:
 
     def psum_axis(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``ShardMesh.psum_axis`` for this shard's ``[1, 1, ...]``."""
-        return self._gather(self._block(x), axis).sum(dim=0)[None, None]
+        return _PsumAxis.apply(self, x, axis)
 
     def pmean_axis(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         return self.psum_axis(x, axis) / self.shape[axis]
@@ -376,8 +530,36 @@ class RankMesh:
                         dim: int) -> torch.Tensor:
         """``ShardMesh.all_gather_axis`` for this shard's ``[1, 1,
         *block]``: the group's blocks along block dimension ``dim``."""
-        parts = self._gather(self._block(x), axis)      # [S, *block]
-        return torch.cat(parts.unbind(0), dim=dim)[None, None]
+        return _AllGatherAxis.apply(self, x, axis, dim)
+
+    def split_axis(self, x: torch.Tensor, axis: str,
+                   dim: int = 0) -> torch.Tensor:
+        """This shard's block of ``x`` along ``dim`` as a stack of one
+        ``[1, *block]`` (``ShardMesh.split_axis`` for this shard)."""
+        return _SplitAxis.apply(self, x, axis, dim)
+
+    def concat_axis(self, x: torch.Tensor, axis: str,
+                    dim: int = 0) -> torch.Tensor:
+        """The group's blocks joined along ``dim`` from this shard's stack
+        of one ``[1, *block]``."""
+        return _ConcatAxis.apply(self, x, axis, dim)
+
+    def from_first(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """This shard's block of its stack of one, taken for the group's
+        first shard's: the caller's blocks are the same on every shard of
+        the group (computed from the same inputs)."""
+        return _FromFirst.apply(self, x, axis)
+
+    def pvary(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x`` as it is; its backward sums the group's cotangents."""
+        return _Pvary.apply(self, x, axis)
+
+    def _sum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """The group's ``x`` (any shape) summed in shard order."""
+        return self._gather(x[None], axes).sum(dim=0)
+
+    def _index(self, axis: str) -> int:
+        return (self.local_data if axis == "data" else self.local_model)[0]
 
     def broadcast(self, x: Optional[torch.Tensor], src: int = 0,
                   axes: Axes = "model") -> torch.Tensor:

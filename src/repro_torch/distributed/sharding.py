@@ -18,7 +18,16 @@ count it.
 
 :func:`shard` lays a whole tensor out on a stacked mesh as per-shard
 blocks ``[data, model, *block]``, the layout every stacked collective of
-``ShardMesh`` takes; it is the port's ``named``.
+``ShardMesh`` takes; it is the port's ``named``.  On a
+:class:`~repro_torch.distributed.mesh.RankMesh` it gives the rank's own
+block ``[1, 1, *block]``.
+
+A rank's train state (:func:`rank_param_specs`) holds each MoE expert
+stack as its block under the LM specs and every other leaf whole: the
+dense layers run whole on every rank, as on the stacked mesh.
+:func:`rank_blocks` cuts a whole tree to a rank's blocks, and
+:func:`distinct_blocks` names the blocks a sum over the mesh counts once
+each.
 """
 
 from __future__ import annotations
@@ -249,7 +258,9 @@ def shard(tensor: torch.Tensor, spec, mesh) -> torch.Tensor:
     holds the slice its coordinates give along each sharded dimension,
     zero padded past the end where the axes do not divide it, and the
     whole extent along a replicated one.  Where nothing pads, it is a view
-    of ``tensor`` (replicas share its memory)."""
+    of ``tensor`` (replicas share its memory).  On a
+    :class:`~repro_torch.distributed.mesh.RankMesh`, the rank's own block
+    of that layout, ``[1, 1, *block]``."""
     spec = tuple(spec) + (None,) * (tensor.dim() - len(spec))
     if len(spec) != tensor.dim():
         raise ValueError(f"spec {spec} has more entries than the tensor's "
@@ -278,7 +289,61 @@ def shard(tensor: torch.Tensor, spec, mesh) -> torch.Tensor:
             blocks = [i + 1 for i in blocks]
             where[a] = 0
     x = x.permute([where[a] for a in AXES] + blocks)
-    return x.expand(mesh.data, mesh.model, *x.shape[2:])
+    x = x.expand(mesh.data, mesh.model, *x.shape[2:])
+    if not is_rank_mesh(mesh):
+        return x
+    d, m = mesh.local_data[0], mesh.local_model[0]
+    return x[d:d + 1, m:m + 1]
+
+
+def is_rank_mesh(mesh) -> bool:
+    from repro_torch.distributed.mesh import RankMesh
+
+    return isinstance(mesh, RankMesh)
+
+
+def _spec_tree_map(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _spec_tree_map(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def rank_param_specs(params: Any) -> Any:
+    """The layout of an LM's state on a rank mesh: each MoE expert stack
+    (``layers/w_gate``, ``w_up``, ``w_down``) by its LM spec, every other
+    leaf replicated."""
+    def one(path, leaf):
+        if re.fullmatch(r"layers/w_(gate|up|down)", path):
+            return lm_leaf_spec(path, len(leaf.shape))
+        return _replicated(leaf)
+    return _map_with_path(one, params)
+
+
+def is_replicated(spec) -> bool:
+    return not any(_entry_axes(e) for e in spec)
+
+
+def rank_blocks(tree: Any, specs: Any, mesh) -> Any:
+    """``tree``'s whole leaves cut to ``mesh``'s rank's blocks under
+    ``specs`` (own copies; a replicated leaf as it is); on a stacked mesh
+    ``tree`` itself."""
+    if not is_rank_mesh(mesh):
+        return tree
+
+    def one(leaf, spec):
+        if is_replicated(spec):
+            return leaf
+        return shard(leaf, spec, mesh)[0, 0].clone()
+    return _spec_tree_map(one, tree, specs)
+
+
+def distinct_blocks(spec, mesh) -> list:
+    """The ``(data, model)`` shards whose blocks of a leaf under ``spec``
+    are its distinct parts, in shard order: every shard along the axes the
+    spec uses, the first along a replica axis."""
+    used = {a for e in spec for a in _entry_axes(e)}
+    return [(d, m) for d in range(mesh.data if "data" in used else 1)
+            for m in range(mesh.model if "model" in used else 1)]
 
 
 def per_device_bytes(tree: Any, specs: Any, mesh) -> int:

@@ -116,20 +116,23 @@ def mesh_bytes(arch, params, opt_state=None) -> dict:
 
 def trace_cell(arch_id: str, shape_name: str, *, reduced: bool = False,
                batch: Optional[int] = None,
-               serve_dtype: Optional[torch.dtype] = torch.bfloat16
+               serve_dtype: Optional[torch.dtype] = torch.bfloat16,
+               config_overrides: Optional[dict] = None
                ) -> Tuple[Any, dict]:
     """One model cell on meta: ``(Cost, ctx)``, the cost of one step on
-    one card.  ``batch`` replaces the shape's global batch and
-    ``serve_dtype=None`` keeps a serving cell's parameters as ``init_fn``
-    makes them (f32): a run as the card's phases make it, set beside its
-    measurement."""
+    one card.  ``batch`` replaces the shape's global batch,
+    ``config_overrides`` model-config fields (a depth cut: an LM train
+    cell keeps the published config's rules) and ``serve_dtype=None``
+    keeps a serving cell's parameters as ``init_fn`` makes them (f32): a
+    run as the card's phases make it, set beside its measurement."""
     arch = get_arch(arch_id)
     if batch is not None:
         shape = dataclasses.replace(arch.shape(shape_name),
                                     global_batch=batch)
         arch = dataclasses.replace(arch, shapes=tuple(
             shape if s.name == shape_name else s for s in arch.shapes))
-    bundle = steps_mod.build(arch, shape_name, reduced=reduced, device=META)
+    bundle = steps_mod.build(arch, shape_name, reduced=reduced, device=META,
+                             config_overrides=config_overrides)
     with _OnMeta():
         params = bundle.init_fn(SEED)
     batch = _meta_batch(bundle.batch_spec)

@@ -29,6 +29,21 @@ and ``--frontier-path`` pick the service's mode and route (default
 With ``--stacked`` (no ``torchrun``) one process runs the same on a
 stacked ``ShardMesh`` (its service on the assembled index) and prints the
 digests the ranks' must equal.
+
+With ``--train ARCH`` the ranks take one LM train step instead
+(:func:`train_once`): each holds its blocks of the MoE expert stacks and
+the other leaves whole, under the published config's train rules
+(microbatches, fp8 ``mu``, bf16 ``nu`` and accumulator above 6e10
+parameters), and rank 0 prints one JSON line of the loss, ``grad_norm``
+and a digest of the assembled parameters (:func:`params_digest`), which
+``--stacked`` prints for the same step on a stacked mesh.  ``--reduced``
+takes the smoke config, ``--layers N`` cuts the published one's depth,
+``--batch B`` the shape's batch::
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.ranks \
+        --device cpu --data 2 --model 2 --train dbrx-132b --reduced
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.ranks \
+        --model 4 --train grok-1-314b --layers 2 --batch 8
 """
 
 from __future__ import annotations
@@ -180,6 +195,207 @@ def run(mesh, *, n_log2: int, r: int, l: int, source_batch: int,
     return index, stats, build_s, tiles, tiles_s, served
 
 
+def _bytes(t) -> bytes:
+    import torch
+
+    return t.detach().contiguous().reshape(-1).view(
+        torch.uint8).cpu().numpy().tobytes()
+
+
+def params_digest(params, mesh) -> str:
+    """sha256 of the assembled parameters without assembling them: in
+    flatten order, a replicated leaf's bytes, a sharded leaf's distinct
+    blocks' own sha256 in shard order (a rank hashes its block and the
+    digests are gathered; a stacked mesh hashes the blocks of its whole
+    leaves).  The same on every rank, and equal to the stacked mesh's
+    where the blocks are."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.tree import tree_leaves
+
+    specs = sharding.rank_param_specs(params)
+    rank = sharding.is_rank_mesh(mesh)
+    h = hashlib.sha256()
+    for x, spec in zip(tree_leaves(params), sharding._spec_leaves(specs)):
+        if sharding.is_replicated(spec):
+            h.update(_bytes(x))
+            continue
+        if rank:
+            mine = torch.frombuffer(bytearray(hashlib.sha256(
+                _bytes(x)).digest()), dtype=torch.uint8).to(mesh.device)
+            every = [bytes(b.cpu().numpy()) for b in mesh.gather_blocks(
+                mine[None], ("data", "model"), dst=None)]
+        else:
+            blocks = sharding.shard(x, spec, mesh)
+            every = [hashlib.sha256(_bytes(blocks[d, m])).digest()
+                     for d in range(mesh.data) for m in range(mesh.model)]
+        for d, m in sharding.distinct_blocks(spec, mesh):
+            h.update(every[d * mesh.model + m])
+    return h.hexdigest()
+
+
+def train_bundle(mesh, arch: str, *, shape: str = "train_4k",
+                 reduced: bool = False, layers: Optional[int] = None,
+                 batch: Optional[int] = None, overrides=None):
+    """The LM train cell ``arch`` x ``shape`` on ``mesh`` under the
+    published config's train rules: the smoke config (``reduced``) or the
+    published one with ``layers`` layers, ``batch`` rows in place of the
+    shape's where given, ``overrides`` replacing config fields."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+
+    spec = get_arch(arch)
+    if batch is not None:
+        cut = dataclasses.replace(spec.shape(shape), global_batch=batch)
+        spec = dataclasses.replace(spec, shapes=tuple(
+            cut if s.name == shape else s for s in spec.shapes))
+    over = dict(overrides or {})
+    if layers is not None:
+        over["n_layers"] = layers
+    return steps.build(spec, shape, reduced=reduced, device=mesh.device,
+                       config_overrides=over or None, published_rules=True,
+                       mesh=mesh)
+
+
+def train_once(mesh, arch: str, *, seed: int = 0, **cut):
+    """One train step of :func:`train_bundle`'s cell on ``mesh`` (each rank
+    its blocks), from parameters and a batch drawn from ``seed``: returns
+    ``(metrics, params, opt_state, seconds)``, the metrics as floats
+    (``loss``, ``grad_norm``, ``lr``) with the microbatches and moment
+    dtypes."""
+    import torch
+
+    from repro_torch.training import train_loop
+
+    bundle = train_bundle(mesh, arch, **cut)
+    params = bundle.init_fn(seed)
+    state = train_loop.init_state(bundle.opt_cfg, params)
+    batch = bundle.make_batch(torch.Generator().manual_seed(seed + 1))
+    dev = mesh.device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    params, state, metrics = bundle.step_fn(params, state, batch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    out = {k: float(v) for k, v in metrics.items()}
+    out.update(mu=str(bundle.opt_cfg.mu_dt).replace("torch.", ""),
+               nu=str(bundle.opt_cfg.nu_dt).replace("torch.", ""),
+               tokens=int(batch["tokens"].numel()))
+    return out, params, state, seconds
+
+
+# the rank train check (:func:`train_case`): label -> (arch, MoEConfig
+# overrides, config overrides) of a smoke config; dbrx at capacity 1.0
+# (slots drop) with remat, grok's two experts split in two (ep_split 2,
+# one virtual expert a rank on 1 x 4)
+CASES = {
+    "dbrx_cf1": ("dbrx-132b", dict(capacity_factor=1.0), dict(remat=True)),
+    "grok": ("grok-1-314b", {}, {}),
+}
+CASE_BATCH = (4, 32)               # rows, positions: two microbatches of 2
+CASE_DECODE = ((2, 3), (1, 2))     # (batch, steps): split over data, not
+CASE_MICROBATCHES = 2
+
+
+def case_config(label: str):
+    """The smoke config of :data:`CASES`' ``label``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    arch, moe_over, over = CASES[label]
+    cfg = get_arch(arch).reduced
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, **moe_over), **over)
+
+
+def leaf_paths(tree, prefix: str = ""):
+    """``(path, leaf)`` of a tree of dicts in flatten order
+    (``layers/w_gate``)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaf_paths(tree[k], f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def train_case(label: str, mesh, *, seed: int = 0):
+    """Everything a check holds the LM of :data:`CASES`' ``label`` on
+    ``mesh`` to the stacked mesh by.  The parameters are drawn whole from
+    ``seed`` (a rank keeps its blocks, ``sharding.rank_param_specs``), a
+    :data:`CASE_BATCH` batch and :data:`CASE_DECODE`'s tokens from numpy's
+    generator 5.  Returns ``({name: tensor}, {leaf path: spec})``:
+    ``forward`` of the batch's first two rows (``h``, ``aux``);
+    ``loss_fn``'s value, parts and gradients (``grad/<path>``), and its
+    gradients at 3 tokens, which do not split over ``data`` (``grad3/``);
+    each ``decode_step``'s logits (``decode/<batch>/<step>``); and one
+    ``make_train_step(mesh=)`` step of :data:`CASE_MICROBATCHES` from a
+    copy of the parameters under the large MoE LMs' published rules (fp8
+    ``mu``, bf16 ``nu`` and accumulator; ``b1`` 0.5 and a clip that does
+    not bind keep most of ``mu`` above fp8's least subnormal): its
+    ``step_loss``, ``grad_norm``, ``param/``, ``mu/`` and ``nu/``."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_map
+
+    cfg = case_config(label)
+    dev = mesh.device
+    whole = tfm.init(cfg, seed, device=dev)
+    specs = sharding.rank_param_specs(whole)
+    params = sharding.rank_blocks(whole, specs, mesh)
+    r = np.random.default_rng(5)
+    b, s = CASE_BATCH
+    toks = r.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    mask = np.ones((b, s), np.float32)
+    mask[1, 20:] = 0.0
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+        tokens=toks, labels=np.roll(toks, -1, axis=1), mask=mask).items()}
+    out = {}
+    out["h"], out["aux"] = tfm.forward(cfg, params, batch["tokens"][:2],
+                                       mesh=mesh)
+    loss_fn = functools.partial(tfm.loss_fn, cfg, mesh=mesh)
+    grads_of = train_loop.value_and_grad(loss_fn)
+    out["loss"], parts, grads = grads_of(params, batch)
+    out.update(ce=parts["ce"], loss_aux=parts["aux"])
+    out.update({f"grad/{k}": v for k, v in leaf_paths(grads)})
+    _, _, grads = grads_of(params, {k: v[:1, :3] for k, v in batch.items()})
+    out.update({f"grad3/{k}": v for k, v in leaf_paths(grads)})
+    for bsz, n in CASE_DECODE:
+        toks = torch.from_numpy(r.integers(0, cfg.vocab, (n, bsz, 1)).astype(
+            np.int32)).to(dev)
+        cache = tfm.init_cache(cfg, bsz, 8, torch.float32, device=dev)
+        for i in range(n):
+            out[f"decode/{bsz}/{i}"], cache = tfm.decode_step(
+                cfg, params, cache, toks[i], mesh=mesh)
+    opt = dataclasses.replace(
+        steps.SMOKE_OPT, mu_dtype=torch.float8_e4m3fn,
+        nu_dtype=torch.bfloat16, b1=0.5, grad_clip=1e3)
+    step = train_loop.make_train_step(
+        loss_fn, opt, microbatches=CASE_MICROBATCHES,
+        accum_dtype=torch.bfloat16, mesh=mesh)
+    p = tree_map(lambda x: x.detach().clone(), params)
+    p, state, metrics = step(p, train_loop.init_state(opt, p), batch)
+    out.update(step_loss=metrics["loss"], grad_norm=metrics["grad_norm"])
+    for kind, tree in (("param", p), ("mu", state.mu), ("nu", state.nu)):
+        out.update({f"{kind}/{k}": v for k, v in leaf_paths(tree)})
+    out["digest"] = torch.tensor(list(bytes.fromhex(
+        params_digest(p, mesh))), dtype=torch.uint8)
+    return out, dict(leaf_paths(specs))
+
+
 def main(argv: Optional[list] = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default=None,
@@ -204,7 +420,21 @@ def main(argv: Optional[list] = None) -> int:
                    help="the --serve service's route")
     p.add_argument("--stacked", action="store_true",
                    help="one process, the shards stacked (ShardMesh)")
+    p.add_argument("--train", default=None, metavar="ARCH",
+                   help="one LM train step of ARCH instead (MoE experts "
+                        "split over the ranks)")
+    p.add_argument("--shape", default="train_4k", help="--train's shape")
+    cut = p.add_mutually_exclusive_group()
+    cut.add_argument("--reduced", action="store_true",
+                     help="--train the smoke config")
+    cut.add_argument("--layers", type=int, default=None,
+                     help="--train the published config at N layers")
+    p.add_argument("--batch", type=int, default=None,
+                   help="--train B rows in place of the shape's")
+    p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
+    if args.train:
+        return main_train(args)
     sizes = dict(n_log2=args.n_log2, r=args.walks, l=args.index_l,
                  source_batch=args.source_batch, requests=args.requests,
                  q_tile=args.q_tile, serve_n=args.serve, mode=args.mode,
@@ -248,6 +478,39 @@ def main(argv: Optional[list] = None) -> int:
         if served is not None:
             print_service(served, f"1 x {args.model} ranks")
     dist.destroy_process_group()
+    return 0
+
+
+def main_train(args) -> int:
+    """``--train``: one step on the rank mesh (or ``--stacked``), rank 0
+    printing its JSON line."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import ShardMesh
+    from repro_torch.launch.mesh import make_rank_mesh
+
+    cut = dict(shape=args.shape, reduced=args.reduced, layers=args.layers,
+               batch=args.batch, seed=args.seed)
+    if args.stacked:
+        mesh = ShardMesh(args.data, args.model, device=args.device or "cuda")
+    else:
+        mesh = make_rank_mesh(args.data, args.model, backend=args.backend,
+                              device=args.device)
+    metrics, params, _, seconds = train_once(mesh, args.train, **cut)
+    digest = params_digest(params, mesh)
+    if mesh.device.type == "cuda":     # this rank's device
+        import torch
+
+        metrics["peak_gb"] = round(
+            torch.cuda.max_memory_allocated(mesh.device) / 1e9, 3)
+    if args.stacked or dist.get_rank() == 0:
+        print(json.dumps(dict(
+            train=args.train, mesh=[args.data, args.model],
+            ranks=not args.stacked, **{k: v for k, v in cut.items()
+                                       if v not in (None, False)},
+            step_s=round(seconds, 3), **metrics, params_digest=digest)))
+    if not args.stacked:
+        dist.destroy_process_group()
     return 0
 
 

@@ -36,6 +36,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models import gcn as gcn_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.recsys import dcn, dlrm, mind, sasrec
@@ -69,6 +70,9 @@ class StepBundle:
     opt_cfg: Optional[AdamWConfig] = None   # the config step_fn uses (train)
     # train: the ``loss(params, batch)`` that step_fn trains
     loss_fn: Optional[Callable[[Any, Any], Any]] = None
+    # an LM train cell's rules: microbatches and the accumulator's dtype
+    microbatches: int = 1
+    accum_dtype: Optional[torch.dtype] = None
 
 
 DEFAULT_OPT = AdamWConfig(moment_dtype=torch.bfloat16)
@@ -89,31 +93,49 @@ def _reduce_lm_shape(shape: ShapeSpec) -> ShapeSpec:
     return dataclasses.replace(shape, **table[shape.kind])
 
 
+def lm_train_rules(n_params: int, batch: int, opt_cfg: AdamWConfig, *,
+                   force: bool = False):
+    """The reference's train rules at ``n_params`` parameters:
+    ``(microbatches, opt_cfg, accum_dtype)``.  Gradient accumulation grows
+    with model size (8 above 1.2e11, 4 above 6e10, 2 above 1.5e10; 1 where
+    that does not divide ``batch``), and above 6e10 the moments take fp8
+    ``mu`` and bf16 ``nu`` and the accumulator bf16, when ``opt_cfg`` is
+    ``DEFAULT_OPT`` (or ``force``)."""
+    mb = 8 if n_params > 1.2e11 else 4 if n_params > 6e10 else \
+        2 if n_params > 1.5e10 else 1
+    mb = mb if batch % mb == 0 else 1
+    accum = F32
+    if n_params > 6e10 and (force or opt_cfg is DEFAULT_OPT):
+        opt_cfg = dataclasses.replace(opt_cfg, mu_dtype=torch.float8_e4m3fn,
+                                      nu_dtype=torch.bfloat16)
+        accum = torch.bfloat16
+    return mb, opt_cfg, accum
+
+
 def _lm_bundle(arch: ArchSpec, shape: ShapeSpec, cfg: tfm.TransformerConfig,
-               opt_cfg: AdamWConfig, device: torch.device) -> StepBundle:
+               opt_cfg: AdamWConfig, device: torch.device, *,
+               rule_params: int, force_rules: bool = False,
+               mesh=None) -> StepBundle:
     b, s = shape.global_batch, shape.seq_len
     n_params_active = cfg.active_param_count()
 
     def init_fn(seed: int):
-        return tfm.init(cfg, seed, device=device)
+        if not sharding.is_rank_mesh(mesh):
+            return tfm.init(cfg, seed, device=device)
+        # a rank keeps its block of each expert stack as it is drawn
+        spec = {n: sharding.lm_leaf_spec(f"layers/{n}", 4)
+                for n in ("w_gate", "w_up", "w_down")}
+        return tfm.init(cfg, seed, device=device, experts_fn=lambda n, w: (
+            sharding.shard(w, spec[n], mesh)[0, 0].clone()))
 
     if shape.kind == "lm_train":
-        # the reference's rules: gradient accumulation grows with model
-        # size, and the biggest models take fp8 mu, bf16 nu and a bf16
-        # accumulator
-        n_params = cfg.param_count()
-        mb = 8 if n_params > 1.2e11 else 4 if n_params > 6e10 else \
-            2 if n_params > 1.5e10 else 1
-        mb = mb if b % max(mb, 1) == 0 else 1
-        accum = F32
-        if n_params > 6e10 and opt_cfg is DEFAULT_OPT:
-            opt_cfg = dataclasses.replace(
-                opt_cfg, mu_dtype=torch.float8_e4m3fn,
-                nu_dtype=torch.bfloat16)
-            accum = torch.bfloat16
-        loss = functools.partial(tfm.loss_fn, cfg)
-        step = train_loop.make_train_step(loss, opt_cfg, microbatches=mb,
-                                          accum_dtype=accum)
+        # the reference's rules, from the published config's size
+        # (``rule_params``) however the depth is cut
+        mb, opt_cfg, accum = lm_train_rules(rule_params, b, opt_cfg,
+                                            force=force_rules)
+        loss = functools.partial(tfm.loss_fn, cfg, mesh=mesh)
+        step = train_loop.make_train_step(
+            loss, opt_cfg, microbatches=mb, accum_dtype=accum, mesh=mesh)
 
         def make_batch(gen: torch.Generator):
             toks = torch.randint(0, cfg.vocab, (b, s), generator=gen,
@@ -126,7 +148,8 @@ def _lm_bundle(arch: ArchSpec, shape: ShapeSpec, cfg: tfm.TransformerConfig,
         return StepBundle(
             arch.id, shape.name, "train", init_fn, step, spec, make_batch,
             model_flops_per_step=6.0 * n_params_active * b * s,  # fwd+bwd
-            opt_cfg=opt_cfg, loss_fn=loss)
+            opt_cfg=opt_cfg, loss_fn=loss, microbatches=mb,
+            accum_dtype=accum)
 
     def tokens(rows: int, cols: int):
         def make_batch(gen: torch.Generator):
@@ -134,6 +157,10 @@ def _lm_bundle(arch: ArchSpec, shape: ShapeSpec, cfg: tfm.TransformerConfig,
                 0, cfg.vocab, (rows, cols), generator=gen, dtype=I32,
                 device=gen.device).to(device))
         return make_batch
+
+    if mesh is not None:
+        raise ValueError("mesh= is the train bundle's: a serve cell takes a "
+                         "mesh through the model's own mesh= calls")
 
     if shape.kind == "lm_prefill":
         def serve_prefill(params, batch):
@@ -493,13 +520,24 @@ def reduce_shape(arch: ArchSpec, shape: ShapeSpec) -> ShapeSpec:
 def build(arch: Union[str, ArchSpec], shape_name: str, *,
           reduced: bool = False, device="cuda",
           opt_cfg: Optional[AdamWConfig] = None,
-          config_overrides: Optional[Dict[str, Any]] = None) -> StepBundle:
+          config_overrides: Optional[Dict[str, Any]] = None,
+          published_rules: bool = False, mesh=None) -> StepBundle:
     """The :class:`StepBundle` of one cell, its parameters and batches on
     ``device``.  ``reduced=True`` swaps in the smoke config and the reduced
     shape; ``opt_cfg`` replaces a train cell's optimizer config
     (``SMOKE_OPT`` reduced, ``DEFAULT_OPT`` otherwise);
     ``config_overrides`` replaces model-config fields (such as
-    ``compute_dtype``)."""
+    ``compute_dtype``).
+
+    An LM train cell takes the reference's size rules
+    (:func:`lm_train_rules`) from the published config's parameter count,
+    also where ``config_overrides`` cut its depth or width; a reduced
+    cell from the reduced config's, unless ``published_rules``, which
+    forces the published config's rules (its moment and accumulator
+    dtypes whatever ``opt_cfg``; its microbatches where they divide the
+    batch).  ``mesh``: an LM train cell on that mesh (a ``ShardMesh``, or
+    a ``RankMesh`` whose ``init_fn`` makes the rank's blocks under
+    ``sharding.rank_param_specs``)."""
     dev = resolve_device(device)
     if isinstance(arch, str):
         arch = get_arch(arch)
@@ -511,7 +549,12 @@ def build(arch: Union[str, ArchSpec], shape_name: str, *,
         cfg = dataclasses.replace(cfg, **config_overrides)
     opt = opt_cfg or (SMOKE_OPT if reduced else DEFAULT_OPT)
     if arch.family == "lm":
-        return _lm_bundle(arch, shape, cfg, opt, dev)
+        rules = (arch.config if published_rules or not reduced
+                 else cfg).param_count()
+        return _lm_bundle(arch, shape, cfg, opt, dev, rule_params=rules,
+                          force_rules=published_rules, mesh=mesh)
+    if mesh is not None:
+        raise ValueError("mesh= is an LM train cell's")
     if arch.family == "gnn":
         return _gnn_bundle(arch, shape, cfg, opt, dev)
     return _rec_bundle(arch, shape, cfg, opt, dev)

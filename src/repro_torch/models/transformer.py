@@ -34,7 +34,13 @@ layers' summed load-balancing loss and ``loss_fn`` adds it.  The
 expert-parallel form (``_moe_ffn_shardmap``, the reference's ``shard_map``
 dispatch) runs on a :class:`~repro_torch.distributed.mesh.ShardMesh`
 given as ``mesh=`` to ``forward``, ``loss_fn`` and ``decode_step``; it
-takes the place of the reference's ``act_shard.mesh``.
+takes the place of the reference's ``act_shard.mesh``.  The same calls
+take a :class:`~repro_torch.distributed.mesh.RankMesh` (one shard a
+process): each rank then holds its blocks of the expert stacks
+(``sharding.rank_param_specs``) and runs the dense layers on the whole
+batch, as the stacked mesh does, and the backward through the mesh's
+differentiable collectives gives every rank the stacked mesh's gradients
+of its blocks.
 
 ``decode_step`` writes the new K/V into the cache's tensors in place (the
 reference's ``dynamic_update_slice`` copies the whole cache) at
@@ -129,10 +135,13 @@ def _stacked_dense(gen: torch.Generator, n: int, d_in: int, d_out: int, *,
     return p
 
 
-def init(cfg: TransformerConfig, seed: int = 0, *,
-         device="cuda") -> Dict[str, Any]:
+def init(cfg: TransformerConfig, seed: int = 0, *, device="cuda",
+         experts_fn=None) -> Dict[str, Any]:
     """Random f32 parameters from ``seed``, made on ``device``, in the
-    reference's tree (layers stacked on a leading ``n_layers`` axis)."""
+    reference's tree (layers stacked on a leading ``n_layers`` axis).
+    ``experts_fn(name, stack)`` is applied to each MoE expert stack as it
+    is drawn (``"w_gate"``, ``"w_up"``, ``"w_down"``; a rank keeps its
+    block), so no more than one whole stack is held at a time."""
     dev = resolve_device(device)
     gen = seeded_generator(dev, seed)
     n, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
@@ -153,14 +162,16 @@ def init(cfg: TransformerConfig, seed: int = 0, *,
         e = cfg.moe.n_experts * cfg.moe.ep_split
         ffs = cfg.d_ff // cfg.moe.ep_split
 
-        def experts(a, b):          # [n, E * split, a, b] of N(0, 1) / sqrt(a)
-            return torch.randn((n, e, a, b), generator=gen,
-                               dtype=torch.float32,
-                               device=gen.device).div_(math.sqrt(a))
+        def experts(name, a, b):    # [n, E * split, a, b] of N(0, 1) / sqrt(a)
+            w = torch.randn((n, e, a, b), generator=gen,
+                            dtype=torch.float32,
+                            device=gen.device).div_(math.sqrt(a))
+            return w if experts_fn is None else experts_fn(name, w)
 
         layers.update(router=_stacked_dense(gen, n, d, cfg.moe.n_experts),
-                      w_gate=experts(d, ffs), w_up=experts(d, ffs),
-                      w_down=experts(ffs, d))
+                      w_gate=experts("w_gate", d, ffs),
+                      w_up=experts("w_up", d, ffs),
+                      w_down=experts("w_down", ffs, d))
     else:
         layers.update(w_gate=_stacked_dense(gen, n, d, cfg.d_ff),
                       w_up=_stacked_dense(gen, n, d, cfg.d_ff),
@@ -338,15 +349,26 @@ def _moe_ffn_shardmap(cfg: TransformerConfig, p, x: torch.Tensor, mesh,
                       with_aux: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's expert-parallel MoE (its ``shard_map`` dispatch) on
-    the stacked ``mesh``: tokens split over ``data`` (replicated where
-    ``T`` is below or not a multiple of it, as at a one-token decode),
-    each data shard routing and dispatching its own tokens with a capacity
-    from its own count; the experts' weights laid out by
-    ``sharding``'s specs (virtual experts over ``model``, the d axis
-    over ``data``) and all-gathered over ``data``, each model shard
-    running its ``E * split / model`` experts on its queues; the partial
-    token outputs summed over ``model`` and the aux loss averaged over
-    ``data``."""
+    ``mesh``: tokens split over ``data`` (replicated where ``T`` is below
+    or not a multiple of it, as at a one-token decode), each data shard
+    routing and dispatching its own tokens with a capacity from its own
+    count; the experts' weights laid out by ``sharding``'s specs (virtual
+    experts over ``model``, the d axis over ``data``) and all-gathered
+    over ``data``, each model shard running its ``E * split / model``
+    experts on its queues; the partial token outputs summed over
+    ``model`` and the aux loss averaged over ``data``.
+
+    The loops run over the shards this process holds: every one of a
+    stacked ``ShardMesh`` (``p``'s expert stacks whole), one of a
+    ``RankMesh`` (``p``'s expert stacks the rank's blocks
+    ``[e_local, d / data, ffs]``; ``x`` whole on every rank, and the
+    output whole).  On a rank the mesh's differentiable collectives give
+    the stacked gradients: the router's summed over ``data`` (each data
+    shard routes once, whichever model shards use the routing), the
+    gates' and the dispatch buffer's cotangents gathered over ``model``
+    (each model shard's combine and experts see only their own experts),
+    the experts' summed over ``data``, and ``x``'s gathered over
+    ``data`` as the output is."""
     moe = cfg.moe
     e_virt = moe.n_experts * moe.ep_split
     if e_virt % mesh.model:
@@ -354,31 +376,39 @@ def _moe_ffn_shardmap(cfg: TransformerConfig, p, x: torch.Tensor, mesh,
                          f"{mesh.model} model shards")
     e_local = e_virt // mesh.model
     t, d = x.shape
-    n_data = mesh.data
-    split_tokens = t % n_data == 0 and t >= n_data
-    xb = x.reshape(n_data, t // n_data, d) if split_tokens \
-        else x.expand(n_data, t, d)
-    # [data, model, e_local, d, ffs] (w_down: [..., ffs, d]) on every shard
-    w = {name: mesh.all_gather_axis(sharding.shard(
-             p[name], _EXPERT_SPECS[name], mesh), "data",
-             dim=_EXPERT_SPECS[name].index("data"))
+    split_tokens = t % mesh.data == 0 and t >= mesh.data
+    if split_tokens:                       # [local data, t / data, d]
+        xb = mesh.split_axis(x, "data", 0)
+    else:
+        xb = mesh.pvary(x, "data").expand(len(mesh.local_data), t, d)
+    router = mesh.pvary(p["router"]["w"], "data")
+    # [local data, local model, e_local, d, ffs] (w_down: [..., ffs, d])
+    # a rank holds its block of each stack, a stacked mesh the whole
+    rank = sharding.is_rank_mesh(mesh)
+    w = {name: mesh.all_gather_axis(
+             p[name][None, None] if rank
+             else sharding.shard(p[name], _EXPERT_SPECS[name], mesh),
+             "data", dim=_EXPERT_SPECS[name].index("data"))
          for name in _EXPERT_SPECS}
     parts, auxes = [], []
-    for i in range(n_data):
-        r = _moe_route(moe, p["router"]["w"], xb[i], with_aux)
+    for i in range(len(mesh.local_data)):
+        r = _moe_route(moe, router, xb[i], with_aux)
+        r = r._replace(sw=mesh.pvary(r.sw, "model"))
         buf = _moe_dispatch(r, xb[i].to(cfg.compute_dtype))
+        mine = mesh.split_axis(buf, "model", 0)   # [local model, e_local, ...]
         row = []
-        for m in range(mesh.model):
-            mine = slice(m * e_local, (m + 1) * e_local)
+        for j, m in enumerate(mesh.local_model):
             full = torch.zeros_like(buf)
-            full[mine] = _moe_experts(cfg, buf[mine], w["w_gate"][i, m],
-                                      w["w_up"][i, m], w["w_down"][i, m])
+            full[m * e_local:(m + 1) * e_local] = _moe_experts(
+                cfg, mine[j], w["w_gate"][i, j], w["w_up"][i, j],
+                w["w_down"][i, j])
             row.append(_moe_combine(r, full, xb.shape[1]))
         parts.append(torch.stack(row))
         if with_aux:
-            auxes.append(r.aux.expand(mesh.model))
-    out = mesh.psum_axis(torch.stack(parts), "model")     # [data, model, t_l, d]
-    y = out[:, 0].reshape(t, d) if split_tokens else out[0, 0]
+            auxes.append(r.aux.expand(len(mesh.local_model)))
+    out = mesh.psum_axis(torch.stack(parts), "model")[:, 0]   # [data, t_l, d]
+    y = (mesh.concat_axis(out, "data", 0) if split_tokens
+         else mesh.from_first(out, "data"))
     if not with_aux:
         return y, None
     return y, mesh.pmean_axis(torch.stack(auxes), "data")[0, 0]
@@ -388,7 +418,7 @@ def _ffn(cfg: TransformerConfig, p, x: torch.Tensor, mesh=None,
          with_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer's FFN of ``x [B, S, d]``: ``(y [B, S, d], aux)``, the
     dense SwiGLU with an f32 zero, or the MoE (``mesh``: its
-    expert-parallel form on that stacked mesh; aux ``None`` unless
+    expert-parallel form on that mesh; aux ``None`` unless
     ``with_aux``)."""
     if not cfg.moe:
         return _dense_ffn(cfg, p, x), torch.zeros(
@@ -456,7 +486,8 @@ def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, *,
             mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens ``[B, S]`` -> (hidden ``[B, S, d]`` in the compute dtype,
     aux loss: the layers' MoE losses summed, an f32 zero without MoE).
-    ``mesh``: a ``ShardMesh`` that runs the MoE expert-parallel."""
+    ``mesh``: a ``ShardMesh`` or ``RankMesh`` that runs the MoE
+    expert-parallel."""
     h = L.embedding_apply(params["embed"], tokens,
                           compute_dtype=cfg.compute_dtype)
     body = functools.partial(_layer_body, cfg, mesh=mesh)
@@ -550,7 +581,7 @@ def decode_step(cfg: TransformerConfig, params, cache,
     position ``length`` (the last slot where ``length`` is past it) and
     attends to positions ``< length + 1``; the returned cache shares them.
     A MoE layer routes the ``B`` tokens as one batch (``mesh``: on that
-    stacked mesh); the aux loss, which the reference computes and drops,
+    mesh); the aux loss, which the reference computes and drops,
     is not computed, so a step makes no host copy at any batch size.
     """
     b = tokens.shape[0]

@@ -9,9 +9,23 @@ tree`), so ``global_norm`` sums its leaves in the reference's order.
 
 :func:`update` writes the new parameters and moments into their tensors
 in place (the counterpart of the reference's donated buffers) and walks
-each leaf in blocks of :data:`UPDATE_ROWS` rows: the same operations on
-each element, with f32 temporaries of one block, so a 1.66-billion-element
-embedding table does not need four f32 copies of itself alongside.
+each leaf in blocks (:func:`leaf_blocks`: at most :data:`UPDATE_ROWS`
+leading-axis rows and :data:`UPDATE_ELEMS` elements): the same operations
+on each element, with f32 temporaries of one block, so neither a
+1.66-billion-element embedding table nor a layer's 3.17-billion-element
+expert stack needs four f32 copies of itself alongside.
+PyTorch does no arithmetic in fp8: a moment is read as f32 and written
+back through :func:`cast_moment`, which rounds as the reference's
+``astype`` does (to nearest, a value past the format's range to NaN,
+where PyTorch's own cast saturates at 448).
+
+On a mesh (``mesh=`` with ``specs``, the layout of the gradients) the
+norm is taken over the distinct blocks of each leaf
+(``sharding.distinct_blocks``): each block's f32 sum of squares, summed in
+shard order within a leaf, the leaves in flatten order.  A stacked
+``ShardMesh`` sums the blocks of its whole leaves; a ``RankMesh`` gathers
+every rank's sums of its own blocks, so a replicated leaf counts once and
+every rank holds the stacked mesh's ``grad_norm``, bit for bit.
 """
 
 from __future__ import annotations
@@ -22,9 +36,11 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 UPDATE_ROWS = 1 << 21      # leading-axis rows a block of the update
+UPDATE_ELEMS = 1 << 28     # ...and elements (1 GiB a block's f32 temporary)
 
 
 class AdamState(NamedTuple):
@@ -84,25 +100,84 @@ def init(cfg: AdamWConfig, params: Any) -> AdamState:
     )
 
 
-def _blocks(*xs: torch.Tensor):
-    """Matching blocks of :data:`UPDATE_ROWS` leading-axis rows of ``xs``
-    (one block for a leaf of fewer rows or no axis)."""
-    rows = xs[0].shape[0] if xs[0].dim() else 1
-    if xs[0].dim() == 0 or rows <= UPDATE_ROWS:
+def leaf_blocks(*xs: torch.Tensor):
+    """Matching blocks of ``xs`` (views, so a write to a block is a write
+    to its leaf): the whole where it holds at most :data:`UPDATE_ROWS`
+    leading-axis rows and :data:`UPDATE_ELEMS` elements, else runs of
+    leading-axis rows (as many as both limits allow, at least one), a
+    single row split in turn along its own leading axis."""
+    x = xs[0]
+    if x.dim() == 0 or (x.shape[0] <= UPDATE_ROWS
+                        and x.numel() <= UPDATE_ELEMS):
         yield xs
         return
-    for i in range(0, rows, UPDATE_ROWS):
-        yield tuple(x[i:i + UPDATE_ROWS] for x in xs)
+    rows = x.shape[0]
+    if rows == 1:
+        yield from leaf_blocks(*(t[0] for t in xs))
+        return
+    per_row = max(x.numel() // rows, 1)
+    step = max(1, min(UPDATE_ROWS, UPDATE_ELEMS // per_row))
+    for i in range(0, rows, step):
+        yield from leaf_blocks(*(t[i:i + step] for t in xs))
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def _squares(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of squares of ``x``, a block of rows at a time."""
+    return sum(torch.sum(torch.square(b.to(torch.float32)))
+               for (b,) in leaf_blocks(x))
+
+
+def global_norm(tree: Any, *, mesh=None, specs: Any = None) -> torch.Tensor:
     """``sqrt`` of the sum over leaves (in flatten order) of each leaf's
-    sum of squares in f32."""
+    sum of squares in f32; on ``mesh``, each sharded leaf's (under
+    ``specs``) the sum of its distinct blocks' in shard order."""
+    leaves = tree_leaves(tree)
+    if mesh is None:
+        parts = [_squares(x) for x in leaves]
+    else:
+        parts = _block_squares(leaves, sharding._spec_leaves(specs), mesh)
     total = 0
-    for x in tree_leaves(tree):
-        total = total + sum(torch.sum(torch.square(b.to(torch.float32)))
-                            for (b,) in _blocks(x))
+    for part in parts:
+        total = total + part
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def _block_squares(leaves, specs, mesh) -> list:
+    """Each leaf's sum of squares by blocks: a replicated leaf's whole, a
+    sharded leaf's distinct blocks' in shard order (a stacked mesh reads
+    them from the whole leaf; a rank gathers every rank's own)."""
+    rank = sharding.is_rank_mesh(mesh)
+    out, sharded = [], []
+    for x, spec in zip(leaves, specs):
+        if sharding.is_replicated(spec):
+            out.append(_squares(x))
+        elif rank:
+            out.append(None)
+            sharded.append(_squares(x.contiguous()))
+        else:
+            blocks = sharding.shard(x, spec, mesh)
+            out.append(sum(_squares(blocks[d, m].contiguous())
+                           for d, m in sharding.distinct_blocks(spec, mesh)))
+    if rank and sharded:
+        every = mesh.gather_blocks(torch.stack(sharded)[None],
+                                   ("data", "model"), dst=None)
+        j = 0
+        for i, spec in enumerate(specs):
+            if out[i] is None:
+                out[i] = sum(every[d * mesh.model + m][0, j]
+                             for d, m in sharding.distinct_blocks(spec, mesh))
+                j += 1
+    return out
+
+
+def cast_moment(x32: torch.Tensor, dtype) -> torch.Tensor:
+    """``x32`` in a moment's ``dtype``; into ``float8_e4m3fn`` as the
+    reference casts: to nearest, and a value that rounds past 448 (above
+    464 in magnitude, or infinite) to NaN of its sign."""
+    if dtype != torch.float8_e4m3fn:
+        return x32.to(dtype)
+    nan = torch.copysign(torch.full_like(x32, float("nan")), x32)
+    return torch.where(x32.abs() > 464.0, nan, x32).to(dtype)
 
 
 def _one(cfg: AdamWConfig, p, g, m, v, clip, lr, b1c, b2c) -> None:
@@ -116,17 +191,21 @@ def _one(cfg: AdamWConfig, p, g, m, v, clip, lr, b1c, b2c) -> None:
     p32 = p.to(torch.float32)
     p32 = p32 - lr * (upd + cfg.weight_decay * p32)
     p.copy_(p32.to(p.dtype))
-    m.copy_(m32.to(cfg.mu_dt))
-    v.copy_(v32.to(cfg.nu_dt))
+    m.copy_(cast_moment(m32, cfg.mu_dt))
+    v.copy_(cast_moment(v32, cfg.nu_dt))
 
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads: Any, state: AdamState,
-           params: Any) -> Tuple[Any, AdamState, dict]:
+           params: Any, *, mesh=None,
+           specs: Any = None) -> Tuple[Any, AdamState, dict]:
     """One AdamW step: ``params`` and the state's moments are written in
     place; returns ``(params, new_state, metrics)`` with the metrics
-    ``grad_norm`` and ``lr`` (f32 scalars on the device)."""
-    gnorm = global_norm(grads)
+    ``grad_norm`` and ``lr`` (f32 scalars on the device).  ``mesh`` and
+    ``specs``: the leaves are blocks laid out by ``specs`` (a rank's, or
+    a stacked mesh's whole leaves), and ``grad_norm`` is taken by blocks;
+    the rest is element by element."""
+    gnorm = global_norm(grads, mesh=mesh, specs=specs)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                        max=1.0)
     step = state.step + 1
@@ -139,7 +218,7 @@ def update(cfg: AdamWConfig, grads: Any, state: AdamState,
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
         raise ValueError("params, grads and moments differ in structure")
     for leaf in zip(flat_p, flat_g, flat_m, flat_v):
-        for p, g, m, v in _blocks(*leaf):
+        for p, g, m, v in leaf_blocks(*leaf):
             _one(cfg, p, g, m, v, clip, lr, b1c, b2c)
     metrics = dict(grad_norm=gnorm, lr=lr)
     return params, AdamState(step=step, mu=state.mu, nu=state.nu), metrics

@@ -2,14 +2,24 @@
 
 The reference's ``training/train_loop.py``: optional microbatch gradient
 accumulation (a Python loop over the batch's leading-axis slices,
-accumulated in ``accum_dtype`` in microbatch order), a pluggable gradient
+accumulated in ``accum_dtype`` in microbatch order, in place, each
+microbatch's gradients freed before the next), a pluggable gradient
 transform (the compression module's quantizers), and the metrics ``loss``,
 the loss's aux entries, ``grad_norm`` and ``lr`` every step.  The gradients
 come from ``torch.autograd.grad`` over the parameter leaves; the step then
 writes the parameters and the optimizer's moments in place under
-``no_grad`` (the reference donates their buffers).  The reference's
-``grad_pspecs`` shard the accumulator over a mesh and have no counterpart
-on one card.
+``no_grad`` (the reference donates their buffers).
+
+The reference's ``grad_pspecs`` shard the gradient accumulator the way
+the parameters are sharded.  Here ``mesh=`` is its counterpart, the
+parameters laid out by ``sharding.rank_param_specs`` (an LM's): on a
+``RankMesh`` each rank's parameters, gradients,
+accumulator and moments are its blocks (an expert stack's own slice,
+every other leaf whole), the accumulator in ``accum_dtype``, and
+``grad_norm`` is taken over the blocks of every rank
+(``optimizer.global_norm``); on a stacked ``ShardMesh`` the leaves are
+whole and the norm is taken by the same blocks, so both give the same
+bits.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.optimizer import AdamState, AdamWConfig
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
@@ -52,9 +63,13 @@ def make_train_step(
     grad_transform: Optional[Callable[[Any], Any]] = None,
     microbatches: int = 1,
     accum_dtype=torch.float32,
+    mesh=None,
 ):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``; ``params`` and the moments are updated in place."""
+    metrics)``; ``params`` and the moments are updated in place.
+    ``mesh``: the LM's parameters are laid out on that mesh by
+    ``sharding.rank_param_specs``, whose blocks the gradient norm sums;
+    ``loss_fn`` is the mesh's own (``loss_fn(..., mesh=mesh)``)."""
     grads_of = value_and_grad(loss_fn)
 
     def train_step(params, opt_state: AdamState, batch):
@@ -70,19 +85,25 @@ def make_train_step(
             for i in range(microbatches):
                 mb_loss, _, grads = grads_of(
                     params, tree_map(lambda x: x[i], micro))
-                acc = [(a.to(torch.float32) + g.to(torch.float32)).to(a.dtype)
-                       for a, g in zip(acc, tree_leaves(grads))]
+                with torch.no_grad():     # in place, a block at a time
+                    for a, g in zip(acc, tree_leaves(grads)):
+                        for ab, gb in opt_mod.leaf_blocks(a, g):
+                            ab.copy_(ab.to(torch.float32)
+                                     + gb.to(torch.float32))
+                del grads
                 loss = loss + mb_loss
             loss = loss / microbatches
-            grads = tree_unflatten(tree_flatten(params)[1],
-                                   [a / microbatches for a in acc])
+            for a in acc:
+                a.div_(microbatches)
+            grads = tree_unflatten(tree_flatten(params)[1], acc)
             aux = {}
         else:
             loss, aux, grads = grads_of(params, batch)
         if grad_transform is not None:
             grads = grad_transform(grads)
+        specs = None if mesh is None else sharding.rank_param_specs(params)
         params, new_state, om = opt_mod.update(opt_cfg, grads, opt_state,
-                                               params)
+                                               params, mesh=mesh, specs=specs)
         metrics = dict(loss=loss, **aux, **om)
         return params, new_state, metrics
 

@@ -778,3 +778,75 @@ def test_rank_mesh_on_card_matches_the_stacked_mesh(cuda, tmp_path):
                               want["tile_values"].view(np.uint32)), r
         assert np.array_equal(out["card/tile_indices"],
                               want["tile_indices"]), r
+
+
+@pytest.mark.cuda
+def test_fp8_moment_update_on_card_matches_cpu(cuda):
+    """AdamW with fp8 ``mu`` and bf16 ``nu`` on the card: the moments the
+    CPU's bytes (PyTorch does no arithmetic in fp8: each update reads the
+    moment as f32 and writes it back through ``optimizer.cast_moment``),
+    the parameters within 1e-6 relative or 1e-9 absolute (the schedule's
+    ``cos`` and the bias corrections' ``pow`` on the card differ from the
+    CPU's by an ulp, in a step of ``lr`` = 3e-6), and the cast itself at fp8's edges (448, the 464 tie, what
+    rounds past it to NaN of its sign, subnormals)."""
+    from repro_torch.training import optimizer as topt
+
+    edges = torch.tensor([0.0, 2.0 ** -10, 3 * 2.0 ** -10, 447.0, 448.0,
+                          464.0, 465.0, 1e30, float("inf"), -float("inf"),
+                          float("nan"), -465.0, 1.0625, 1.1875])
+    want = topt.cast_moment(edges, torch.float8_e4m3fn).view(torch.uint8)
+    got = topt.cast_moment(edges.to(cuda), torch.float8_e4m3fn)
+    assert torch.equal(got.view(torch.uint8).cpu(), want)
+    cfg = topt.AdamWConfig(mu_dtype=torch.float8_e4m3fn,
+                           nu_dtype=torch.bfloat16, b1=0.0, grad_clip=1e30)
+    rng = np.random.default_rng(11)
+    p = {"w": torch.from_numpy(rng.standard_normal((64, 48)).astype(
+        np.float32))}
+    g = {"w": torch.from_numpy((rng.standard_normal((64, 48)) * np.exp2(
+        rng.uniform(-12, 10, (64, 48)))).astype(np.float32))}
+    outs = []
+    for dev in ("cpu", cuda):
+        q = {"w": p["w"].to(dev, copy=True)}       # updated in place
+        st = topt.init(cfg, q)
+        q, st, m = topt.update(cfg, {"w": g["w"].to(dev)}, st, q)
+        outs.append((q["w"].cpu(), st.mu["w"].view(torch.uint8).cpu(),
+                     st.nu["w"].view(torch.int16).cpu()))
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=1e-6,
+                               atol=1e-9)
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        assert torch.equal(a, b)
+    assert bool((outs[0][1] & 0x7F == 0x7F).any())     # some mu past 448
+
+
+@pytest.mark.cuda
+def test_rank_train_on_card_matches_the_stacked_mesh(cuda, tmp_path):
+    """Four gloo ranks on the card (``tests/torch_rank_train_worker.py``,
+    no JAX): the reduced dbrx and grok on 2 x 2 and 1 x 4 meshes, every
+    output the stacked mesh's on the card, bit for bit."""
+    import torch_rank_train_worker as worker
+    from repro_torch.distributed import ShardMesh, sharding
+    from repro_torch.launch import ranks
+    from repro_torch.models import transformer as tfm
+
+    got, _ = worker.run_ranks(tmp_path, device="cuda:0", timeout_s=300.0,
+                              join_timeout_s=600.0)
+    for label in worker.CASES:
+        whole = tfm.init(worker.config(label), worker.SEED, device="cpu")
+        specs = dict(ranks.leaf_paths(sharding.rank_param_specs(whole)))
+        for shape in worker.MESHES:
+            want = worker.stacked(label, shape, device=cuda)
+            for r, out in enumerate(got):
+                d, m = divmod(r, shape[1])
+                for k, v in want.items():
+                    if k.endswith("@dtype"):
+                        continue
+                    head, _, name = k.partition("/")
+                    spec = specs.get(name) if head in (
+                        "grad", "grad3", "param", "mu", "nu") else None
+                    if spec is not None and not sharding.is_replicated(spec):
+                        v = sharding.shard(torch.from_numpy(v), spec,
+                                           ShardMesh(*shape, device="cpu"))[
+                                               d, m].numpy()
+                    assert np.array_equal(
+                        out[f"{label}/{shape[0]}x{shape[1]}/{k}"], v), (
+                            label, shape, r, k)

@@ -10,7 +10,14 @@ within the capacity) must be equal; outputs agree to 1e-5 in f32 and
 reference runs eagerly, op by op), the aux loss to 1e-6 relative,
 gradients to 1e-5 of each leaf's norm.  The stacked 2 x 2
 expert-parallel path is held against the reference's ``shard_map`` on
-four fake host devices, in a subprocess (this file run as a script).
+four fake host devices, in a subprocess (this file run as a script): its
+outputs, and ``loss_fn(mesh=)``'s gradients against ``jax.grad`` through
+``shard_map`` (the mesh's own gradients: the aux loss is each data
+shard's, averaged, so they are not the one-device ones), and one
+``make_train_step(mesh=)`` step against the reference's
+``make_train_step(..., grad_pspecs=)`` jitted under the mesh, with the
+large MoE LMs' published rules (fp8 ``mu``, bf16 ``nu``, a bf16
+accumulator over two microbatches).
 """
 
 import dataclasses
@@ -38,6 +45,8 @@ if __name__ != "__main__":
     from repro_torch.launch import dryrun, steps
     from repro_torch.models import layers as tL
     from repro_torch.models import transformer as ttfm
+    from repro_torch.training import train_loop as ttl
+    from repro_torch.tree import tree_leaves
 
 LMS = ("dbrx-132b", "grok-1-314b", "qwen1.5-32b", "command-r-plus-104b")
 MOE_ARCHS = ("dbrx-132b", "grok-1-314b")
@@ -425,6 +434,21 @@ def _mesh_model_configs():
             dataclasses.replace(tc, remat=True))
 
 
+# the mesh's gradients and train step: dbrx at capacity 1.0 with remat,
+# grok with its experts split in two
+MESH_GRAD_CASES = {"dbrx_cf1": dict(remat=True), "grok": {}}
+# the published rules of the large MoE LMs forced on the smoke optimizer;
+# b1 0.5 and a clip that does not bind keep most of mu above fp8's
+# smallest subnormal at these gradients
+TRAIN_RULES = dict(warmup_steps=2, total_steps=100, b1=0.5, grad_clip=1e3)
+TRAIN_MICROBATCHES = 2
+
+
+def _mesh_case_configs(case):
+    return tuple(dataclasses.replace(c, **MESH_GRAD_CASES[case])
+                 for c in _configs(case))
+
+
 def _decode_tokens(vocab, b, steps):
     return np.random.default_rng(6 + b).integers(
         0, vocab, (steps, b, 1)).astype(np.int32)
@@ -465,6 +489,54 @@ def _reference_shardmap(out_path):
         for i in range(steps):
             logits, cache = step(jp, cache, jnp.asarray(toks[i]))
             out[f"decode_{bsz}_{i}"] = np.asarray(logits)
+
+    from repro.distributed import sharding as jsharding
+    from repro.training import optimizer as jopt
+    from repro.training import train_loop as jtl
+
+    opt = jopt.AdamWConfig(mu_dtype=jnp.float8_e4m3fn,
+                           nu_dtype=jnp.bfloat16, **TRAIN_RULES)
+    for case in MESH_GRAD_CASES:
+        jc = dataclasses.replace(_mesh_case_configs(case)[0], act_shard=ash)
+        jp, _ = _params(FFN_CASES[case][0], case)
+        b = {k: jnp.asarray(v) for k, v in _batch(jc.vocab).items()}
+        grads = jax.jit(jax.grad(lambda p, bb: jtfm.loss_fn(jc, p, bb)[0]))(
+            jp, b)
+        for path, g in jax.tree_util.tree_flatten_with_path(grads)[0]:
+            out[f"grad_{case}{jax.tree_util.keystr(path)}"] = np.asarray(g)
+        train = jtl.make_train_step(
+            functools.partial(jtfm.loss_fn, jc), opt,
+            microbatches=TRAIN_MICROBATCHES, accum_dtype=jnp.bfloat16,
+            grad_pspecs=jsharding.param_specs("lm", jp, jc))
+        with jax.set_mesh(mesh):
+            p1, s1, m = jax.jit(train)(jp, jopt.init(opt, jp), b)
+        out[f"train_{case}_loss"] = np.asarray(m["loss"])
+        out[f"train_{case}_grad_norm"] = np.asarray(m["grad_norm"])
+        out[f"train_{case}_lr"] = np.asarray(m["lr"])
+        # the step's gradient: the microbatches' summed into a bf16
+        # accumulator, as its scan sums them, then averaged
+        n = TRAIN_MICROBATCHES
+        micro = [jax.jit(jax.grad(lambda p, bb: jtfm.loss_fn(jc, p, bb)[0]))(
+            jp, {k: v.reshape((n, -1) + v.shape[1:])[i]
+                 for k, v in b.items()}) for i in range(n)]
+        for i, gs in enumerate(zip(*(jax.tree.leaves(h) for h in micro))):
+            acc = jnp.zeros(gs[0].shape, jnp.bfloat16)
+            # two bf16 steps of each partial sum, summed: how far two
+            # accumulations of gradients 1e-6 apart can end apart (a sum
+            # rounds to a neighbour of the other's, from an input a step
+            # or more away)
+            steps_of = np.zeros(gs[0].shape, np.float32)
+            for g in gs:
+                acc = (acc.astype(jnp.float32) + g).astype(jnp.bfloat16)
+                steps_of += 2 * np.spacing(np.abs(np.asarray(acc))).astype(
+                    np.float32)
+            out[f"train_{case}_grad_{i}"] = np.asarray(
+                (acc / n).astype(jnp.float32))
+            out[f"train_{case}_gstep_{i}"] = steps_of / n
+        for kind, tree in (("param", p1), ("mu", s1.mu), ("nu", s1.nu)):
+            for i, x in enumerate(jax.tree.leaves(tree)):
+                out[f"train_{case}_{kind}_{i}"] = np.asarray(
+                    x.astype(jnp.float32))
     np.savez(out_path, **out)
 
 
@@ -525,6 +597,97 @@ def test_mesh_model_matches_reference_act_shard(reference_2x2):
                 tc, tp, cache, torch.from_numpy(toks[i]), mesh=mesh)
             _close(logits, want[f"decode_{bsz}_{i}"], "f32")
         assert int(cache["length"]) == steps
+
+
+@pytest.mark.parametrize("case", list(MESH_GRAD_CASES))
+def test_mesh_gradients_match_reference_shard_map(reference_2x2, case):
+    """``loss_fn(mesh=)``'s gradients on the stacked 2 x 2 mesh against
+    ``jax.grad`` of the reference's through its ``shard_map``: every leaf
+    within 1e-5 of its norm, and none a whole multiple of it."""
+    _, tc = _mesh_case_configs(case)
+    _, tp = _params(FFN_CASES[case][0], case)
+    b = {k: torch.from_numpy(v) for k, v in _batch(tc.vocab).items()}
+    _, _, grads = ttl.value_and_grad(functools.partial(
+        ttfm.loss_fn, tc, mesh=ShardMesh(2, 2, device="cpu")))(tp, b)
+    n = 0
+    for key, want in reference_2x2.items():
+        if not key.startswith(f"grad_{case}["):
+            continue
+        got = grads
+        for part in key[len(f"grad_{case}"):].strip("[]'").split("']['"):
+            got = got[part]
+        scale = max(float(np.linalg.norm(want)), 1e-30)
+        err = float(np.linalg.norm(got.numpy() - want))
+        assert err <= 1e-5 * scale, (key, err / scale)
+        n += 1
+    assert n == len(tree_leaves(grads))
+
+
+@pytest.mark.parametrize("case", list(MESH_GRAD_CASES))
+def test_mesh_train_step_matches_reference(reference_2x2, case):
+    """One ``make_train_step(mesh=)`` step on the stacked 2 x 2 mesh (two
+    microbatches, a bf16 accumulator, fp8 ``mu`` and bf16 ``nu``, the
+    norm taken by the blocks of ``sharding.rank_param_specs``) against the
+    reference's ``make_train_step(..., grad_pspecs=)`` jitted under the
+    mesh, at the training bars (``tests/torch_train_parity.py``): the loss
+    and ``grad_norm`` within 1e-5 relative, the parameters within 1e-5
+    absolute, 1e-5 + 2 ``lr`` where the step's reference gradient (its
+    bf16 accumulator's) is below 1e-5 of its leaf's largest (Adam turns
+    such an element's rounding noise into a step of up to ``lr``; two
+    microbatches' gradients that cancel leave such an element, whose bf16
+    sum keeps little but noise); each moment within one step of its dtype
+    at the reference's value plus what the bf16 accumulator's rounding
+    makes of it (gradients 1e-6 apart can round each partial sum to
+    neighbouring bf16 values, and two microbatches' that cancel leave the
+    first's step in a small sum: ``s`` two steps of each partial sum,
+    summed over the microbatches and divided by them, ``(1 - b1) s`` in ``mu``, ``(1 - b2) (2 |g| +
+    s) s`` in ``nu``), at a noise element plus the moment of a gradient at
+    that threshold."""
+    _, tc = _mesh_case_configs(case)
+    _, tp = _params(FFN_CASES[case][0], case)
+    tp = _map(lambda t: t.detach().clone(), tp)
+    mesh = ShardMesh(2, 2, device="cpu")
+    opt = dataclasses.replace(
+        steps.SMOKE_OPT, mu_dtype=torch.float8_e4m3fn,
+        nu_dtype=torch.bfloat16, **TRAIN_RULES)
+    step = ttl.make_train_step(
+        functools.partial(ttfm.loss_fn, tc, mesh=mesh), opt,
+        microbatches=TRAIN_MICROBATCHES, accum_dtype=torch.bfloat16,
+        mesh=mesh)
+    b = {k: torch.from_numpy(v) for k, v in _batch(tc.vocab).items()}
+    p1, s1, m = step(tp, ttl.init_state(opt, tp), b)
+    want = reference_2x2
+    for k in ("loss", "grad_norm"):
+        assert float(m[k]) == pytest.approx(float(want[f"train_{case}_{k}"]),
+                                            rel=1e-5), k
+    lr = float(want[f"train_{case}_lr"])
+    noisy = []
+    for i, x in enumerate(tree_leaves(p1)):
+        g = np.abs(want[f"train_{case}_grad_{i}"])
+        noisy.append((g < 1e-5 * g.max(), 1e-5 * g.max()))
+        limit = np.where(noisy[i][0], 1e-5 + 2 * lr, 1e-5)
+        off = np.abs(x.numpy() - want[f"train_{case}_param_{i}"])
+        assert np.all(off <= limit), (i, off.max())
+    for kind, tree, dt in (("mu", s1.mu, torch.float8_e4m3fn),
+                           ("nu", s1.nu, torch.bfloat16)):
+        for i, x in enumerate(tree_leaves(tree)):
+            assert x.dtype == dt
+            w = want[f"train_{case}_{kind}_{i}"]
+            jdt = {torch.float8_e4m3fn: jnp.float8_e4m3fn,
+                   torch.bfloat16: jnp.bfloat16}[dt]
+            ulp = np.spacing(np.abs(w).astype(jdt)).astype(np.float32)
+            off = np.abs(x.float().numpy() - w)
+            # one step of the bf16 accumulator, in the moment
+            g = np.abs(want[f"train_{case}_grad_{i}"])
+            gstep = want[f"train_{case}_gstep_{i}"]
+            acc = ((1 - opt.b1) * gstep if kind == "mu"
+                   else (1 - opt.b2) * (2 * g + gstep) * gstep)
+            # a noise gradient's moment: (1 - b1) 2 g or (1 - b2) g^2
+            mask, thr = noisy[i]
+            noise = (2 * (1 - opt.b1) * thr if kind == "mu"
+                     else (1 - opt.b2) * thr * thr)
+            limit = np.where(mask, noise, acc) + ulp
+            assert np.all(off <= limit), (kind, i)
 
 
 def test_mesh_loss_gradients_through_remat():

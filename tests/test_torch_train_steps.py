@@ -109,3 +109,54 @@ def test_train_bundles_match_reference_at_full_size(arch):
     assert n < 1.5e10
     if arch == "smollm-135m":
         assert cfg.remat and not get_arch(arch).reduced.remat
+
+
+# the published rules of the four large LMs: (parameters, microbatches,
+# mu, nu, accumulator), the reference's thresholds at 1.5e10, 6e10, 1.2e11
+LARGE_RULES = {
+    "qwen1.5-32b": (2, torch.bfloat16, torch.bfloat16, torch.float32),
+    "command-r-plus-104b": (4, torch.float8_e4m3fn, torch.bfloat16,
+                            torch.bfloat16),
+    "dbrx-132b": (8, torch.float8_e4m3fn, torch.bfloat16, torch.bfloat16),
+    "grok-1-314b": (8, torch.float8_e4m3fn, torch.bfloat16, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("layers", [None, 1, 2])
+@pytest.mark.parametrize("arch", list(LARGE_RULES))
+def test_large_lm_train_rules_come_from_the_published_config(arch, layers):
+    """A depth-cut ``train_4k`` bundle of a large LM takes the published
+    config's microbatches, moment dtypes and accumulator (its own
+    ``param_count()`` at one or two layers is below every threshold), the
+    same as the uncut reference bundle's; built, nothing initialized."""
+    over = None if layers is None else dict(n_layers=layers)
+    tb = steps.build(arch, "train_4k", device="cpu", config_overrides=over)
+    mb, mu, nu, acc = LARGE_RULES[arch]
+    assert (tb.microbatches, tb.opt_cfg.mu_dt, tb.opt_cfg.nu_dt,
+            tb.accum_dtype) == (mb, mu, nu, acc)
+    jb = jsteps.build(jget_arch(arch), "train_4k")
+    dt = {"float8_e4m3fn": torch.float8_e4m3fn, "bfloat16": torch.bfloat16}
+    assert (dt[jnp.dtype(jb.opt_cfg.mu_dt).name],
+            dt[jnp.dtype(jb.opt_cfg.nu_dt).name]) == (mu, nu)
+    if layers is not None:
+        cut = dataclasses.replace(get_arch(arch).config, n_layers=layers)
+        assert cut.param_count() < 1.5e10
+
+
+@pytest.mark.parametrize("arch", list(LARGE_RULES))
+def test_reduced_bundles_keep_their_rules_unless_published_forced(arch):
+    """A reduced bundle takes the reduced config's rules (one microbatch,
+    the smoke optimizer's f32 moments), as the reference's does;
+    ``published_rules`` forces the published dtypes, and the published
+    microbatches where they divide the reduced batch of 4."""
+    tb = steps.build(arch, "train_4k", reduced=True, device="cpu")
+    assert (tb.microbatches, tb.opt_cfg.mu_dt, tb.accum_dtype) == (
+        1, torch.float32, torch.float32)
+    fb = steps.build(arch, "train_4k", reduced=True, device="cpu",
+                     published_rules=True)
+    mb, mu, nu, acc = LARGE_RULES[arch]
+    if acc == torch.float32:      # below 6e10: the moments are the opt's
+        mu = nu = steps.SMOKE_OPT.moment_dtype
+    assert (fb.microbatches, fb.opt_cfg.mu_dt, fb.opt_cfg.nu_dt,
+            fb.accum_dtype) == (mb if 4 % mb == 0 else 1, mu, nu, acc)
+    assert fb.opt_cfg.warmup_steps == steps.SMOKE_OPT.warmup_steps

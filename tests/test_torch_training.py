@@ -152,6 +152,38 @@ def test_adamw_update_matches_reference(moments, clip):
             assert np.mean(_f32(tree_leaves(ts.mu)[0]) == b) > 0.99
 
 
+# f32 values about fp8 e4m3fn's edges: subnormals (2**-9 the least),
+# halfway points (ties to even), 448 (its largest), the 464 tie that
+# rounds down to it and what rounds past it (the reference: NaN; a bare
+# PyTorch cast: 448), infinities and NaN
+FP8_EDGES = np.array(
+    [0.0, -0.0, 2.0 ** -10, 1.5 * 2.0 ** -10, 2.0 ** -9, 3 * 2.0 ** -10,
+     0.0029296875, 1.0625, 1.1875, 300.0, 447.0, 448.0, 449.0, 464.0,
+     464.01, 465.0, 479.9, 480.0, 1e4, 1e30, np.inf, -np.inf, np.nan,
+     -447.0, -465.0], np.float32)
+
+
+def test_fp8_moment_cast_matches_reference():
+    """``optimizer.cast_moment`` into ``float8_e4m3fn``: the reference's
+    ``astype`` bit for bit, at the format's edges and on random values of
+    every magnitude it spans; into bf16 the plain cast."""
+    rng = np.random.default_rng(7)
+    x = np.concatenate([FP8_EDGES, (rng.standard_normal(4096) * np.exp2(
+        rng.uniform(-14, 10, 4096))).astype(np.float32)])
+    want = np.asarray(jnp.asarray(x).astype(jnp.float8_e4m3fn)).view(
+        np.uint8)
+    got = topt.cast_moment(torch.from_numpy(x), torch.float8_e4m3fn)
+    assert got.dtype == torch.float8_e4m3fn
+    got = got.view(torch.uint8).numpy()
+    assert np.array_equal(got, want)
+    edges = got[:len(FP8_EDGES)]
+    assert int(np.sum(edges & 0x7F == 0x7F)) == 10     # NaN, either sign
+    bf = topt.cast_moment(torch.from_numpy(x), torch.bfloat16)
+    assert np.array_equal(bf.float().numpy(), np.asarray(
+        jnp.asarray(x).astype(jnp.bfloat16)).astype(np.float32),
+        equal_nan=True)
+
+
 def test_adamw_update_in_row_blocks_is_the_same(monkeypatch):
     """The update of a leaf in row blocks is the whole-leaf update."""
     cfg = topt.AdamWConfig(moment_dtype=torch.bfloat16)
@@ -171,6 +203,63 @@ def test_adamw_update_in_row_blocks_is_the_same(monkeypatch):
         assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
                            else a, b.view(torch.int16)
                            if b.dtype == torch.bfloat16 else b)
+
+
+ELEM_SHAPES = {"lead1": (1, 4, 6, 5), "lead3": (3, 2, 6, 5), "rows": (50, 8)}
+
+
+def _bits(t):
+    """A tensor's bytes as integers (bf16 and fp8 compared bit for bit)."""
+    return t.contiguous().view(torch.uint8) if t.element_size() == 1 else (
+        t.view(torch.int16) if t.element_size() == 2 else t)
+
+
+@pytest.mark.parametrize("part", ["update", "accumulate"])
+@pytest.mark.parametrize("shape", list(ELEM_SHAPES.values()),
+                         ids=list(ELEM_SHAPES))
+def test_adamw_update_in_element_blocks_is_the_same(monkeypatch, shape,
+                                                    part):
+    """Under an :data:`UPDATE_ELEMS` cap below a row's size, ``update``
+    (fp8 ``mu``, bf16 ``nu``) and ``make_train_step``'s in-place bf16
+    accumulation of two microbatches give the whole-leaf bits: a leaf
+    whose leading axis is 1 is split along its next axes in turn, a leaf
+    of more rows in runs of rows and then within a row.  ``grad_norm``
+    sums the blocks' sums of squares, so its last bits follow the
+    blocking: 1e-6 relative (the clip does not bind, so the update reads
+    it only through a factor of 1)."""
+    from repro_torch.training import train_loop as ttl
+
+    cfg = topt.AdamWConfig(mu_dtype=torch.float8_e4m3fn,
+                           nu_dtype=torch.bfloat16, b1=0.5, grad_clip=1e3)
+    rng = np.random.default_rng(6)
+    w = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((4,) + shape).astype(
+        np.float32))
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    def loss_fn(params, batch):
+        return torch.sin(params["w"][None] * batch["x"]).square().sum()
+
+    outs = []
+    for cap in (1 << 28, 12):
+        monkeypatch.setattr(topt, "UPDATE_ELEMS", cap)
+        n_blocks = len(list(topt.leaf_blocks(w)))
+        assert n_blocks == 1 if cap > w.numel() else n_blocks > 2
+        q = {"w": w.clone()}
+        st = topt.init(cfg, q)
+        if part == "update":
+            q, st, m = topt.update(cfg, {"w": g}, st, q)
+        else:
+            step = ttl.make_train_step(loss_fn, cfg, microbatches=2,
+                                       accum_dtype=torch.bfloat16)
+            q, st, m = step(q, st, {"x": x})
+        outs.append((q["w"], st.mu["w"], st.nu["w"], m["grad_norm"]))
+    assert outs[0][1].dtype == torch.float8_e4m3fn
+    assert float(outs[0][1].float().abs().max()) > 0
+    for a, b in zip(outs[0][:3], outs[1][:3]):
+        assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+    assert abs(float(outs[0][3]) - float(outs[1][3])) <= 1e-6 * float(
+        outs[0][3])
 
 
 def test_sgd_update_matches_reference():
