@@ -192,9 +192,11 @@ Phases, each timed and printed:
    prints each commit's step, bytes and seconds and both runs' seconds.
    (b) the walks of the reference update benchmark
    (``benchmarks/bench_updates.py``: r = 16, l = 32, c = 0.25,
-   ``max_steps`` 64, respawn mode) over all 2^20 sources in 1,024 chunks
-   of 1,024 (the benchmark's grid of 8 would be 131,072 chunks), with a
-   4 GiB touch sketch (4,096 bits a row): ``build_maintainable_index``,
+   ``max_steps`` 64, respawn mode) over all 2^19 sources of an
+   ``rmat(19)`` graph (cut from 3a's rmat(20) to pay for 3r (ii)'s dense
+   cases) in 512 chunks of 1,024 (the benchmark's grid of 8 would be
+   65,536 chunks), with a 2 GiB touch sketch (4,096 bits a row):
+   ``build_maintainable_index``,
    a ``PPRService`` with its maintainer (sparse route, the sparse
    combine, an answer cache) serving 4,096 requests, ``UPD_BATCHES`` edge
    batches through ``apply_updates`` (4 fresh uniform edges each, the
@@ -306,13 +308,18 @@ Phases, each timed and printed:
    memory beside the prediction, the losses and ``grad_norm``, the
    lookups and their backward gated at one each a microbatch, finite
    values, ``mu`` fp8 for dbrx, and the first step's lookup and backward
-   replayed as 2b; then (ii) training one shard a process: the reduced
-   dbrx (capacity 1.0, remat) and grok on 2 x 2 gloo ranks on the card
-   (forward, loss, gradients, decode and a train step of two
-   microbatches under the published rules) and one full-width dbrx MoE
-   layer's forward and backward on 4,096 tokens, each rank's outputs the
-   stacked 2 x 2 mesh's on the card bit for bit, the ranks' lookups and
-   backward launches gated;
+   replayed as 2b; then (ii) training one shard a process in the
+   reference's 2-D layout: the reduced dbrx (capacity 1.0, remat), grok,
+   qwen (remat) and command-r (its loss in chunks) on 2 x 2 gloo ranks
+   on the card (forward, loss, gradients, decode and a train step of two
+   microbatches under the published rules), one full-width dbrx MoE
+   layer's forward and backward on 4,096 tokens and one full-width
+   qwen1.5-32b dense layer's on [2, 2,048] (a row a data shard, 40 heads
+   over 2 model shards), each rank's outputs the stacked 2 x 2 mesh's on
+   the card bit for bit; the ranks' lookups (one a rank on its block of
+   the vocabulary) and backward launches gated at one a microbatch, the
+   MoE cases' and the dense cases' counted apart, and rank 0's first
+   dense-case lookup and backward replayed as 2b;
 2b. replay the inputs of each kernel's first launch on its path (and of
    ``ell_spmm``'s second, a batch's push of a spread-out frontier, and
    its ``dense`` variant, the last push of 3e's ``pi``, of
@@ -561,16 +568,20 @@ BIG_REPLAY = "command-r-plus-104b"   # its prefill lookup is replayed (2b)
 # phase 3r: train_4k at full width, (layers, B), one sequence of 4,096 a
 # microbatch under the published rules (qwen: 2 microbatches, bf16
 # moments; dbrx: 8, fp8 mu, bf16 nu and accumulator); each cut traced on
-# meta first and run only if its predicted peak is within BIG_TRAIN_PEAK
+# meta first and run only if its predicted peak is within the dry-run's
+# PEAK_LIMIT
 BIG_TRAIN = {"qwen1.5-32b": (2, 2), "dbrx-132b": (1, 8)}
 BIG_TRAIN_PLAN = (1, 1)        # warm-up, timed steps
-BIG_TRAIN_PEAK = 75e9
-# phase 3r (ii): the reduced MoE LMs (``launch.ranks.CASES``) and one
-# full-width dbrx MoE layer on RANK_TRAIN_MESH gloo ranks on one card,
-# against the stacked mesh there
+# phase 3r (ii): the reduced large LMs (``launch.ranks.CASES``: the MoE
+# dbrx and grok, the dense qwen and command-r in the 2-D layout), one
+# full-width dbrx MoE layer and one full-width qwen1.5-32b dense layer on
+# RANK_TRAIN_MESH gloo ranks on one card, against the stacked mesh there
 RANK_TRAIN_MESH = (2, 2)
+RANK_DENSE_CASES = ("qwen", "command_r")    # the rest are the MoE cases
 RANK_FFN_ARCH = "dbrx-132b"
 RANK_FFN_TOKENS = 4096         # one train_4k microbatch's tokens
+RANK_DENSE_ARCH = "qwen1.5-32b"
+RANK_DENSE_SHAPE = (2, 2048)   # [B, S]: a row a data shard, S cut from 4,096
 RANK_TRAIN_JOIN_S = 420.0
 DIST_EP = 4                    # model shards of phase 3f's tile step
 DIST_DATA = 2                  # data replicas of phase 3f's build
@@ -588,7 +599,10 @@ CKPT_EVERY = 64                # 3i(a): a commit every 64 chunks of 4,096
 CKPT_CRASH_CHUNK = 160         # of 256: the resume starts at step 128
 CKPT_REQUESTS = 1024           # requests to the checkpoint-booted service
 UPD_R, UPD_L, UPD_C, UPD_MAX_STEPS = 16, 32, 0.25, 64  # bench_updates.py:41
-UPD_SOURCE_BATCH = 1024        # 1,024 chunks at n = 2^20 (the bench: 8)
+UPD_SOURCE_BATCH = 1024        # 512 chunks at n = 2^19 (the bench: 8)
+# 3i(b)'s graph: rmat(19), cut from 3a's rmat(20) to pay for 3r
+# (ii)'s dense cases (its two builds took 92 of 3i's 136.4 s on a slow host)
+UPD_N_LOG2 = 19
 # live edge batches of 3i(b) (the bench: 8; cut to 2 in PR 29 to pay for
 # 3p, to 1 in PR 30 for 3q: a run on a slow host took 1,150 s of 1,200)
 UPD_BATCHES = 1
@@ -3243,7 +3257,7 @@ def big_train_cell(torch, np, dev, arch, layers, b, failures):
     to ``layers`` and its batch to ``b`` rows (one sequence of 4,096 a
     microbatch) under the published config's rules: traced on meta
     first (``launch/dryrun.py``) and run only if the predicted peak is
-    within ``BIG_TRAIN_PEAK``; then ``BIG_TRAIN_PLAN``'s steps with CUDA
+    within ``dryrun.PEAK_LIMIT``; then ``BIG_TRAIN_PLAN``'s steps with CUDA
     events, the peak beside the prediction, the losses and ``grad_norm``,
     the lookups' and their backward's launches gated at one each a
     microbatch, every loss, norm and parameter finite, the microbatches
@@ -3272,12 +3286,12 @@ def big_train_cell(torch, np, dev, arch, layers, b, failures):
     print(f"  {arch} train_4k: {layers} of {spec.config.n_layers} layers, "
           f"B = {b}: traced on meta in {time.perf_counter() - t1:.3f} s; "
           f"predicted peak {predicted / 1e9:.2f} GB (limit "
-          f"{BIG_TRAIN_PEAK / 1e9:.0f}); roofline {bound_s * 1e3:.3f} ms a "
-          f"step ({terms.dominant}: compute {terms.compute_s * 1e3:.3f}, "
+          f"{dryrun.PEAK_LIMIT / 1e9:.0f}); roofline {bound_s * 1e3:.3f} ms "
+          f"a step ({terms.dominant}: compute {terms.compute_s * 1e3:.3f}, "
           f"memory {terms.memory_s * 1e3:.3f})")
-    if not predicted <= BIG_TRAIN_PEAK:
+    if not predicted <= dryrun.PEAK_LIMIT:
         failures.append(f"3r {arch}: predicted peak {predicted / 1e9:.2f} "
-                        f"GB above {BIG_TRAIN_PEAK / 1e9:.0f}")
+                        f"GB above {dryrun.PEAK_LIMIT / 1e9:.0f}")
         return {}, {}, {}
     published = steps.build(arch, "train_4k", device="meta")
     torch.cuda.synchronize()
@@ -3376,17 +3390,25 @@ def big_train_cell(torch, np, dev, arch, layers, b, failures):
     return counts, results, figures
 
 
-def rank_train_stated():
+def rank_train_stated(labels):
     """The lookups and backward launches a rank's ``launch.ranks
-    .train_case`` of each case makes: ``forward``, the two gradients'
-    forwards, the decode steps and the train step's microbatches; a
-    backward each for the two gradients and each microbatch."""
+    .train_case`` of each case of ``labels`` makes: ``forward``, the two
+    gradients' forwards, the decode steps and the train step's
+    microbatches; a backward each for the two gradients and each
+    microbatch.  A dense case's lookup on a rank is one launch over its
+    block of the vocabulary (its decode's over the gathered table)."""
     from repro_torch.launch import ranks
 
     micro = ranks.CASE_MICROBATCHES
     fwd = 3 + sum(n for _, n in ranks.CASE_DECODE) + micro
-    return {"embedding_bag": fwd * len(ranks.CASES),
-            "embedding_bag_backward": (2 + micro) * len(ranks.CASES)}
+    return {"embedding_bag": fwd * len(labels),
+            "embedding_bag_backward": (2 + micro) * len(labels)}
+
+
+def rank_moe_cases():
+    from repro_torch.launch import ranks
+
+    return tuple(k for k in ranks.CASES if k not in RANK_DENSE_CASES)
 
 
 def ffn_layer(torch, cfg, mesh, dev):
@@ -3440,13 +3462,84 @@ def ffn_fwd_bwd(torch, cfg, mesh, p, x, ct):
     return y.detach(), aux.detach(), grads
 
 
+def dense_layer(torch, cfg, mesh, dev):
+    """One full-width dense layer of ``cfg`` for ``mesh``'s process, in the
+    per-layer form ``transformer._layer_mesh`` takes: each leaf drawn whole
+    from its own seed (``N(0, 1) / sqrt(d_in)``; the norm scales and
+    biases near one and zero) and kept whole on a stacked mesh or cut to
+    the rank's block of the 2-D layout; the residual stream ``x [B, S,
+    d]`` in the compute dtype and an f32 cotangent of the output, both
+    whole, from seeds."""
+    import math
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import transformer as tfm
+
+    d, hd = cfg.d_model, cfg.hd
+    shapes = {"ln_attn/scale": (d,), "ln_ffn/scale": (d,),
+              "wq/w": (d, cfg.n_heads * hd), "wk/w": (d, cfg.n_kv_heads * hd),
+              "wv/w": (d, cfg.n_kv_heads * hd), "wo/w": (cfg.n_heads * hd, d),
+              "w_gate/w": (d, cfg.d_ff), "w_up/w": (d, cfg.d_ff),
+              "w_down/w": (cfg.d_ff, d)}
+    if cfg.qkv_bias:
+        shapes.update({f"w{c}/b": (shapes[f"w{c}/w"][1],) for c in "qkv"})
+    p = {}
+    for k, (path, shape) in enumerate(sorted(shapes.items())):
+        g = torch.Generator(device=dev).manual_seed(2000 + k)
+        x = torch.randn(shape, generator=g, device=dev)
+        if path.endswith("/w"):
+            x = x.div_(math.sqrt(shape[0]))
+        else:
+            x = x.mul_(0.1).add_(1.0 if "scale" in path else 0.0)
+        spec = tfm._layer_spec(cfg, mesh, path, len(shape))
+        name, leaf = path.split("/")
+        p.setdefault(name, {})[leaf] = sharding.rank_block(x, spec, mesh)
+    b, s_len = RANK_DENSE_SHAPE
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((b, s_len, d), generator=g, device=dev).to(
+        cfg.compute_dtype)
+    ct = torch.randn((b, s_len, d), generator=g.manual_seed(9), device=dev)
+    return p, x, ct
+
+
+def dense_fwd_bwd(torch, cfg, mesh, p, x, ct):
+    """``transformer._layer_mesh`` of the layer on ``mesh`` over ``x``'s
+    rows split over ``data``, and the gradients of ``sum(y * ct)``:
+    ``(y, dx, grads)``, the output's and the input's rows of the local data
+    shards (joined in shard order) and each leaf's gradient by path."""
+    from repro_torch.launch import ranks
+    from repro_torch.models import transformer as tfm
+
+    paths = [k for k, _ in ranks.leaf_paths(p)]
+    leaves = [t.detach().requires_grad_(True)
+              for _, t in ranks.leaf_paths(p)]
+    q = {}
+    for path, t in zip(paths, leaves):
+        name, leaf = path.split("/")
+        q.setdefault(name, {})[leaf] = t
+    rows = x.shape[0] // mesh.data
+    xs = [x[d * rows:(d + 1) * rows].detach().requires_grad_(True)
+          for d in mesh.local_data]
+    cts = [ct[d * rows:(d + 1) * rows] for d in mesh.local_data]
+    ys, _ = tfm._layer_mesh(cfg, mesh, True, xs, q)
+    loss = sum((y.float() * c).sum() for y, c in zip(ys, cts))
+    grads = torch.autograd.grad(loss, xs + leaves)
+    return (torch.cat([y.detach() for y in ys]),
+            torch.cat(grads[:len(xs)]),
+            dict(zip(paths, grads[len(xs):])))
+
+
 def rank_train_rank(rank, world, out_dir, spawn_t0):
     """One process of phase 3r (ii) (spawned): a shard of the
     ``RANK_TRAIN_MESH`` gloo mesh on ``cuda:0``.  Runs each reduced case
-    (``launch.ranks.train_case``) and the full-width MoE layer's forward
-    and backward, and writes ``rank{r}.json``: each output's digest, the
-    layer's outputs held against the stacked mesh's
-    (``ffn_stacked.pt``) and its expert gradients' digests and norms."""
+    (``launch.ranks.train_case``; the MoE cases' launches and the dense
+    cases' counted apart, rank 0 holding the dense cases' first lookup
+    and backward launches on the host for 2b's replay in
+    ``dense_launches.pt``), the full-width MoE layer's forward and
+    backward and the full-width dense layer's, and writes
+    ``rank{r}.json``: each output's digest, the layers' outputs held
+    against the stacked mesh's (``ffn_stacked.pt``,
+    ``dense_stacked.pt``) and their weight gradients' digests and norms."""
     import torch
     import torch.distributed as dist
 
@@ -3462,17 +3555,28 @@ def rank_train_rank(rank, world, out_dir, spawn_t0):
     dev = mesh.device
     rec = dict(rank=rank, shard=[mesh.local_data[0], mesh.local_model[0]],
                ready_s=time.time() - spawn_t0, cases={})
-    ops.reset_launch_counts()
-    for label in ranks.CASES:
-        t0 = time.perf_counter()
-        out, _ = ranks.train_case(label, mesh, seed=BIG_SEED)
+    for kind, labels in (("launches", rank_moe_cases()),
+                         ("launches_dense", RANK_DENSE_CASES)):
+        ops.reset_launch_counts()
+        ops.capture_first_launches(kind == "launches_dense" and rank == 0)
+        for label in labels:
+            t0 = time.perf_counter()
+            out, _ = ranks.train_case(label, mesh, seed=BIG_SEED)
+            torch.cuda.synchronize(dev)
+            rec["cases"][label] = dict(
+                seconds=time.perf_counter() - t0,
+                digests={k: tensor_digest(v) for k, v in out.items()},
+                loss=float(out["step_loss"]),
+                grad_norm=float(out["grad_norm"]))
         torch.cuda.synchronize(dev)
-        rec["cases"][label] = dict(
-            seconds=time.perf_counter() - t0,
-            digests={k: tensor_digest(v) for k, v in out.items()},
-            loss=float(out["step_loss"]), grad_norm=float(out["grad_norm"]))
-    torch.cuda.synchronize(dev)
-    rec["launches"] = ops.launch_counts()
+        rec[kind] = ops.launch_counts()
+    held = {tag: (tuple(None if x is None else x.detach().cpu()
+                        for x in args), kwargs)
+            for tag, (args, kwargs) in ops.captured_launches().items()
+            if tag.split("/")[0] in TRAIN_PATH}
+    ops.capture_first_launches(False)
+    if rank == 0:
+        torch.save(held, os.path.join(out_dir, "dense_launches.pt"))
     cfg = get_arch(RANK_FFN_ARCH).config
     p, x, ct = ffn_layer(torch, cfg, mesh, dev)
     torch.cuda.synchronize(dev)
@@ -3493,6 +3597,29 @@ def rank_train_rank(rank, world, out_dir, spawn_t0):
                                     norm=float(g.double().norm()))
                          for name, g in zip(("w_gate", "w_up", "w_down"),
                                             grads[2:])}
+    del y, aux, grads, mine, want
+    torch.cuda.empty_cache()
+    cfg = get_arch(RANK_DENSE_ARCH).config
+    p, x, ct = dense_layer(torch, cfg, mesh, dev)
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    y, dx, grads = dense_fwd_bwd(torch, cfg, mesh, p, x, ct)
+    torch.cuda.synchronize(dev)
+    rec["dense_s"] = time.perf_counter() - t0
+    rec["dense_peak"] = torch.cuda.max_memory_allocated(dev)
+    del p, x, ct
+    want = torch.load(os.path.join(out_dir, "dense_stacked.pt"))
+    d = mesh.local_data[0]
+    rows = RANK_DENSE_SHAPE[0] // mesh.data
+    rec["dense"] = {k: dict(equal=bool(torch.equal(
+        v.cpu(), want[k][d * rows:(d + 1) * rows])), max_abs=float((
+            v.float().cpu() - want[k][d * rows:(d + 1) * rows].float()
+        ).abs().max())) for k, v in dict(y=y, dx=dx).items()}
+    rec["dense_blocks"] = {path: dict(digest=tensor_digest(g),
+                                      norm=float(g.double().norm()))
+                           for path, g in grads.items()}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
     dist.barrier()
@@ -3503,16 +3630,22 @@ def phase_rank_train(torch, np, dev, failures):
     """Phase 3r (ii): training one shard a process on the card.  The
     stacked ``ShardMesh`` yardsticks first, in this process: each reduced
     case (``launch.ranks.train_case``) with its expected digests for
-    every rank's shard, and the full-width MoE layer's forward and
-    backward, whose
-    output, aux, ``x`` and router gradients go to ``ffn_stacked.pt`` and
-    whose expert gradients' blocks are digested by rank; then
-    ``RANK_TRAIN_MESH`` gloo ranks spawned on the card, each held to them
-    bit for bit.  Returns the ranks' summed launch counts."""
+    every rank's shard, the full-width MoE layer's forward and
+    backward, whose output, aux, ``x`` and router gradients go to
+    ``ffn_stacked.pt`` and whose expert gradients' blocks are digested by
+    rank, and the full-width dense layer's, whose output and ``x``
+    gradient go to ``dense_stacked.pt`` and whose weight gradients'
+    blocks are digested by rank; then ``RANK_TRAIN_MESH`` gloo ranks
+    spawned on the card, each held to them bit for bit, each case's
+    lookups and backward launches gated at one a microbatch, and rank
+    0's first dense-case launches replayed as 2b.  Returns the ranks'
+    summed launch counts of the MoE cases and of the dense cases, and the
+    replays' results by kernel."""
     from repro_torch.configs import get_arch
     from repro_torch.distributed import ShardMesh, sharding
     from repro_torch.launch import ranks
     from repro_torch.launch.ranks import spawn
+    from repro_torch.models import transformer as tfm
 
     world = RANK_TRAIN_MESH[0] * RANK_TRAIN_MESH[1]
     mesh = ShardMesh(*RANK_TRAIN_MESH, device=dev)
@@ -3568,9 +3701,40 @@ def phase_rank_train(torch, np, dev, failures):
               f"{cfg.compute_dtype}, forward and backward on the stacked "
               f"{mesh.data} x {mesh.model} mesh: {stacked_s:.3f} s, peak "
               f"{stacked_peak / 1e9:.2f} GB above the "
-              f"{base / 1e9:.2f} GB held; yardsticks in "
-              f"{time.perf_counter() - t0:.3f} s")
+              f"{base / 1e9:.2f} GB held")
         del y, aux, grads
+        torch.cuda.empty_cache()
+        cfg = get_arch(RANK_DENSE_ARCH).config
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        p, x, ct = dense_layer(torch, cfg, mesh, dev)
+        n_dense = sum(t.numel() for _, t in ranks.leaf_paths(p))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y, dx, grads = dense_fwd_bwd(torch, cfg, mesh, p, x, ct)
+        torch.cuda.synchronize()
+        stacked_s = time.perf_counter() - t1
+        stacked_peak = torch.cuda.max_memory_allocated() - base
+        del p, x, ct
+        torch.save(dict(y=y.cpu(), dx=dx.cpu()),
+                   os.path.join(out_dir, "dense_stacked.pt"))
+        dense_blocks = {path: [dict(digest=tensor_digest(b), norm=float(
+            b.double().norm())) for b in (
+                sharding.shard(g, tfm._layer_spec(cfg, mesh, path, g.dim()),
+                               mesh)[d, m]
+                for d in range(mesh.data) for m in range(mesh.model))]
+            for path, g in grads.items()}
+        print(f"3r (ii) yardstick: one full-width {RANK_DENSE_ARCH} dense "
+              f"layer ({n_dense} parameters in f32: d {cfg.d_model}, "
+              f"{cfg.n_heads} heads over {mesh.model} model shards, d_ff "
+              f"{cfg.d_ff}) on [B, S] = {list(RANK_DENSE_SHAPE)} in "
+              f"{cfg.compute_dtype} (a row a data shard), forward and "
+              f"backward on the stacked {mesh.data} x {mesh.model} mesh: "
+              f"{stacked_s:.3f} s, peak {stacked_peak / 1e9:.2f} GB above "
+              f"the {base / 1e9:.2f} GB held; yardsticks in "
+              f"{time.perf_counter() - t0:.3f} s")
+        del y, dx, grads
         torch.cuda.empty_cache()
         t0 = time.time()
         try:
@@ -3579,13 +3743,14 @@ def phase_rank_train(torch, np, dev, failures):
         except Exception as e:  # noqa: BLE001 - a failure of the phase
             failures.append(f"3r (ii): the gloo ranks failed: {e!r}"[-3000:])
             print(f"3r (ii): the gloo ranks failed: {e}", flush=True)
-            return {}
+            return {}, {}, {}
         recs = []
         for r in range(world):
             with open(os.path.join(out_dir, f"rank{r}.json")) as f:
                 recs.append(json.load(f))
-        counts = {}
-        stated = rank_train_stated()
+        counts, counts_dense = {}, {}
+        stated = {"launches": rank_train_stated(rank_moe_cases()),
+                  "launches_dense": rank_train_stated(RANK_DENSE_CASES)}
         for r, rec in enumerate(recs):
             bad = sorted(f"{label}/{k}" for label, c in rec["cases"].items()
                          for k, v in c["digests"].items()
@@ -3594,6 +3759,12 @@ def phase_rank_train(torch, np, dev, failures):
                              if not v["equal"])
             ffn_bad += sorted(n for n, v in rec["ffn_blocks"].items()
                               if v["digest"] != blocks[n][r]["digest"])
+            ffn_bad += sorted(f"dense/{k}" for k, v in rec["dense"].items()
+                              if not v["equal"])
+            ffn_bad += sorted(
+                f"dense/{n}" for n, v in rec["dense_blocks"].items()
+                if v["digest"] != dense_blocks[n][r]["digest"])
+            n_dense_bad = sum(1 for k in ffn_bad if k.startswith("dense/"))
             n_keys = sum(len(c["digests"]) for c in rec["cases"].values())
             print(f"3r (ii) rank {r} (data {rec['shard'][0]}, model "
                   f"{rec['shard'][1]}): reduced cases "
@@ -3617,23 +3788,45 @@ def phase_rank_train(torch, np, dev, failures):
                   + ", ".join(f"{v['norm']:.6e} vs "
                               f"{blocks[n][r]['norm']:.6e}"
                               for n, v in rec["ffn_blocks"].items())
-                  + f"); launches {json.dumps(rec['launches'])}")
+                  + f"); the full-width {RANK_DENSE_ARCH} layer's forward "
+                  f"and backward {rec['dense_s']:.3f} s, peak "
+                  f"{rec['dense_peak'] / 1e9:.2f} GB, y / dx the stacked "
+                  f"bytes " + " / ".join(str(v["equal"])
+                                         for v in rec["dense"].values())
+                  + f", {len(rec['dense_blocks']) + 2 - n_dense_bad} of "
+                  f"{len(rec['dense_blocks']) + 2} outputs and gradient "
+                  f"blocks the stacked bytes; MoE cases' launches "
+                  f"{json.dumps(rec['launches'])}, dense cases' "
+                  f"{json.dumps(rec['launches_dense'])}")
             if bad or ffn_bad:
                 failures.append(f"3r (ii) rank {r}: differs from the stacked "
                                 f"mesh at {(bad + ffn_bad)[:8]}")
-            for name, n in stated.items():
-                if rec["launches"].get(name) != n:
-                    failures.append(f"3r (ii) rank {r}: {name} launched "
-                                    f"{rec['launches'].get(name)} times, "
-                                    f"{n} stated")
+            for kind, want_n in stated.items():
+                for name, n in want_n.items():
+                    if rec[kind].get(name) != n:
+                        failures.append(f"3r (ii) rank {r}: {name} launched "
+                                        f"{rec[kind].get(name)} times in the "
+                                        f"{kind}, {n} stated")
             counts = {k: counts.get(k, 0) + v
                       for k, v in rec["launches"].items()}
+            counts_dense = {k: counts_dense.get(k, 0) + v
+                            for k, v in rec["launches_dense"].items()}
         print(f"3r (ii): {card_name_and_power_limit()}; {world} ranks "
               f"({RANK_TRAIN_MESH[0]} x {RANK_TRAIN_MESH[1]}) over gloo on "
               f"cuda:0, run in {seconds:.3f} s; spawned and joined in "
               f"{min(x['ready_s'] for x in recs):.3f}.."
               f"{max(x['ready_s'] for x in recs):.3f} s")
-        return counts
+        held = torch.load(os.path.join(out_dir, "dense_launches.pt"))
+        replays = {}
+        replay_all(torch, {
+            f"{tag.split('/')[0]}/rank_dense_block": (
+                tuple(None if x is None else x.to(dev) for x in args),
+                kwargs) for tag, (args, kwargs) in held.items()},
+            replays, failures)
+        if sorted(replays) != sorted(TRAIN_PATH):
+            failures.append(f"3r (ii): rank 0's dense lookups replayed "
+                            f"{sorted(replays)}, not {sorted(TRAIN_PATH)}")
+        return counts, counts_dense, replays
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
@@ -3642,7 +3835,8 @@ def phase_big_train(torch, np, dev, failures):
     """Phase 3r: ``BIG_TRAIN``'s full-width ``train_4k`` steps
     (``big_train_cell``), each counted from zero, then training one shard
     a process (``phase_rank_train``).  Returns the cells' summed launch
-    counts, the ranks', and the replays' results by kernel."""
+    counts, the ranks' of the MoE cases and of the dense cases, and the
+    replays' results by kernel."""
     print(f"3r: {card_name_and_power_limit()}")
     counts, replays = {}, {}
     for arch, (layers, b) in BIG_TRAIN.items():
@@ -3653,9 +3847,12 @@ def phase_big_train(torch, np, dev, failures):
             replays.setdefault(k, []).extend(v)
         print(f"  {arch}: {time.perf_counter() - t1:.3f} s")
     t1 = time.perf_counter()
-    counts_rank = phase_rank_train(torch, np, dev, failures)
+    counts_rank, counts_dense, res = phase_rank_train(torch, np, dev,
+                                                      failures)
+    for k, v in res.items():
+        replays.setdefault(k, []).extend(v)
     print(f"3r (ii): {time.perf_counter() - t1:.3f} s")
-    return counts, counts_rank, replays
+    return counts, counts_rank, counts_dense, replays
 
 
 # -- phase 3l: training ---------------------------------------------------------
@@ -5041,7 +5238,8 @@ def phase_maintenance(torch, np, dev, g, index, stats, cfg, work, failures):
     and read just after.  (a) 3b's build with checkpoints, crashed at a
     chunk and resumed, against 3b's index, then a service booted from the
     checkpoint against one over 3b's index; (b) the reference update
-    benchmark's walks at n = 2^20: a maintainable build, a service with
+    benchmark's walks at n = 2^19 (``UPD_N_LOG2``'s graph, 3c's requests
+    modulo its size): a maintainable build, a service with
     its maintainer serving, edge batches applied live, a rebuild on the
     final graph against the repaired index.  Returns the counts."""
     from repro_torch import rng
@@ -5051,6 +5249,7 @@ def phase_maintenance(torch, np, dev, g, index, stats, cfg, work, failures):
     from repro_torch.core.updates import (build_maintainable_index,
                                           default_touch_bits)
     from repro_torch.distributed.checkpoint import Checkpointer
+    from repro_torch.graphs import synthetic
     from repro_torch.kernels import ops
     from repro_torch.serving import CacheConfig, PPRService, ServiceConfig
     from repro_torch.serving.batching import BatchingConfig
@@ -5117,6 +5316,10 @@ def phase_maintenance(torch, np, dev, g, index, stats, cfg, work, failures):
     del booted
 
     # -- (b) maintenance at the update benchmark's walks ----------------------
+    g = synthetic.rmat(UPD_N_LOG2, avg_deg=10.0, seed=0, device=dev)
+    work = [v % g.n for v in work]
+    print(f"  update benchmark graph: rmat({UPD_N_LOG2}), {g.n} vertices, "
+          f"{g.m} edges")
     np_rng = np.random.default_rng(UPD_SEED)
     pool = np_rng.integers(0, g.n, size=(UPD_EDGES, 2), dtype=np.int64)
     g0, _ = apply_edge_updates(g, inserts=pool)
@@ -6586,12 +6789,13 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"3r: {torch.cuda.memory_allocated() / 1e9:.2f} GB held on the "
           f"card before it")
-    counts_r, counts_r_ranks, replays_r = phase_big_train(torch, np, dev,
-                                                          failures)
+    counts_r, counts_r_ranks, counts_r_dense, replays_r = phase_big_train(
+        torch, np, dev, failures)
     for name, runs in replays_r.items():
         results.setdefault(name, []).extend(runs)
     paths.update({"large LM train_4k (3r)": (TRAIN_PATH, counts_r),
-                  "rank train (3r ii)": (TRAIN_PATH, counts_r_ranks)})
+                  "rank train (3r ii)": (TRAIN_PATH, counts_r_ranks),
+                  "rank dense train (3r ii)": (TRAIN_PATH, counts_r_dense)})
     phase("3r the large LMs' train_4k and training one shard a process", t0)
 
     kernels = []

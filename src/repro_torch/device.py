@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -33,3 +34,15 @@ def seeded_generator(device: torch.device, seed: int) -> torch.Generator:
     meta (``launch/dryrun.py``)."""
     dev = "cpu" if device.type == "meta" else device
     return torch.Generator(device=dev).manual_seed(seed)
+
+
+class OnMeta(TorchFunctionMode):
+    """Every tensor a factory function makes inside goes to ``meta``,
+    whatever device its call names: an ``init`` draws from a CPU generator
+    on meta (:func:`seeded_generator`) and allocates nothing."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = torch.device("meta")
+        return func(*args, **kwargs)

@@ -44,6 +44,22 @@ give; on a :class:`RankMesh` each collective is a
 ``torch.autograd.Function`` whose backward is what the stacked autograd
 computes for the rank's shard (see :class:`RankMesh`).
 
+The dense layers' tensor parallelism (``models/transformer.py``'s 2-D
+layout) takes three more, each over a list with one entry a local shard
+of the group: ``fan_out`` (a value the group holds alike, once for each
+local shard, whose cotangents are summed in shard order), ``fan_in`` (the
+shards' partial values summed in shard order, the sum every shard goes on
+with alike) and ``pmax`` (the elementwise largest, a constant to
+autograd).  On a stacked mesh ``fan_out`` is one ``expand`` (its backward
+a sum over the stacked axis) and ``fan_in`` a sum over a stack: the same
+tensor op on the same shape as a rank's sum of the gathered blocks, so
+both meshes give the same bits.
+
+:class:`MetaRankMesh` is one rank of a :class:`RankMesh` alone on
+``meta``: the dry-run's stand-in, whose collectives give their results'
+shapes and charge their bytes, so a rank's step is traced with the
+blocks it holds.
+
 Two collectives move data that is not one block a shard: ``broadcast``
 sends one shard's tensor to its group (the rank service's leader to its
 followers), ``gather_blocks`` collects blocks of different lengths (each
@@ -211,6 +227,39 @@ class ShardMesh:
         autograd sums their cotangents."""
         return x
 
+    def fan_out(self, x: torch.Tensor, axis: str) -> list:
+        """``x``, which the ``axis`` group holds alike, once for each of
+        its shards, each used in a computation of its own: views of one
+        ``expand`` over a new leading axis, whose backward sums the
+        shards' cotangents over that axis (in shard order)."""
+        return list(x.unsqueeze(0).expand(
+            self.shape[axis], *x.shape).unbind(0))
+
+    def fan_in(self, parts: Sequence[torch.Tensor],
+               axis: str) -> torch.Tensor:
+        """The ``axis`` group's partial values, one a shard in shard
+        order, summed over their stack; every shard goes on with the sum
+        alike, so each part's cotangent is the sum's."""
+        x = torch.stack(list(parts))
+        self._stack(x, axis)
+        with cost.uncharged():
+            out = x.sum(dim=0)
+        cost.charge_collective("all-reduce",
+                               x.shape[0] * cost.tensor_bytes(out))
+        return out
+
+    def pmax(self, parts: Sequence[torch.Tensor],
+             axis: str) -> torch.Tensor:
+        """The elementwise largest of the group's values, a constant to
+        autograd (the shift of a ``logsumexp``)."""
+        x = torch.stack([p.detach() for p in parts])
+        self._stack(x, axis)
+        with cost.uncharged():
+            out = x.amax(dim=0)
+        cost.charge_collective("all-reduce",
+                               x.shape[0] * cost.tensor_bytes(out))
+        return out
+
     def broadcast(self, x: torch.Tensor, src: int = 0,
                   axes: Axes = "model") -> torch.Tensor:
         """Shard ``src``'s tensor on every shard of the group: ``x``, which
@@ -303,10 +352,11 @@ def _reduce_scatter(mesh, whole: torch.Tensor, axis: str, dim: int, *,
                     by_slice: bool = True) -> torch.Tensor:
     """This shard's block along ``dim`` of the group's ``whole`` tensors
     summed (in shard order): each shard's block sent to its owner
-    (``all_to_all``).  Where ``dim`` is not the leading axis, one leading
-    index at a time, so the send buffer is one slice's (an expert's, of a
-    layer's gathered stack) and not a copy of the whole."""
-    if by_slice and dim > 0 and whole.shape[0] > 1:
+    (``all_to_all``).  Where ``whole`` is a stack of blocks (three or more
+    axes) and ``dim`` is not its leading axis, one leading index at a time,
+    so the send buffer is one slice's (an expert's, of a layer's gathered
+    stack) and not a copy of the whole; a matrix goes in one exchange."""
+    if by_slice and dim > 0 and whole.dim() > 2 and whole.shape[0] > 1:
         return torch.stack([_reduce_scatter(mesh, w, axis, dim - 1,
                                             by_slice=False)
                             for w in whole.unbind(0)])
@@ -367,6 +417,16 @@ class _Pvary(torch.autograd.Function):
         return None, ctx.mesh._sum(g.contiguous(), ctx.axis), None
 
 
+class _FanIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x, axis):
+        return mesh._gather(x[None], axis).sum(dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g, None
+
+
 class RankMesh:
     """``data x model`` shards, one a rank of a ``torch.distributed``
     process group (the port's ``shard_map`` over real devices).
@@ -406,8 +466,10 @@ class RankMesh:
       ``concat_axis``: this shard's block of the whole's cotangent;
       ``from_first``: the cotangent on the group's first shard, zeros on
       the others;
-    * ``pvary``: the group's cotangents summed (the transpose of
-      ``jax.lax.pvary``).
+    * ``pvary`` and ``fan_out``: the group's cotangents summed (the
+      transpose of ``jax.lax.pvary``);
+    * ``fan_in``: the sum is replicated, so each part's cotangent is the
+      one cotangent, as ``psum_axis``'s; ``pmax`` has none.
 
     Every sum in a backward is a forward reduction's: the blocks gathered
     as bytes and summed in shard order.
@@ -483,9 +545,15 @@ class RankMesh:
             return x
         send = self._host(_as_bytes(x))
         parts = [torch.empty_like(send) for _ in range(size)]
-        dist.all_gather(parts, send, group=group)
+        self._all_gather(parts, send, group)
         out = torch.cat(parts).to(self.device)
         return out.view(x.dtype).reshape(size, *x.shape[1:])
+
+    def _all_gather(self, parts, send, group) -> None:
+        dist.all_gather(parts, send, group=group)
+
+    def _all_to_all(self, recv, send, group) -> None:
+        dist.all_to_all_single(recv, send, group=group)
 
     def all_to_all(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         """``ShardMesh.all_to_all`` for this shard: ``x`` is ``[1, Q, S,
@@ -500,7 +568,7 @@ class RankMesh:
         blocks = x[0].transpose(0, 1).contiguous()      # [S (to), Q, ...]
         send = self._host(_as_bytes(blocks))
         recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send, group=group)
+        self._all_to_all(recv, send, group)
         recv = recv.to(self.device).view(x.dtype).reshape(blocks.shape)
         return recv.transpose(0, 1).unsqueeze(0).contiguous()
 
@@ -553,6 +621,24 @@ class RankMesh:
     def pvary(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``x`` as it is; its backward sums the group's cotangents."""
         return _Pvary.apply(self, x, axis)
+
+    def fan_out(self, x: torch.Tensor, axis: str) -> list:
+        """``ShardMesh.fan_out`` for this shard: ``[x]``, whose backward
+        sums the group's cotangents in shard order."""
+        return [_Pvary.apply(self, x, axis)]
+
+    def fan_in(self, parts: Sequence[torch.Tensor],
+               axis: str) -> torch.Tensor:
+        """``ShardMesh.fan_in`` for this shard's one part: the group's
+        parts gathered and summed in shard order."""
+        (x,) = parts
+        return _FanIn.apply(self, x, axis)
+
+    def pmax(self, parts: Sequence[torch.Tensor],
+             axis: str) -> torch.Tensor:
+        """``ShardMesh.pmax`` for this shard's one part."""
+        (x,) = parts
+        return self._gather(x.detach()[None], axis).amax(dim=0)
 
     def _sum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         """The group's ``x`` (any shape) summed in shard order."""
@@ -644,3 +730,52 @@ class RankMesh:
             parts = [send.new_zeros(rows, width) for _ in range(size)]
         return [p[:n].to(self.device).view(x.dtype).reshape(n, *x.shape[1:])
                 for p, n in zip(parts, lengths)]
+
+
+class MetaRankMesh(RankMesh):
+    """Shard ``shard`` of a ``data x model`` :class:`RankMesh`, alone on
+    ``meta`` and in no process group: the dry-run's stand-in for one rank
+    (``launch/dryrun.py``'s ``trace_rank_cell``).  It holds what that rank
+    holds and runs a rank's collectives with their buffers (so a
+    ``roofline.cost.CostCounter`` tracks them), but sends nothing: each
+    exchange charges its bytes to the active counter under the
+    reference's kind, and every peer's block is taken as this one's."""
+
+    def __init__(self, data: int, model: int,
+                 shard: Tuple[int, int] = (0, 0)):
+        if data < 1 or model < 1:
+            raise ValueError(f"mesh axes must be >= 1, got data={data} "
+                             f"model={model}")
+        d0, m0 = shard
+        if not (0 <= d0 < data and 0 <= m0 < model):
+            raise ValueError(f"shard {shard} is not one of a {data} x "
+                             f"{model} mesh")
+        self.data, self.model = data, model
+        self.device = torch.device("meta")
+        self.ranks = tuple(range(data * model))
+        self.backend = "meta"
+        self._stage = False
+        self.local_data = range(d0, d0 + 1)
+        self.local_model = range(m0, m0 + 1)
+        self._groups, self._members = {}, {}
+        for axes in (("model",), ("data",), AXES):
+            size = math.prod(self.shape[a] for a in axes)
+            self._groups[axes] = (size, "meta" if size > 1 else None)
+            self._members[axes] = tuple(range(size))
+
+    def __repr__(self) -> str:
+        return (f"MetaRankMesh(data={self.data}, model={self.model}, "
+                f"shard=({self.local_data[0]}, {self.local_model[0]}))")
+
+    def _all_gather(self, parts, send, group) -> None:
+        cost.charge_collective("all-gather",
+                               len(parts) * cost.tensor_bytes(send))
+
+    def _all_to_all(self, recv, send, group) -> None:
+        cost.charge_collective("all-to-all", cost.tensor_bytes(recv))
+
+    def gather_blocks(self, x: torch.Tensor, axes: Axes = "model",
+                      dst: Optional[int] = 0):
+        size = self._groups[mesh_axes(axes)][0]
+        cost.charge_collective("all-gather", size * cost.tensor_bytes(x))
+        return [x] * size

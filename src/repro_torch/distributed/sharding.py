@@ -22,12 +22,15 @@ blocks ``[data, model, *block]``, the layout every stacked collective of
 :class:`~repro_torch.distributed.mesh.RankMesh` it gives the rank's own
 block ``[1, 1, *block]``.
 
-A rank's train state (:func:`rank_param_specs`) holds each MoE expert
-stack as its block under the LM specs and every other leaf whole: the
-dense layers run whole on every rank, as on the stacked mesh.
-:func:`rank_blocks` cuts a whole tree to a rank's blocks, and
-:func:`distinct_blocks` names the blocks a sum over the mesh counts once
-each.
+A rank's train state is laid out by :func:`rank_param_specs`: every LM
+leaf by its ``_lm_spec`` (the reference's ``lm_param_specs`` on a large
+LM), tensor parallel over ``model`` and FSDP over ``data``, with one
+departure where a config's kv heads do not split over ``model`` (see
+:func:`rank_leaf_spec`).  :func:`rank_blocks` cuts a whole tree to a
+rank's blocks, :func:`assemble` gathers a rank's block back into the
+whole, :func:`distinct_blocks` names the blocks a sum over the mesh counts
+once each, and :func:`batch_split` says whether a batch's rows split over
+``data`` (``batch_spec_lm``'s rule).
 """
 
 from __future__ import annotations
@@ -308,15 +311,73 @@ def _spec_tree_map(fn, tree, specs):
     return fn(tree, specs)
 
 
-def rank_param_specs(params: Any) -> Any:
-    """The layout of an LM's state on a rank mesh: each MoE expert stack
-    (``layers/w_gate``, ``w_up``, ``w_down``) by its LM spec, every other
-    leaf replicated."""
-    def one(path, leaf):
-        if re.fullmatch(r"layers/w_(gate|up|down)", path):
-            return lm_leaf_spec(path, len(leaf.shape))
-        return _replicated(leaf)
-    return _map_with_path(one, params)
+def kv_heads_split(config, mesh) -> bool:
+    """Whether ``config``'s kv heads split over ``mesh``'s ``model``
+    axis."""
+    return config.n_kv_heads % mesh.model == 0
+
+
+def rank_leaf_spec(path: str, ndim: int, config, mesh) -> P:
+    """The spec of the LM leaf at ``path`` on a ``(data, model)`` mesh: its
+    ``lm_leaf_spec`` (``wq``/``wk``/``wv`` column parallel, ``wo`` row
+    parallel, the dense FFN's ``w_gate``/``w_up`` column and ``w_down``
+    row parallel, the embedding ``(model, data)`` and the head ``(data,
+    model)``, the expert stacks over experts and ``d``; norms and the
+    router whole), except where ``config``'s kv heads do not split over
+    ``mesh``'s ``model`` axis (the reduced dbrx and grok, 2 kv heads, on
+    1 x 4): ``wk``/``wv`` then stay whole over ``model`` (``w`` split over
+    ``data`` only, ``b`` whole) and each model shard takes the kv heads
+    its query heads read.  The reference's GSPMD splits such a dimension
+    mid-head and reshards it before the attention, which gives the same
+    numbers; a shard of the port computes whole heads only."""
+    spec = lm_leaf_spec(path, ndim)
+    if (re.search(r"(^|/)w[kv]/[wb]$", path)
+            and not kv_heads_split(config, mesh)):
+        return P(*(None if a == "model" else a for a in spec))
+    return spec
+
+
+def rank_param_specs(params: Any, config, mesh) -> Any:
+    """The layout of an LM's state on a ``(data, model)`` mesh: each leaf's
+    :func:`rank_leaf_spec` (``config`` and ``mesh`` decide the kv heads'
+    rule).  A small LM (``lm_is_small``: smollm-135m) stays whole, as the
+    reference keeps it: ``launch.steps.build`` lays it out by
+    :func:`lm_param_specs` with its published config."""
+    return _map_with_path(
+        lambda p, leaf: rank_leaf_spec(p, len(leaf.shape), config, mesh),
+        params)
+
+
+def batch_split(rows: int, mesh) -> bool:
+    """Whether a batch of ``rows`` splits over ``data`` (``batch_spec_lm``'s
+    ``b_ax``): where the rows reach the axis's size and divide by it, data
+    shard ``d`` takes the ``d``-th contiguous share; else every data shard
+    takes them all (a one-row decode, a microbatch narrower than
+    ``data``)."""
+    return rows >= mesh.data and rows % mesh.data == 0
+
+
+def rank_block(leaf: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """``mesh``'s rank's block of the whole ``leaf`` under ``spec`` (its own
+    copy; a replicated leaf as it is); on a stacked mesh ``leaf``."""
+    if not is_rank_mesh(mesh) or is_replicated(spec):
+        return leaf
+    return shard(leaf, spec, mesh)[0, 0].clone()
+
+
+def assemble(block: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole leaf from ``mesh``'s rank's ``block`` under ``spec``, its
+    group's blocks gathered along each sharded dimension (every dimension
+    a multiple of its axes' ways); on a stacked mesh ``block`` is the
+    whole."""
+    if not is_rank_mesh(mesh):
+        return block
+    x = block[None, None]
+    spec = tuple(spec) + (None,) * (block.dim() - len(spec))
+    for dim, entry in enumerate(spec):
+        for axis in reversed(_entry_axes(entry)):    # the inner axis first
+            x = mesh.all_gather_axis(x, axis, dim)
+    return x[0, 0]
 
 
 def is_replicated(spec) -> bool:
@@ -325,16 +386,11 @@ def is_replicated(spec) -> bool:
 
 def rank_blocks(tree: Any, specs: Any, mesh) -> Any:
     """``tree``'s whole leaves cut to ``mesh``'s rank's blocks under
-    ``specs`` (own copies; a replicated leaf as it is); on a stacked mesh
-    ``tree`` itself."""
+    ``specs`` (:func:`rank_block`); on a stacked mesh ``tree`` itself."""
     if not is_rank_mesh(mesh):
         return tree
-
-    def one(leaf, spec):
-        if is_replicated(spec):
-            return leaf
-        return shard(leaf, spec, mesh)[0, 0].clone()
-    return _spec_tree_map(one, tree, specs)
+    return _spec_tree_map(lambda leaf, spec: rank_block(leaf, spec, mesh),
+                          tree, specs)
 
 
 def distinct_blocks(spec, mesh) -> list:

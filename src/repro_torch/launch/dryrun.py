@@ -49,10 +49,10 @@ import traceback
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.overrides import TorchFunctionMode
 
 from repro_torch import rng
 from repro_torch.configs import all_cells, get_arch
+from repro_torch.device import OnMeta as _OnMeta
 from repro_torch.distributed import sharding
 from repro_torch.distributed.mesh import ShardMesh
 from repro_torch.launch import steps as steps_mod
@@ -65,18 +65,9 @@ from repro_torch.tree import tree_map
 
 META = torch.device("meta")
 SEED = 0          # parameters; a GCN batch is drawn from SEED + 1
-
-
-class _OnMeta(TorchFunctionMode):
-    """Every tensor a factory function makes inside goes to ``meta``,
-    whatever device its call names: ``init_fn`` draws from a CPU generator
-    on meta (``device.seeded_generator``) and allocates nothing."""
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = dict(kwargs or {})
-        if "device" in kwargs:
-            kwargs["device"] = META
-        return func(*args, **kwargs)
+# the most one card's peak may be predicted at before a step traced on
+# meta is run on an 80 GB card
+PEAK_LIMIT = 75e9
 
 
 def _serve_params(params, dtype=torch.bfloat16):
@@ -160,6 +151,49 @@ def trace_cell(arch_id: str, shape_name: str, *, reduced: bool = False,
     if arch.family == "lm":
         ctx["mesh_16x16"] = mesh_bytes(
             arch, args[0], args[1] if bundle.kind == "train" else None)
+    return cost, ctx
+
+
+def trace_rank_cell(arch_id: str, shape_name: str, data: int, model: int,
+                    *, shard=(0, 0), reduced: bool = False,
+                    batch: Optional[int] = None,
+                    config_overrides: Optional[dict] = None
+                    ) -> Tuple[Any, dict]:
+    """One LM train cell's step as one rank of a ``data x model`` rank
+    mesh runs it (shard ``shard``), on meta: ``(Cost, ctx)``.  The rank
+    is a :class:`~repro_torch.distributed.mesh.MetaRankMesh`, so the
+    parameters and moments are its blocks of the 2-D layout
+    (``sharding.rank_param_specs``), the gathers and reduce-scatters
+    allocate what a rank's do, and the cost's memory is one card's of
+    the mesh: the gate of a run on ``data * model`` cards.  ``batch``,
+    ``reduced`` and ``config_overrides`` cut the cell as
+    :func:`trace_cell`'s do, the published rules kept."""
+    from repro_torch.distributed.mesh import MetaRankMesh
+
+    arch = get_arch(arch_id)
+    if batch is not None:
+        shape = dataclasses.replace(arch.shape(shape_name),
+                                    global_batch=batch)
+        arch = dataclasses.replace(arch, shapes=tuple(
+            shape if s.name == shape_name else s for s in arch.shapes))
+    mesh = MetaRankMesh(data, model, shard)
+    bundle = steps_mod.build(arch, shape_name, reduced=reduced, device=META,
+                             config_overrides=config_overrides,
+                             published_rules=True, mesh=mesh)
+    with _OnMeta():
+        params = bundle.init_fn(SEED)
+        opt_state = train_loop.init_state(bundle.opt_cfg, params)
+    args = (params, opt_state, _meta_batch(bundle.batch_spec))
+    counter = CostCounter()
+    counter.arguments(args)
+    with counter:
+        out = bundle.step_fn(*args)
+    cost = counter.result(out)
+    ctx = dict(arch=arch_id, shape=shape_name, kind=bundle.kind,
+               model_flops=bundle.model_flops_per_step / (data * model),
+               mesh=dict(shape={"data": data, "model": model},
+                         n_devices=data * model, shard=list(shard)),
+               global_batch=arch.shape(shape_name).global_batch)
     return cost, ctx
 
 

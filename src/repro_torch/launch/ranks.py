@@ -31,19 +31,26 @@ stacked ``ShardMesh`` (its service on the assembled index) and prints the
 digests the ranks' must equal.
 
 With ``--train ARCH`` the ranks take one LM train step instead
-(:func:`train_once`): each holds its blocks of the MoE expert stacks and
-the other leaves whole, under the published config's train rules
-(microbatches, fp8 ``mu``, bf16 ``nu`` and accumulator above 6e10
-parameters), and rank 0 prints one JSON line of the loss, ``grad_norm``
-and a digest of the assembled parameters (:func:`params_digest`), which
-``--stacked`` prints for the same step on a stacked mesh.  ``--reduced``
-takes the smoke config, ``--layers N`` cuts the published one's depth,
-``--batch B`` the shape's batch::
+(:func:`train_once`): each holds its blocks of every leaf in the
+reference's 2-D layout (``sharding.rank_param_specs``: tensor parallel
+over ``model``, FSDP over ``data``) and its data shard's rows of each
+microbatch, under the published config's train rules (microbatches, fp8
+``mu``, bf16 ``nu`` and accumulator above 6e10 parameters), and rank 0
+prints one JSON line of the loss, ``grad_norm``, the step's seconds and
+tokens/s, each rank's peak device memory beside its prediction, and a
+digest of the assembled parameters (:func:`params_digest`), which
+``--stacked`` prints for the same step on a stacked mesh.  On the card
+rank 0 first traces a rank's step on meta
+(``launch.dryrun.trace_rank_cell``) and the ranks stop unless the
+prediction is within ``launch.dryrun.PEAK_LIMIT``.  ``--reduced`` takes
+the smoke config, ``--layers N`` cuts the published one's depth,
+``--batch B`` the shape's batch, ``--steps N`` takes N steps on one
+batch (the first is cold; the last is timed)::
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.ranks \
         --device cpu --data 2 --model 2 --train dbrx-132b --reduced
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.ranks \
-        --model 4 --train grok-1-314b --layers 2 --batch 8
+        --data 2 --model 2 --train command-r-plus-104b --layers 2 --batch 8
 """
 
 from __future__ import annotations
@@ -202,19 +209,18 @@ def _bytes(t) -> bytes:
         torch.uint8).cpu().numpy().tobytes()
 
 
-def params_digest(params, mesh) -> str:
+def params_digest(params, mesh, specs) -> str:
     """sha256 of the assembled parameters without assembling them: in
     flatten order, a replicated leaf's bytes, a sharded leaf's distinct
-    blocks' own sha256 in shard order (a rank hashes its block and the
-    digests are gathered; a stacked mesh hashes the blocks of its whole
-    leaves).  The same on every rank, and equal to the stacked mesh's
-    where the blocks are."""
+    blocks' (under ``specs``) own sha256 in shard order (a rank hashes its
+    block and the digests are gathered; a stacked mesh hashes the blocks
+    of its whole leaves).  The same on every rank, and equal to the
+    stacked mesh's where the blocks are."""
     import torch
 
     from repro_torch.distributed import sharding
     from repro_torch.tree import tree_leaves
 
-    specs = sharding.rank_param_specs(params)
     rank = sharding.is_rank_mesh(mesh)
     h = hashlib.sha256()
     for x, spec in zip(tree_leaves(params), sharding._spec_leaves(specs)):
@@ -260,12 +266,14 @@ def train_bundle(mesh, arch: str, *, shape: str = "train_4k",
                        mesh=mesh)
 
 
-def train_once(mesh, arch: str, *, seed: int = 0, **cut):
-    """One train step of :func:`train_bundle`'s cell on ``mesh`` (each rank
-    its blocks), from parameters and a batch drawn from ``seed``: returns
-    ``(metrics, params, opt_state, seconds)``, the metrics as floats
-    (``loss``, ``grad_norm``, ``lr``) with the microbatches and moment
-    dtypes."""
+def train_once(mesh, arch: str, *, seed: int = 0, steps: int = 1, **cut):
+    """``steps`` train steps of :func:`train_bundle`'s cell on ``mesh``
+    (each rank its blocks) on one batch, from parameters and a batch drawn
+    from ``seed``: returns ``(metrics, params, opt_state, seconds,
+    specs)``, the last step's metrics as floats (``loss``, ``grad_norm``,
+    ``lr``) with each step's seconds and loss, the microbatches and moment
+    dtypes, ``seconds`` the last step's, ``specs`` the parameters'
+    layout."""
     import torch
 
     from repro_torch.training import train_loop
@@ -275,28 +283,40 @@ def train_once(mesh, arch: str, *, seed: int = 0, **cut):
     state = train_loop.init_state(bundle.opt_cfg, params)
     batch = bundle.make_batch(torch.Generator().manual_seed(seed + 1))
     dev = mesh.device
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    params, state, metrics = bundle.step_fn(params, state, batch)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    seconds = time.perf_counter() - t0
+    times, losses = [], []
+    for _ in range(steps):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, state, metrics = bundle.step_fn(params, state, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    seconds = times[-1]
     out = {k: float(v) for k, v in metrics.items()}
+    if steps > 1:
+        out.update(steps_s=[round(t, 3) for t in times], losses=losses)
     out.update(mu=str(bundle.opt_cfg.mu_dt).replace("torch.", ""),
                nu=str(bundle.opt_cfg.nu_dt).replace("torch.", ""),
+               microbatches=bundle.microbatches,
                tokens=int(batch["tokens"].numel()))
-    return out, params, state, seconds
+    return out, params, state, seconds, bundle.param_specs
 
 
 # the rank train check (:func:`train_case`): label -> (arch, MoEConfig
-# overrides, config overrides) of a smoke config; dbrx at capacity 1.0
-# (slots drop) with remat, grok's two experts split in two (ep_split 2,
-# one virtual expert a rank on 1 x 4)
+# overrides or None for a dense LM, config overrides) of a smoke config;
+# dbrx at capacity 1.0 (slots drop) with remat, grok's two experts split
+# in two (ep_split 2, one virtual expert a rank on 1 x 4); qwen (4 heads,
+# QKV biases) with remat, command-r (6 heads over 2 kv heads: 2 x 2 only)
+# with its loss in chunks of 8 positions
 CASES = {
     "dbrx_cf1": ("dbrx-132b", dict(capacity_factor=1.0), dict(remat=True)),
     "grok": ("grok-1-314b", {}, {}),
+    "qwen": ("qwen1.5-32b", None, dict(remat=True)),
+    "command_r": ("command-r-plus-104b", None, dict(loss_chunk=8)),
 }
+CASE_MESHES = ((2, 2), (1, 4))     # each case runs on those it splits on
 CASE_BATCH = (4, 32)               # rows, positions: two microbatches of 2
 CASE_DECODE = ((2, 3), (1, 2))     # (batch, steps): split over data, not
 CASE_MICROBATCHES = 2
@@ -310,8 +330,25 @@ def case_config(label: str):
 
     arch, moe_over, over = CASES[label]
     cfg = get_arch(arch).reduced
-    return dataclasses.replace(
-        cfg, moe=dataclasses.replace(cfg.moe, **moe_over), **over)
+    if moe_over is not None:
+        over = dict(over, moe=dataclasses.replace(cfg.moe, **moe_over))
+    return dataclasses.replace(cfg, **over)
+
+
+def case_meshes(label: str):
+    """The ``(data, model)`` shapes of :data:`CASE_MESHES` the case's layout
+    splits on (command-r's 6 heads do not split over 4)."""
+    from repro_torch.distributed import ShardMesh
+    from repro_torch.models import transformer as tfm
+
+    cfg, out = case_config(label), []
+    for shape in CASE_MESHES:
+        try:
+            tfm._mesh_check(cfg, ShardMesh(*shape, device="cpu"))
+        except ValueError:
+            continue
+        out.append(shape)
+    return tuple(out)
 
 
 def leaf_paths(tree, prefix: str = ""):
@@ -335,7 +372,7 @@ def train_case(label: str, mesh, *, seed: int = 0):
     gradients at 3 tokens, which do not split over ``data`` (``grad3/``);
     each ``decode_step``'s logits (``decode/<batch>/<step>``); and one
     ``make_train_step(mesh=)`` step of :data:`CASE_MICROBATCHES` from a
-    copy of the parameters under the large MoE LMs' published rules (fp8
+    copy of the parameters under the large LMs' published rules (fp8
     ``mu``, bf16 ``nu`` and accumulator; ``b1`` 0.5 and a clip that does
     not bind keep most of ``mu`` above fp8's least subnormal): its
     ``step_loss``, ``grad_norm``, ``param/``, ``mu/`` and ``nu/``."""
@@ -354,8 +391,9 @@ def train_case(label: str, mesh, *, seed: int = 0):
     cfg = case_config(label)
     dev = mesh.device
     whole = tfm.init(cfg, seed, device=dev)
-    specs = sharding.rank_param_specs(whole)
+    specs = sharding.rank_param_specs(whole, cfg, mesh)
     params = sharding.rank_blocks(whole, specs, mesh)
+    del whole
     r = np.random.default_rng(5)
     b, s = CASE_BATCH
     toks = r.integers(0, cfg.vocab, (b, s)).astype(np.int32)
@@ -385,18 +423,18 @@ def train_case(label: str, mesh, *, seed: int = 0):
         nu_dtype=torch.bfloat16, b1=0.5, grad_clip=1e3)
     step = train_loop.make_train_step(
         loss_fn, opt, microbatches=CASE_MICROBATCHES,
-        accum_dtype=torch.bfloat16, mesh=mesh)
+        accum_dtype=torch.bfloat16, mesh=mesh, specs=specs)
     p = tree_map(lambda x: x.detach().clone(), params)
     p, state, metrics = step(p, train_loop.init_state(opt, p), batch)
     out.update(step_loss=metrics["loss"], grad_norm=metrics["grad_norm"])
     for kind, tree in (("param", p), ("mu", state.mu), ("nu", state.nu)):
         out.update({f"{kind}/{k}": v for k, v in leaf_paths(tree)})
     out["digest"] = torch.tensor(list(bytes.fromhex(
-        params_digest(p, mesh))), dtype=torch.uint8)
+        params_digest(p, mesh, specs))), dtype=torch.uint8)
     return out, dict(leaf_paths(specs))
 
 
-def main(argv: Optional[list] = None) -> int:
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default=None,
                    help="default cuda:{LOCAL_RANK}; cpu runs the plain path")
@@ -421,8 +459,8 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--stacked", action="store_true",
                    help="one process, the shards stacked (ShardMesh)")
     p.add_argument("--train", default=None, metavar="ARCH",
-                   help="one LM train step of ARCH instead (MoE experts "
-                        "split over the ranks)")
+                   help="one LM train step of ARCH instead, each rank its "
+                        "blocks of the 2-D layout and its rows")
     p.add_argument("--shape", default="train_4k", help="--train's shape")
     cut = p.add_mutually_exclusive_group()
     cut.add_argument("--reduced", action="store_true",
@@ -431,8 +469,14 @@ def main(argv: Optional[list] = None) -> int:
                      help="--train the published config at N layers")
     p.add_argument("--batch", type=int, default=None,
                    help="--train B rows in place of the shape's")
+    p.add_argument("--steps", type=int, default=1,
+                   help="--train: steps on one batch (the last timed)")
     p.add_argument("--seed", type=int, default=0)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv: Optional[list] = None) -> int:
+    args = parser().parse_args(argv)
     if args.train:
         return main_train(args)
     sizes = dict(n_log2=args.n_log2, r=args.walks, l=args.index_l,
@@ -481,35 +525,111 @@ def main(argv: Optional[list] = None) -> int:
     return 0
 
 
-def main_train(args) -> int:
-    """``--train``: one step on the rank mesh (or ``--stacked``), rank 0
-    printing its JSON line."""
-    import torch.distributed as dist
+def predict_peak(args) -> float:
+    """One rank's predicted peak device bytes for ``--train``'s step: the
+    step traced on meta for shard ``(0, 0)`` of the mesh
+    (``launch.dryrun.trace_rank_cell``), its arguments and the live bytes
+    at its peak."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis as roof
 
+    cost, _ = dryrun.trace_rank_cell(
+        args.train, args.shape, args.data, args.model, batch=args.batch,
+        reduced=args.reduced, config_overrides=(
+            None if args.layers is None else dict(n_layers=args.layers)))
+    terms = roof.roofline_from_counts(cost, hw=roof.HW)
+    return float(roof.fit_check(terms, roof.HW)[1])
+
+
+def train_mesh(args):
+    """``--train``'s mesh: a stacked ``ShardMesh`` under ``--stacked``, else
+    this process's rank of a ``RankMesh``."""
     from repro_torch.distributed import ShardMesh
     from repro_torch.launch.mesh import make_rank_mesh
 
-    cut = dict(shape=args.shape, reduced=args.reduced, layers=args.layers,
-               batch=args.batch, seed=args.seed)
     if args.stacked:
-        mesh = ShardMesh(args.data, args.model, device=args.device or "cuda")
-    else:
-        mesh = make_rank_mesh(args.data, args.model, backend=args.backend,
-                              device=args.device)
-    metrics, params, _, seconds = train_once(mesh, args.train, **cut)
-    digest = params_digest(params, mesh)
-    if mesh.device.type == "cuda":     # this rank's device
-        import torch
+        return ShardMesh(args.data, args.model, device=args.device or "cuda")
+    return make_rank_mesh(args.data, args.model, backend=args.backend,
+                          device=args.device)
 
-        metrics["peak_gb"] = round(
-            torch.cuda.max_memory_allocated(mesh.device) / 1e9, 3)
+
+def train_cut(args) -> dict:
+    """:func:`train_once`'s keywords from ``--train``'s options."""
+    return dict(shape=args.shape, reduced=args.reduced, layers=args.layers,
+                batch=args.batch, seed=args.seed, steps=args.steps)
+
+
+def gate_peak(args, mesh) -> Optional[float]:
+    """Ranks on cards: rank 0 predicts a rank's peak (:func:`predict_peak`)
+    and prints it, and every rank stops where it is above
+    ``launch.dryrun.PEAK_LIMIT``.  Returns the prediction in bytes (None
+    on the CPU or a stacked mesh)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    if mesh.device.type != "cuda" or args.stacked:
+        return None
+    verdict = [None]
+    if dist.get_rank() == 0:
+        t0 = time.perf_counter()
+        verdict = [(predict_peak(args), time.perf_counter() - t0)]
+    dist.broadcast_object_list(verdict, src=0)
+    predicted, seconds = verdict[0]
+    if dist.get_rank() == 0:
+        print(json.dumps(dict(predicted_peak_gb=round(predicted / 1e9, 3),
+                              limit_gb=dryrun.PEAK_LIMIT / 1e9,
+                              traced_s=round(seconds, 3))), flush=True)
+    if predicted > dryrun.PEAK_LIMIT:
+        dist.destroy_process_group()
+        raise SystemExit(f"the predicted peak {predicted / 1e9:.2f} GB a "
+                         f"rank is above {dryrun.PEAK_LIMIT / 1e9:.0f} GB")
+    return predicted
+
+
+def report_train(args, mesh, run, predicted: Optional[float]) -> None:
+    """Rank 0's (or the stacked mesh's) JSON line of :func:`train_once`'s
+    ``run``: the metrics, the last step's seconds and tokens/s, on cards
+    each rank's peak device memory beside ``predicted``, and the
+    parameters' digest (:func:`params_digest`, a collective: every rank
+    calls this)."""
+    import torch
+    import torch.distributed as dist
+
+    metrics, params, _, seconds, specs = run
+    digest = params_digest(params, mesh, specs)
+    metrics = dict(metrics, step_s=round(seconds, 3),
+                   tokens_s=round(metrics["tokens"] / seconds, 1))
+    if mesh.device.type == "cuda":
+        peaks = [torch.cuda.max_memory_allocated(mesh.device) / 1e9]
+        if not args.stacked:
+            peaks = [None] * dist.get_world_size()
+            dist.all_gather_object(
+                peaks, torch.cuda.max_memory_allocated(mesh.device) / 1e9)
+        metrics.update(peak_gb=[round(x, 3) for x in peaks],
+                       predicted_peak_gb=(None if predicted is None
+                                          else round(predicted / 1e9, 3)))
     if args.stacked or dist.get_rank() == 0:
+        cut = train_cut(args)
         print(json.dumps(dict(
             train=args.train, mesh=[args.data, args.model],
-            ranks=not args.stacked, **{k: v for k, v in cut.items()
-                                       if v not in (None, False)},
-            step_s=round(seconds, 3), **metrics, params_digest=digest)))
+            ranks=not args.stacked, **{
+                k: v for k, v in cut.items() if v is not None
+                and v is not False and (k, v) != ("steps", 1)},
+            **metrics, params_digest=digest)), flush=True)
+
+
+def main_train(args) -> int:
+    """``--train``: the step on the rank mesh (or ``--stacked``), gated on
+    cards by :func:`gate_peak`, then :func:`report_train`'s line."""
+    import torch.distributed as dist
+
+    mesh = train_mesh(args)
+    predicted = gate_peak(args, mesh)
+    report_train(args, mesh, train_once(mesh, args.train, **train_cut(args)),
+                 predicted)
     if not args.stacked:
+        dist.barrier()
         dist.destroy_process_group()
     return 0
 

@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchSpec, ShapeSpec
-from repro_torch.device import resolve_device
+from repro_torch.device import OnMeta, resolve_device
 from repro_torch.distributed import sharding
 from repro_torch.models import gcn as gcn_mod
 from repro_torch.models import transformer as tfm
@@ -73,6 +73,9 @@ class StepBundle:
     # an LM train cell's rules: microbatches and the accumulator's dtype
     microbatches: int = 1
     accum_dtype: Optional[torch.dtype] = None
+    # an LM train cell on a mesh: its parameters' layout
+    # (``sharding.rank_param_specs``)
+    param_specs: Optional[Any] = None
 
 
 DEFAULT_OPT = AdamWConfig(moment_dtype=torch.bfloat16)
@@ -118,24 +121,36 @@ def _lm_bundle(arch: ArchSpec, shape: ShapeSpec, cfg: tfm.TransformerConfig,
                mesh=None) -> StepBundle:
     b, s = shape.global_batch, shape.seq_len
     n_params_active = cfg.active_param_count()
+    # on a mesh the reference's layout: a small LM's leaves whole
+    # (``lm_param_specs``' replicated branch, by the published config)
+    # and its rows split over data; a large LM's 2-D layout
+    small = mesh is not None and sharding.lm_is_small(arch.config)
+    loss = functools.partial(
+        tfm.data_parallel_loss_fn if small else tfm.loss_fn, cfg, mesh=mesh)
+    specs = None
+    if small:
+        with OnMeta():
+            specs = sharding.lm_param_specs(tfm.init(cfg, device="meta"),
+                                            arch.config)
+    elif mesh is not None:
+        specs = tfm.param_specs(cfg, mesh)
 
     def init_fn(seed: int):
-        if not sharding.is_rank_mesh(mesh):
+        if small or not sharding.is_rank_mesh(mesh):
             return tfm.init(cfg, seed, device=device)
-        # a rank keeps its block of each expert stack as it is drawn
-        spec = {n: sharding.lm_leaf_spec(f"layers/{n}", 4)
-                for n in ("w_gate", "w_up", "w_down")}
-        return tfm.init(cfg, seed, device=device, experts_fn=lambda n, w: (
-            sharding.shard(w, spec[n], mesh)[0, 0].clone()))
+        # a rank keeps its block of each leaf as it is drawn
+        return tfm.init(cfg, seed, device=device, keep=lambda path, w: (
+            sharding.rank_block(w, sharding.rank_leaf_spec(
+                path, w.dim(), cfg, mesh), mesh)))
 
     if shape.kind == "lm_train":
         # the reference's rules, from the published config's size
         # (``rule_params``) however the depth is cut
         mb, opt_cfg, accum = lm_train_rules(rule_params, b, opt_cfg,
                                             force=force_rules)
-        loss = functools.partial(tfm.loss_fn, cfg, mesh=mesh)
         step = train_loop.make_train_step(
-            loss, opt_cfg, microbatches=mb, accum_dtype=accum, mesh=mesh)
+            loss, opt_cfg, microbatches=mb, accum_dtype=accum, mesh=mesh,
+            specs=specs)
 
         def make_batch(gen: torch.Generator):
             toks = torch.randint(0, cfg.vocab, (b, s), generator=gen,
@@ -149,7 +164,7 @@ def _lm_bundle(arch: ArchSpec, shape: ShapeSpec, cfg: tfm.TransformerConfig,
             arch.id, shape.name, "train", init_fn, step, spec, make_batch,
             model_flops_per_step=6.0 * n_params_active * b * s,  # fwd+bwd
             opt_cfg=opt_cfg, loss_fn=loss, microbatches=mb,
-            accum_dtype=accum)
+            accum_dtype=accum, param_specs=specs)
 
     def tokens(rows: int, cols: int):
         def make_batch(gen: torch.Generator):
@@ -535,9 +550,12 @@ def build(arch: Union[str, ArchSpec], shape_name: str, *,
     cell from the reduced config's, unless ``published_rules``, which
     forces the published config's rules (its moment and accumulator
     dtypes whatever ``opt_cfg``; its microbatches where they divide the
-    batch).  ``mesh``: an LM train cell on that mesh (a ``ShardMesh``, or
-    a ``RankMesh`` whose ``init_fn`` makes the rank's blocks under
-    ``sharding.rank_param_specs``)."""
+    batch).  ``mesh``: an LM train cell on that mesh in the reference's
+    2-D layout (a ``ShardMesh``, or a ``RankMesh`` whose ``init_fn`` keeps
+    the rank's block of each leaf as it is drawn), the layout in the
+    bundle's ``param_specs``; ``make_batch`` draws the whole batch on
+    every rank and the loss gives each data shard its rows of each
+    microbatch."""
     dev = resolve_device(device)
     if isinstance(arch, str):
         arch = get_arch(arch)

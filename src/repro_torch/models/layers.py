@@ -61,6 +61,50 @@ def embedding_apply(p, ids, *, compute_dtype=None):
     return rows.reshape(*ids.shape, table.shape[1])
 
 
+def embedding_block_apply(p, ids, start: int, *, compute_dtype=None):
+    """The rows of ``ids`` that a vocabulary block holds: ``p["table"]``
+    is rows ``[start, start + Vb)`` of the whole table, and each id in them
+    gets its row, every other id a zero row (``[*ids.shape, dim]`` in
+    ``compute_dtype``).  One ``embedding_bag`` launch over bags of one,
+    the ids outside masked to weight zero; the backward
+    (``embedding_bag_backward``) gives the block's gradient, in which a
+    masked slot adds nothing.  A row times one is the row, so the blocks'
+    lookups summed over the vocabulary's shards are the whole table's
+    bits (``embedding_apply``'s)."""
+    table = p["table"]
+    dt = compute_dtype or table.dtype
+    local = ids.reshape(-1, 1).long() - start
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = ops.embedding_bag(
+        torch.where(inside, local, torch.zeros_like(local)).to(torch.int32),
+        inside.to(torch.float32), table, row_dtype=dt, out_dtype=dt)
+    return rows.reshape(*ids.shape, table.shape[1])
+
+
+def vocab_parallel_nll(mesh, logits: Sequence[torch.Tensor],
+                       labels: torch.Tensor,
+                       starts: Sequence[int]) -> torch.Tensor:
+    """The token NLL ``[...]`` of logits split over ``mesh``'s ``model``
+    axis: ``logits`` holds each local model shard's f32 block ``[...,
+    Vb]`` of the vocabulary, whose first id is the matching ``starts``
+    entry, and ``labels`` the int ids ``[...]``.  The ``logsumexp`` is
+    shifted by the largest logit over the shards (``pmax``, a constant to
+    autograd, as the shift of ``torch.logsumexp``), its exponentials summed
+    over the shards (``fan_in``); the gold logit comes from the block that
+    holds the label, zeros from the others, summed likewise."""
+    top = mesh.pmax([x.amax(dim=-1) for x in logits], "model")
+    total = mesh.fan_in([torch.exp(x - top[..., None]).sum(dim=-1)
+                         for x in logits], "model")
+    golds = []
+    for x, start in zip(logits, starts):
+        local = labels.long() - start
+        inside = (local >= 0) & (local < x.shape[-1])
+        gold = torch.gather(x, -1, local.clamp(0, x.shape[-1] - 1)[..., None])
+        golds.append(torch.where(inside, gold[..., 0],
+                                 torch.zeros_like(gold[..., 0])))
+    return top + torch.log(total) - mesh.fan_in(golds, "model")
+
+
 def rmsnorm_init(dim: int, device="cpu"):
     return {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
 

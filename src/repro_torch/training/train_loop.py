@@ -11,15 +11,18 @@ writes the parameters and the optimizer's moments in place under
 ``no_grad`` (the reference donates their buffers).
 
 The reference's ``grad_pspecs`` shard the gradient accumulator the way
-the parameters are sharded.  Here ``mesh=`` is its counterpart, the
-parameters laid out by ``sharding.rank_param_specs`` (an LM's): on a
-``RankMesh`` each rank's parameters, gradients,
-accumulator and moments are its blocks (an expert stack's own slice,
-every other leaf whole), the accumulator in ``accum_dtype``, and
-``grad_norm`` is taken over the blocks of every rank
+the parameters are sharded.  Here ``mesh=`` with ``specs=`` is its
+counterpart, the parameters laid out by ``sharding.rank_param_specs``
+(the reference's 2-D layout of an LM: tensor parallel over ``model``,
+FSDP over ``data``): on a ``RankMesh`` each rank's parameters,
+gradients, accumulator and moments are its blocks of every leaf (a norm
+scale or the router whole), the accumulator in ``accum_dtype``, and
+``grad_norm`` is taken over the distinct blocks of every rank
 (``optimizer.global_norm``); on a stacked ``ShardMesh`` the leaves are
 whole and the norm is taken by the same blocks, so both give the same
-bits.
+bits.  Microbatch ``i`` is the batch's rows ``[i B / mb, (i + 1) B /
+mb)``, as the reference slices them, and the loss on the mesh gives data
+shard ``d`` its contiguous share of those rows.
 """
 
 from __future__ import annotations
@@ -28,7 +31,6 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.distributed import sharding
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.optimizer import AdamState, AdamWConfig
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
@@ -64,12 +66,17 @@ def make_train_step(
     microbatches: int = 1,
     accum_dtype=torch.float32,
     mesh=None,
+    specs=None,
 ):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``params`` and the moments are updated in place.
-    ``mesh``: the LM's parameters are laid out on that mesh by
-    ``sharding.rank_param_specs``, whose blocks the gradient norm sums;
+    ``mesh``: the LM's parameters are laid out on that mesh by ``specs``
+    (``sharding.rank_param_specs``), whose blocks the gradient norm sums;
     ``loss_fn`` is the mesh's own (``loss_fn(..., mesh=mesh)``)."""
+    if mesh is not None and specs is None:
+        raise ValueError("make_train_step(mesh=) needs the parameters' "
+                         "layout: specs=sharding.rank_param_specs(params, "
+                         "config, mesh)")
     grads_of = value_and_grad(loss_fn)
 
     def train_step(params, opt_state: AdamState, batch):
@@ -101,7 +108,6 @@ def make_train_step(
             loss, aux, grads = grads_of(params, batch)
         if grad_transform is not None:
             grads = grad_transform(grads)
-        specs = None if mesh is None else sharding.rank_param_specs(params)
         params, new_state, om = opt_mod.update(opt_cfg, grads, opt_state,
                                                params, mesh=mesh, specs=specs)
         metrics = dict(loss=loss, **aux, **om)

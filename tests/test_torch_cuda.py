@@ -499,6 +499,43 @@ def test_sparse_route_answers_identical_across_pipeline_depths(cuda):
 
 
 @pytest.mark.cuda
+def test_scatter_combine_matches_sparse_combine_on_card(cuda):
+    """The reference's contract between the sparse route's two combines
+    (``tests/test_serving.py::test_scatter_combine_matches_sparse_combine``)
+    on the card: rmat(11), a random index of 16 entries a row (uniform
+    values normalised and sorted down each row, uniform columns), 48
+    vertices answered through the CUDA ``index_combine_sparse`` and
+    through the scatter combine: the indices equal, the values within
+    1e-6."""
+    from repro_torch.core.index import PPRIndex
+    from repro_torch.core.query import BatchQueryEngine, QueryConfig
+
+    tg = tsyn.rmat(11, avg_deg=8.0, seed=2, device=cuda)
+    r = np.random.default_rng(4)
+    vals = r.random((tg.n, 16)).astype(np.float32)
+    vals = -np.sort(-(vals / vals.sum(axis=1, keepdims=True)), axis=1)
+    index = PPRIndex(
+        values=torch.from_numpy(vals).to(cuda),
+        indices=torch.from_numpy(r.integers(0, tg.n, (tg.n, 16)).astype(
+            np.int32)).to(cuda), l=16, n=tg.n)
+    got = {}
+    for path in ("scatter", "sparse"):
+        eng = BatchQueryEngine(tg, index, QueryConfig(
+            mode="powerwalk", t_iterations=2, top_k=32, frontier_k=128,
+            frontier_path="sparse", combine_path=path), device=cuda)
+        tops.reset_launch_counts()
+        v, i = eng.query_topk_async(torch.arange(48, dtype=torch.int32,
+                                                 device=cuda))
+        torch.cuda.synchronize()
+        launched = tops.launch_counts()["index_combine_sparse"]
+        assert (launched > 0) == (path == "sparse"), (path, launched)
+        got[path] = (v.cpu().numpy(), i.cpu().numpy())
+    np.testing.assert_array_equal(got["scatter"][1], got["sparse"][1])
+    np.testing.assert_allclose(got["scatter"][0], got["sparse"][0],
+                               rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
 def test_combine_plan_fits_two_hash_blocks_an_sm(cuda):
     """The plan reads a hash block's shared memory from the kernel: the
     main path's block leaves room for two an SM (228 KB, 1 KB of it
@@ -818,22 +855,35 @@ def test_fp8_moment_update_on_card_matches_cpu(cuda):
     assert bool((outs[0][1] & 0x7F == 0x7F).any())     # some mu past 448
 
 
-@pytest.mark.cuda
-def test_rank_train_on_card_matches_the_stacked_mesh(cuda, tmp_path):
+@pytest.fixture(scope="module")
+def card_rank_train(tmp_path_factory):
     """Four gloo ranks on the card (``tests/torch_rank_train_worker.py``,
-    no JAX): the reduced dbrx and grok on 2 x 2 and 1 x 4 meshes, every
-    output the stacked mesh's on the card, bit for bit."""
+    no JAX), every case of ``launch.ranks.CASES`` through
+    ``launch.ranks.train_case`` on each mesh it splits on: the ranks'
+    outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the hand-written kernels)")
+    import torch_rank_train_worker as worker
+
+    got, _ = worker.run_ranks(tmp_path_factory.mktemp("rank_train_card"),
+                              device="cuda:0", timeout_s=300.0,
+                              join_timeout_s=600.0)
+    return got
+
+
+def _rank_cases_match_stacked(got, labels, cuda):
+    """Each rank's outputs of ``labels`` equal to the stacked mesh's on the
+    card for its shard, bit for bit."""
     import torch_rank_train_worker as worker
     from repro_torch.distributed import ShardMesh, sharding
     from repro_torch.launch import ranks
     from repro_torch.models import transformer as tfm
 
-    got, _ = worker.run_ranks(tmp_path, device="cuda:0", timeout_s=300.0,
-                              join_timeout_s=600.0)
-    for label in worker.CASES:
-        whole = tfm.init(worker.config(label), worker.SEED, device="cpu")
-        specs = dict(ranks.leaf_paths(sharding.rank_param_specs(whole)))
-        for shape in worker.MESHES:
+    for label in labels:
+        cfg = worker.config(label)
+        for shape in worker.meshes(label):
+            mesh = ShardMesh(*shape, device="cpu")
+            specs = dict(ranks.leaf_paths(tfm.param_specs(cfg, mesh)))
             want = worker.stacked(label, shape, device=cuda)
             for r, out in enumerate(got):
                 d, m = divmod(r, shape[1])
@@ -845,8 +895,24 @@ def test_rank_train_on_card_matches_the_stacked_mesh(cuda, tmp_path):
                         "grad", "grad3", "param", "mu", "nu") else None
                     if spec is not None and not sharding.is_replicated(spec):
                         v = sharding.shard(torch.from_numpy(v), spec,
-                                           ShardMesh(*shape, device="cpu"))[
-                                               d, m].numpy()
+                                           mesh)[d, m].numpy()
                     assert np.array_equal(
                         out[f"{label}/{shape[0]}x{shape[1]}/{k}"], v), (
                             label, shape, r, k)
+
+
+@pytest.mark.cuda
+def test_rank_train_on_card_matches_the_stacked_mesh(cuda, card_rank_train):
+    """The reduced dbrx and grok on 2 x 2 and 1 x 4 rank meshes on the
+    card: every output the stacked mesh's on the card, bit for bit."""
+    _rank_cases_match_stacked(card_rank_train, ("dbrx_cf1", "grok"), cuda)
+
+
+@pytest.mark.cuda
+def test_rank_dense_train_on_card_matches_the_stacked_mesh(cuda,
+                                                           card_rank_train):
+    """The dense reduced qwen (2 x 2 and 1 x 4) and command-r (2 x 2) in
+    the 2-D layout on the card, through ``launch.ranks.train_case``:
+    forward, loss, decode, gradients, a two-microbatch step and the
+    parameters' digest the stacked mesh's on the card, bit for bit."""
+    _rank_cases_match_stacked(card_rank_train, ("qwen", "command_r"), cuda)

@@ -627,7 +627,7 @@ def test_mesh_gradients_match_reference_shard_map(reference_2x2, case):
 def test_mesh_train_step_matches_reference(reference_2x2, case):
     """One ``make_train_step(mesh=)`` step on the stacked 2 x 2 mesh (two
     microbatches, a bf16 accumulator, fp8 ``mu`` and bf16 ``nu``, the
-    norm taken by the blocks of ``sharding.rank_param_specs``) against the
+    norm taken by the blocks of ``transformer.param_specs``) against the
     reference's ``make_train_step(..., grad_pspecs=)`` jitted under the
     mesh, at the training bars (``tests/torch_train_parity.py``): the loss
     and ``grad_norm`` within 1e-5 relative, the parameters within 1e-5
@@ -653,7 +653,7 @@ def test_mesh_train_step_matches_reference(reference_2x2, case):
     step = ttl.make_train_step(
         functools.partial(ttfm.loss_fn, tc, mesh=mesh), opt,
         microbatches=TRAIN_MICROBATCHES, accum_dtype=torch.bfloat16,
-        mesh=mesh)
+        mesh=mesh, specs=ttfm.param_specs(tc, mesh))
     b = {k: torch.from_numpy(v) for k, v in _batch(tc.vocab).items()}
     p1, s1, m = step(tp, ttl.init_state(opt, tp), b)
     want = reference_2x2

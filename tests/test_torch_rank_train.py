@@ -1,25 +1,32 @@
-"""The reduced MoE LMs one shard a process (``RankMesh``) against the
+"""The reduced large LMs one shard a process (``RankMesh``) against the
 stacked ``ShardMesh``, on the CPU.
 
 One module fixture spawns four gloo ranks (``tests/torch_rank_train_worker
 .py``), which join through a ``file://`` store and run the reduced dbrx
-(capacity 1.0, so slots drop; remat on) and grok (two experts split in
-two, ``ep_split`` 2) on 2 x 2 and 1 x 4 meshes: ``forward``, ``loss_fn``,
-``decode_step`` at B = 2 (a token a data shard) and B = 1 (replicated),
-the gradients of ``loss_fn`` and one ``make_train_step(mesh=)`` step of
-two microbatches under the large MoE LMs' published rules (fp8 ``mu``,
-bf16 ``nu``, bf16 accumulator).  Each rank holds its block of every
-expert stack and the other leaves whole (``sharding.rank_param_specs``).
+(capacity 1.0, so slots drop; remat on), grok (two experts split in two,
+``ep_split`` 2), qwen (4 heads, QKV biases; remat on) and command-r (6
+heads over 2 kv heads, its loss in chunks; 2 x 2 only) on 2 x 2 and 1 x 4
+meshes: ``forward``, ``loss_fn``, ``decode_step`` at B = 2 (a token a
+data shard) and B = 1 (replicated), the gradients of ``loss_fn`` and one
+``make_train_step(mesh=)`` step of two microbatches under the large LMs'
+published rules (fp8 ``mu``, bf16 ``nu``, bf16 accumulator).  Each rank
+holds its block of every leaf in the reference's 2-D layout
+(``sharding.rank_param_specs``: ``wq``/``wk``/``wv`` and the FFN's gate
+and up column parallel over ``model``, ``wo`` and ``w_down`` row
+parallel, every large leaf FSDP over ``data``, the embedding and head
+split by the vocabulary) and its data shard's rows of each batch.
 
 Everything is held bit for bit against the stacked mesh's result for the
 rank's shard: no sum in a rank's backward runs in another order than the
-stacked autograd's.  The router's gradient is a sum over ``data`` of two
-blocks (``a + b`` either way), an expert stack's a sum over ``data`` of
-the gathered weights' cotangents in shard order (the stacked expand's
-order), and the gates' and dispatch buffer's cotangents are gathered over
-``model`` from shards whose parts do not overlap (a sum with zeros).  So
-a leaf whose gradient came out a whole multiple of the stacked one (a
-cotangent summed once a shard) fails as any other difference does.
+stacked autograd's.  A value fanned out to the model shards (a normed
+residual stream) has its cotangents summed over their stack on the
+stacked mesh and over the gathered blocks on a rank, the same sum; a
+weight gathered over ``data`` has its cotangents reduce-scattered in
+shard order; the gates' and dispatch buffer's cotangents are gathered
+over ``model`` from shards whose parts do not overlap (a sum with
+zeros).  So a leaf whose gradient came out a whole multiple of the
+stacked one (a cotangent summed once a shard) fails as any other
+difference does.
 """
 
 import json
@@ -39,7 +46,8 @@ from repro_torch.models import transformer as tfm
 torch.set_num_threads(1)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-CASES = [(label, shape) for label in worker.CASES for shape in worker.MESHES]
+CASES = [(label, shape) for label in worker.CASES
+         for shape in worker.meshes(label)]
 IDS = [f"{label}-{shape[0]}x{shape[1]}" for label, shape in CASES]
 
 
@@ -60,9 +68,11 @@ def _stacked(label, shape):
     return _STACKED[label, shape]
 
 
-def _specs(label):
-    whole = tfm.init(worker.config(label), worker.SEED, device="cpu")
-    return dict(ranks_mod.leaf_paths(sharding.rank_param_specs(whole)))
+def _specs(label, shape=(2, 2)):
+    cfg = worker.config(label)
+    whole = tfm.init(cfg, worker.SEED, device="cpu")
+    return dict(ranks_mod.leaf_paths(sharding.rank_param_specs(
+        whole, cfg, ShardMesh(*shape, device="cpu"))))
 
 
 def _mine(value, spec, shape, rank):
@@ -80,7 +90,7 @@ def _equal(a, b):
 
 def _check(ranks, label, shape, prefixes):
     want = _stacked(label, shape)
-    specs = _specs(label)
+    specs = _specs(label, shape)
     tag = f"{label}/{shape[0]}x{shape[1]}/"
     seen = 0
     for r, got in enumerate(ranks["ranks"]):
@@ -111,7 +121,7 @@ def test_rank_gradients_match_stacked(ranks, label, shape):
     zero; and at 3 tokens, which do not split over ``data`` (each data
     shard routes all of them, the output is the first's)."""
     seen = _check(ranks, label, shape, ("grad/", "grad3/"))
-    assert seen == 2 * 4 * len(_specs(label))
+    assert seen == 2 * 4 * len(_specs(label, shape))
     tag = f"{label}/{shape[0]}x{shape[1]}/grad/"
     for got in ranks["ranks"]:
         for k in got:
@@ -127,12 +137,13 @@ def test_rank_train_step_matches_stacked(ranks, label, shape):
     once), the parameters and both moments in their dtypes."""
     seen = _check(ranks, label, shape,
                   ("step_loss", "grad_norm", "param/", "mu/", "nu/"))
-    assert seen == 4 * (2 + 3 * len(_specs(label)))
+    assert seen == 4 * (2 + 3 * len(_specs(label, shape)))
     got = ranks["ranks"][0]
     tag = f"{label}/{shape[0]}x{shape[1]}/"
-    assert str(got[tag + "mu/layers/w_gate@dtype"]) == "torch.float8_e4m3fn"
-    assert str(got[tag + "nu/layers/w_gate@dtype"]) == "torch.bfloat16"
-    assert np.mean(got[tag + "mu/layers/w_gate"] != 0) > 0.2
+    gate = "layers/w_gate" + ("" if worker.config(label).moe else "/w")
+    assert str(got[f"{tag}mu/{gate}@dtype"]) == "torch.float8_e4m3fn"
+    assert str(got[f"{tag}nu/{gate}@dtype"]) == "torch.bfloat16"
+    assert np.mean(got[f"{tag}mu/{gate}"] != 0) > 0.2
 
 
 @pytest.mark.parametrize("label,shape", CASES, ids=IDS)
@@ -155,16 +166,67 @@ def test_grok_1x4_holds_one_virtual_expert_a_rank(ranks):
     assert got.shape == (cfg.n_layers, 2, cfg.d_ff, cfg.d_model // 2)
 
 
-@pytest.mark.parametrize("label", list(worker.CASES))
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=["2x2", "1x4"])
+def test_rank_holds_its_blocks_of_the_2d_layout(ranks, shape):
+    """After ``steps.build(mesh=)``'s ``init_fn`` on a rank, every leaf of
+    the reduced qwen is its ``block_shape`` under
+    ``sharding.rank_param_specs`` (the norms whole, every other leaf a
+    block), and the rank's bytes are ``per_device_bytes``'s."""
+    cfg = worker.config(worker.HOLDS)
+    mesh = ShardMesh(*shape, device="cpu")
+    whole = tfm.init(cfg, worker.SEED, device="cpu")
+    specs = sharding.rank_param_specs(whole, cfg, mesh)
+    assert specs == tfm.param_specs(cfg, mesh)
+    spec_of = dict(ranks_mod.leaf_paths(specs))
+    tag = f"holds/{shape[0]}x{shape[1]}/"
+    n_sharded = 0
+    for got in ranks["ranks"]:
+        for path, leaf in ranks_mod.leaf_paths(whole):
+            want = sharding.block_shape(leaf.shape, spec_of[path], mesh)
+            assert tuple(got[f"{tag}shape/{path}"]) == want, path
+            n_sharded += want != tuple(leaf.shape)
+        assert int(got[tag + "bytes"]) == sharding.per_device_bytes(
+            whole, specs, mesh)
+    assert n_sharded == 4 * (len(spec_of) - 3)   # all but the three norms
+
+
+@pytest.mark.parametrize("label", [*worker.CASES, worker.SMALL])
 def test_rank_train_bundle_matches_stacked(ranks, label):
     """``launch.ranks.train_once`` (``steps.build(mesh=)``, whose
-    ``init_fn`` keeps each rank's blocks as the stacks are drawn) on 2 x 2
-    ranks: the loss, ``grad_norm`` and parameter digest of the stacked
-    bundle's step."""
+    ``init_fn`` keeps each rank's blocks as the stacks are drawn; a small
+    LM's leaves whole) on 2 x 2 ranks: the loss, ``grad_norm`` and
+    parameter digest of the stacked bundle's step."""
     want = worker.stacked_train_once(label)
     for got in ranks["ranks"]:
         for k, v in want.items():
             assert _equal(got[f"{label}/train_once/{k}"], v), k
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)], ids=["2x2", "4x1"])
+def test_small_lm_on_a_mesh_is_whole_and_matches_one_device(shape):
+    """A small LM (``lm_is_small``: smollm-135m) on a mesh keeps every leaf
+    whole, as the reference does, and splits its rows over ``data``
+    (``transformer.data_parallel_loss_fn``): the stacked mesh's loss is
+    within 1e-5 of the one-device bundle's and each leaf's gradient
+    within 1e-5 of its norm (the sums over ``data`` round otherwise)."""
+    from repro_torch.launch import steps
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_leaves
+
+    mesh = ShardMesh(*shape, device="cpu")
+    on_mesh = ranks_mod.train_bundle(mesh, worker.SMALL, reduced=True)
+    alone = steps.build(worker.SMALL, "train_4k", reduced=True,
+                        device="cpu", published_rules=True)
+    assert all(sharding.is_replicated(s) for s in
+               sharding._spec_leaves(on_mesh.param_specs))
+    params = alone.init_fn(worker.SEED)
+    batch = alone.make_batch(torch.Generator().manual_seed(worker.SEED + 1))
+    assert sharding.batch_split(batch["tokens"].shape[0], mesh)
+    want = train_loop.value_and_grad(alone.loss_fn)(params, batch)
+    got = train_loop.value_and_grad(on_mesh.loss_fn)(params, batch)
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-5)
+    for g, w in zip(tree_leaves(got[2]), tree_leaves(want[2])):
+        assert float((g - w).norm()) <= 1e-5 * float(w.norm()) + 1e-12
 
 
 def test_ranks_cli_stacked_train_prints_the_ranks_digest(ranks):

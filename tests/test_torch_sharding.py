@@ -198,3 +198,134 @@ def test_per_axis_collectives_and_their_charges():
     coll = counter.result(None).collective_breakdown
     assert coll["all-reduce"] == 2 * 3 * 4 * 4
     assert coll["all-gather"] == 2 * 3 * 5 * 4 * 4
+
+
+LM_ARCHS = ("qwen1.5-32b", "command-r-plus-104b", "dbrx-132b",
+            "grok-1-314b")
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (1, 4), (16, 16)],
+                         ids=["2x2", "1x4", "16x16"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_rank_layout_is_the_references_2d_layout(arch, mesh):
+    """``rank_param_specs`` of a large LM's full tree (made on meta) gives
+    every leaf the reference's 2-D spec (``lm_param_specs``), but for
+    ``wk``/``wv`` where the kv heads do not split over ``model`` (8 kv
+    heads on 16 model shards), which stay whole over ``model``;
+    ``transformer.param_specs`` gives the same without a tree."""
+    from repro_torch.models import transformer as tfm
+
+    data, model = mesh
+    jspec = jconfigs.get_arch(arch)
+    jparams = jax.eval_shape(jsteps.build(jspec, "train_4k").init_fn,
+                             jax.random.PRNGKey(0))
+    want = jsh.lm_param_specs(jparams)
+    cfg = tconfigs.get_arch(arch).config
+    with dryrun._OnMeta():
+        tparams = tfm.init(cfg, 0, device="meta")
+    port = ShardMesh(data, model, device="meta")
+    got = tsh.rank_param_specs(tparams, cfg, port)
+    assert got == tfm.param_specs(cfg, port)
+    wl = jax.tree_util.tree_flatten_with_path(
+        want, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    gl = _port_leaves(got)
+    assert len(wl) == len(gl)
+    kept = 0
+    for (wpath, w), (gpath, g) in zip(wl, gl):
+        assert tuple(p.key for p in wpath) == gpath
+        w = _norm(w)
+        if gpath[1:2] in (("wk",), ("wv",)) and cfg.n_kv_heads % model:
+            w = tuple(None if e == "model" else e for e in w)
+            kept += 1
+        assert _norm(g) == w, (gpath, g, w)
+    assert kept == (0 if cfg.n_kv_heads % model == 0
+                    else 2 * (1 + cfg.qkv_bias))
+
+
+def test_rank_trace_holds_a_ranks_blocks():
+    """``dryrun.trace_rank_cell``: one rank of a 2 x 2 mesh traced on meta
+    holds its blocks of the parameters and the moments (the arguments:
+    ``per_device_bytes`` of the parameters, f32 moments under the reduced
+    qwen's rules, fp8 ``mu`` and bf16 ``nu`` under command-r's, the step
+    and the whole batch), and its collectives are charged."""
+    from repro_torch.models import transformer as tfm
+
+    mesh = ShardMesh(2, 2, device="meta")
+    for arch, moments in (("qwen1.5-32b", 8), ("command-r-plus-104b", 3)):
+        cfg = tconfigs.get_arch(arch).reduced
+        cost, ctx = dryrun.trace_rank_cell(arch, "train_4k", 2, 2,
+                                           reduced=True)
+        with dryrun._OnMeta():
+            whole = tfm.init(cfg, 0, device="meta")
+        p = tsh.per_device_bytes(whole, tsh.rank_param_specs(
+            whole, cfg, mesh), mesh)
+        nbytes = sum(t.numel() * 4 for _, t in _port_leaves(whole))
+        assert nbytes / 4 <= p < nbytes / 3     # the norm scales whole
+        batch = 3 * 4 * 4 * 32            # tokens, labels, mask of [4, 32]
+        assert cost.argument_bytes == p + p * moments // 4 + 4 + batch
+        assert cost.collective_breakdown["all-gather"] > 0
+        assert cost.collective_breakdown["all-to-all"] > 0
+        assert ctx["mesh"]["n_devices"] == 4
+
+
+def test_command_r_step_fits_a_card_of_a_2x2_rank_mesh():
+    """command-r-plus-104b's full-width ``train_4k`` step at 2 layers and
+    B = 8 under its published rules: one rank of a 2 x 2 mesh holds a
+    quarter of the parameters and moments (13 B a parameter with the
+    accumulator and one microbatch's f32 gradients), and its predicted
+    peak is within the 75 GB gate of the four-card run, where one card
+    would need 122 GB."""
+    from repro_torch.roofline import analysis as roof
+
+    cfg = tconfigs.get_arch("command-r-plus-104b").config
+    n = dataclasses_replace_layers(cfg, 2).param_count()
+    cost, _ = dryrun.trace_rank_cell("command-r-plus-104b", "train_4k", 2, 2,
+                                     batch=8,
+                                     config_overrides=dict(n_layers=2))
+    args = cost.argument_bytes
+    assert abs(args - n * (4 + 1 + 2) / 4) < 0.01 * args
+    peak = roof.fit_check(roof.roofline_from_counts(cost), roof.HW)[1]
+    assert args < peak < 75e9
+    assert n * 13 > 120e9
+
+
+def dataclasses_replace_layers(cfg, n):
+    import dataclasses
+
+    return dataclasses.replace(cfg, n_layers=n)
+
+
+@pytest.mark.parametrize("spec", [("data", "model"), ("model", "data"),
+                                  ("model", None), (None, "data")],
+                         ids=["dm", "md", "m-", "-d"])
+@pytest.mark.parametrize("shape", [(8, 12), (5, 7)], ids=["even", "padded"])
+def test_norm_and_update_by_blocks_cover_2d_and_padded_blocks(spec, shape,
+                                                             monkeypatch):
+    """``optimizer.global_norm`` and ``update`` with a mesh and specs on a
+    stacked 2 x 4 mesh: the distinct blocks (``distinct_blocks``) of a 2-D
+    leaf, zero padded where the axes do not divide it, cover every
+    element once, so the norm is the whole's (integer squares: exact in
+    any order), and the update walked in blocks of rows
+    (``leaf_blocks``, cut to 2 rows) is the update without a mesh."""
+    from repro_torch.training import optimizer as topt
+
+    mesh = ShardMesh(2, 4, device="cpu")
+    r = np.random.default_rng(3)
+    x = torch.from_numpy(r.integers(1, 9, shape).astype(np.float32))
+    specs = {"w": tsh.P(*spec)}
+    blocks = tsh.shard(x, specs["w"], mesh)
+    seen = sum(int((blocks[d, m] != 0).sum())
+               for d, m in tsh.distinct_blocks(specs["w"], mesh))
+    assert seen == x.numel()
+    assert float(topt.global_norm({"w": x}, mesh=mesh, specs=specs)) == \
+        float(topt.global_norm({"w": x}))
+    monkeypatch.setattr(topt, "UPDATE_ROWS", 2)
+    cfg = topt.AdamWConfig(grad_clip=1e-3)
+    outs = []
+    for kw in (dict(mesh=mesh, specs=specs), {}):
+        p = {"w": x.clone()}
+        g = {"w": x.flip(0).clone() * 0.5}
+        p, st, m = topt.update(cfg, g, topt.init(cfg, p), p, **kw)
+        outs.append((p["w"], st.mu["w"], st.nu["w"], m["grad_norm"]))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

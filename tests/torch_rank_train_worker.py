@@ -1,29 +1,38 @@
-"""The rank side of ``tests/test_torch_rank_train.py``: the reduced MoE
-LMs one shard a process on a ``RankMesh`` (their forward, loss, decode,
-gradients and one train step), each rank writing what it got to
-``rank{r}.npz``, and the same computations on the stacked ``ShardMesh``
-for the tests to hold them against.  Imports no JAX.
+"""The rank side of ``tests/test_torch_rank_train.py``: the reduced large
+LMs (``launch.ranks.CASES``: the MoE dbrx and grok, the dense qwen and
+command-r) one shard a process on a ``RankMesh`` in the reference's 2-D
+layout (their forward, loss, decode, gradients and one train step), and
+one train step of smollm-135m with its leaves whole and its rows over
+data, each rank writing what it got to ``rank{r}.npz``, and the same
+computations on the stacked ``ShardMesh`` for the tests to hold them
+against.  Imports no JAX.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import os
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch
 from repro_torch.distributed import RankMesh, ShardMesh
 from repro_torch.launch import ranks
+from repro_torch.tree import tree_leaves
 
 CASES = ranks.CASES
-MESHES = ((2, 2), (1, 4))
 SEED = 0
+HOLDS = "qwen"          # the case whose init_fn blocks are recorded
+# a small LM (``lm_is_small``): its leaves whole, its rows over data
+SMALL = "smollm-135m"
 
 
 def config(label):
     return ranks.case_config(label)
+
+
+def meshes(label):
+    """The mesh shapes the case runs on."""
+    return ranks.case_meshes(label)
 
 
 def run_case(label, mesh):
@@ -38,17 +47,31 @@ def _digest_tensor(hexdigest: str) -> torch.Tensor:
 
 
 def train_once(mesh, label):
-    """``launch.ranks.train_once`` of the case's arch (its smoke config
-    under the published rules, through ``steps.build(mesh=)``): the
-    metrics and the parameters' digest."""
-    arch, moe_over, over = CASES[label]
-    metrics, params, _, _ = ranks.train_once(
-        mesh, arch, reduced=True, seed=SEED,
-        overrides=dict(moe=dataclasses.replace(
-            get_arch(arch).reduced.moe, **moe_over), **over))
+    """``launch.ranks.train_once`` of the case's arch, or of :data:`SMALL`
+    (its smoke config under the published rules, through
+    ``steps.build(mesh=)``): the metrics and the parameters' digest."""
+    arch, moe_over, over = CASES.get(label, (label, None, {}))
+    over = dict(over)
+    if moe_over is not None:
+        over["moe"] = config(label).moe
+    metrics, params, _, _, specs = ranks.train_once(
+        mesh, arch, reduced=True, seed=SEED, overrides=over or None)
     out = {k: torch.tensor(v) for k, v in metrics.items()
            if isinstance(v, float)}
-    out["digest"] = _digest_tensor(ranks.params_digest(params, mesh))
+    out["digest"] = _digest_tensor(ranks.params_digest(params, mesh, specs))
+    return out
+
+
+def holds(mesh, label=HOLDS):
+    """What a rank holds after ``steps.build(mesh=)``'s ``init_fn``: each
+    leaf's shape (``shape/<path>``) and the bytes of them all."""
+    arch, _, over = CASES[label]
+    bundle = ranks.train_bundle(mesh, arch, reduced=True, overrides=over)
+    params = bundle.init_fn(SEED)
+    out = {f"shape/{k}": torch.tensor(v.shape)
+           for k, v in ranks.leaf_paths(params)}
+    out["bytes"] = torch.tensor(sum(x.numel() * x.element_size()
+                                    for x in tree_leaves(params)))
     return out
 
 
@@ -71,19 +94,23 @@ def rank_main(rank, world, out_dir, device, timeout_s):
 
     torch.set_num_threads(1)
     dev = torch.device(device)
-    meshes = {(1, world): make_rank_mesh(
+    mesh_of = {(1, world): make_rank_mesh(
         1, world, backend="gloo", device=dev, timeout_s=timeout_s, rank=rank,
         world_size=world,
         init_method="file://" + os.path.join(out_dir, "store"))}
-    meshes[(2, 2)] = RankMesh(2, 2, device=dev, timeout_s=timeout_s)
+    mesh_of[(2, 2)] = RankMesh(2, 2, device=dev, timeout_s=timeout_s)
     out = {}
     for label in CASES:
-        for shape in MESHES:
-            res = run_case(label, meshes[shape])
+        for shape in meshes(label):
+            res = run_case(label, mesh_of[shape])
             for k, v in as_numpy(res).items():
                 out[f"{label}/{shape[0]}x{shape[1]}/{k}"] = v
-        for k, v in as_numpy(train_once(meshes[(2, 2)], label)).items():
+    for label in (*CASES, SMALL):
+        for k, v in as_numpy(train_once(mesh_of[(2, 2)], label)).items():
             out[f"{label}/train_once/{k}"] = v
+    for shape, mesh in mesh_of.items():
+        for k, v in as_numpy(holds(mesh)).items():
+            out[f"holds/{shape[0]}x{shape[1]}/{k}"] = v
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     torch.distributed.destroy_process_group()
 
